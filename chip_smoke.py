@@ -4,20 +4,38 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds ``csrc/attn_block.cu`` with ``nvcc`` for ``sm_90a`` and prints the
-   build time and ptxas's register / spill report;
-3. kernel phase: each of the four block wrappers of ``ops/attn_block`` at the
-   ViT-B/16 shape (B=8, S=197, D=768, H=12, I=3072) on the card, held to its
-   plain PyTorch version on the same inputs (fp32, TF32 off) within
-   rtol 5e-4 / atol 1e-4, with its time, the plain version's time and the
-   least time the card could take (``bound_ms``);
-4. slice phase: full-width ViT-B/16 (12 layers, seeded random weights, B=8)
-   through ``relevancy_fused_block2`` on the kernels. The launch counters
-   must show every wrapper launched 12 times, the [8, 196] maps must lie
-   within max|Δ| < 1e-4 of ``relevancy`` and ``relevancy_streamed_row`` (plain
-   PyTorch on the card), and maps/s is the median of 3 timed trials;
-   A torch.profiler pass over one call splits its device time by kernel
-   and gives the device's idle share;
+2. builds ``csrc/attn_block.cu`` and ``csrc/relevancy_chain.cu`` with
+   ``nvcc`` for ``sm_90a`` (one compiler process each, started together)
+   and prints the build time and ptxas's register / spill report;
+3. kernel phase, at ViT-B/16 widths (B=8, S=197, D=768, H=12, dh=64,
+   I=3072), each wrapper on the card held to its plain PyTorch version on
+   the same inputs (fp32, TF32 off) within rtol 5e-4 / atol 1e-4, with its
+   time and the plain version's time (CUDA events, mean of 50 back-to-back
+   calls after 3 warm-up calls), the least time the card could take
+   (``bound_ms``) and, where one PyTorch call computes the same function,
+   that call's time (``library_ms``):
+   - the four block wrappers of ``ops/attn_block``;
+   - the four of ``ops/flash_attention``: ``flash_fwd`` / ``flash_bwd_ehat``
+     on contiguous [8, 12, 197, 64] tensors, ``flash_fwd_qkv`` /
+     ``flash_bwd_ehat_qkv`` on a [8, 197, 2304] qkv; then the per-head
+     wrappers on split-head views of that qkv, which must give the qkv
+     wrappers' bits;
+   - ``ops/relevancy_pallas``'s chain on the [8, 12, 12, 197, 197] captures
+     of ``vit.capture`` (strided views, no copy), start_layer 0 and 1;
+4. path phase, full-width ViT-B/16 (12 layers, seeded random weights, B=8):
+   ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
+   ``relevancy_fused_block``. For each, every launch counter is set to 0
+   before the call and must read exactly the path's kernels 12 times after
+   it (and 0 for every other wrapper); the [8, 196] maps must lie within
+   max|Δ| < 1e-4 of ``relevancy``, ``relevancy_streamed_row`` and
+   ``relevancy_streamed`` (plain PyTorch on the card). Then the chain path,
+   ``capture`` + ``self_attention_relevancy_auto``, launches the chain
+   kernel once and its R[:, 0, 1:] matches ``relevancy``. Maps/s is the
+   median of 3 timed trials per path at B=8 and B=32, the forward probes
+   split each path's time into forward and backward, and torch.profiler
+   splits the device time of ``relevancy_fused_block2``,
+   ``relevancy_fused`` and the chain by kernel and gives the device's idle
+   share;
 5. cli phase: ``cli explain-vit --device cuda`` on a generated PNG, again
    through the kernels.
 
@@ -41,17 +59,27 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 B, S, D, H, I = 8, 197, 768, 12, 3072
+DH = D // H
 EPS = 1e-6
 TOL = dict(rtol=5e-4, atol=1e-4)   # fp32 reduction order, kernel vs plain
 MAP_BAR = 1e-4                     # the repo's relevancy parity target
 # H100 SXM published peaks: fp32 outside the tensor cores, HBM3
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
-SRC = "transformer_mm_explainability_tpu_torch/csrc/attn_block.cu"
-PALLAS = "transformer_mm_explainability_tpu/ops/attn_block_pallas.py"
-REPLACES = {"attn_block_fwd": f"{PALLAS}:318",
-            "mlp_block_fwd": f"{PALLAS}:200",
-            "mlp_block_bwd": f"{PALLAS}:265",
-            "attn_block_bwd": f"{PALLAS}:345"}
+CSRC = "transformer_mm_explainability_tpu_torch/csrc"
+JAX_OPS = "transformer_mm_explainability_tpu/ops"
+KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
+    "attn_block_fwd": ("attn_block.cu", "attn_block_pallas.py:318"),
+    "mlp_block_fwd": ("attn_block.cu", "attn_block_pallas.py:200"),
+    "mlp_block_bwd": ("attn_block.cu", "attn_block_pallas.py:265"),
+    "attn_block_bwd": ("attn_block.cu", "attn_block_pallas.py:345"),
+    "flash_fwd": ("attn_block.cu", "flash_attention.py:124"),
+    "flash_bwd_ehat": ("attn_block.cu", "flash_attention.py:144"),
+    "flash_fwd_qkv": ("attn_block.cu", "flash_attention.py:257"),
+    "flash_bwd_ehat_qkv": ("attn_block.cu", "flash_attention.py:279"),
+    "self_attention_relevancy_pallas": ("relevancy_chain.cu",
+                                        "relevancy_pallas.py:86"),
+}
+LIBRARIES = ("attn_block", "relevancy_chain")
 
 
 def card_line() -> str:
@@ -62,7 +90,7 @@ def card_line() -> str:
     return out[0]
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` in ms over ``iters`` back-to-back runs."""
     for _ in range(warmup):
         fn()
@@ -77,11 +105,12 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def work(name: str) -> tuple:
+def work(name: str, layers: int = 12) -> tuple:
     """(flops, bytes) that the function must do and move at the smoke
-    shape: matmul FLOPs of its products; each input read once, each output
-    written once (fp32)."""
-    M, attn = B * S, 2 * B * H * S * S * (D // H)   # one S×S×dh product
+    shape: the FLOPs of its products (and of the chain's head reduction);
+    each input read once, each output written once (fp32). ``layers``: the
+    chain's layers from its start_layer on."""
+    M, attn = B * S, 2 * B * H * S * S * DH   # one S×S×dh product
     f32 = 4
     if name == "attn_block_fwd":
         flops = 2 * M * D * 3 * D + 2 * attn + 2 * M * D * D
@@ -92,13 +121,53 @@ def work(name: str) -> tuple:
     elif name == "mlp_block_bwd":
         flops = 3 * 2 * M * D * I
         nbytes = f32 * (3 * M * D + 2 * D * I + I + 2 * D)
-    else:  # attn_block_bwd: qkv, cot·W_outᵀ, 5 attention products, ·W_qkvᵀ
+    elif name == "attn_block_bwd":  # qkv, cot·W_outᵀ, 5 attention, ·W_qkvᵀ
         flops = 4 * M * D * 3 * D + 2 * M * D * D + 5 * attn
         nbytes = f32 * (3 * M * D + 2 * B * S + 4 * D * D + 5 * D)
+    elif name in ("flash_fwd", "flash_fwd_qkv"):   # q·kᵀ, A·v
+        flops = 2 * attn
+        nbytes = f32 * 4 * M * D                    # q, k, v in; out
+    elif name in ("flash_bwd_ehat", "flash_bwd_ehat_qkv"):
+        flops = 5 * attn                # q·kᵀ, dout·vᵀ, ds·k, dsᵀ·q, Aᵀ·dout
+        nbytes = f32 * (7 * M * D + 2 * B * S)      # q,k,v,dout,r; dq,dk,dv,e
+    else:  # the chain: per layer Ê = mean_h relu(A∘G), then Ê·R
+        flops = layers * B * (2 * S ** 3 + 3 * H * S * S)
+        nbytes = f32 * (2 * B * layers * H * S * S + B * S * S)
     return flops, nbytes
 
 
-def kernel_phase(ab, gen) -> dict:
+def measure(name: str, kernel, plain, library=None, layers: int = 12,
+            extra_err: float = 0.0) -> dict:
+    """Hold ``kernel()`` to ``plain()`` (same inputs) and time both, and
+    ``library()`` where given; one row of the kernels line."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = extra_err
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all(), f"{name}: non-finite output"
+        err = max(err, float((g - w).abs().max()))
+        torch.testing.assert_close(g, w, **TOL)
+    flops, nbytes = work(name, layers)
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    library_ms = None if library is None else cuda_ms(library)
+    bound = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    src, replaces = KERNELS[name]
+    lib_txt = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"kernel {name}: max|Δ| {err:.3e} (rtol 5e-4, atol 1e-4), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_txt}, bound "
+          f"{bound:.4f} ms ({bound_by}, {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB)", flush=True)
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
+            "replaces": f"{JAX_OPS}/{replaces}", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def block_kernel_phase(ab, gen) -> dict:
     dev = torch.device("cuda")
     rnd = lambda *s, scale=0.3: (torch.randn(s, generator=gen) * scale).to(dev)
     wt = lambda *s: (torch.randn(s, generator=gen) / math.sqrt(D)).to(dev)
@@ -128,60 +197,122 @@ def kernel_phase(ab, gen) -> dict:
             lambda: ab.attn_block_bwd_plain(x, cot, r, wqkv, bqkv, wout, g1,
                                             bl1, H, EPS)),
     }
-    rows = {}
-    for name, (kernel, plain) in calls.items():
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = 0.0
-        for g, w in zip(got, want):
-            assert torch.isfinite(g).all(), f"{name}: non-finite output"
-            err = max(err, float((g - w).abs().max()))
-            torch.testing.assert_close(g, w, **TOL)
-        flops, nbytes = work(name)
-        t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
-        ms, plain_ms, bound = cuda_ms(kernel), cuda_ms(plain), max(t_ops,
-                                                                   t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        rows[name] = {
-            "name": name, "route": "cuda", "source": SRC,
-            "replaces": REPLACES[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call computes the block
-        }
-        print(f"kernel {name}: max|Δ| {err:.3e} (rtol 5e-4, atol 1e-4), "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({bound_by}, {flops / 1e9:.3f} GFLOP)",
-              flush=True)
+    # no single PyTorch call computes a fused block: library_ms is null
+    return {name: measure(name, kernel, plain)
+            for name, (kernel, plain) in calls.items()}
+
+
+def flash_kernel_phase(fa, gen) -> dict:
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    dev = torch.device("cuda")
+    rnd = lambda *s: (torch.randn(s, generator=gen) * 0.5).to(dev)
+    qkv, dmerged = rnd(B, S, 3 * D), rnd(B, S, D)
+    r = torch.rand((B, S), generator=gen).to(dev)
+    views, dview = fa.qkv_heads(qkv, H), fa.heads(dmerged, H)
+    q, k, v = (t.contiguous() for t in views)
+    dout = dview.contiguous()
+    rows = {
+        "flash_fwd": measure(
+            "flash_fwd", lambda: fa.flash_fwd(q, k, v),
+            lambda: fa.flash_fwd_plain(q, k, v), lambda: sdpa(q, k, v)),
+        "flash_bwd_ehat": measure(
+            "flash_bwd_ehat", lambda: fa.flash_bwd_ehat(q, k, v, dout, r),
+            lambda: fa.flash_bwd_ehat_plain(q, k, v, dout, r)),
+        # SDPA on the split-head views of the same qkv: the same attention,
+        # its output left per head
+        "flash_fwd_qkv": measure(
+            "flash_fwd_qkv", lambda: fa.flash_fwd_qkv(qkv, H),
+            lambda: fa.flash_fwd_qkv_plain(qkv, H), lambda: sdpa(*views)),
+        "flash_bwd_ehat_qkv": measure(
+            "flash_bwd_ehat_qkv",
+            lambda: fa.flash_bwd_ehat_qkv(qkv, dmerged, r, H),
+            lambda: fa.flash_bwd_ehat_qkv_plain(qkv, dmerged, r, H)),
+    }
+    # the per-head kernels on split-head views of qkv == the qkv kernels
+    out = fa.flash_fwd(*views)
+    assert torch.equal(out, fa.heads(fa.flash_fwd_qkv(qkv, H), H))
+    *grads, e_row = fa.flash_bwd_ehat(*views, dview, r)
+    dqkv, e_qkv = fa.flash_bwd_ehat_qkv(qkv, dmerged, r, H)
+    assert all(torch.equal(g, w) for g, w in zip(grads, fa.qkv_heads(dqkv, H)))
+    assert torch.equal(e_row, e_qkv)
+    print("kernel flash_fwd / flash_bwd_ehat on split-head views of qkv: "
+          "the same bits as flash_fwd_qkv / flash_bwd_ehat_qkv", flush=True)
     return rows
 
 
-def slice_phase(ab, vit, gen, card: str) -> dict:
-    dev = torch.device("cuda")
-    model = vit.init_params(0, vit.VIT_B_16, dev)
-    images = torch.randn((B, 224, 224, 3), generator=gen).to(dev)
-    targets = torch.randint(0, 1000, (B,), generator=gen).to(dev)
-
-    ab.reset_launch_counts()
-    maps = vit.relevancy_fused_block2(model, images, targets)
+def chain_kernel_phase(rp, cams, grads) -> dict:
+    """The chain at start_layer 1, then the row (start_layer 0, all L
+    layers) with the larger of the two errors."""
+    got = rp.self_attention_relevancy_pallas(cams, grads, 1)
+    want = rp.self_attention_relevancy_pallas_plain(cams, grads, 1)
     torch.cuda.synchronize()
-    launches = ab.launch_counts()
-    print(f"slice launches per wrapper: {launches}", flush=True)
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **TOL)
+    print(f"kernel self_attention_relevancy_pallas start_layer=1: max|Δ| "
+          f"{err:.3e} on captures {tuple(cams.shape)}, strides "
+          f"{cams.stride()}", flush=True)
+    name = "self_attention_relevancy_pallas"
+    return {name: measure(
+        name, lambda: rp.self_attention_relevancy_pallas(cams, grads),
+        lambda: rp.self_attention_relevancy_pallas_plain(cams, grads),
+        layers=cams.shape[1], extra_err=err)}
+
+
+def reset_counts(mods) -> None:
+    for m in mods:
+        m.reset_launch_counts()
+
+
+def counts(mods) -> dict:
+    return {name: n for m in mods for name, n in m.launch_counts().items()}
+
+
+def path_phase(mods, vit, rp, model, images, targets, cams, grads,
+               card: str) -> dict:
+    """The three kernel paths and the chain path, each driven with every
+    counter at 0; returns the launch count of each kernel from the run of
+    the path it belongs to."""
     depth = vit.VIT_B_16.depth
-    for name, n in launches.items():
-        assert n == depth, f"{name} launched {n}x, expected {depth}"
-
-    assert maps.shape == (B, S - 1), maps.shape
-    assert torch.isfinite(maps).all(), "non-finite maps"
-    ref = vit.relevancy(model, images, targets)
-    row = vit.relevancy_streamed_row(model, images, targets)
+    paths = {
+        "relevancy_fused_block2": ("attn_block_fwd", "mlp_block_fwd",
+                                   "mlp_block_bwd", "attn_block_bwd"),
+        "relevancy_fused": ("flash_fwd_qkv", "flash_bwd_ehat_qkv"),
+        "relevancy_fused_block": ("attn_block_fwd", "attn_block_bwd"),
+    }
+    refs = {name: getattr(vit, name)(model, images, targets)
+            for name in ("relevancy", "relevancy_streamed_row",
+                         "relevancy_streamed")}
     torch.cuda.synchronize()
-    for name, other in (("relevancy", ref), ("relevancy_streamed_row", row)):
-        err = float((maps - other).abs().max())
-        print(f"slice maps vs {name}: max|Δ| {err:.3e} (bar {MAP_BAR:g}; "
-              f"max|map| {float(other.abs().max()):.3e})", flush=True)
-        assert err < MAP_BAR, f"maps differ from {name} by {err}"
+    launches = {}
+    for path, kernels in paths.items():
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(mods)
+        maps = getattr(vit, path)(model, images, targets)
+        torch.cuda.synchronize()
+        got = counts(mods)
+        print(f"path {path} launches: {got}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        want = {name: depth if name in kernels else 0 for name in got}
+        assert got == want, f"{path}: launches {got}, expected {want}"
+        for name in kernels:
+            launches.setdefault(name, got[name])
+        check_maps(path, maps, refs)
+
+    reset_counts(mods)
+    R = rp.self_attention_relevancy_auto(cams, grads)
+    torch.cuda.synchronize()
+    got = counts(mods)
+    print(f"path capture + self_attention_relevancy_auto launches: {got}",
+          flush=True)
+    chain = "self_attention_relevancy_pallas"
+    assert got == {name: int(name == chain) for name in got}, got
+    launches[chain] = got[chain]
+    check_maps("self_attention_relevancy_auto", R[:, 0, 1:], refs)
+    # on no model path (the JAX package calls them only from its tests)
+    launches.setdefault("flash_fwd", 0)
+    launches.setdefault("flash_bwd_ehat", 0)
 
     def rate(fn, batch_images, batch_targets) -> float:
         trials = []
@@ -193,22 +324,59 @@ def slice_phase(ab, vit, gen, card: str) -> dict:
             trials.append(batch_images.shape[0] / (time.perf_counter() - t0))
         return statistics.median(trials)
 
-    fused = rate(vit.relevancy_fused_block2, images, targets)
+    def fwd_ms(probe) -> float:
+        trials = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probe(model, images)
+            torch.cuda.synchronize()
+            trials.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(trials)
+
+    rates = {path: rate(getattr(vit, path), images, targets) for path in paths}
     plain = rate(vit.relevancy, images, targets)
-    print(f"maps/s ViT-B/16 fp32 B={B}: relevancy_fused_block2 (kernels) "
-          f"{fused:.1f}, relevancy (plain torch) {plain:.1f}; median of 3 "
-          f"on {card}", flush=True)
-    profile(vit, model, images, targets, B / fused * 1e3)
-    big = torch.randn((32, 224, 224, 3), generator=gen).to(dev)
-    big_t = torch.randint(0, 1000, (32,), generator=gen).to(dev)
-    vit.relevancy_fused_block2(model, big, big_t)
-    print(f"maps/s ViT-B/16 fp32 B=32: relevancy_fused_block2 (kernels) "
-          f"{rate(vit.relevancy_fused_block2, big, big_t):.1f}; median of 3 "
-          f"on {card}", flush=True)
+    print(f"maps/s ViT-B/16 fp32 B={B}: "
+          + ", ".join(f"{p} {v:.1f}" for p, v in rates.items())
+          + f", relevancy (plain torch) {plain:.1f}; median of 3 on {card}",
+          flush=True)
+    for path in paths:
+        total = B / rates[path] * 1e3
+        fwd = fwd_ms(getattr(vit, f"{path}_forward_probe"))
+        print(f"split {path} B={B}: forward {fwd:.2f} ms, backward "
+              f"{total - fwd:.2f} ms of {total:.2f} ms (forward probe, median "
+              f"of 3)", flush=True)
+    for path in ("relevancy_fused_block2", "relevancy_fused"):
+        profile(f"{path} B={B}",
+                lambda: getattr(vit, path)(model, images, targets),
+                B / rates[path] * 1e3)
+    chain_ms = cuda_ms(lambda: rp.self_attention_relevancy_auto(cams, grads))
+    profile(f"self_attention_relevancy_auto {tuple(cams.shape)}",
+            lambda: rp.self_attention_relevancy_auto(cams, grads), chain_ms)
+    gen = torch.Generator().manual_seed(1)
+    big = torch.randn((32, 224, 224, 3), generator=gen).to(images.device)
+    big_t = torch.randint(0, 1000, (32,), generator=gen).to(images.device)
+    for path in paths:
+        getattr(vit, path)(model, big, big_t)
+        print(f"maps/s ViT-B/16 fp32 B=32: {path} "
+              f"{rate(getattr(vit, path), big, big_t):.1f}; median of 3 on "
+              f"{card}", flush=True)
     return launches
 
 
-# kernel-name patterns (mangled or demangled) of csrc/attn_block.cu
+def check_maps(path: str, maps, refs: dict) -> None:
+    assert maps.shape == (B, S - 1), maps.shape
+    assert torch.isfinite(maps).all(), f"{path}: non-finite maps"
+    for name, other in refs.items():
+        err = float((maps - other).abs().max())
+        print(f"path {path} maps vs {name}: max|Δ| {err:.3e} (bar "
+              f"{MAP_BAR:g}; max|map| {float(other.abs().max()):.3e})",
+              flush=True)
+        assert err < MAP_BAR, f"{path}: maps differ from {name} by {err}"
+
+
+# kernel-name patterns (mangled or demangled): the port's kernels first,
+# then cuBLAS / cuDNN products of torch.matmul
 KERNEL_GROUPS = (("gemm 128x128", r"gemm_kernel(<|ILi)128"),
                  ("gemm 64x64", r"gemm_kernel(<|ILi)64"),
                  ("attn fwd", "attn_fwd_kernel"),
@@ -216,19 +384,21 @@ KERNEL_GROUPS = (("gemm 128x128", r"gemm_kernel(<|ILi)128"),
                  ("attn bwd cols", "attn_bwd_cols_kernel"),
                  ("layernorm fwd", "ln_fwd_kernel"),
                  ("layernorm vjp", "ln_vjp_kernel"),
-                 ("e_row", "e_row_kernel"))
+                 ("e_row", "e_row_kernel"),
+                 ("relevancy Ê", "ehat_kernel"),
+                 ("torch.matmul (cuBLAS)", r"(?i)gemm|cutlass|cublas|xmma"))
 
 
-def profile(vit, model, images, targets, call_ms: float) -> None:
-    """Device time of one relevancy_fused_block2 call by kernel, from
-    torch.profiler; the idle share is against the unprofiled call time."""
+def profile(label: str, call, call_ms: float) -> None:
+    """Device time of one ``call()`` by kernel, from torch.profiler; the
+    idle share is against the unprofiled call time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        vit.relevancy_fused_block2(model, images, targets)
+        call()
         torch.cuda.synchronize()
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other (torch)"] = 0.0
@@ -245,11 +415,12 @@ def profile(vit, model, images, targets, call_ms: float) -> None:
         print("profile: device time not measured (the profiler recorded no "
               "CUDA kernels)", flush=True)
         return
-    print(f"profile relevancy_fused_block2 B={images.shape[0]}: device busy "
+    print(f"profile {label}: device busy "
           f"{busy:.2f} ms of {call_ms:.2f} ms per call (idle share "
           f"{max(0.0, 1 - busy / call_ms):.3f})", flush=True)
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {name}: {ms:.3f} ms ({ms / busy:.1%})", flush=True)
+        if ms > 0.0:
+            print(f"  {name}: {ms:.3f} ms ({ms / busy:.1%})", flush=True)
 
 
 def cli_phase(ab, cli) -> None:
@@ -265,11 +436,11 @@ def cli_phase(ab, cli) -> None:
                    str(work_dir / "relevancy.png"), "--device", "cuda"])
     torch.cuda.synchronize()
     assert rc == 0
-    counts = ab.launch_counts()
-    assert all(n == 12 for n in counts.values()), counts
+    got = ab.launch_counts()
+    assert all(n == 12 for n in got.values()), got
     fig = np.asarray(Image.open(work_dir / "relevancy.png"))
     assert fig.shape == (224, 224, 3), fig.shape
-    print(f"cli explain-vit --device cuda: ok, launches {counts}", flush=True)
+    print(f"cli explain-vit --device cuda: ok, launches {got}", flush=True)
 
 
 def main() -> int:
@@ -281,6 +452,8 @@ def main() -> int:
     from transformer_mm_explainability_tpu_torch.models import vit
     from transformer_mm_explainability_tpu_torch.ops import _build
     from transformer_mm_explainability_tpu_torch.ops import attn_block as ab
+    from transformer_mm_explainability_tpu_torch.ops import flash_attention as fa
+    from transformer_mm_explainability_tpu_torch.ops import relevancy_pallas as rp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -290,22 +463,41 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    ab.library()
-    log = _build.library_path("attn_block").with_suffix(".log").read_text()
-    print(f"build: csrc/attn_block.cu with nvcc (sm_90a) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    built = _build.build_all(LIBRARIES)
+    print(f"build: {', '.join(f'csrc/{n}.cu' for n in LIBRARIES)} with nvcc "
+          f"(sm_90a, in parallel) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for path in built.values():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    for mod in (ab, fa, rp):
+        mod.library()
 
     gen = torch.Generator().manual_seed(0)
-    rows = kernel_phase(ab, gen)
-    launches = slice_phase(ab, vit, gen, card)
+    rows = block_kernel_phase(ab, gen)
+    rows.update(flash_kernel_phase(fa, gen))
+
+    dev = torch.device("cuda")
+    model = vit.init_params(0, vit.VIT_B_16, dev)
+    images = torch.randn((B, 224, 224, 3), generator=gen).to(dev)
+    targets = torch.randint(0, 1000, (B,), generator=gen).to(dev)
+    _, attn, grads = vit.capture(model, images, targets)
+    # [L, B, H, S, S] → batch first, as views
+    cams, grads = attn.movedim(1, 0), grads.movedim(1, 0)
+    rows.update(chain_kernel_phase(rp, cams, grads))
+
+    mods = (ab, fa, rp)
+    launches = path_phase(mods, vit, rp, model, images, targets, cams, grads,
+                          card)
     for name, n in launches.items():
         rows[name]["launches"] = n
+    del attn, grads, cams
     cli_phase(ab, cli)
 
-    print(json.dumps({"kernels": list(rows.values())}))
+    assert set(rows) == set(KERNELS) and all("launches" in r
+                                             for r in rows.values())
+    print(json.dumps({"kernels": [rows[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -99,3 +99,21 @@ def test_library_path_tracks_source_and_flags(monkeypatch):
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libattn_block-")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build.library_path("attn_block") != p
+
+
+def test_library_path_tracks_headers(monkeypatch, tmp_path):
+    """A source's library is rebuilt when a header it can include changes,
+    not only when the source does."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != first
+    second = _build.library_path("k")
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "sub" / "extra.h").write_text("// new header\n")
+    third = _build.library_path("k")
+    assert third not in (first, second)
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert _build.library_path("k") == third

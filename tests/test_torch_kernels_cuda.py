@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (csrc/attn_block.cu) against their plain
-versions, on the card.
+"""The port's CUDA kernels (csrc/attn_block.cu, csrc/relevancy_chain.cu)
+against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
@@ -9,7 +9,8 @@ configures JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
 The input builders below are shared with tests/test_torch_attn_block.py,
-which holds the plain versions to the JAX package on the CPU.
+tests/test_torch_flash_attention.py and tests/test_torch_relevancy_chain.py,
+which hold the plain versions to the JAX package on the CPU.
 """
 
 import numpy as np
@@ -18,6 +19,8 @@ import torch
 
 from transformer_mm_explainability_tpu_torch.models import vit as tvit
 from transformer_mm_explainability_tpu_torch.ops import attn_block as tab
+from transformer_mm_explainability_tpu_torch.ops import flash_attention as tfa
+from transformer_mm_explainability_tpu_torch.ops import relevancy_pallas as trp
 
 # different fp32 reduction orders (per-head 2D dots, chunked hidden dim vs
 # whole-matrix products): a few-ulp spread on O(10) magnitudes
@@ -25,6 +28,8 @@ TOL = dict(rtol=5e-4, atol=1e-4)
 EPS = 1e-6
 ATTN_SHAPES = [(2, 4, 17, 64), (1, 6, 49, 96)]
 MLP_SHAPES = [(2, 17, 64, 256, 4), (1, 9, 32, 96, 3)]
+# (B, H, S, dh): the shapes of tests/test_flash_attention.py
+FLASH_SHAPES = [(2, 4, 17, 16), (1, 2, 33, 8), (2, 4, 17, 64), (1, 6, 49, 96)]
 
 
 def attn_inputs(B, S, D, seed=0):
@@ -49,6 +54,31 @@ def mlp_inputs(B, S, D, I, seed=0):
     return dict(x=f(B, S, D), cot=f(B, S, D), w1=w(D, I), b1=0.1 * f(I),
                 w2=w(I, D), b2=0.1 * f(D), g2=1.0 + 0.1 * f(D),
                 bb2=0.1 * f(D))
+
+
+def flash_inputs(B, H, S, Dh, seed=0):
+    """A merged qkv [B, S, 3D], a merged cotangent [B, S, D], r [B, S], and
+    contiguous per-head copies q, k, v, dout [B, H, S, Dh] of them."""
+    rng = np.random.RandomState(seed)
+    D = H * Dh
+    f = lambda *s: (rng.randn(*s) * 0.5).astype(np.float32)
+    qkv, dmerged = f(B, S, 3 * D), f(B, S, D)
+    r = rng.rand(B, S).astype(np.float32)
+    split = lambda x: np.ascontiguousarray(
+        x.reshape(B, S, H, Dh).transpose(0, 2, 1, 3))
+    q, k, v = (split(t) for t in np.split(qkv, 3, axis=-1))
+    return dict(qkv=qkv, dmerged=dmerged, r=r, q=q, k=k, v=v,
+                dout=split(dmerged))
+
+
+def chain_inputs(B, L, H, S, seed=0):
+    """Attention-like captures [B, L, H, S, S] (rows of |randn| summing to
+    one) and gradients."""
+    rng = np.random.RandomState(seed)
+    cams = np.abs(rng.randn(B, L, H, S, S)).astype(np.float32)
+    cams /= cams.sum(-1, keepdims=True)
+    grads = rng.randn(B, L, H, S, S).astype(np.float32)
+    return cams, grads
 
 
 def to_torch(d, device="cpu"):
@@ -162,4 +192,152 @@ def test_slice_on_kernels_matches_plain_chains(cuda, width, heads):
     assert set(tab.launch_counts().values()) == {cfg.depth}
     for ref in (tvit.relevancy(model, images, targets),
                 tvit.relevancy_streamed_row(model, images, targets)):
+        assert float((got - ref).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# ops/flash_attention and ops/relevancy_pallas
+# ---------------------------------------------------------------------------
+
+CUDA_FLASH = FLASH_SHAPES + [(8, 12, 197, 64), (1, 2, 300, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,Dh", CUDA_FLASH)
+def test_flash_kernels_match_plain(cuda, B, H, S, Dh):
+    f = to_torch(flash_inputs(B, H, S, Dh), cuda)
+    per_head = (f["q"], f["k"], f["v"])
+    tfa.reset_launch_counts()
+    calls = [
+        (tfa.flash_fwd(*per_head), tfa.flash_fwd_plain(*per_head)),
+        (tfa.flash_bwd_ehat(*per_head, f["dout"], f["r"]),
+         tfa.flash_bwd_ehat_plain(*per_head, f["dout"], f["r"])),
+        (tfa.flash_fwd_qkv(f["qkv"], H),
+         tfa.flash_fwd_qkv_plain(f["qkv"], H)),
+        (tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"], f["r"], H),
+         tfa.flash_bwd_ehat_qkv_plain(f["qkv"], f["dmerged"], f["r"], H))]
+    torch.cuda.synchronize()
+    assert set(tfa.launch_counts().values()) == {1}
+    for got, want in calls:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,Dh", CUDA_FLASH)
+def test_flash_views_equal_qkv_kernels_and_repeat_bits(cuda, B, H, S, Dh):
+    """The per-head kernels on split-head views of qkv write what the qkv
+    kernels write (same bits), and a second run gives the same bits."""
+    f = to_torch(flash_inputs(B, H, S, Dh, seed=1), cuda)
+    views = tfa.qkv_heads(f["qkv"], H)
+    dout = tfa.heads(f["dmerged"], H)
+    assert not views[0].is_contiguous() and not dout.is_contiguous()
+    out = tfa.flash_fwd(*views)
+    assert torch.equal(out, tfa.heads(tfa.flash_fwd_qkv(f["qkv"], H), H))
+    *grads, e_row = tfa.flash_bwd_ehat(*views, dout, f["r"])
+    dqkv, e_qkv = tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"], f["r"], H)
+    for g, want in zip(grads, tfa.qkv_heads(dqkv, H)):
+        assert torch.equal(g, want)
+    assert torch.equal(e_row, e_qkv)
+    again = tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"], f["r"], H)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], e_qkv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,match", [
+    ("double", "float32"), ("half", "float32"), ("dh160", "head dim 160"),
+    ("fwd_S4000", "shared memory"), ("bwd_S2000", "shared memory")])
+def test_flash_wrappers_reject_before_launch(cuda, case, match):
+    tfa.reset_launch_counts()
+    q = torch.randn((1, 2, 33, 64), device=cuda)
+    r = torch.rand((1, 33), device=cuda)
+    with pytest.raises(RuntimeError, match=match):
+        if case in ("double", "half"):
+            t = q.double() if case == "double" else q.half()
+            tfa.flash_fwd(t, t, t)
+        elif case == "dh160":
+            t = torch.randn((1, 2, 33, 160), device=cuda)
+            tfa.flash_bwd_ehat(t, t, t, t, r)
+        elif case == "fwd_S4000":
+            t = torch.randn((1, 1, 4000, 64), device=cuda)
+            tfa.flash_fwd(t, t, t)
+        else:
+            t = torch.randn((1, 1, 2000, 64), device=cuda)
+            tfa.flash_bwd_ehat(t, t, t, t, torch.rand((1, 2000), device=cuda))
+    assert set(tfa.launch_counts().values()) == {0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,start_layer", [(37, 0), (128, 0), (197, 0),
+                                           (197, 1), (37, 2), (37, -1)])
+def test_relevancy_chain_kernel_matches_plain(cuda, S, start_layer):
+    cams, grads = (torch.from_numpy(t).to(cuda)
+                   for t in chain_inputs(2, 4, 3, S))
+    trp.reset_launch_counts()
+    got = trp.self_attention_relevancy_pallas(cams, grads, start_layer)
+    want = trp.self_attention_relevancy_pallas_plain(cams, grads, start_layer)
+    torch.cuda.synchronize()
+    assert trp.launch_counts() == {"self_attention_relevancy_pallas": 1}
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    again = trp.self_attention_relevancy_auto(cams, grads, start_layer)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_relevancy_chain_past_last_layer_launches_nothing(cuda):
+    """start_layer = L folds no layer: R is the identity and no kernel runs,
+    so no launch is counted."""
+    cams, grads = (torch.from_numpy(t).to(cuda)
+                   for t in chain_inputs(2, 3, 2, 37))
+    trp.reset_launch_counts()
+    got = trp.self_attention_relevancy_pallas(cams, grads, start_layer=3)
+    assert trp.launch_counts() == {"self_attention_relevancy_pallas": 0}
+    assert torch.equal(got, torch.eye(37, device=cuda).expand(2, 37, 37))
+    assert torch.equal(got, trp.self_attention_relevancy_pallas_plain(
+        cams, grads, 3))
+
+
+@pytest.mark.cuda
+def test_relevancy_chain_reads_strided_capture_views(cuda):
+    """capture's [L, B, H, S, S] stacks, batch axis moved first, go in
+    without a copy and give what their contiguous copies give."""
+    cams, grads = (torch.from_numpy(t).to(cuda).movedim(1, 0).contiguous()
+                   .movedim(0, 1) for t in chain_inputs(3, 4, 2, 50, seed=2))
+    assert not cams.is_contiguous()
+    got = trp.self_attention_relevancy_pallas(cams, grads)
+    want = trp.self_attention_relevancy_pallas(cams.contiguous(),
+                                               grads.contiguous())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,match", [
+    (lambda t: t.double(), "float32"),
+    (lambda t: t.transpose(-1, -2), "contiguous"),
+    (lambda t: t[:, :, :1], "shape")])
+def test_relevancy_chain_rejects(cuda, bad, match):
+    cams, grads = (torch.from_numpy(t).to(cuda)
+                   for t in chain_inputs(1, 2, 2, 9))
+    with pytest.raises(RuntimeError, match=match):
+        trp.self_attention_relevancy_pallas(cams, bad(grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,counts", [
+    ("relevancy_fused", {"flash_fwd_qkv": 3, "flash_bwd_ehat_qkv": 3}),
+    ("relevancy_fused_block", {"attn_block_fwd": 3, "attn_block_bwd": 3})])
+def test_fused_paths_on_kernels_match_plain_chains(cuda, path, counts):
+    cfg = tvit.ViTConfig(image_size=64, patch_size=16, width=96, depth=3,
+                         num_heads=6, num_classes=10)
+    model = tvit.init_params(0, cfg, cuda)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn((3, 64, 64, 3), generator=gen).to(cuda)
+    targets = torch.tensor([1, 2, 3], device=cuda)
+    tab.reset_launch_counts()
+    tfa.reset_launch_counts()
+    got = getattr(tvit, path)(model, images, targets)
+    launched = {**tab.launch_counts(), **tfa.launch_counts()}
+    assert launched == {name: counts.get(name, 0) for name in launched}
+    for ref in (tvit.relevancy(model, images, targets),
+                tvit.relevancy_streamed_row(model, images, targets),
+                tvit.relevancy_streamed(model, images, targets)):
         assert float((got - ref).abs().max()) < 1e-4

@@ -58,14 +58,19 @@ def batch():
             np.array([1, 2, 3], np.int32))
 
 
+KERNEL_PATHS = ["relevancy_fused", "relevancy_fused_block",
+                "relevancy_fused_block2"]
+
+
 @pytest.fixture(scope="module")
 def jax_maps(jparams, batch):
     im, tg = map(jnp.asarray, batch)
-    return {
-        "relevancy": np.asarray(jvit.relevancy(jparams, im, tg, JCFG)),
-        "relevancy_fused_block2": np.asarray(jvit.relevancy_fused_block2(
-            jparams, im, tg, JCFG, interpret=True)),
-    }
+    maps = {name: np.asarray(getattr(jvit, name)(jparams, im, tg, JCFG,
+                                                 interpret=True))
+            for name in KERNEL_PATHS}
+    for name in ("relevancy", "relevancy_streamed", "relevancy_streamed_row"):
+        maps[name] = np.asarray(getattr(jvit, name)(jparams, im, tg, JCFG))
+    return maps
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +85,9 @@ def _torch(batch):
 
 
 @pytest.mark.parametrize("port_fn", ["relevancy_fused_block2",
-                                     "relevancy_streamed_row", "relevancy"])
+                                     "relevancy_streamed_row", "relevancy",
+                                     "relevancy_streamed", "relevancy_fused",
+                                     "relevancy_fused_block"])
 @pytest.mark.parametrize("jax_fn", ["relevancy_fused_block2", "relevancy"])
 def test_slice_maps_match_jax(model, batch, jax_maps, port_fn, jax_fn):
     got = getattr(tvit, port_fn)(model, *_torch(batch)).numpy()
@@ -88,6 +95,30 @@ def test_slice_maps_match_jax(model, batch, jax_maps, port_fn, jax_fn):
     assert got.shape == want.shape == (3, TCFG.seq_len - 1)
     assert np.abs(got - want).max() < BAR
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-7)
+
+
+@pytest.mark.parametrize("fn", ["relevancy_streamed", "relevancy_fused",
+                                "relevancy_fused_block"])
+def test_path_matches_its_jax_counterpart(model, batch, jax_maps, fn):
+    """Each path against the JAX function of the same name (its Pallas
+    kernels in interpret mode)."""
+    got = getattr(tvit, fn)(model, *_torch(batch)).numpy()
+    want = jax_maps[fn]
+    assert got.shape == want.shape == (3, TCFG.seq_len - 1)
+    assert np.abs(got - want).max() < BAR
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("path", KERNEL_PATHS)
+def test_forward_probe_matches_jax(jparams, model, batch, path):
+    probe = f"{path}_forward_probe"
+    want = np.asarray(getattr(jvit, probe)(jparams, jnp.asarray(batch[0]),
+                                           JCFG, interpret=True))
+    got = getattr(tvit, probe)(model, torch.from_numpy(batch[0]))
+    assert got.shape == want.shape == (3, TCFG.num_classes)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    logits, _ = tvit.forward(model, torch.from_numpy(batch[0]))
+    torch.testing.assert_close(got, logits, rtol=1e-5, atol=1e-6)
 
 
 def test_forward_and_capture_match_jax(model, batch, jax_captures):

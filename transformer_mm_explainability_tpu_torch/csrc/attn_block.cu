@@ -1,10 +1,23 @@
-// Hand-written fp32 CUDA kernels for the ViT block branches on Hopper.
+// Hand-written fp32 CUDA kernels for the ViT block branches and the fused
+// attention on Hopper.
 //
 // Replaces the four Pallas TPU kernels of
 // transformer_mm_explainability_tpu/ops/attn_block_pallas.py:
 //   attn_block_fwd (_fwd_kernel), mlp_block_fwd (_mlp_fwd_kernel),
-//   mlp_block_bwd (_mlp_bwd_kernel), attn_block_bwd (_bwd_kernel).
-// Each Pallas kernel is one program per image with every weight resident
+//   mlp_block_bwd (_mlp_bwd_kernel), attn_block_bwd (_bwd_kernel);
+// and, through the same attention kernels, the four of
+// transformer_mm_explainability_tpu/ops/flash_attention.py:
+//   flash_fwd (_fwd_kernel), flash_bwd_ehat (_bwd_kernel),
+//   flash_fwd_qkv (_fwd_kernel2), flash_bwd_ehat_qkv (_bwd_kernel2).
+// The attention kernels take every operand as a base pointer plus (batch,
+// head, row) strides in elements, the head axis contiguous: one body serves
+// the merged [B, S, 3D] / [B, S, D] layouts of the block branches and
+// flash_*_qkv, and the per-head [B, H, S, dh] layout (or any split-head view
+// of a merged tensor) of flash_fwd / flash_bwd_ehat. The Pallas kernels of
+// flash_attention.py hold one whole (image, head) [S, S] tile per program;
+// here that is one block per (query or key tile, head, image), as below.
+//
+// Each attn_block_pallas kernel is one program per image with every weight resident
 // in VMEM. That does not map to an H100: fp32 W_qkv alone is 7 MB against
 // 227 KB of shared memory per SM, and one program per image leaves most of
 // the 132 SMs idle at B=8. So each branch is rebuilt from a few kernels that
@@ -14,16 +27,16 @@
 //                      also writes (mean, 1/sigma) for the backward.
 //   ln_vjp_kernel      LayerNorm input-cotangent (the Pallas _ln_vjp) plus
 //                      the residual skip, one warp per row.
-//   gemm_kernel        tiled fp32 GEMM (shared-memory tiles, register
-//                      micro-tile, register prefetch of the next K slice)
-//                      with an optional transposed B and fused epilogues:
-//                      bias, residual add, exact-erf GELU, multiply by
-//                      GELU'(aux). Every product of the Pallas bodies runs
+//   gemm_kernel        (common.cuh) tiled fp32 GEMM (shared-memory tiles,
+//                      register micro-tile, register prefetch of the next K
+//                      slice) with an optional transposed B and fused
+//                      epilogues: bias, residual add, exact-erf GELU, multiply
+//                      by GELU'(aux). Every product of the Pallas bodies runs
 //                      here: LN1*W_qkv, merged*W_out, LN2*W1, GELU*W2,
 //                      cot*W2^T, da*W1^T, cot*W_out^T and dqkv*W_qkv^T.
 //   attn_fwd_kernel    one block per (query tile, head, image): fp32 softmax
-//                      over all S keys, A*V, output in the merged [B,S,D]
-//                      layout.
+//                      over all S keys, A*V, written through the output's
+//                      strides.
 //   attn_bwd_rows_kernel / attn_bwd_cols_kernel / e_row_kernel
 //                      the attention backward with A recomputed (never
 //                      stored): rows pass -> ds, dq and per-row statistics;
@@ -46,11 +59,15 @@
 // Memory: the MLP wrappers materialise the [B*S, I] hidden activations in
 // device memory (77 MB fp32 at B=32, I=3072), where the Pallas kernels kept
 // [S, I/chunks] tiles in VMEM. The attention probabilities are never stored:
-// each pass recomputes them from q and k.
+// each pass recomputes them from q and k. The forward and the rows pass keep
+// whole score rows in shared memory ([16][S], two of them in the rows pass),
+// so S is bounded by the 227 KB a block may opt in to: about 1,490 at dh=64
+// for the backward. tmx_attn_smem lets the wrappers refuse a longer S before
+// launch.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include <limits.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -66,19 +83,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Exact (erf) GELU and its derivative Phi(x) + x*phi(x). CUDA's erff is the
-// exact function to fp32 rounding, so the rational erf the TPU kernels need
-// (Mosaic has no erf) is not carried over.
-__device__ __forceinline__ float gelu_f(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ float gelu_grad_f(float x) {
-  const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
-  const float pdf = expf(-0.5f * x * x) * 0.39894228040143268f;
-  return cdf + x * pdf;
 }
 
 // ---------------------------------------------------------------------------
@@ -140,152 +144,23 @@ ln_vjp_kernel(const float* __restrict__ dy, const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: C[M,N] = epilogue(A[M,K] @ op(B)),  op(B) = B[K,N] or B[N,K]^T.
+// Attention. Every [B, H, S, dh] operand is a base pointer plus its (batch,
+// head, row) strides in elements; the dh axis has stride 1. Merged qkv
+// [B, S, 3D]: q at +0, k at +D, v at +2D, strides (S*3D, dh, 3D); merged
+// [B, S, D]: (S*D, dh, D); per-head [B, H, S, dh]: (H*S*dh, S*dh, dh).
 // ---------------------------------------------------------------------------
 
-enum Act { kActNone = 0, kActGelu = 1, kActMulGeluGrad = 2 };
+// The row stride is 32-bit (the wrappers check that it fits), so a row
+// offset is one widening multiply; batch and head offsets are 64-bit.
+struct Strides {
+  long long b, h;
+  int s;
+};
 
-template <int BM, int BN, int BK, int TM, int TN, bool TRANS_B>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-gemm_kernel(const float* __restrict__ A, const float* __restrict__ B, float* C,
-            int M, int N, int K, const float* __restrict__ bias,
-            const float* __restrict__ res, const float* aux, int act) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int A_PER = BM * BK / NT;
-  constexpr int B_PER = BN * BK / NT;
-  constexpr int GM = TM / 4, GN = TN / 4;  // float4 groups per micro-tile
-  constexpr int SPAN_M = BM / GM, SPAN_N = BN / GN;
-  static_assert(BM * BK % NT == 0 && BN * BK % NT == 0, "tile/thread mismatch");
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "micro-tile must be float4 groups");
-
-  // +4 padding: transposed stores are bank-conflict free, float4 reads stay
-  // 16-byte aligned.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  float ra[A_PER], rb[B_PER];
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * NT, r = e / BK, c = e % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      ra[i] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * NT;
-      if (TRANS_B) {  // B is [N, K]: walk K fastest
-        const int r = e / BK, c = e % BK;
-        const int gn = n0 + r, gk = k0 + c;
-        rb[i] = (gn < N && gk < K) ? B[(size_t)gn * K + gk] : 0.f;
-      } else {  // B is [K, N]: walk N fastest
-        const int r = e / BN, c = e % BN;
-        const int gk = k0 + r, gn = n0 + c;
-        rb[i] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.f;
-      }
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * NT;
-      As[e % BK][e / BK] = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * NT;
-      if (TRANS_B)
-        Bs[e % BK][e / BK] = rb[i];
-      else
-        Bs[e / BN][e % BN] = rb[i];
-    }
-  };
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store();
-    __syncthreads();
-    if (k0 + BK < K) load(k0 + BK);  // in flight while this slice is used
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        const float4 t = *reinterpret_cast<const float4*>(&As[kk][g * SPAN_M + ty * 4]);
-        a[g * 4 + 0] = t.x; a[g * 4 + 1] = t.y; a[g * 4 + 2] = t.z; a[g * 4 + 3] = t.w;
-      }
-#pragma unroll
-      for (int g = 0; g < GN; ++g) {
-        const float4 t = *reinterpret_cast<const float4*>(&Bs[kk][g * SPAN_N + tx * 4]);
-        b[g * 4 + 0] = t.x; b[g * 4 + 1] = t.y; b[g * 4 + 2] = t.z; b[g * 4 + 3] = t.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i / 4) * SPAN_M + ty * 4 + (i % 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + (j / 4) * SPAN_N + tx * 4 + (j % 4);
-      if (n >= N) continue;
-      const size_t idx = (size_t)m * N + n;
-      float v = acc[i][j];
-      if (bias) v += bias[n];
-      if (act == kActGelu) v = gelu_f(v);
-      if (act == kActMulGeluGrad) v *= gelu_grad_f(aux[idx]);
-      if (res) v += res[idx];
-      C[idx] = v;
-    }
-  }
+// Offset of the (b, h) head of an operand.
+__device__ __forceinline__ long long head_at(const Strides& t, int b, int h) {
+  return (long long)b * t.b + (long long)h * t.h;
 }
-
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  return sms;
-}
-
-template <int BM, int BN, int BK, int TM, int TN>
-void launch_gemm(const float* A, const float* B, float* C, int M, int N, int K,
-                 bool trans_b, const float* bias, const float* res,
-                 const float* aux, int act, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const int threads = (BM / TM) * (BN / TN);
-  if (trans_b)
-    gemm_kernel<BM, BN, BK, TM, TN, true><<<grid, threads, 0, stream>>>(
-        A, B, C, M, N, K, bias, res, aux, act);
-  else
-    gemm_kernel<BM, BN, BK, TM, TN, false><<<grid, threads, 0, stream>>>(
-        A, B, C, M, N, K, bias, res, aux, act);
-}
-
-// ---------------------------------------------------------------------------
-// Attention (qkv is [B, S, 3D] with q | k | v along the last axis, heads
-// contiguous dh-wide spans inside each; outputs use the same merged layout).
-// ---------------------------------------------------------------------------
 
 constexpr int kAttThreads = 256;
 constexpr int kMaxDh = 128;
@@ -295,28 +170,32 @@ constexpr int kColK = 16;      // keys per block (bwd columns)
 constexpr int kColQ = 64;      // queries per tile (bwd columns)
 
 __global__ void __launch_bounds__(kAttThreads)
-attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
-                int H, int dh, float scale) {
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out, Strides sq,
+                Strides sk, Strides sv, Strides so, int S, int dh, float scale) {
   extern __shared__ float sm[];
-  const int D = H * dh, ld = 3 * D, dp = dh + 1;
+  const int dp = dh + 1;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kFwdQ;
   const int nq = min(kFwdQ, S - q0);
   float* Qs = sm;                  // [kFwdQ][dh]
   float* Ts = Qs + kFwdQ * dh;     // [kKeyTile][dp]  K, then V tiles
   float* Ps = Ts + kKeyTile * dp;  // [kFwdQ][S]      scores, then A
-  const float* base = qkv + (size_t)b * S * ld;
+  q += head_at(sq, b, h);
+  k += head_at(sk, b, h);
+  v += head_at(sv, b, h);
+  out += head_at(so, b, h);
   const int tid = threadIdx.x;
 
   for (int e = tid; e < kFwdQ * dh; e += kAttThreads) {
     const int i = e / dh, d = e % dh;
-    Qs[e] = (i < nq) ? base[(size_t)(q0 + i) * ld + h * dh + d] : 0.f;
+    Qs[e] = (i < nq) ? q[(long long)(q0 + i) * sq.s + d] : 0.f;
   }
   for (int k0 = 0; k0 < S; k0 += kKeyTile) {
     const int nk = min(kKeyTile, S - k0);
     __syncthreads();
     for (int e = tid; e < kKeyTile * dh; e += kAttThreads) {
       const int j = e / dh, d = e % dh;
-      Ts[j * dp + d] = (j < nk) ? base[(size_t)(k0 + j) * ld + D + h * dh + d] : 0.f;
+      Ts[j * dp + d] = (j < nk) ? k[(long long)(k0 + j) * sk.s + d] : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < kFwdQ * kKeyTile; e += kAttThreads) {
@@ -355,7 +234,7 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
     __syncthreads();
     for (int e = tid; e < kKeyTile * dh; e += kAttThreads) {
       const int j = e / dh, d = e % dh;
-      Ts[j * dp + d] = (j < nk) ? base[(size_t)(k0 + j) * ld + 2 * D + h * dh + d] : 0.f;
+      Ts[j * dp + d] = (j < nk) ? v[(long long)(k0 + j) * sv.s + d] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -374,7 +253,7 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
     const int e = tid + r * kAttThreads;
     if (e < kFwdQ * dh) {
       const int i = e / dh, d = e % dh;
-      if (i < nq) out[((size_t)b * S + q0 + i) * D + h * dh + d] = o[r];
+      if (i < nq) out[(long long)(q0 + i) * so.s + d] = o[r];
     }
   }
 }
@@ -385,11 +264,13 @@ attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int S,
 // columns pass recomputes A_ij = exp(s_ij - m_i) / l_i and ds_ij from q, k
 // alone, without reducing any row again.
 __global__ void __launch_bounds__(kAttThreads)
-attn_bwd_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                     float* __restrict__ dqkv, float* __restrict__ stats, int B,
-                     int S, int H, int dh, float scale) {
+attn_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     float* __restrict__ dq, float* __restrict__ stats, Strides sq,
+                     Strides sk, Strides sv, Strides sdo, Strides sdq, int B, int S,
+                     int H, int dh, float scale) {
   extern __shared__ float sm[];
-  const int D = H * dh, ld = 3 * D, dp = dh + 1;
+  const int dp = dh + 1;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kFwdQ;
   const int nq = min(kFwdQ, S - q0);
   float* Qs = sm;                   // [kFwdQ][dh]
@@ -398,23 +279,26 @@ attn_bwd_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ do
   float* Vs = Ks + kKeyTile * dp;   // [kKeyTile][dp]
   float* Ps = Vs + kKeyTile * dp;   // [kFwdQ][S]    s, then A, then ds
   float* Gs = Ps + kFwdQ * S;       // [kFwdQ][S]    dA
-  const float* base = qkv + (size_t)b * S * ld;
+  q += head_at(sq, b, h);
+  k += head_at(sk, b, h);
+  v += head_at(sv, b, h);
+  dout += head_at(sdo, b, h);
+  dq += head_at(sdq, b, h);
   const int tid = threadIdx.x;
 
   for (int e = tid; e < kFwdQ * dh; e += kAttThreads) {
     const int i = e / dh, d = e % dh;
     const bool ok = i < nq;
-    Qs[e] = ok ? base[(size_t)(q0 + i) * ld + h * dh + d] : 0.f;
-    Os[e] = ok ? dout[((size_t)b * S + q0 + i) * D + h * dh + d] : 0.f;
+    Qs[e] = ok ? q[(long long)(q0 + i) * sq.s + d] : 0.f;
+    Os[e] = ok ? dout[(long long)(q0 + i) * sdo.s + d] : 0.f;
   }
   for (int k0 = 0; k0 < S; k0 += kKeyTile) {
     const int nk = min(kKeyTile, S - k0);
     __syncthreads();
     for (int e = tid; e < kKeyTile * dh; e += kAttThreads) {
       const int j = e / dh, d = e % dh;
-      const size_t g = (size_t)(k0 + j) * ld + h * dh + d;
-      Ks[j * dp + d] = (j < nk) ? base[g + D] : 0.f;
-      Vs[j * dp + d] = (j < nk) ? base[g + 2 * D] : 0.f;
+      Ks[j * dp + d] = (j < nk) ? k[(long long)(k0 + j) * sk.s + d] : 0.f;
+      Vs[j * dp + d] = (j < nk) ? v[(long long)(k0 + j) * sv.s + d] : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < kFwdQ * kKeyTile; e += kAttThreads) {
@@ -469,7 +353,7 @@ attn_bwd_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ do
     __syncthreads();
     for (int e = tid; e < kKeyTile * dh; e += kAttThreads) {
       const int j = e / dh, d = e % dh;
-      Ks[j * dp + d] = (j < nk) ? base[(size_t)(k0 + j) * ld + D + h * dh + d] : 0.f;
+      Ks[j * dp + d] = (j < nk) ? k[(long long)(k0 + j) * sk.s + d] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -488,7 +372,7 @@ attn_bwd_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ do
     const int e = tid + r * kAttThreads;
     if (e < kFwdQ * dh) {
       const int i = e / dh, d = e % dh;
-      if (i < nq) dqkv[((size_t)b * S + q0 + i) * ld + h * dh + d] = acc[r];
+      if (i < nq) dq[(long long)(q0 + i) * sdq.s + d] = acc[r];
     }
   }
 }
@@ -497,12 +381,15 @@ attn_bwd_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ do
 // dk_j = sum_i ds_ij q_i, dv_j = sum_i A_ij do_i, and the rule-6 fold of this
 // head e_h[j] = sum_i r_i relu(A_ij dA_ij), each summed in a fixed order.
 __global__ void __launch_bounds__(kAttThreads)
-attn_bwd_cols_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+attn_bwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ rvec, const float* __restrict__ stats,
-                     float* __restrict__ dqkv, float* __restrict__ e_part, int B,
-                     int S, int H, int dh, float scale) {
+                     float* __restrict__ dk_out, float* __restrict__ dv_out,
+                     float* __restrict__ e_part, Strides sq, Strides sk, Strides sv,
+                     Strides sdo, Strides sdk, Strides sdv, int B, int S, int H, int dh,
+                     float scale) {
   extern __shared__ float sm[];
-  const int D = H * dh, ld = 3 * D, dp = dh + 1, cp = kColK + 1;
+  const int dp = dh + 1, cp = kColK + 1;
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kColK;
   const int nk = min(kColK, S - k0);
   float* Ks = sm;                    // [kColK][dh]
@@ -514,16 +401,20 @@ attn_bwd_cols_kernel(const float* __restrict__ qkv, const float* __restrict__ do
   float* Es = Ds + kColQ * cp;       // [kColQ][cp]  r_i relu(A dA)
   float* st = Es + kColQ * cp;       // [4][kColQ]   m, 1/l, dsum, r
   float* eacc = st + 4 * kColQ;      // [kColK]
-  const float* base = qkv + (size_t)b * S * ld;
+  q += head_at(sq, b, h);
+  k += head_at(sk, b, h);
+  v += head_at(sv, b, h);
+  dout += head_at(sdo, b, h);
+  dk_out += head_at(sdk, b, h);
+  dv_out += head_at(sdv, b, h);
   const size_t plane = (size_t)B * H * S;
   const size_t sbase = ((size_t)b * H + h) * S;
   const int tid = threadIdx.x;
 
   for (int e = tid; e < kColK * dh; e += kAttThreads) {
     const int j = e / dh, d = e % dh;
-    const size_t g = (size_t)(k0 + j) * ld + h * dh + d;
-    Ks[e] = (j < nk) ? base[g + D] : 0.f;
-    Vs[e] = (j < nk) ? base[g + 2 * D] : 0.f;
+    Ks[e] = (j < nk) ? k[(long long)(k0 + j) * sk.s + d] : 0.f;
+    Vs[e] = (j < nk) ? v[(long long)(k0 + j) * sv.s + d] : 0.f;
   }
   if (tid < kColK) eacc[tid] = 0.f;
 
@@ -538,8 +429,8 @@ attn_bwd_cols_kernel(const float* __restrict__ qkv, const float* __restrict__ do
     for (int e = tid; e < kColQ * dh; e += kAttThreads) {
       const int i = e / dh, d = e % dh;
       const bool ok = i < nq;
-      Qs[i * dp + d] = ok ? base[(size_t)(qb + i) * ld + h * dh + d] : 0.f;
-      Os[i * dp + d] = ok ? dout[((size_t)b * S + qb + i) * D + h * dh + d] : 0.f;
+      Qs[i * dp + d] = ok ? q[(long long)(qb + i) * sq.s + d] : 0.f;
+      Os[i * dp + d] = ok ? dout[(long long)(qb + i) * sdo.s + d] : 0.f;
     }
     if (tid < kColQ) {  // padded queries get inv = 0, so A = 0 there
       const bool ok = tid < nq;
@@ -589,9 +480,8 @@ attn_bwd_cols_kernel(const float* __restrict__ qkv, const float* __restrict__ do
     if (e < kColK * dh) {
       const int j = e / dh, d = e % dh;
       if (j < nk) {
-        const size_t o = ((size_t)b * S + k0 + j) * ld + h * dh + d;
-        dqkv[o + D] = dk[r];
-        dqkv[o + 2 * D] = dv[r];
+        dk_out[(long long)(k0 + j) * sdk.s + d] = dk[r];
+        dv_out[(long long)(k0 + j) * sdv.s + d] = dv[r];
       }
     }
   }
@@ -608,6 +498,14 @@ __global__ void e_row_kernel(const float* __restrict__ e_part, float* __restrict
   e_row[idx] = s * (1.0f / H);
 }
 
+// Sets the dynamic shared-memory limit a launch needs (above the 48 KB
+// default); the launch itself reports a size the card cannot give.
+template <typename F>
+cudaError_t allow_smem(F* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 size_t fwd_smem(int S, int dh) {
   return sizeof(float) * ((size_t)kFwdQ * dh + (size_t)kKeyTile * (dh + 1) + (size_t)kFwdQ * S);
 }
@@ -620,14 +518,6 @@ size_t rows_smem(int S, int dh) {
 size_t cols_smem(int dh) {
   return sizeof(float) * (2 * (size_t)kColK * dh + 2 * (size_t)kColQ * (dh + 1) +
                           3 * (size_t)kColQ * (kColK + 1) + 4 * (size_t)kColQ + kColK);
-}
-
-// Sets the dynamic shared-memory limit a launch needs (above the 48 KB
-// default); the launch itself reports a size the card cannot give.
-template <typename F>
-cudaError_t allow_smem(F* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace
@@ -663,29 +553,56 @@ int tmx_layer_norm_vjp(const float* dy, const float* x, const float* mean,
 int tmx_gemm(const float* A, const float* B, float* C, int M, int N, int K,
              int trans_b, const float* bias, const float* res, const float* aux,
              int act, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const long big_tiles = (long)((M + 127) / 128) * ((N + 127) / 128);
-  if (big_tiles >= num_sms())
-    launch_gemm<128, 128, 8, 8, 8>(A, B, C, M, N, K, trans_b != 0, bias, res, aux, act, s);
-  else
-    launch_gemm<64, 64, 8, 4, 4>(A, B, C, M, N, K, trans_b != 0, bias, res, aux, act, s);
+  gemm<false>(A, B, C, M, N, K, trans_b != 0, bias, res, aux, act, 1, 0, 0, 0,
+              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
-int tmx_attn_fwd(const float* qkv, float* out, int B, int S, int H, int dh, float scale,
+// Bytes of dynamic shared memory one attention block needs (the forward, or
+// the larger of the two backward passes), saturated at INT_MAX; and the most
+// the device lets one block opt in to. The wrappers compare the two before
+// launch.
+int tmx_attn_smem(int S, int dh, int backward) {
+  const size_t rs = rows_smem(S, dh), cs = cols_smem(dh);
+  const size_t bytes = backward ? (rs > cs ? rs : cs) : fwd_smem(S, dh);
+  return bytes > (size_t)INT_MAX ? INT_MAX : (int)bytes;
+}
+
+int tmx_smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// q, k, v, out: [B, H, S, dh] operands; strides: [4][3] (batch, head, row)
+// element strides of q, k, v, out in that order.
+int tmx_attn_fwd(const float* q, const float* k, const float* v, float* out,
+                 const long long* strides, int B, int S, int H, int dh, float scale,
                  void* stream) {
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = {strides[3 * i], strides[3 * i + 1], (int)strides[3 * i + 2]};
   const size_t smem = fwd_smem(S, dh);
   cudaError_t err = allow_smem(attn_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kFwdQ - 1) / kFwdQ, H, B);
-  attn_fwd_kernel<<<grid, kAttThreads, smem, (cudaStream_t)stream>>>(qkv, out, S, H, dh, scale);
+  attn_fwd_kernel<<<grid, kAttThreads, smem, (cudaStream_t)stream>>>(
+      q, k, v, out, st[0], st[1], st[2], st[3], S, dh, scale);
   return (int)cudaGetLastError();
 }
 
-// stats: scratch [3, B, H, S]; e_part: scratch [B, H, S]; e_row: [B, S].
-int tmx_attn_bwd(const float* qkv, const float* dout, const float* r, float* dqkv,
-                 float* stats, float* e_part, float* e_row, int B, int S, int H, int dh,
-                 float scale, void* stream) {
+// q, k, v, dout in and dq, dk, dv out: [B, H, S, dh] operands; strides: [7][3]
+// (batch, head, row) element strides of q, k, v, dout, dq, dk, dv in that
+// order. r, e_row: [B, S]; stats: scratch [3, B, H, S]; e_part: scratch
+// [B, H, S].
+int tmx_attn_bwd(const float* q, const float* k, const float* v, const float* dout,
+                 const float* r, float* dq, float* dk, float* dv, float* stats,
+                 float* e_part, float* e_row, const long long* strides, int B, int S,
+                 int H, int dh, float scale, void* stream) {
+  Strides st[7];
+  for (int i = 0; i < 7; ++i)
+    st[i] = {strides[3 * i], strides[3 * i + 1], (int)strides[3 * i + 2]};
   cudaStream_t s = (cudaStream_t)stream;
   const size_t rs = rows_smem(S, dh), cs = cols_smem(dh);
   cudaError_t err = allow_smem(attn_bwd_rows_kernel, rs);
@@ -693,11 +610,12 @@ int tmx_attn_bwd(const float* qkv, const float* dout, const float* r, float* dqk
   err = allow_smem(attn_bwd_cols_kernel, cs);
   if (err != cudaSuccess) return (int)err;
   attn_bwd_rows_kernel<<<dim3((S + kFwdQ - 1) / kFwdQ, H, B), kAttThreads, rs, s>>>(
-      qkv, dout, dqkv, stats, B, S, H, dh, scale);
+      q, k, v, dout, dq, stats, st[0], st[1], st[2], st[3], st[4], B, S, H, dh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attn_bwd_cols_kernel<<<dim3((S + kColK - 1) / kColK, H, B), kAttThreads, cs, s>>>(
-      qkv, dout, r, stats, dqkv, e_part, B, S, H, dh, scale);
+      q, k, v, dout, r, stats, dk, dv, e_part, st[0], st[1], st[2], st[3], st[5], st[6],
+      B, S, H, dh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   e_row_kernel<<<(B * S + 255) / 256, 256, 0, s>>>(e_part, e_row, B, S, H);

@@ -6,11 +6,20 @@ Counterpart of ``transformer_mm_explainability_tpu/models/vit.py``:
   * ``relevancy`` — the ViT notebook's ``generate_relevance``: capture A
     and ∇A for every layer (one forward, one ``autograd.grad`` with respect
     to the stacked taps), then the rule-6 chain R ← R + Ê·R; the oracle.
-  * ``relevancy_streamed_row`` — only the CLS row of R, folded layer by
-    layer through per-layer VJPs in plain PyTorch; the second oracle.
-  * ``relevancy_fused_block2`` — the kernel path: each block's attention
-    and MLP residual branches run through ``ops/attn_block`` in both
-    directions; the forward tapes only ``(x, x_mid)`` per layer.
+  * ``relevancy_streamed`` — the whole R without the capture stacks,
+    folded P ← P + P·Ê layer by layer through per-layer VJPs, and
+    ``relevancy_streamed_row``, only its CLS row (r ← r + r·Ê); plain
+    PyTorch, the second and third oracles.
+  * ``relevancy_fused`` — attention through ``ops/flash_attention``'s
+    ``flash_fwd_qkv`` / ``flash_bwd_ehat_qkv`` kernels, the rest in plain
+    torch, taping (x, x_mid, a1).
+  * ``relevancy_fused_block`` — the attention branch of each block
+    through ``ops/attn_block``'s kernels, the MLP in plain torch (a1
+    taped).
+  * ``relevancy_fused_block2`` — both branches through ``ops/attn_block``
+    in both directions; the forward tapes only ``(x, x_mid)`` per layer.
+  * ``*_forward_probe`` — the forward of each fused path, returning the
+    logits, to split a path's time into forward and backward.
 
 Layouts follow the JAX package: images ``[B, H, W, 3]`` (normalised),
 weights ``[in, out]``, captures ``[L, B, H, S, S]``. The patch embed is a
@@ -27,6 +36,7 @@ from torch import nn
 
 from transformer_mm_explainability_tpu_torch._device import resolve_device
 from transformer_mm_explainability_tpu_torch.ops import attn_block as ab
+from transformer_mm_explainability_tpu_torch.ops import flash_attention as fa
 from transformer_mm_explainability_tpu_torch.ops import relevancy as rl
 from transformer_mm_explainability_tpu_torch.ops.attention import (
     AttentionParams,
@@ -226,33 +236,196 @@ def _row0(B: int, S: int, row: int, device) -> torch.Tensor:
     return r
 
 
-def relevancy_streamed_row(model: ViT, images: torch.Tensor,
-                           targets: torch.Tensor, row: int = 0
-                           ) -> torch.Tensor:
-    """Only the CLS row of ``relevancy``'s R: the forward tapes each
-    block's input; the reverse pass recomputes one block at a time, takes
-    its VJP for (cot_x, ∇A) and folds r ← r + r·Ê_l. Plain PyTorch."""
-    cfg = model.cfg
-    B, S = images.shape[0], cfg.seq_len
+def _taped_forward(model: ViT, images: torch.Tensor, layer
+                   ) -> Tuple[torch.Tensor, list]:
+    """Embed, then ``x, t = layer(blk, x)`` for each block without autograd;
+    returns the final x and the per-block tape entries t."""
     with torch.no_grad():
-        x = _embed(model, images)
+        x = _embed(model, images).contiguous()
         tape = []
         for blk in model.blocks:
-            tape.append(x)
-            x, _ = blk(x, None, cfg.num_heads, cfg.ln_eps)
+            x, t = layer(blk, x)
+            tape.append(t)
+    return x, tape
+
+
+def _streamed(model: ViT, images: torch.Tensor, targets: torch.Tensor,
+              state: torch.Tensor, fold) -> torch.Tensor:
+    """The streamed paths: the forward tapes each block's input; in reverse
+    each block is recomputed and differentiated for (cot_x, ∇A), and
+    ``state ← fold(state, Ê_l)``. Plain PyTorch."""
+    cfg = model.cfg
+    H, eps = cfg.num_heads, cfg.ln_eps
+    B, S = images.shape[0], cfg.seq_len
+    x, tape = _taped_forward(
+        model, images, lambda blk, x: (blk(x, None, H, eps)[0], x))
     cot_x = _head_cotangent(model, x, targets)
-    r = _row0(B, S, row, images.device)
-    zero_tap = torch.zeros((B, cfg.num_heads, S, S), device=images.device,
+    zero_tap = torch.zeros((B, H, S, S), device=images.device,
                            dtype=images.dtype)
     for blk, x_in in zip(reversed(model.blocks), reversed(tape)):
         xi = x_in.requires_grad_(True)
         tap = zero_tap.clone().requires_grad_(True)
         with torch.enable_grad():
-            x_out, probs = blk(xi, tap, cfg.num_heads, cfg.ln_eps)
+            x_out, probs = blk(xi, tap, H, eps)
             cot_x, grad_a = torch.autograd.grad(x_out, (xi, tap), cot_x)
-        e_hat = rl.avg_heads(probs.detach().float(), grad_a.float())
-        r = r + torch.einsum("bj,bjk->bk", r, e_hat)
+        state = fold(state, rl.avg_heads(probs.detach().float(),
+                                         grad_a.float()))
+    return state
+
+
+def relevancy_streamed(model: ViT, images: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """``relevancy`` without the [L, B, H, S, S] capture stacks: the
+    per-layer VJPs of ``_streamed`` fold the whole rollout product,
+    P ← P + P·Ê_l from the last layer to the first (P = I), so
+    P = (I+Ê_L)···(I+Ê_1) = R. Returns P[:, 0, 1:]. Plain PyTorch."""
+    B, S = images.shape[0], model.cfg.seq_len
+    P = torch.eye(S, device=images.device).expand(B, S, S)
+    P = _streamed(model, images, targets, P,
+                  lambda P, e: P + torch.einsum("bij,bjk->bik", P, e))
+    return P[:, 0, 1:]
+
+
+def relevancy_streamed_row(model: ViT, images: torch.Tensor,
+                           targets: torch.Tensor, row: int = 0
+                           ) -> torch.Tensor:
+    """Only the CLS row of ``relevancy``'s R: ``_streamed`` folding
+    r ← r + r·Ê_l. Plain PyTorch."""
+    B, S = images.shape[0], model.cfg.seq_len
+    r = _streamed(model, images, targets, _row0(B, S, row, images.device),
+                  lambda r, e: r + torch.einsum("bj,bjk->bk", r, e))
     return r[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# The fused paths. Each block is an attention part x → x_mid and an MLP part
+# x_mid → x_out, each with a backward; every path tapes (x, x_mid, aux) per
+# block, aux being what its MLP backward needs (the pre-GELU a1, or None).
+# ---------------------------------------------------------------------------
+
+def _attn_flash(cfg: ViTConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
+    """LN1 and the two products in plain torch, attention in
+    ``flash_fwd_qkv``."""
+    h1 = layer_norm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+    qkv = h1 @ blk.w_qkv + blk.b_qkv
+    return x + fa.flash_fwd_qkv(qkv, cfg.num_heads) @ blk.w_out + blk.b_out
+
+
+def _attn_flash_bwd(cfg: ViTConfig, blk: Block, x_in: torch.Tensor,
+                    cot_mid: torch.Tensor, r: torch.Tensor):
+    """qkv recomputed (one product), attention backward and the Ê fold in
+    ``flash_bwd_ehat_qkv``, the other products and the LN1 VJP in plain
+    torch. Returns (cot_x, e_row)."""
+    h1, xh, inv = ab._ln_fwd(x_in, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+    qkv = h1 @ blk.w_qkv + blk.b_qkv
+    d_qkv, e_row = fa.flash_bwd_ehat_qkv(qkv, cot_mid @ blk.w_out.T, r,
+                                         cfg.num_heads)
+    d_x = ab._ln_vjp(d_qkv @ blk.w_qkv.T, blk.ln1_scale, xh, inv)
+    return cot_mid + d_x, e_row
+
+
+def _attn_block(cfg: ViTConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
+    return ab.attn_block_fwd(x, blk.w_qkv, blk.b_qkv, blk.w_out, blk.b_out,
+                             blk.ln1_scale, blk.ln1_bias, cfg.num_heads,
+                             cfg.ln_eps)
+
+
+def _attn_block_bwd(cfg: ViTConfig, blk: Block, x_in: torch.Tensor,
+                    cot_mid: torch.Tensor, r: torch.Tensor):
+    return ab.attn_block_bwd(x_in, cot_mid, r, blk.w_qkv, blk.b_qkv,
+                             blk.w_out, blk.ln1_scale, blk.ln1_bias,
+                             cfg.num_heads, cfg.ln_eps)
+
+
+def _mlp_taped(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor):
+    """LN2 + MLP + residual in plain torch, taping the pre-GELU a1."""
+    h2 = layer_norm(x_mid, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    a1 = h2 @ blk.w1 + blk.b1
+    return x_mid + gelu(a1) @ blk.w2 + blk.b2, a1
+
+
+def _mlp_taped_bwd(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor,
+                   a1: torch.Tensor, cot_x: torch.Tensor) -> torch.Tensor:
+    """cot_mid from the taped a1: two products and the GELU and LN2 VJPs,
+    plain torch (no forward product recomputed)."""
+    d_a1 = ab._gelu_grad(a1) * (cot_x @ blk.w2.T)
+    _, xh, inv = ab._ln_fwd(x_mid, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    return cot_x + ab._ln_vjp(d_a1 @ blk.w1.T, blk.ln2_scale, xh, inv)
+
+
+def _mlp_block(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor):
+    return ab.mlp_block_fwd(x_mid, blk.w1, blk.b1, blk.w2, blk.b2,
+                            blk.ln2_scale, blk.ln2_bias, cfg.ln_eps), None
+
+
+def _mlp_block_bwd(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor, _,
+                   cot_x: torch.Tensor) -> torch.Tensor:
+    return ab.mlp_block_bwd(x_mid, cot_x, blk.w1, blk.b1, blk.w2,
+                            blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+
+
+# (attention fwd, attention bwd, MLP fwd, MLP bwd) of each fused path
+_FUSED = (_attn_flash, _attn_flash_bwd, _mlp_taped, _mlp_taped_bwd)
+_FUSED_BLOCK = (_attn_block, _attn_block_bwd, _mlp_taped, _mlp_taped_bwd)
+_FUSED_BLOCK2 = (_attn_block, _attn_block_bwd, _mlp_block, _mlp_block_bwd)
+
+
+def _fused_forward(model: ViT, images: torch.Tensor, parts):
+    cfg = model.cfg
+    attn, _, mlp, _ = parts
+
+    def layer(blk, x):
+        x_mid = attn(cfg, blk, x)
+        x_out, aux = mlp(cfg, blk, x_mid)
+        return x_out, (x, x_mid, aux)
+
+    return _taped_forward(model, images, layer)
+
+
+def _fused(model: ViT, images: torch.Tensor, targets: torch.Tensor,
+           row: int, parts) -> torch.Tensor:
+    """Taped forward, head cotangent, then per block in reverse the MLP and
+    attention backwards; the attention backward also returns the rule-6
+    increment e_row = r·Ê, so r ← r + e_row."""
+    cfg = model.cfg
+    _, attn_bwd, _, mlp_bwd = parts
+    B, S = images.shape[0], cfg.seq_len
+    x, tape = _fused_forward(model, images, parts)
+    cot_x = _head_cotangent(model, x, targets)
+    r = _row0(B, S, row, images.device)
+    with torch.no_grad():
+        for blk, (x_in, x_mid, aux) in zip(reversed(model.blocks),
+                                           reversed(tape)):
+            cot_mid = mlp_bwd(cfg, blk, x_mid, aux, cot_x)
+            cot_x, e_row = attn_bwd(cfg, blk, x_in, cot_mid, r)
+            r = r + e_row
+    return r[:, 1:]
+
+
+def _probe(model: ViT, images: torch.Tensor, parts) -> torch.Tensor:
+    x, _ = _fused_forward(model, images, parts)
+    with torch.no_grad():
+        return _head(model, x)
+
+
+def relevancy_fused(model: ViT, images: torch.Tensor, targets: torch.Tensor,
+                    row: int = 0) -> torch.Tensor:
+    """``relevancy_streamed_row`` with the fused attention kernels: per
+    layer ``flash_fwd_qkv`` forward and ``flash_bwd_ehat_qkv`` backward (A
+    never stored; the backward also folds e_row = r·Ê). LN, the qkv, out
+    and MLP products and the GELU and LN VJPs stay in plain torch, as the
+    JAX path leaves them to XLA. The forward tapes (x, x_mid, a1), so the
+    MLP backward recomputes no product."""
+    return _fused(model, images, targets, row, _FUSED)
+
+
+def relevancy_fused_block(model: ViT, images: torch.Tensor,
+                          targets: torch.Tensor, row: int = 0
+                          ) -> torch.Tensor:
+    """``relevancy_fused`` with the whole attention branch of each block in
+    ``ops/attn_block`` (``attn_block_fwd`` / ``attn_block_bwd``); the MLP
+    stays in plain torch and tapes a1."""
+    return _fused(model, images, targets, row, _FUSED_BLOCK)
 
 
 def relevancy_fused_block2(model: ViT, images: torch.Tensor,
@@ -264,28 +437,23 @@ def relevancy_fused_block2(model: ViT, images: torch.Tensor,
     recomputed) then ``attn_block_bwd``, which also returns the rule-6
     increment e_row = r·Ê. On CUDA tensors every block runs in the
     hand-written kernels; on CPU tensors in their plain versions."""
-    cfg = model.cfg
-    H, eps = cfg.num_heads, cfg.ln_eps
-    B, S = images.shape[0], cfg.seq_len
-    with torch.no_grad():
-        x = _embed(model, images).contiguous()
-        tape = []
-        for blk in model.blocks:
-            x_mid = ab.attn_block_fwd(x, blk.w_qkv, blk.b_qkv, blk.w_out,
-                                      blk.b_out, blk.ln1_scale, blk.ln1_bias,
-                                      H, eps)
-            tape.append((x, x_mid))
-            x = ab.mlp_block_fwd(x_mid, blk.w1, blk.b1, blk.w2, blk.b2,
-                                 blk.ln2_scale, blk.ln2_bias, eps)
-    cot_x = _head_cotangent(model, x, targets)
-    r = _row0(B, S, row, images.device)
-    with torch.no_grad():
-        for blk, (x_in, x_mid) in zip(reversed(model.blocks), reversed(tape)):
-            cot_mid = ab.mlp_block_bwd(x_mid, cot_x, blk.w1, blk.b1, blk.w2,
-                                       blk.ln2_scale, blk.ln2_bias, eps)
-            cot_x, e_row = ab.attn_block_bwd(x_in, cot_mid, r, blk.w_qkv,
-                                             blk.b_qkv, blk.w_out,
-                                             blk.ln1_scale, blk.ln1_bias,
-                                             H, eps)
-            r = r + e_row
-    return r[:, 1:]
+    return _fused(model, images, targets, row, _FUSED_BLOCK2)
+
+
+def relevancy_fused_forward_probe(model: ViT, images: torch.Tensor
+                                  ) -> torch.Tensor:
+    """The forward of ``relevancy_fused`` (embed, the taping blocks, the
+    head), returning the logits: a forward/backward split probe."""
+    return _probe(model, images, _FUSED)
+
+
+def relevancy_fused_block_forward_probe(model: ViT, images: torch.Tensor
+                                        ) -> torch.Tensor:
+    """The forward of ``relevancy_fused_block``, returning the logits."""
+    return _probe(model, images, _FUSED_BLOCK)
+
+
+def relevancy_fused_block2_forward_probe(model: ViT, images: torch.Tensor
+                                         ) -> torch.Tensor:
+    """The forward of ``relevancy_fused_block2``, returning the logits."""
+    return _probe(model, images, _FUSED_BLOCK2)

@@ -15,6 +15,11 @@ A tensor on the CPU goes to the plain PyTorch version beside each wrapper
 wrapper raises: there is no fallback. Each wrapper counts its CUDA
 launches in ``launches`` (see ``launch_counts``).
 
+The attention step of the two attention blocks goes through
+``ops/flash_attention`` (``attn_fwd_launch`` / ``attn_bwd_launch`` on
+split-head views of the qkv buffer), which launches the attention kernels
+of the same library for every caller.
+
 Everything is fp32: LN statistics, softmax, the relevancy fold and every
 product. Weights are ``[in, out]`` as in the JAX package. ``chunks`` is
 validated as the JAX wrappers do (``I % chunks == 0``); the CUDA MLP
@@ -31,23 +36,23 @@ from typing import Dict, Tuple
 import torch
 
 from transformer_mm_explainability_tpu_torch.ops import _build
+from transformer_mm_explainability_tpu_torch.ops import flash_attention as fa
 from transformer_mm_explainability_tpu_torch.ops.attention import (
     gelu, merge_heads, split_heads)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+_SIGNATURES = {  # the LN and GEMM entry points (attention: flash_attention)
     "tmx_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "tmx_layer_norm_vjp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "tmx_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    "tmx_attn_fwd": [_P, _P, _I, _I, _I, _I, _F, _P],
-    "tmx_attn_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "tmx_max_dh": [],
 }
 _ACT_NONE, _ACT_GELU, _ACT_MUL_GELU_GRAD = 0, 1, 2
+_ptr = _build.ptr
 
 
 def library() -> ctypes.CDLL:
-    """The built and loaded ``csrc/attn_block.cu`` (built on first call)."""
+    """The built and loaded ``csrc/attn_block.cu`` (built on first call),
+    with its LN and GEMM entry points declared."""
     return _build.load("attn_block", _SIGNATURES)
 
 
@@ -135,16 +140,6 @@ def _check_chunks(I: int, chunks: int) -> None:
         "loop would silently drop the tail columns")
 
 
-def _on_cpu(x: torch.Tensor) -> bool:
-    """CPU → plain version; CUDA → kernel; anything else raises."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type == "cuda":
-        return False
-    raise RuntimeError(f"attn_block kernels run on cuda or cpu tensors, "
-                       f"not {x.device}")
-
-
 def _cuda_args(device, **tensors) -> None:
     """Each keyword is ``(tensor, expected shape)``; raise on anything the
     kernels do not take."""
@@ -159,14 +154,6 @@ def _cuda_args(device, **tensors) -> None:
                                "float32")
         if not t.is_contiguous():
             raise RuntimeError(f"{name} must be contiguous")
-
-
-def _ptr(t) -> int:
-    return t.data_ptr() if t is not None else None
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _layer_norm(lib, x2, scale, bias, eps, stream):
@@ -202,14 +189,10 @@ def _gemm(lib, a, b, stream, trans_b=False, bias=None, res=None, aux=None,
     return out
 
 
-def _check_heads(lib, D: int, nheads: int) -> int:
+def _check_heads(D: int, nheads: int, S: int, backward: bool) -> None:
     if D % nheads:
         raise RuntimeError(f"width {D} not divisible by {nheads} heads")
-    dh = D // nheads
-    if dh > lib.tmx_max_dh():
-        raise RuntimeError(f"head dim {dh} > {lib.tmx_max_dh()} is not "
-                           "supported by the attention kernels")
-    return dh
+    fa.check_attention(fa.library(), S, D // nheads, backward)
 
 
 def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
@@ -224,7 +207,7 @@ def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
     bias in its epilogue → attention per (query tile, head, image) with A
     only in shared memory → out-projection GEMM with bias and residual in
     its epilogue, so qkv and the merged output are the only round trips."""
-    if _on_cpu(x):
+    if _build.on_cpu(x):
         return attn_block_fwd_plain(x, w_qkv, b_qkv, w_out, b_out, ln_scale,
                                     ln_bias, nheads, eps)
     B, S, D = x.shape
@@ -233,16 +216,15 @@ def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
                b_out=(b_out, (D,)), ln_scale=(ln_scale, (D,)),
                ln_bias=(ln_bias, (D,)))
     lib = library()
-    dh = _check_heads(lib, D, nheads)
+    _check_heads(D, nheads, S, backward=False)
     x2 = x.view(B * S, D)
     with torch.cuda.device(x.device):
-        st = _stream(x.device)
+        st = _build.stream(x.device)
         h1, _, _ = _layer_norm(lib, x2, ln_scale, ln_bias, eps, st)
         qkv = _gemm(lib, h1, w_qkv, st, bias=b_qkv)
         merged = torch.empty_like(x2)
-        _build.check(lib, "tmx_attn_fwd", lib.tmx_attn_fwd(
-            _ptr(qkv), _ptr(merged), B, S, nheads, dh, 1.0 / math.sqrt(dh),
-            st))
+        fa.attn_fwd_launch(*fa.qkv_heads(qkv.view(B, S, 3 * D), nheads),
+                           fa.heads(merged.view(B, S, D), nheads), st)
         out = _gemm(lib, merged, w_out, st, bias=b_out, res=x2)
     attn_block_fwd.launches += 1
     return out.view(B, S, D)
@@ -259,7 +241,7 @@ def mlp_block_fwd(x_mid: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     exact GELU in its epilogue → W2 GEMM with bias and residual in its
     epilogue. The [B*S, I] hidden goes through device memory once each way
     (the Pallas kernel kept [S, I/chunks] tiles in VMEM)."""
-    if _on_cpu(x_mid):
+    if _build.on_cpu(x_mid):
         return mlp_block_fwd_plain(x_mid, w1, b1, w2, b2, ln_scale, ln_bias,
                                    eps, chunks)
     _check_chunks(w1.shape[1], chunks)
@@ -270,7 +252,7 @@ def mlp_block_fwd(x_mid: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     lib = library()
     x2 = x_mid.view(B * S, D)
     with torch.cuda.device(x_mid.device):
-        st = _stream(x_mid.device)
+        st = _build.stream(x_mid.device)
         h2, _, _ = _layer_norm(lib, x2, ln_scale, ln_bias, eps, st)
         g = _gemm(lib, h2, w1, st, bias=b1, act=_ACT_GELU)       # [M, I]
         out = _gemm(lib, g, w2, st, bias=b2, res=x2)
@@ -289,7 +271,7 @@ def mlp_block_bwd(x_mid: torch.Tensor, cot_out: torch.Tensor,
     Bound by operations (6·B·S·D·I, fp32); LN rows → a1 GEMM → cot·w2ᵀ
     GEMM whose epilogue multiplies by GELU'(a1) in place over a1 → ·w1ᵀ
     GEMM → LN-VJP rows with the residual skip."""
-    if _on_cpu(x_mid):
+    if _build.on_cpu(x_mid):
         return mlp_block_bwd_plain(x_mid, cot_out, w1, b1, w2, ln_scale,
                                    ln_bias, eps, chunks)
     _check_chunks(w1.shape[1], chunks)
@@ -301,7 +283,7 @@ def mlp_block_bwd(x_mid: torch.Tensor, cot_out: torch.Tensor,
     lib = library()
     x2, c2 = x_mid.view(B * S, D), cot_out.view(B * S, D)
     with torch.cuda.device(x_mid.device):
-        st = _stream(x_mid.device)
+        st = _build.stream(x_mid.device)
         h2, mean, rstd = _layer_norm(lib, x2, ln_scale, ln_bias, eps, st)
         a1 = _gemm(lib, h2, w1, st, bias=b1)                      # [M, I]
         # da = GELU'(a1) ⊙ (cot·w2ᵀ), written over a1 in place
@@ -331,7 +313,7 @@ def attn_block_bwd(x: torch.Tensor, cot_mid: torch.Tensor, r: torch.Tensor,
     per-head fold Σ_q r_q relu(A∘dA); heads summed in a fixed order, so
     e_row is deterministic) → dqkv·W_qkvᵀ GEMM → LN-VJP rows. A never
     reaches device memory."""
-    if _on_cpu(x):
+    if _build.on_cpu(x):
         return attn_block_bwd_plain(x, cot_mid, r, w_qkv, b_qkv, w_out,
                                     ln_scale, ln_bias, nheads, eps)
     B, S, D = x.shape
@@ -340,22 +322,19 @@ def attn_block_bwd(x: torch.Tensor, cot_mid: torch.Tensor, r: torch.Tensor,
                b_qkv=(b_qkv, (3 * D,)), w_out=(w_out, (D, D)),
                ln_scale=(ln_scale, (D,)), ln_bias=(ln_bias, (D,)))
     lib = library()
-    dh = _check_heads(lib, D, nheads)
+    _check_heads(D, nheads, S, backward=True)
     x2, c2 = x.view(B * S, D), cot_mid.view(B * S, D)
     dev = x.device
     with torch.cuda.device(dev):
-        st = _stream(dev)
+        st = _build.stream(dev)
         h1, mean, rstd = _layer_norm(lib, x2, ln_scale, ln_bias, eps, st)
         qkv = _gemm(lib, h1, w_qkv, st, bias=b_qkv)               # [M, 3D]
         dm = _gemm(lib, c2, w_out, st, trans_b=True)              # [M, D]
         dqkv = torch.empty_like(qkv)
-        stats = torch.empty((3, B, nheads, S), device=dev)
-        e_part = torch.empty((B, nheads, S), device=dev)
-        e_row = torch.empty((B, S), device=dev)
-        _build.check(lib, "tmx_attn_bwd", lib.tmx_attn_bwd(
-            _ptr(qkv), _ptr(dm), _ptr(r), _ptr(dqkv), _ptr(stats),
-            _ptr(e_part), _ptr(e_row), B, S, nheads, dh,
-            1.0 / math.sqrt(dh), st))
+        e_row = fa.attn_bwd_launch(
+            *fa.qkv_heads(qkv.view(B, S, 3 * D), nheads),
+            fa.heads(dm.view(B, S, D), nheads), r,
+            *fa.qkv_heads(dqkv.view(B, S, 3 * D), nheads), st)
         dh1 = _gemm(lib, dqkv, w_qkv, st, trans_b=True)           # [M, D]
         cot_x = _ln_vjp_cuda(lib, dh1, x2, mean, rstd, ln_scale, c2, st)
     attn_block_bwd.launches += 1

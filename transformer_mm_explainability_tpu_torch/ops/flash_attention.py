@@ -1,0 +1,324 @@
+"""Fused attention for the relevancy pipeline: CUDA kernels, plain versions.
+
+Counterpart of ``transformer_mm_explainability_tpu/ops/flash_attention.py``.
+Four wrappers keep the JAX signatures, without ``interpret`` and
+``fast_dots``: the port is fp32 throughout.
+
+  * ``flash_fwd(q, k, v)``: softmax(q·kᵀ/√dh)·v, q/k/v ``[B, H, S, dh]``;
+  * ``flash_bwd_ehat(q, k, v, dout, r)`` → (dq, dk, dv, e_row), with the
+    rule-6 fold ``e_row = r · mean_h relu(A ∘ dA)`` ``[B, S]``;
+  * ``flash_fwd_qkv(qkv, nheads)``: the same in the merged layout,
+    qkv ``[B, S, 3D]`` → ``[B, S, D]``;
+  * ``flash_bwd_ehat_qkv(qkv, dout, r, nheads)`` → (dqkv ``[B, S, 3D]``,
+    e_row).
+
+A tensor on the CPU goes to the plain PyTorch version beside each wrapper
+(``*_plain``). A CUDA tensor goes to the attention kernels of
+``csrc/attn_block.cu``, or the wrapper raises: there is no fallback. This
+module launches those kernels for every caller: ``attn_fwd_launch`` /
+``attn_bwd_launch`` and ``check_attention`` below also serve the block
+wrappers of ``ops/attn_block``. The kernels take every
+operand as a base pointer plus (batch, head, row) strides, so the per-head
+wrappers accept any ``[B, H, S, dh]`` view whose dh axis is contiguous
+(split-head views of a merged qkv tensor included, without a copy), and
+the qkv wrappers pass split-head views of their merged tensors. A is never
+stored: the forward keeps score rows in shared memory and the backward
+recomputes A from q and k in two passes, rows then columns, with no
+atomics, so e_row is the same on every run. Each wrapper counts its CUDA
+launches in ``launches`` (see ``launch_counts``).
+
+Before launch a wrapper rejects anything but float32, a head dim above
+``tmx_max_dh()`` (128), and a sequence length whose score rows need more
+shared memory than one block may opt in to (about S = 1,490 at dh = 64 for
+the backward on an H100).
+
+The JAX module groups heads into 128-lane spans per program
+(``_heads_per_program``), a TPU layout rule; it has no counterpart here:
+each CUDA block takes one head of one image.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from transformer_mm_explainability_tpu_torch.ops import _build
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {  # the attention entry points of csrc/attn_block.cu
+    "tmx_attn_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
+    "tmx_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+    "tmx_attn_smem": [_I, _I, _I],
+    "tmx_smem_optin": [],
+    "tmx_max_dh": [],
+}
+
+
+def library() -> ctypes.CDLL:
+    """The built and loaded ``csrc/attn_block.cu`` (built on first call),
+    with its attention entry points declared."""
+    return _build.load("attn_block", _SIGNATURES)
+
+
+def heads(x: torch.Tensor, nheads: int) -> torch.Tensor:
+    """Merged [B, S, D] → a [B, H, S, D/H] view (``view`` raises rather
+    than copy)."""
+    B, S, D = x.shape
+    return x.view(B, S, nheads, D // nheads).transpose(1, 2)
+
+
+def qkv_heads(qkv: torch.Tensor, nheads: int):
+    """[B, S, 3D] → (q, k, v), each a [B, H, S, dh] view."""
+    B, S, D3 = qkv.shape
+    return qkv.view(B, S, 3, nheads, D3 // (3 * nheads)).permute(
+        2, 0, 3, 1, 4).unbind(0)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the arithmetic of the Pallas bodies)
+# ---------------------------------------------------------------------------
+
+def _probs(q, k):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+
+
+def flash_fwd_plain(q, k, v):
+    return _probs(q, k) @ v
+
+
+def flash_bwd_ehat_plain(q, k, v, dout, r):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    a = _probs(q, k)                                    # [B, H, S, S]
+    da = dout @ v.transpose(-1, -2)                     # ∇A
+    p = a * da
+    ds = a * (da - p.sum(dim=-1, keepdim=True)) * scale
+    ead = torch.clamp(p, min=0.0).mean(dim=1)           # Ê = mean_h relu
+    e_row = torch.einsum("bq,bqk->bk", r, ead)
+    return ds @ k, ds.transpose(-1, -2) @ q, a.transpose(-1, -2) @ dout, e_row
+
+
+def flash_fwd_qkv_plain(qkv, nheads: int):
+    B, S, _ = qkv.shape
+    out = flash_fwd_plain(*qkv_heads(qkv, nheads))
+    return out.transpose(1, 2).reshape(B, S, -1)
+
+
+def flash_bwd_ehat_qkv_plain(qkv, dout, r, nheads: int):
+    B, S, _ = qkv.shape
+    *grads, e_row = flash_bwd_ehat_plain(*qkv_heads(qkv, nheads),
+                                         heads(dout, nheads), r)
+    merged = [g.transpose(1, 2).reshape(B, S, -1) for g in grads]
+    return torch.cat(merged, dim=-1), e_row
+
+
+# ---------------------------------------------------------------------------
+# CUDA path
+# ---------------------------------------------------------------------------
+
+def _check(device, shape, **tensors) -> None:
+    """Each keyword is a tensor the kernels read or write through strides:
+    it must have ``shape``, lie on ``device``, be float32 and have a
+    contiguous last axis."""
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise RuntimeError(f"{name} is {t.dtype}; the attention kernels "
+                               "take float32")
+        if tuple(t.shape) != tuple(shape):
+            raise RuntimeError(f"{name} has shape {tuple(t.shape)}, "
+                               f"expected {tuple(shape)}")
+        if t.device != device:
+            raise RuntimeError(f"{name} is on {t.device}, expected {device}")
+        if t.stride(-1) != 1:
+            raise RuntimeError(f"{name} needs a contiguous last axis "
+                               f"(strides {t.stride()})")
+
+
+def _heads_shape(q) -> Tuple[int, ...]:
+    if q.dim() != 4:
+        raise RuntimeError(f"q has shape {tuple(q.shape)}, expected "
+                           "[B, H, S, dh]")
+    return tuple(q.shape)
+
+
+def _check_r(device, r, B: int, S: int) -> None:
+    _check(device, (B, S), r=r)
+    if not r.is_contiguous():
+        raise RuntimeError("r must be contiguous")
+
+
+def check_attention(lib, S: int, dh: int, backward: bool) -> None:
+    """Raise, before launch, on a head dim or sequence length the attention
+    kernels cannot take: dh above ``tmx_max_dh``, or an S whose score rows
+    need more shared memory than one block may opt in to on this device."""
+    if dh > lib.tmx_max_dh():
+        raise RuntimeError(f"head dim {dh} > {lib.tmx_max_dh()} is not "
+                           "supported by the attention kernels")
+    need, limit = lib.tmx_attn_smem(S, dh, int(backward)), lib.tmx_smem_optin()
+    if need > limit:
+        raise RuntimeError(
+            f"sequence length {S} at head dim {dh} needs {need} bytes of "
+            f"shared memory per block for the attention "
+            f"{'backward' if backward else 'forward'}; this device allows "
+            f"{limit}")
+
+
+def _strides(*views) -> ctypes.Array:
+    """(batch, head, row) element strides of [B, H, S, dh] views; the
+    kernels hold a row stride in 32 bits."""
+    for t in views:
+        if not 0 <= t.stride(2) < 2 ** 31:
+            raise RuntimeError(f"row stride {t.stride(2)} does not fit the "
+                               "attention kernels' 32-bit row offsets")
+    return (ctypes.c_longlong * (3 * len(views)))(
+        *(s for t in views for s in t.stride()[:3]))
+
+
+def attn_fwd_launch(q, k, v, out, stream) -> None:
+    """softmax(q·kᵀ/√dh)·v into ``out`` on ``stream``; all four are
+    [B, H, S, dh] views with unit stride along dh, and S and dh passed
+    ``check_attention`` (both checked by the caller)."""
+    B, H, S, dh = q.shape
+    lib = library()
+    _build.check(lib, "tmx_attn_fwd", lib.tmx_attn_fwd(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+        _strides(q, k, v, out), B, S, H, dh, 1.0 / math.sqrt(dh), stream))
+
+
+def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream) -> torch.Tensor:
+    """Attention backward into (dq, dk, dv) and the fold
+    e_row = r · mean_h relu(A∘dA), returned [B, S]; q … dv are
+    [B, H, S, dh] views with unit stride along dh, r is [B, S] contiguous
+    (checked by the caller, as for ``attn_fwd_launch``)."""
+    B, H, S, dh = q.shape
+    dev = q.device
+    stats = torch.empty((3, B, H, S), device=dev)
+    e_part = torch.empty((B, H, S), device=dev)
+    e_row = torch.empty((B, S), device=dev)
+    lib = library()
+    p = _build.ptr
+    _build.check(lib, "tmx_attn_bwd", lib.tmx_attn_bwd(
+        p(q), p(k), p(v), p(dout), p(r), p(dq), p(dk), p(dv), p(stats),
+        p(e_part), p(e_row), _strides(q, k, v, dout, dq, dk, dv), B, S, H,
+        dh, 1.0 / math.sqrt(dh), stream))
+    return e_row
+
+
+def _launch_fwd(q, k, v, out) -> None:
+    B, H, S, dh = q.shape
+    check_attention(library(), S, dh, backward=False)
+    with torch.cuda.device(q.device):
+        attn_fwd_launch(q, k, v, out, _build.stream(q.device))
+
+
+def _launch_bwd(q, k, v, dout, r, dq, dk, dv) -> torch.Tensor:
+    B, H, S, dh = q.shape
+    check_attention(library(), S, dh, backward=True)
+    with torch.cuda.device(q.device):
+        return attn_bwd_launch(q, k, v, dout, r, dq, dk, dv,
+                               _build.stream(q.device))
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> torch.Tensor:
+    """softmax(q·kᵀ/√dh)·v without storing A. q, k, v: [B, H, S, dh] (any
+    strides with a contiguous dh axis). Returns a new contiguous
+    [B, H, S, dh].
+
+    Replaces ``flash_attention.flash_fwd`` (``_fwd_kernel``). Bound by
+    operations (4·B·H·S²·dh fp32); one block per (16-query tile, head,
+    image) keeps its score rows in shared memory."""
+    if _build.on_cpu(q):
+        return flash_fwd_plain(q, k, v)
+    _check(q.device, _heads_shape(q), q=q, k=k, v=v)
+    out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    _launch_fwd(q, k, v, out)
+    flash_fwd.launches += 1
+    return out
+
+
+def flash_bwd_ehat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   dout: torch.Tensor, r: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """Attention backward fused with the relevancy-row fold.
+
+    q, k, v, dout: [B, H, S, dh] (any strides with a contiguous dh axis);
+    r: [B, S]. Returns (dq, dk, dv [B, H, S, dh] contiguous, e_row [B, S])
+    with ``e_row = r · mean_h relu(A ∘ dA)``.
+
+    Replaces ``flash_attention.flash_bwd_ehat`` (``_bwd_kernel``). Bound by
+    operations (10·B·H·S²·dh fp32): a rows pass (A, dA, the softmax-VJP row
+    sums, dq), a columns pass (A recomputed, dk, dv, the per-head fold) and
+    a fixed-order sum over heads."""
+    if _build.on_cpu(q):
+        return flash_bwd_ehat_plain(q, k, v, dout, r)
+    B, H, S, dh = _heads_shape(q)
+    _check(q.device, q.shape, q=q, k=k, v=v, dout=dout)
+    _check_r(q.device, r, B, S)
+    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=torch.float32)
+                  for _ in range(3))
+    e_row = _launch_bwd(q, k, v, dout, r, dq, dk, dv)
+    flash_bwd_ehat.launches += 1
+    return dq, dk, dv, e_row
+
+
+def flash_fwd_qkv(qkv: torch.Tensor, nheads: int) -> torch.Tensor:
+    """qkv [B, S, 3D] (the fused projection's output) → attention output
+    [B, S, D] in the merged-head layout, with no transposes.
+
+    Replaces ``flash_attention.flash_fwd_qkv`` (``_fwd_kernel2``): the
+    kernel of ``flash_fwd`` on split-head views of qkv and of the output."""
+    if _build.on_cpu(qkv):
+        return flash_fwd_qkv_plain(qkv, nheads)
+    B, S, D3 = qkv.shape
+    if D3 % (3 * nheads):
+        raise RuntimeError(f"qkv width {D3} is not 3 × {nheads} heads")
+    D = D3 // 3
+    _check(qkv.device, (B, S, D3), qkv=qkv)
+    out = torch.empty((B, S, D), device=qkv.device, dtype=torch.float32)
+    _launch_fwd(*qkv_heads(qkv, nheads), heads(out, nheads))
+    flash_fwd_qkv.launches += 1
+    return out
+
+
+def flash_bwd_ehat_qkv(qkv: torch.Tensor, dout: torch.Tensor,
+                       r: torch.Tensor, nheads: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of ``flash_fwd_qkv`` fused with the relevancy-row fold.
+    qkv [B, S, 3D]; dout [B, S, D] (the cotangent in merged layout);
+    r [B, S]. Returns (dqkv [B, S, 3D], e_row [B, S]).
+
+    Replaces ``flash_attention.flash_bwd_ehat_qkv`` (``_bwd_kernel2``): the
+    kernels of ``flash_bwd_ehat`` on split-head views."""
+    if _build.on_cpu(qkv):
+        return flash_bwd_ehat_qkv_plain(qkv, dout, r, nheads)
+    B, S, D3 = qkv.shape
+    if D3 % (3 * nheads):
+        raise RuntimeError(f"qkv width {D3} is not 3 × {nheads} heads")
+    _check(qkv.device, (B, S, D3), qkv=qkv)
+    _check(qkv.device, (B, S, D3 // 3), dout=dout)
+    _check_r(qkv.device, r, B, S)
+    dqkv = torch.empty((B, S, D3), device=qkv.device, dtype=torch.float32)
+    e_row = _launch_bwd(*qkv_heads(qkv, nheads), heads(dout, nheads),
+                        r, *qkv_heads(dqkv, nheads))
+    flash_bwd_ehat_qkv.launches += 1
+    return dqkv, e_row
+
+
+KERNELS = (flash_fwd, flash_bwd_ehat, flash_fwd_qkv, flash_bwd_ehat_qkv)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """CUDA launches of each wrapper since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
