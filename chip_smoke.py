@@ -4,26 +4,28 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds ``csrc/attn_block.cu`` and ``csrc/relevancy_chain.cu`` with
-   ``nvcc`` for ``sm_90a`` (one compiler process each, started together)
-   and prints the build time and ptxas's register / spill report;
-3. kernel phase, at ViT-B/16 widths (B=8, S=197, D=768, H=12, dh=64,
-   I=3072), each wrapper on the card held to its plain PyTorch version on
-   the same inputs (fp32, TF32 off) within rtol 5e-4 / atol 1e-4, with its
-   time and the plain version's time (CUDA events, mean of 50 back-to-back
-   calls after 3 warm-up calls), the least time the card could take
-   (``bound_ms``) and, where one PyTorch call computes the same function,
-   that call's time (``library_ms``):
-   - the four block wrappers of ``ops/attn_block``;
-   - the four of ``ops/flash_attention``: ``flash_fwd`` / ``flash_bwd_ehat``
-     on contiguous [8, 12, 197, 64] tensors, ``flash_fwd_qkv`` /
-     ``flash_bwd_ehat_qkv`` on a [8, 197, 2304] qkv; then the per-head
-     wrappers on split-head views of that qkv, which must give the qkv
-     wrappers' bits;
-   - ``ops/relevancy_pallas``'s chain on the [8, 12, 12, 197, 197] captures
-     of ``vit.capture`` (strided views, no copy), start_layer 0 and 1;
-4. path phase, full-width ViT-B/16 (12 layers, seeded random weights, B=8):
-   ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
+2. builds ``csrc/attn_block.cu``, ``csrc/relevancy_chain.cu`` and
+   ``csrc/roi_pool.cu`` with ``nvcc`` for ``sm_90a`` (one compiler process
+   each, started together) and prints the build time and ptxas's register /
+   spill report;
+3. kernel phase, each wrapper on the card held to its plain PyTorch version
+   on the same inputs, with its time and the plain version's time (CUDA
+   events, mean of 50 back-to-back calls after 3 warm-up calls), the least
+   time the card could take (``bound_ms``) and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``):
+   - at ViT-B/16 widths (B=8, S=197, D=768, H=12, dh=64, I=3072; fp32,
+     TF32 off, within rtol 5e-4 / atol 1e-4): the four block wrappers of
+     ``ops/attn_block``; the four of ``ops/flash_attention`` (per-head on
+     contiguous [8, 12, 197, 64] tensors, qkv on a [8, 197, 2304] qkv, then
+     the per-head wrappers on split-head views of that qkv, which must give
+     the qkv wrappers' bits); ``ops/relevancy_pallas``'s chain on the
+     [8, 12, 12, 197, 197] captures of ``vit.capture`` (strided views, no
+     copy), start_layer 0 and 1;
+   - ``ops/roi_pool_pallas`` at the protocol shape (a [50, 76, 1024] map,
+     1,000 boxes over an 800×1216 image with a tiny, a clipped and a
+     degenerate one, P=14, scale 1/16), EXACTLY equal to its plain version;
+4. ViT path phase, full-width ViT-B/16 (12 layers, seeded random weights,
+   B=8): ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
    ``relevancy_fused_block``. For each, every launch counter is set to 0
    before the call and must read exactly the path's kernels 12 times after
    it (and 0 for every other wrapper); the [8, 196] maps must lie within
@@ -37,7 +39,27 @@
    ``relevancy_fused`` and the chain by kernel and gives the device's idle
    share;
 5. cli phase: ``cli explain-vit --device cuda`` on a generated PNG, again
-   through the kernels.
+   through the kernels;
+6. FRCNN path phase, full-width ``FRCNN_VG`` (ResNet-101 C4, 6000 → 1000
+   RPN proposals, P=14, 1600 classes, 400 attributes, 36 detections;
+   seeded random weights): two generated 600×912 RGB images through
+   ``frcnn.preprocess`` (→ 800×1216) and ``frcnn.forward``, every counter
+   at 0 before, ``roi_pool_pallas`` exactly 1 per image after and every
+   other wrapper 0; the same images with ``roi_pool_impl="xla"`` give the
+   same outputs (bit for bit, or the differences are printed and held to
+   1e-5 of each output's scale, the pooled maps exactly); images/s (median
+   of 3), a per-stage split from CUDA events and a torch.profiler split
+   with the device's idle share;
+7. LXMERT path phase, full-width ``LXMERT_VQA`` (9/5/5 layers, D=768, 12
+   heads, 3129 answers; seeded random weights), B=8 questions of St=20
+   (several true lengths, padded) on the two images' 36 detections:
+   ``LxmertPerturbationRunner(..., "ours_no_lrp").explain_batched`` on the
+   card within max|Δ| < 1e-4 of the same call on the CPU; explanations/s
+   at B=8 and B=32 and perturbation samples/s (9 steps, image and text) at
+   B=8, medians of 3;
+8. LXMERT cli phase: ``cli perturbation --model lxmert --device cuda`` (the
+   synthetic run) and the port's LXMERT example on a generated PNG, which
+   must write its two files through the RoIPool kernel (1 launch).
 
 It then prints one JSON line describing every kernel and, as its last line,
 the device line. Any failure raises, so the exit code is non-zero; without
@@ -78,8 +100,11 @@ KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
     "flash_bwd_ehat_qkv": ("attn_block.cu", "flash_attention.py:279"),
     "self_attention_relevancy_pallas": ("relevancy_chain.cu",
                                         "relevancy_pallas.py:86"),
+    "roi_pool_pallas": ("roi_pool.cu", "roi_pool_pallas.py:95"),
 }
-LIBRARIES = ("attn_block", "relevancy_chain")
+LIBRARIES = ("attn_block", "relevancy_chain", "roi_pool")
+# the RoIPool protocol shape: res4 map of an 800×1216 image, 1000 RPN boxes
+ROI_H, ROI_W, ROI_C, ROI_K, ROI_P = 50, 76, 1024, 1000, 14
 
 
 def card_line() -> str:
@@ -105,14 +130,20 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def work(name: str, layers: int = 12) -> tuple:
+def work(name: str, layers: int = 12, bin_pixels: int = 0) -> tuple:
     """(flops, bytes) that the function must do and move at the smoke
     shape: the FLOPs of its products (and of the chain's head reduction);
     each input read once, each output written once (fp32). ``layers``: the
-    chain's layers from its start_layer on."""
+    chain's layers from its start_layer on. ``bin_pixels``: RoIPool's
+    Σ over bins of the bin's area for this run's boxes; its operations are
+    one comparison per channel and pixel of a bin."""
     M, attn = B * S, 2 * B * H * S * S * DH   # one S×S×dh product
     f32 = 4
-    if name == "attn_block_fwd":
+    if name == "roi_pool_pallas":   # map and boxes in, [K, P, P, C] out
+        flops = bin_pixels * ROI_C
+        nbytes = f32 * (ROI_H * ROI_W * ROI_C + 4 * ROI_K
+                        + ROI_K * ROI_P * ROI_P * ROI_C)
+    elif name == "attn_block_fwd":
         flops = 2 * M * D * 3 * D + 2 * attn + 2 * M * D * D
         nbytes = f32 * (2 * M * D + 4 * D * D + 7 * D)
     elif name == "mlp_block_fwd":
@@ -137,9 +168,11 @@ def work(name: str, layers: int = 12) -> tuple:
 
 
 def measure(name: str, kernel, plain, library=None, layers: int = 12,
-            extra_err: float = 0.0) -> dict:
-    """Hold ``kernel()`` to ``plain()`` (same inputs) and time both, and
-    ``library()`` where given; one row of the kernels line."""
+            extra_err: float = 0.0, exact: bool = False,
+            bin_pixels: int = 0) -> dict:
+    """Hold ``kernel()`` to ``plain()`` (same inputs; equal to the bit when
+    ``exact``) and time both, and ``library()`` where given; one row of the
+    kernels line."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -148,8 +181,11 @@ def measure(name: str, kernel, plain, library=None, layers: int = 12,
     for g, w in zip(got, want):
         assert torch.isfinite(g).all(), f"{name}: non-finite output"
         err = max(err, float((g - w).abs().max()))
-        torch.testing.assert_close(g, w, **TOL)
-    flops, nbytes = work(name, layers)
+        if exact:
+            assert torch.equal(g, w), f"{name}: differs from plain by {err}"
+        else:
+            torch.testing.assert_close(g, w, **TOL)
+    flops, nbytes = work(name, layers, bin_pixels)
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
     library_ms = None if library is None else cuda_ms(library)
@@ -157,7 +193,8 @@ def measure(name: str, kernel, plain, library=None, layers: int = 12,
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     src, replaces = KERNELS[name]
     lib_txt = "" if library_ms is None else f", library {library_ms:.4f} ms"
-    print(f"kernel {name}: max|Δ| {err:.3e} (rtol 5e-4, atol 1e-4), "
+    bar = "exact" if exact else "rtol 5e-4, atol 1e-4"
+    print(f"kernel {name}: max|Δ| {err:.3e} ({bar}), "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_txt}, bound "
           f"{bound:.4f} ms ({bound_by}, {flops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB)", flush=True)
@@ -257,6 +294,31 @@ def chain_kernel_phase(rp, cams, grads) -> dict:
         name, lambda: rp.self_attention_relevancy_pallas(cams, grads),
         lambda: rp.self_attention_relevancy_pallas_plain(cams, grads),
         layers=cams.shape[1], extra_err=err)}
+
+
+def roi_kernel_phase(rpool, gen) -> dict:
+    """RoIPool at the protocol shape: a [50, 76, 1024] map and 1000 boxes
+    over the 800×1216 image, a tiny, a clipped and a degenerate one
+    first; the kernel must equal its plain version to the bit."""
+    dev = torch.device("cuda")
+    feats = torch.randn((ROI_H, ROI_W, ROI_C), generator=gen).to(dev)
+    img_h, img_w = ROI_H * 16.0, ROI_W * 16.0
+    u = torch.rand((ROI_K, 4), generator=gen)
+    x0, y0 = u[:, 0] * img_w * 0.9, u[:, 1] * img_h * 0.9
+    boxes = torch.stack([x0, y0, x0 + u[:, 2] * img_w * 0.6,
+                         y0 + u[:, 3] * img_h * 0.6], 1)
+    boxes[:3] = torch.tensor([[0.0, 0.0, 2.0, 2.0],
+                              [img_w - 3, img_h - 3, img_w + 50, img_h + 50],
+                              [5.0, 5.0, 5.0, 5.0]])
+    boxes = boxes.to(dev)
+    hs, he, ws, we = rpool.roi_bin_bounds(boxes, ROI_P, 1 / 16, ROI_H, ROI_W)
+    bin_pixels = int(((he - hs)[:, :, None] * (we - ws)[:, None, :]).sum())
+    name = "roi_pool_pallas"
+    # no single PyTorch call computes RoIPool (torchvision is not there)
+    return {name: measure(
+        name, lambda: rpool.roi_pool_pallas(feats, boxes, ROI_P, 1 / 16),
+        lambda: rpool.roi_pool_plain(feats, boxes, ROI_P, 1 / 16),
+        exact=True, bin_pixels=bin_pixels)}
 
 
 def reset_counts(mods) -> None:
@@ -376,8 +438,9 @@ def check_maps(path: str, maps, refs: dict) -> None:
 
 
 # kernel-name patterns (mangled or demangled): the port's kernels first,
-# then cuBLAS / cuDNN products of torch.matmul
-KERNEL_GROUPS = (("gemm 128x128", r"gemm_kernel(<|ILi)128"),
+# then cuDNN's convolutions and cuBLAS / cuDNN products
+KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
+                 ("gemm 128x128", r"gemm_kernel(<|ILi)128"),
                  ("gemm 64x64", r"gemm_kernel(<|ILi)64"),
                  ("attn fwd", "attn_fwd_kernel"),
                  ("attn bwd rows", "attn_bwd_rows_kernel"),
@@ -386,12 +449,16 @@ KERNEL_GROUPS = (("gemm 128x128", r"gemm_kernel(<|ILi)128"),
                  ("layernorm vjp", "ln_vjp_kernel"),
                  ("e_row", "e_row_kernel"),
                  ("relevancy Ê", "ehat_kernel"),
-                 ("torch.matmul (cuBLAS)", r"(?i)gemm|cutlass|cublas|xmma"))
+                 ("convolution (cuDNN)",
+                  r"(?i)conv|fprop|implicit|winograd|cudnn"),
+                 ("matrix products (cuBLAS, xmma)",
+                  r"(?i)gemm|cutlass|cublas|xmma"))
 
 
-def profile(label: str, call, call_ms: float) -> None:
+def profile(label: str, call, call_ms: float, show_other: int = 0) -> None:
     """Device time of one ``call()`` by kernel, from torch.profiler; the
-    idle share is against the unprofiled call time."""
+    idle share is against the unprofiled call time. ``show_other``: how many
+    of the largest kernels of the "other (torch)" group to name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -402,6 +469,7 @@ def profile(label: str, call, call_ms: float) -> None:
         torch.cuda.synchronize()
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other (torch)"] = 0.0
+    other = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -410,6 +478,8 @@ def profile(label: str, call, call_ms: float) -> None:
         name = next((g for g, pat in KERNEL_GROUPS if re.search(pat, ev.key)),
                     "other (torch)")
         groups[name] += us / 1e3
+        if name == "other (torch)":
+            other.append((us / 1e3, ev.count, ev.key))
     busy = sum(groups.values())
     if busy == 0.0:
         print("profile: device time not measured (the profiler recorded no "
@@ -421,6 +491,9 @@ def profile(label: str, call, call_ms: float) -> None:
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         if ms > 0.0:
             print(f"  {name}: {ms:.3f} ms ({ms / busy:.1%})", flush=True)
+    for ms, n, key in sorted(other, reverse=True)[:show_other]:
+        print(f"    other: {ms:.3f} ms in {n} launches of {key[:90]}",
+              flush=True)
 
 
 def cli_phase(ab, cli) -> None:
@@ -443,17 +516,225 @@ def cli_phase(ab, cli) -> None:
     print(f"cli explain-vit --device cuda: ok, launches {got}", flush=True)
 
 
+def frcnn_phase(mods, frcnn, rpool, card: str):
+    """Full-width FRCNN_VG on two generated 600×912 images; returns the
+    RoIPool launches of the path's run and the two detections."""
+    import dataclasses
+
+    dev = torch.device("cuda")
+    assert not torch.backends.cudnn.allow_tf32
+    cfg = frcnn.FRCNN_VG
+    assert cfg.roi_pool_impl == "pallas"
+    params = frcnn.init_params(0, cfg, dev)
+    gen = torch.Generator().manual_seed(2)
+    rgb = [torch.randint(0, 256, (600, 912, 3), generator=gen,
+                         dtype=torch.uint8) for _ in range(2)]
+    pre = [frcnn.preprocess(im, device=dev) for im in rgb]
+    assert all(tuple(p.shape) == (800, 1216, 3) for p in pre)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mods)
+    with torch.no_grad():
+        outs = [frcnn.forward(params, p, cfg) for p in pre]
+    torch.cuda.synchronize()
+    got = counts(mods)
+    print(f"path frcnn.forward FRCNN_VG x2 images launches: {got}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+    want = {name: len(pre) * (name == "roi_pool_pallas") for name in got}
+    assert got == want, f"frcnn: launches {got}, expected {want}"
+    for o in outs:
+        assert o["roi_features"].shape == (cfg.max_detections, 2048)
+        assert o["rois"].shape == (cfg.post_nms_topk, 4)
+        assert all(torch.isfinite(v.float()).all() for v in o.values())
+    print(f"path frcnn detections valid: "
+          f"{[int(o['valid'].sum()) for o in outs]} of {cfg.max_detections}, "
+          f"rois valid: {[int(o['roi_valid'].sum()) for o in outs]} of "
+          f"{cfg.post_nms_topk}, max|roi feature| "
+          f"{max(float(o['roi_features'].abs().max()) for o in outs):.3e}",
+          flush=True)
+
+    # the same images through the plain RoIPool; the pooled maps of the
+    # path's own features and rois held to the bit
+    xcfg = dataclasses.replace(cfg, roi_pool_impl="xla")
+    with torch.no_grad():
+        xouts = [frcnn.forward(params, p, xcfg) for p in pre]
+        feats = frcnn._res4_features(params, pre[0][None], cfg)[0]
+        pool_args = (feats, outs[0]["rois"], cfg.pooler_resolution,
+                     1.0 / cfg.feat_stride)
+        assert torch.equal(rpool.roi_pool_pallas(*pool_args),
+                           rpool.roi_pool_plain(*pool_args))
+    diffs = {}
+    for o, x in zip(outs, xouts):
+        for k in o:
+            if not torch.equal(o[k], x[k]):
+                scale = max(1.0, float(x[k].float().abs().max()))
+                diffs[k] = max(diffs.get(k, 0.0), float(
+                    (o[k].float() - x[k].float()).abs().max()) / scale)
+    if diffs:
+        print(f"path frcnn roi_pool_impl pallas vs xla: pooled maps equal, "
+              f"outputs NOT bit-identical, max|Δ| / scale {diffs}",
+              flush=True)
+        assert all(v <= 1e-5 for v in diffs.values()), diffs
+    else:
+        print("path frcnn roi_pool_impl pallas vs xla: all outputs "
+              "bit-identical (pooled maps equal)", flush=True)
+
+    def run_all():
+        with torch.no_grad():
+            for p in pre:
+                frcnn.forward(params, p, cfg)
+
+    trials = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_all()
+        torch.cuda.synchronize()
+        trials.append(len(pre) / (time.perf_counter() - t0))
+    rate = statistics.median(trials)
+    print(f"images/s FRCNN_VG 800x1216 fp32: {rate:.2f} (median of 3, "
+          f"{len(pre)} images each) on {card}", flush=True)
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    with torch.no_grad():
+        frcnn.forward(params, pre[0], cfg, on_stage=mark)
+    torch.cuda.synchronize()
+    prev, split = start, []
+    for name, ev in marks:
+        split.append(f"{name} {prev.elapsed_time(ev):.2f} ms")
+        prev = ev
+    print(f"split frcnn.forward (CUDA events between stage ends): "
+          f"{', '.join(split)}; total {start.elapsed_time(prev):.2f} ms",
+          flush=True)
+    with torch.no_grad():
+        profile("frcnn.forward FRCNN_VG 800x1216",
+                lambda: frcnn.forward(params, pre[0], cfg), 1e3 / rate,
+                show_other=6)
+    return got["roi_pool_pallas"], outs
+
+
+def lxmert_phase(lx, pert_runner, dets, card: str) -> None:
+    """Full-width LXMERT_VQA ours_no_lrp on the card against the CPU, and
+    its rates."""
+    import numpy as np
+
+    cfg = lx.LXMERT_VQA
+    params = lx.init_params(0, cfg, "cuda")
+    gen = torch.Generator().manual_seed(3)
+    n, St = 8, 20
+    lengths = torch.tensor([20, 14, 9, 17, 6, 20, 12, 8])
+    ar = torch.arange(St)[None].expand(n, St)
+    mask = (ar < lengths[:, None]).int()
+    ids = torch.randint(1000, cfg.vocab_size, (n, St), generator=gen)
+    ids[:, 0] = 101                                     # [CLS]
+    ids[ar == (lengths - 1)[:, None]] = 102             # [SEP]
+    det = [dets[b % len(dets)] for b in range(n)]
+    batch = {
+        "input_ids": ids * mask, "attention_mask": mask,
+        "visual_feats": torch.stack([d["roi_features"] for d in det]).cpu(),
+        "visual_pos": torch.stack([d["normalized_boxes"] for d in det]).cpu(),
+        "visual_mask": torch.stack([d["valid"] for d in det]).int().cpu(),
+    }
+    batch["num_boxes"] = batch["visual_mask"].sum(1)
+    runner = pert_runner.LxmertPerturbationRunner(params, cfg, "ours_no_lrp",
+                                                  device="cuda")
+    scores, cam_text, cam_image = runner.explain_batched(batch)
+    ref = pert_runner.LxmertPerturbationRunner(params, cfg, "ours_no_lrp",
+                                               device="cpu")
+    r_scores, r_text, r_image = ref.explain_batched(batch)
+    assert (scores.argmax(-1) == r_scores.argmax(-1)).all(), "answers differ"
+    err = max(float(abs(cam_text - r_text).max()),
+              float(abs(cam_image - r_image).max()))
+    assert np.isfinite(cam_text).all() and np.isfinite(cam_image).all()
+    print(f"path lxmert ours_no_lrp B={n} St={St} Sv=36: cam_text / "
+          f"cam_image vs the CPU max|Δ| {err:.3e} (bar {MAP_BAR:g}; "
+          f"max|cam| {float(abs(r_text).max()):.3e} / "
+          f"{float(abs(r_image).max()):.3e}), qa_scores max|Δ| "
+          f"{float(abs(scores - r_scores).max()):.3e}", flush=True)
+    assert err < MAP_BAR, f"lxmert: cams differ from the CPU by {err}"
+    del ref
+
+    def rate(call, size) -> float:
+        trials = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            trials.append(size / (time.perf_counter() - t0))
+        return statistics.median(trials)
+
+    big = {k: torch.cat([v] * 4) for k, v in batch.items()}
+    print(f"explanations/s LXMERT_VQA ours_no_lrp fp32: B={n} "
+          f"{rate(lambda: runner.explain_batched(batch), n):.1f}, B=32 "
+          f"{rate(lambda: runner.explain_batched(big), 32):.1f} (median "
+          f"of 3) on {card}", flush=True)
+    soft = torch.rand((n, cfg.num_qa_labels), generator=gen).numpy()
+    for text in (False, True):
+        pr = pert_runner.LxmertPerturbationRunner(
+            params, cfg, "ours_no_lrp", text_pert=text, device="cuda")
+        accs = pr.run_samples_batched(batch, soft)
+        assert accs.shape == (n, len(pr.steps))
+        print(f"perturbation samples/s LXMERT_VQA ours_no_lrp "
+              f"{'text' if text else 'image'} (9 steps, B={n}): "
+              f"{rate(lambda: pr.run_samples_batched(batch, soft), n):.1f} "
+              f"(median of 3) on {card}", flush=True)
+
+
+def lxmert_cli_phase(cli, example, rpool) -> None:
+    import numpy as np
+    from PIL import Image
+
+    rc = cli.main(["perturbation", "--model", "lxmert", "--device", "cuda",
+                   "--num-samples", "8"])
+    assert rc == 0
+    work_dir = ROOT / "build" / "smoke"
+    work_dir.mkdir(parents=True, exist_ok=True)
+    arr = (np.random.RandomState(1).rand(240, 320, 3) * 255).astype(np.uint8)
+    Image.fromarray(arr).save(work_dir / "lxmert_input.png")
+    prefix = work_dir / "lxmert"
+    rpool.reset_launch_counts()
+    rc = example.main([str(work_dir / "lxmert_input.png"),
+                       "what is in the picture?", "--device", "cuda",
+                       "--output-prefix", str(prefix)])
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert rpool.launch_counts() == {"roi_pool_pallas": 1}
+    fig = np.asarray(Image.open(f"{prefix}_image.png"))
+    assert fig.shape == (240, 320, 3), fig.shape
+    assert "<span" in pathlib.Path(f"{prefix}_text.html").read_text()
+    print("cli perturbation --model lxmert --device cuda: ok; example "
+          "lxmert_explainability --device cuda: ok, roi_pool_pallas "
+          "launches 1", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     from transformer_mm_explainability_tpu_torch import cli
+    from transformer_mm_explainability_tpu_torch.examples import (
+        lxmert_explainability as example)
+    from transformer_mm_explainability_tpu_torch.harness import pert_runner
+    from transformer_mm_explainability_tpu_torch.models import frcnn
+    from transformer_mm_explainability_tpu_torch.models import lxmert as lx
     from transformer_mm_explainability_tpu_torch.models import vit
     from transformer_mm_explainability_tpu_torch.ops import _build
     from transformer_mm_explainability_tpu_torch.ops import attn_block as ab
     from transformer_mm_explainability_tpu_torch.ops import flash_attention as fa
     from transformer_mm_explainability_tpu_torch.ops import relevancy_pallas as rp
+    from transformer_mm_explainability_tpu_torch.ops import roi_pool_pallas as rpool
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -471,7 +752,8 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
-    for mod in (ab, fa, rp):
+    mods = (ab, fa, rp, rpool)
+    for mod in mods:
         mod.library()
 
     gen = torch.Generator().manual_seed(0)
@@ -486,14 +768,19 @@ def main() -> int:
     # [L, B, H, S, S] → batch first, as views
     cams, grads = attn.movedim(1, 0), grads.movedim(1, 0)
     rows.update(chain_kernel_phase(rp, cams, grads))
+    rows.update(roi_kernel_phase(rpool, gen))
 
-    mods = (ab, fa, rp)
     launches = path_phase(mods, vit, rp, model, images, targets, cams, grads,
                           card)
+    del attn, grads, cams, model
+    cli_phase(ab, cli)
+    torch.cuda.empty_cache()
+    launches["roi_pool_pallas"], dets = frcnn_phase(mods, frcnn, rpool, card)
+    torch.cuda.empty_cache()
+    lxmert_phase(lx, pert_runner, dets, card)
+    lxmert_cli_phase(cli, example, rpool)
     for name, n in launches.items():
         rows[name]["launches"] = n
-    del attn, grads, cams
-    cli_phase(ab, cli)
 
     assert set(rows) == set(KERNELS) and all("launches" in r
                                              for r in rows.values())

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (csrc/attn_block.cu, csrc/relevancy_chain.cu)
-against their plain versions, on the card.
+"""The port's CUDA kernels (csrc/attn_block.cu, csrc/relevancy_chain.cu,
+csrc/roi_pool.cu) against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
@@ -9,18 +9,21 @@ configures JAX):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
 The input builders below are shared with tests/test_torch_attn_block.py,
-tests/test_torch_flash_attention.py and tests/test_torch_relevancy_chain.py,
-which hold the plain versions to the JAX package on the CPU.
+tests/test_torch_flash_attention.py, tests/test_torch_relevancy_chain.py and
+tests/test_torch_frcnn.py, which hold the plain versions to the JAX package
+on the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from transformer_mm_explainability_tpu_torch.models import frcnn as tfrcnn
 from transformer_mm_explainability_tpu_torch.models import vit as tvit
 from transformer_mm_explainability_tpu_torch.ops import attn_block as tab
 from transformer_mm_explainability_tpu_torch.ops import flash_attention as tfa
 from transformer_mm_explainability_tpu_torch.ops import relevancy_pallas as trp
+from transformer_mm_explainability_tpu_torch.ops import roi_pool_pallas as trpool
 
 # different fp32 reduction orders (per-head 2D dots, chunked hidden dim vs
 # whole-matrix products): a few-ulp spread on O(10) magnitudes
@@ -79,6 +82,32 @@ def chain_inputs(B, L, H, S, seed=0):
     cams /= cams.sum(-1, keepdims=True)
     grads = rng.randn(B, L, H, S, S).astype(np.float32)
     return cams, grads
+
+
+def roi_inputs(H, W, C, K, seed=0, stride=16):
+    """A feature map [H, W, C] and K xyxy boxes over its H·stride × W·stride
+    image; the first three (where K allows) are a tiny, a clipped and a
+    degenerate box."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(H, W, C).astype(np.float32)
+    b = rng.rand(K, 4).astype(np.float32)
+    x0, y0 = b[:, 0] * W * stride * 0.9, b[:, 1] * H * stride * 0.9
+    boxes = np.stack([x0, y0, x0 + b[:, 2] * W * stride * 0.6,
+                      y0 + b[:, 3] * H * stride * 0.6], 1)
+    special = [[0, 0, 2, 2],                                        # tiny
+               [W * stride - 3, H * stride - 3, W * stride + 50,
+                H * stride + 50],                                   # clipped
+               [5, 5, 5, 5]]                                        # degenerate
+    n = min(K, len(special))
+    boxes[:n] = special[:n]
+    return feats, boxes.astype(np.float32)
+
+
+# TINY of tests/test_frcnn.py
+FRCNN_TINY = dict(stages=(1, 1, 1, 1), anchor_sizes=(32, 64),
+                  aspect_ratios=(1.0,), pre_nms_topk=50, post_nms_topk=12,
+                  pooler_resolution=4, num_classes=9, num_attrs=5,
+                  max_detections=6)
 
 
 def to_torch(d, device="cpu"):
@@ -341,3 +370,81 @@ def test_fused_paths_on_kernels_match_plain_chains(cuda, path, counts):
                 tvit.relevancy_streamed_row(model, images, targets),
                 tvit.relevancy_streamed(model, images, targets)):
         assert float((got - ref).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# ops/roi_pool_pallas and models/frcnn
+# ---------------------------------------------------------------------------
+
+# (H, W, C, K, P): the JAX test's shape, C not a multiple of 4, K = 1, and
+# the protocol shape ([50, 76, 1024] res4 map of an 800×1216 image)
+CUDA_ROI = [(25, 38, 96, 11, 14), (13, 17, 30, 7, 4), (9, 9, 5, 1, 2),
+            (50, 76, 1024, 1, 14), (50, 76, 1024, 300, 14)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,K,P", CUDA_ROI)
+def test_roi_pool_kernel_equals_plain(cuda, H, W, C, K, P):
+    """A max involves no rounding: the kernel equals its plain version."""
+    feats, boxes = (torch.from_numpy(t).to(cuda)
+                    for t in roi_inputs(H, W, C, K))
+    trpool.reset_launch_counts()
+    got = trpool.roi_pool_pallas(feats, boxes, P, 1 / 16)
+    torch.cuda.synchronize()
+    assert trpool.launch_counts() == {"roi_pool_pallas": 1}
+    want = trpool.roi_pool_plain(feats, boxes, P, 1 / 16)
+    assert got.shape == (K, P, P, C)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_roi_pool_kernel_maps_nan_and_inf_to_zero(cuda):
+    feats, boxes = (torch.from_numpy(t).to(cuda)
+                    for t in roi_inputs(12, 12, 8, 4, seed=3))
+    feats[:, :, 1] = float("nan")
+    feats[:, :, 2] = float("inf")
+    got = trpool.roi_pool_pallas(feats, boxes, 3, 1 / 16)
+    assert torch.equal(got, trpool.roi_pool_plain(feats, boxes, 3, 1 / 16))
+    assert torch.isfinite(got).all()
+    assert not got[..., 1:3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,match", [
+    (lambda f, b: (f.double(), b), "float32"),
+    (lambda f, b: (f, b.half()), "float32"),
+    (lambda f, b: (f.transpose(0, 1), b), "contiguous"),
+    (lambda f, b: (f[None], b), r"\[H, W, C\]"),
+    (lambda f, b: (f, b[:, :3]), r"\[K, 4\]"),
+    (lambda f, b: (f, b.cpu()), "expected cuda")])
+def test_roi_pool_rejects_before_launch(cuda, bad, match):
+    feats, boxes = (torch.from_numpy(t).to(cuda)
+                    for t in roi_inputs(10, 12, 8, 3))
+    trpool.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=match):
+        trpool.roi_pool_pallas(*bad(feats, boxes), 4, 1 / 16)
+    assert trpool.launch_counts() == {"roi_pool_pallas": 0}
+
+
+@pytest.mark.cuda
+def test_frcnn_forward_pallas_equals_xla_on_cuda(cuda):
+    """frcnn.forward at the tiny config on the card: the kernel path
+    (the default) and the plain RoIPool give the same pooled features, so
+    the same outputs (cuDNN runs the same convolutions in both)."""
+    import dataclasses
+
+    cfg = tfrcnn.FrcnnConfig(**FRCNN_TINY)
+    assert cfg.roi_pool_impl == "pallas"
+    params = tfrcnn.init_params(0, cfg, cuda)
+    img = torch.from_numpy(np.random.RandomState(5).randn(128, 160, 3)
+                           .astype(np.float32)).to(cuda)
+    trpool.reset_launch_counts()
+    with torch.no_grad():
+        got = tfrcnn.forward(params, img, cfg)
+        assert trpool.launch_counts() == {"roi_pool_pallas": 1}
+        want = tfrcnn.forward(params, img,
+                              dataclasses.replace(cfg, roi_pool_impl="xla"))
+    assert trpool.launch_counts() == {"roi_pool_pallas": 1}
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5,
+                                   msg=k)

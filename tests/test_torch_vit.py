@@ -339,6 +339,13 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0 []"
     assert len(mods) >= 10
+    # the FRCNN → LXMERT slice is among them
+    for name in ("models.frcnn", "models.resnet", "models.bert",
+                 "models.lxmert", "explain.lxmert", "ops.roi_pool_pallas",
+                 "harness.perturbation", "harness.pert_runner",
+                 "data.vqa", "data.tokenization",
+                 "examples.lxmert_explainability"):
+        assert f"transformer_mm_explainability_tpu_torch.{name}" in mods
 
 
 @pytest.mark.parametrize("path", ["package", "chip_smoke.py"])

@@ -3,11 +3,22 @@
     python -m transformer_mm_explainability_tpu_torch.cli explain-vit IMG \
         [--checkpoint CKPT] [--class-index N] [--output PNG] [--seed S] \
         [--device cuda|cpu]
+    python -m transformer_mm_explainability_tpu_torch.cli perturbation \
+        --model lxmert [--method ours_no_lrp] [--num-samples N] \
+        [--is-positive-pert BOOL] [--is-text-pert BOOL] [--questions JSON \
+        --features TSV --ans2label JSON --label2ans JSON --bert-vocab TXT] \
+        [--checkpoint CKPT] [--seed S] [--device cuda|cpu]
 
 ``explain-vit`` computes the ViT-B/16 relevancy map through
 ``models/vit.relevancy_fused_block2`` (the block kernels on CUDA, their
 plain versions on the CPU) and writes the overlay figure. Without
 ``--checkpoint`` the weights are random, drawn from ``--seed``.
+
+``perturbation`` is the JAX package's subcommand (the same flags, plus
+``--device``): the LXMERT positive/negative perturbation benchmark through
+``harness/pert_runner``. Without the data flags it runs the pipeline on
+synthetic samples and a tiny random LXMERT. ``--model visual_bert`` and the
+four LRP methods are not ported yet and exit with 2 and a message.
 """
 
 from __future__ import annotations
@@ -21,6 +32,20 @@ import numpy as np
 import torch
 
 
+def str2bool(v: str) -> bool:
+    return str(v).lower() in ("1", "true", "yes", "y")
+
+
+# union of the per-model method families; each runner validates its own
+# surface (pert_runner.LXMERT_METHODS + aliases)
+METHODS = ["ours_with_lrp", "ours_no_lrp", "transformer_att",
+           "transformer_attribution", "partial_lrp", "raw_attn",
+           "attn_gradcam", "rollout", "ours_no_lrp_no_norm",
+           "ours_no_lrp_no_normalization",
+           "ours_with_lrp_no_normalization", "ablation_no_self_in_10",
+           "ablation_no_aggregation"]
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tmmx-torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -30,6 +55,29 @@ def build_parser() -> argparse.ArgumentParser:
                     help="timm ViT state dict (torch.save) to convert+load")
     sp.add_argument("--class-index", type=int, default=None)
     sp.add_argument("--output", default="vit_relevancy.png")
+    sp.add_argument("--seed", type=int, default=1234)
+    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    sp = sub.add_parser("perturbation",
+                        help="pos/neg perturbation benchmark")
+    sp.add_argument("--model", choices=["visual_bert", "lxmert"],
+                    default="visual_bert")
+    sp.add_argument("--num-samples", type=int, default=10000)
+    sp.add_argument("--batch-size", type=int, default=8,
+                    help="samples per explain+perturb call (protocol "
+                         "results are batch-size invariant)")
+    sp.add_argument("--is-positive-pert", type=str2bool, default=False)
+    sp.add_argument("--is-text-pert", type=str2bool, default=False)
+    sp.add_argument("--questions", default=None, help="VQA questions json")
+    sp.add_argument("--features", default=None, help="object-features TSV")
+    sp.add_argument("--ans2label", default=None)
+    sp.add_argument("--label2ans", default=None)
+    sp.add_argument("--bert-vocab", default=None,
+                    help="vocab.txt (bert-base-uncased layout)")
+    sp.add_argument("--method", default="ours_no_lrp", choices=METHODS,
+                    help="explanation method (reference --method)")
+    sp.add_argument("--checkpoint", default=None,
+                    help="LXMERT torch state dict to convert+load")
     sp.add_argument("--seed", type=int, default=1234)
     sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
@@ -78,9 +126,22 @@ def cmd_explain_vit(args) -> int:
     return 0
 
 
+def cmd_perturbation(args) -> int:
+    from transformer_mm_explainability_tpu_torch._device import resolve_device
+    from transformer_mm_explainability_tpu_torch.harness import pert_runner
+
+    resolve_device(args.device)
+    try:
+        return pert_runner.run_from_args(args)
+    except NotImplementedError as e:
+        print(f"perturbation: {e}")
+        return 2
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"explain-vit": cmd_explain_vit}[args.command](args)
+    return {"explain-vit": cmd_explain_vit,
+            "perturbation": cmd_perturbation}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,15 @@
-"""Relevancy-map overlay (the notebooks' ``generate_visualization``).
+"""Relevancy figures: the heatmap overlay (the notebooks'
+``generate_visualization``), a per-token text heatmap and a box overlay.
 
-Counterpart of ``relevancy_figure`` and what it needs from
+Counterpart of ``relevancy_figure``, ``text_heatmap_html`` and
+``draw_boxes`` and what they need from
 ``transformer_mm_explainability_tpu/utils/visualization.py`` and
 ``ops/image.py``; numpy in, numpy out.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,3 +56,47 @@ def relevancy_figure(image: np.ndarray, relevancy: np.ndarray,
     img = image.astype(np.float32)
     img = (img - img.min()) / max(img.max() - img.min(), 1e-9)
     return (show_cam_on_image(img, up) * 255).astype(np.uint8)
+
+
+def text_heatmap_html(tokens: Sequence[str], scores: Sequence[float],
+                      title: str = "") -> str:
+    """Per-token heatmap (green-shaded spans, captum-style), min-max
+    normalised."""
+    scores = np.asarray(scores, np.float32)
+    if scores.max() > scores.min():
+        norm = (scores - scores.min()) / (scores.max() - scores.min())
+    else:
+        norm = np.zeros_like(scores)
+    spans = "".join(
+        f'<span style="background-color: rgba(0, 180, 0, {a:.2f}); '
+        f'padding: 1px 2px; margin: 1px; border-radius: 2px;">{t}</span>'
+        for t, a in zip(tokens, norm))
+    head = f"<b>{title}</b><br>" if title else ""
+    return f'<div style="font-family: monospace">{head}{spans}</div>'
+
+
+def draw_boxes(image: np.ndarray, boxes_xyxy: np.ndarray,
+               labels: Optional[List[str]] = None,
+               scores: Optional[np.ndarray] = None,
+               width: int = 2) -> np.ndarray:
+    """Box overlay with PIL on a uint8 ``[H, W, 3]`` image, boxes in
+    pixels, each with its label and / or score."""
+    from PIL import Image, ImageDraw
+
+    img = Image.fromarray(image.astype(np.uint8))
+    draw = ImageDraw.Draw(img)
+    palette = [(255, 64, 64), (64, 160, 255), (64, 220, 64),
+               (255, 180, 40), (200, 90, 255), (255, 120, 200)]
+    for i, box in enumerate(np.asarray(boxes_xyxy)):
+        color = palette[i % len(palette)]
+        draw.rectangle([float(box[0]), float(box[1]),
+                        float(box[2]), float(box[3])],
+                       outline=color, width=width)
+        text = None if labels is None else labels[i]
+        if scores is not None:
+            s = f"{float(scores[i]):.2f}"
+            text = f"{text} {s}" if text else s
+        if text:
+            draw.text((float(box[0]) + 2, float(box[1]) + 2), text,
+                      fill=color)
+    return np.asarray(img)
