@@ -7,12 +7,16 @@
 2. builds ``csrc/attn_block.cu``, ``csrc/relevancy_chain.cu`` and
    ``csrc/roi_pool.cu`` with ``nvcc`` for ``sm_90a`` (one compiler process
    each, started together) and prints the build time and ptxas's register /
-   spill report;
+   spill report, one line per kernel;
 3. kernel phase, each wrapper on the card held to its plain PyTorch version
    on the same inputs, with its time and the plain version's time (CUDA
-   events, mean of 50 back-to-back calls after 3 warm-up calls), the least
-   time the card could take (``bound_ms``) and, where one PyTorch call
-   computes the same function, that call's time (``library_ms``):
+   events, mean of 50 back-to-back calls after 3 warm-up calls; for the
+   three rows that run the attention forward, the median of 5 such means,
+   with their spread), the least time the card could take (``bound_ms``,
+   fp32 on the CUDA cores; for the two flash forward rows, which run on the
+   tensor cores, also ``bound_tc_ms`` at the 3xTF32 rate) and, where one
+   PyTorch call computes the same function, that call's time
+   (``library_ms``):
    - at ViT-B/16 widths (B=8, S=197, D=768, H=12, dh=64, I=3072; fp32,
      TF32 off, within rtol 5e-4 / atol 1e-4): the four block wrappers of
      ``ops/attn_block``; the four of ``ops/flash_attention`` (per-head on
@@ -20,7 +24,10 @@
      the per-head wrappers on split-head views of that qkv, which must give
      the qkv wrappers' bits); ``ops/relevancy_pallas``'s chain on the
      [8, 12, 12, 197, 197] captures of ``vit.capture`` (strided views, no
-     copy), start_layer 0 and 1;
+     copy), start_layer 0 and 1. ``flash_fwd`` and ``flash_fwd_qkv`` are
+     also held within 1e-5 of their plain versions run in float64 (which a
+     single TF32 product would miss), and ``flash_fwd`` runs at S = 4,000
+     against its plain version;
    - ``ops/roi_pool_pallas`` at the protocol shape (a [50, 76, 1024] map,
      1,000 boxes over an 800×1216 image with a tiny, a clipped and a
      degenerate one, P=14, scale 1/16), EXACTLY equal to its plain version;
@@ -87,6 +94,8 @@ TOL = dict(rtol=5e-4, atol=1e-4)   # fp32 reduction order, kernel vs plain
 MAP_BAR = 1e-4                     # the repo's relevancy parity target
 # H100 SXM published peaks: fp32 outside the tensor cores, HBM3
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
+TF32_FLOPS = 495e12   # dense TF32 on the tensor cores; 3xTF32 takes 3 each
+F64_BAR = 1e-5        # forward kernels vs the plain version in float64
 CSRC = "transformer_mm_explainability_tpu_torch/csrc"
 JAX_OPS = "transformer_mm_explainability_tpu/ops"
 KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
@@ -113,6 +122,34 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) per entry
+    of a ``-Xptxas -v`` log; kernel names shortened to name<args>."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            # _ZN <len><anonymous namespace> <len><kernel> I<args>E ...
+            m = re.match(r"_ZN(\d+)_GLOBAL__N_", name)
+            if m:
+                rest = name[m.end(1) + int(m.group(1)):]
+                n = re.match(r"\d+", rest)
+                if n:
+                    ident = rest[n.end():n.end() + int(n.group())]
+                    args = re.findall(r"L[ib](\d+)E", rest[n.end():])
+                    name = ident + (f"<{','.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -167,12 +204,21 @@ def work(name: str, layers: int = 12, bin_pixels: int = 0) -> tuple:
     return flops, nbytes
 
 
+def timed(fn, repeats: int) -> tuple:
+    """(median, min, max) of ``repeats`` runs of ``cuda_ms(fn)``."""
+    runs = [cuda_ms(fn) for _ in range(repeats)]
+    return statistics.median(runs), min(runs), max(runs)
+
+
 def measure(name: str, kernel, plain, library=None, layers: int = 12,
             extra_err: float = 0.0, exact: bool = False,
-            bin_pixels: int = 0) -> dict:
+            bin_pixels: int = 0, repeats: int = 1,
+            tensor_cores: bool = False) -> dict:
     """Hold ``kernel()`` to ``plain()`` (same inputs; equal to the bit when
-    ``exact``) and time both, and ``library()`` where given; one row of the
-    kernels line."""
+    ``exact``) and time both, and ``library()`` where given, each as the
+    median of ``repeats`` means; one row of the kernels line.
+    ``tensor_cores``: the kernel's products run as 3xTF32 on the tensor
+    cores, which adds their bound (``bound_tc_ms``)."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -187,21 +233,39 @@ def measure(name: str, kernel, plain, library=None, layers: int = 12,
             torch.testing.assert_close(g, w, **TOL)
     flops, nbytes = work(name, layers, bin_pixels)
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
-    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-    library_ms = None if library is None else cuda_ms(library)
+    ms, *ms_range = timed(kernel, repeats)
+    plain_ms, *plain_range = timed(plain, repeats)
+    library_ms = lib_range = None
+    if library is not None:
+        library_ms, *lib_range = timed(library, repeats)
     bound = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     src, replaces = KERNELS[name]
-    lib_txt = "" if library_ms is None else f", library {library_ms:.4f} ms"
+
+    def fmt(t, spread) -> str:
+        return f"{t:.4f} ms" + ("" if repeats == 1 else
+                                f" ({spread[0]:.4f}-{spread[1]:.4f})")
+
+    lib_txt = ("" if library_ms is None
+               else f", library {fmt(library_ms, lib_range)}")
+    timing = "" if repeats == 1 else f"; median of {repeats} means (spread)"
     bar = "exact" if exact else "rtol 5e-4, atol 1e-4"
+    row = {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
+           "replaces": f"{JAX_OPS}/{replaces}", "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "unit": "tensor cores, 3xTF32" if tensor_cores
+           else "CUDA cores, fp32"}
+    tc_txt = ""
+    if tensor_cores:
+        row["bound_tc_ms"] = max(3 * flops / TF32_FLOPS * 1e3, t_bytes)
+        tc_txt = f", 3xTF32 tensor-core bound {row['bound_tc_ms']:.4f} ms"
     print(f"kernel {name}: max|Δ| {err:.3e} ({bar}), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_txt}, bound "
-          f"{bound:.4f} ms ({bound_by}, {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB)", flush=True)
-    return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
-            "replaces": f"{JAX_OPS}/{replaces}", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms}
+          f"kernel {fmt(ms, ms_range)}, plain {fmt(plain_ms, plain_range)}"
+          f"{lib_txt}, fp32 bound {bound:.4f} ms ({bound_by}, "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB){tc_txt}{timing}",
+          flush=True)
+    return row
 
 
 def block_kernel_phase(ab, gen) -> dict:
@@ -234,8 +298,10 @@ def block_kernel_phase(ab, gen) -> dict:
             lambda: ab.attn_block_bwd_plain(x, cot, r, wqkv, bqkv, wout, g1,
                                             bl1, H, EPS)),
     }
-    # no single PyTorch call computes a fused block: library_ms is null
-    return {name: measure(name, kernel, plain)
+    # no single PyTorch call computes a fused block: library_ms is null;
+    # attn_block_fwd runs the attention forward, timed as a median of 5
+    return {name: measure(name, kernel, plain,
+                          repeats=5 if name == "attn_block_fwd" else 1)
             for name, (kernel, plain) in calls.items()}
 
 
@@ -249,10 +315,12 @@ def flash_kernel_phase(fa, gen) -> dict:
     views, dview = fa.qkv_heads(qkv, H), fa.heads(dmerged, H)
     q, k, v = (t.contiguous() for t in views)
     dout = dview.contiguous()
+    fwd = dict(repeats=5, tensor_cores=True)
     rows = {
         "flash_fwd": measure(
             "flash_fwd", lambda: fa.flash_fwd(q, k, v),
-            lambda: fa.flash_fwd_plain(q, k, v), lambda: sdpa(q, k, v)),
+            lambda: fa.flash_fwd_plain(q, k, v), lambda: sdpa(q, k, v),
+            **fwd),
         "flash_bwd_ehat": measure(
             "flash_bwd_ehat", lambda: fa.flash_bwd_ehat(q, k, v, dout, r),
             lambda: fa.flash_bwd_ehat_plain(q, k, v, dout, r)),
@@ -260,7 +328,8 @@ def flash_kernel_phase(fa, gen) -> dict:
         # its output left per head
         "flash_fwd_qkv": measure(
             "flash_fwd_qkv", lambda: fa.flash_fwd_qkv(qkv, H),
-            lambda: fa.flash_fwd_qkv_plain(qkv, H), lambda: sdpa(*views)),
+            lambda: fa.flash_fwd_qkv_plain(qkv, H), lambda: sdpa(*views),
+            **fwd),
         "flash_bwd_ehat_qkv": measure(
             "flash_bwd_ehat_qkv",
             lambda: fa.flash_bwd_ehat_qkv(qkv, dmerged, r, H),
@@ -273,8 +342,37 @@ def flash_kernel_phase(fa, gen) -> dict:
     dqkv, e_qkv = fa.flash_bwd_ehat_qkv(qkv, dmerged, r, H)
     assert all(torch.equal(g, w) for g, w in zip(grads, fa.qkv_heads(dqkv, H)))
     assert torch.equal(e_row, e_qkv)
+    assert torch.equal(fa.flash_fwd(*views), out)
     print("kernel flash_fwd / flash_bwd_ehat on split-head views of qkv: "
-          "the same bits as flash_fwd_qkv / flash_bwd_ehat_qkv", flush=True)
+          "the same bits as flash_fwd_qkv / flash_bwd_ehat_qkv; a second "
+          "call repeats them", flush=True)
+
+    # fp32 accuracy of the 3xTF32 products: against float64
+    for name, got, want in (
+            ("flash_fwd", lambda: fa.flash_fwd(q, k, v),
+             lambda t: fa.flash_fwd_plain(*(x.to(t) for x in (q, k, v)))),
+            ("flash_fwd_qkv", lambda: fa.flash_fwd_qkv(qkv, H),
+             lambda t: fa.flash_fwd_qkv_plain(qkv.to(t), H))):
+        want64 = want(torch.float64)
+        err = float((got().double() - want64).abs().max())
+        own = float((want(torch.float32).double() - want64).abs().max())
+        rows[name]["max_abs_err_f64"] = err
+        print(f"kernel {name} vs its plain version in float64: max|Δ| "
+              f"{err:.3e} (bar {F64_BAR:g}); the fp32 plain version's own "
+              f"distance from float64 {own:.3e}", flush=True)
+        assert err <= F64_BAR, f"{name}: {err} from float64"
+
+    # a length whose score rows the old forward could not hold
+    lq, lk, lv = (rnd(1, 2, 4000, DH) for _ in range(3))
+    got = fa.flash_fwd(lq, lk, lv)
+    want = fa.flash_fwd_plain(lq, lk, lv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    print(f"kernel flash_fwd at S=4000 (B=1, H=2, dh={DH}): max|Δ| "
+          f"{float((got - want).abs().max()):.3e} (rtol 5e-4, atol 1e-4), "
+          f"kernel {cuda_ms(lambda: fa.flash_fwd(lq, lk, lv), 10):.4f} ms, "
+          f"plain {cuda_ms(lambda: fa.flash_fwd_plain(lq, lk, lv), 10):.4f} "
+          f"ms", flush=True)
     return rows
 
 
@@ -748,10 +846,11 @@ def main() -> int:
     print(f"build: {', '.join(f'csrc/{n}.cu' for n in LIBRARIES)} with nvcc "
           f"(sm_90a, in parallel) in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for path in built.values():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    for lib, path in built.items():
+        for kernel, regs, st, ld in ptxas_report(
+                path.with_suffix(".log").read_text()):
+            print(f"  ptxas {lib}: {kernel}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads")
     mods = (ab, fa, rp, rpool)
     for mod in mods:
         mod.library()

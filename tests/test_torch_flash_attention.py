@@ -99,21 +99,64 @@ def test_other_devices_raise():
         tfa.flash_fwd(q, q, q)
 
 
-def _stub_lib(smem_need: int):
+def _stub_lib(smem_need):
     """The three entry points ``check_attention`` reads, with an H100's
-    opt-in limit (232,448 bytes)."""
-    return types.SimpleNamespace(tmx_max_dh=lambda: 128,
-                                 tmx_attn_smem=lambda S, dh, bwd: smem_need,
+    opt-in limit (232,448 bytes). ``smem_need``: the bytes a block needs,
+    or a function of (S, dh, backward) that gives them."""
+    need = smem_need if callable(smem_need) else lambda S, dh, bwd: smem_need
+    return types.SimpleNamespace(tmx_max_dh=lambda: 128, tmx_attn_smem=need,
                                  tmx_smem_optin=lambda: 232448)
 
 
-@pytest.mark.parametrize("dh,need,match", [
-    (160, 1000, "head dim 160 > 128"),
-    (64, 232449, "needs 232449 bytes of shared memory"),
-    (64, 232448, None)])
-def test_check_attention_rejects_before_launch(dh, need, match):
+def _smem_at_dh64(S, dh, backward):
+    """What csrc/attn_block.cu reports at dh = 64: the forward's Q tile and
+    K/V rings (fixed, 52,224 bytes), the backward rows pass's two
+    [16][S] score rows (41,472 + 128·S bytes)."""
+    return 41472 + 128 * S if backward else 52224
+
+
+@pytest.mark.parametrize("dh,need,S,backward,match", [
+    (160, 1000, 2000, True, "head dim 160 > 128"),
+    (64, 232449, 2000, True, "needs 232449 bytes of shared memory"),
+    (64, 232448, 197, True, None),
+    (64, _smem_at_dh64, 4000, False, None),
+    (64, _smem_at_dh64, 2000, True, "needs 297472 bytes of shared memory "
+     "per block for the attention backward")])
+def test_check_attention_rejects_before_launch(dh, need, S, backward, match):
     if match is None:
-        tfa.check_attention(_stub_lib(need), 197, dh, backward=True)
+        tfa.check_attention(_stub_lib(need), S, dh, backward=backward)
         return
     with pytest.raises(RuntimeError, match=match):
-        tfa.check_attention(_stub_lib(need), 2000, dh, backward=True)
+        tfa.check_attention(_stub_lib(need), S, dh, backward=backward)
+
+
+@pytest.mark.parametrize("offset,shape,make,want", [
+    (0, (2, 7, 48), lambda t: tfa.qkv_heads(t, 4), 16),       # merged, dh 4
+    (0, (2, 7, 48), lambda t: tfa.qkv_heads(t[..., :45], 3), 4),   # dh 5
+    (1, (2, 7, 48), lambda t: tfa.qkv_heads(t, 4), 4),        # base + 4 bytes
+    (0, (2, 7, 3, 17), lambda t: [t[..., :16]] * 3, 4),       # row stride 17
+    (0, (2, 7, 4, 12), lambda t: [t.transpose(1, 2)] * 3, 16)])
+def test_copy_width_follows_dh_strides_and_alignment(offset, shape, make,
+                                                     want):
+    """The forward's copy width: 16 bytes only where every row of q, k
+    and v starts on a 16-byte boundary and dh is a multiple of 4."""
+    n = int(np.prod(shape))
+    storage = torch.zeros(n + 8)
+    start = (-storage.data_ptr() // 4) % 4 + offset   # 16-byte boundary
+    t = storage[start:start + n].view(shape)
+    assert t.data_ptr() % 16 == 4 * offset
+    views = make(t)
+    assert tfa.copy_width(views[0].shape[-1], *tfa.view_args(*views)) == want
+
+
+@pytest.mark.parametrize("B,S,H,dh,pad", [(2, 17, 4, 16, 0), (1, 33, 3, 20, 0),
+                                          (2, 9, 2, 8, 5)])
+def test_qkv_args_are_those_of_the_split_head_views(B, S, H, dh, pad):
+    """The merged-layout launch passes the kernel the pointers and strides
+    of ``qkv_heads`` / ``heads`` views, computed without making them (pad:
+    a qkv whose rows are longer than 3D, as a column slice)."""
+    D = H * dh
+    qkv = torch.zeros(B, S, 3 * D + pad)[..., :3 * D]
+    out = torch.zeros(B, S, D)
+    views = (*tfa.qkv_heads(qkv, H), tfa.heads(out, H))
+    assert tfa.qkv_args(qkv, out, H) == tfa.view_args(*views)

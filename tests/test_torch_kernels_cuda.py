@@ -31,8 +31,11 @@ TOL = dict(rtol=5e-4, atol=1e-4)
 EPS = 1e-6
 ATTN_SHAPES = [(2, 4, 17, 64), (1, 6, 49, 96)]
 MLP_SHAPES = [(2, 17, 64, 256, 4), (1, 9, 32, 96, 3)]
-# (B, H, S, dh): the shapes of tests/test_flash_attention.py
-FLASH_SHAPES = [(2, 4, 17, 16), (1, 2, 33, 8), (2, 4, 17, 64), (1, 6, 49, 96)]
+# (B, H, S, dh): the shapes of tests/test_flash_attention.py; then a ragged
+# third 64-key tile (S = 130) and head dims that are not a multiple of 16
+# (40, 24) or of 8 (20)
+FLASH_SHAPES = [(2, 4, 17, 16), (1, 2, 33, 8), (2, 4, 17, 64), (1, 6, 49, 96),
+                (1, 3, 130, 40), (1, 2, 65, 24), (1, 2, 65, 20)]
 
 
 def attn_inputs(B, S, D, seed=0):
@@ -272,9 +275,58 @@ def test_flash_views_equal_qkv_kernels_and_repeat_bits(cuda, B, H, S, Dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,Dh", [(8, 12, 197, 64), (1, 2, 300, 128)])
+def test_flash_fwd_within_1e5_of_float64(cuda, B, H, S, Dh):
+    """The forward's 3xTF32 products are fp32-accurate: within 1e-5 of the
+    plain version run in float64 on the same inputs, where one TF32
+    product (about 10 mantissa bits) misses on these O(1) values."""
+    f = to_torch(flash_inputs(B, H, S, Dh, seed=4), cuda)
+    want = tfa.flash_fwd_qkv_plain(f["qkv"].double(), H)
+    got = tfa.flash_fwd_qkv(f["qkv"], H)
+    assert float((got.double() - want).abs().max()) <= 1e-5
+    got = tfa.flash_fwd(f["q"], f["k"], f["v"])
+    want = tfa.flash_fwd_plain(f["q"].double(), f["k"].double(),
+                               f["v"].double())
+    assert float((got.double() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_flash_fwd_long_sequence_matches_plain(cuda):
+    """S = 4,000: the forward's shared memory is fixed by dh, so a length
+    past the old score-row ceiling (about 3,300 at dh = 64) runs."""
+    f = to_torch(flash_inputs(1, 2, 4000, 64, seed=5), cuda)
+    tfa.reset_launch_counts()
+    got = tfa.flash_fwd(f["q"], f["k"], f["v"])
+    torch.cuda.synchronize()
+    assert tfa.launch_counts()["flash_fwd"] == 1
+    torch.testing.assert_close(
+        got, tfa.flash_fwd_plain(f["q"], f["k"], f["v"]), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [64, 20])
+def test_flash_fwd_unaligned_views_take_4_byte_copies(cuda, Dh):
+    """q, k, v = t[..., :dh] of a [B, H, S, dh + 1] tensor: rows off the
+    16-byte grid, so the kernel copies 4 bytes at a time. It matches the
+    plain version, repeats its bits, and gives the bits of the 16-byte
+    copies of the same values."""
+    B, H, S = 2, 3, 77
+    t = [torch.from_numpy(np.random.RandomState(i).randn(B, H, S, Dh + 1)
+                          .astype(np.float32) * 0.5).to(cuda)[..., :Dh]
+         for i in range(3)]
+    assert tfa.copy_width(Dh, *tfa.view_args(*t)) == 4
+    dense = [x.contiguous() for x in t]
+    assert tfa.copy_width(Dh, *tfa.view_args(*dense)) == 16
+    got = tfa.flash_fwd(*t)
+    torch.testing.assert_close(got, tfa.flash_fwd_plain(*t), **TOL)
+    assert torch.equal(tfa.flash_fwd(*t), got)
+    assert torch.equal(tfa.flash_fwd(*dense), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case,match", [
     ("double", "float32"), ("half", "float32"), ("dh160", "head dim 160"),
-    ("fwd_S4000", "shared memory"), ("bwd_S2000", "shared memory")])
+    ("bwd_S2000", "shared memory")])
 def test_flash_wrappers_reject_before_launch(cuda, case, match):
     tfa.reset_launch_counts()
     q = torch.randn((1, 2, 33, 64), device=cuda)
@@ -286,9 +338,6 @@ def test_flash_wrappers_reject_before_launch(cuda, case, match):
         elif case == "dh160":
             t = torch.randn((1, 2, 33, 160), device=cuda)
             tfa.flash_bwd_ehat(t, t, t, t, r)
-        elif case == "fwd_S4000":
-            t = torch.randn((1, 1, 4000, 64), device=cuda)
-            tfa.flash_fwd(t, t, t)
         else:
             t = torch.randn((1, 1, 2000, 64), device=cuda)
             tfa.flash_bwd_ehat(t, t, t, t, torch.rand((1, 2000), device=cuda))

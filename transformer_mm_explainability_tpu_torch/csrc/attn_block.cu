@@ -34,9 +34,7 @@
 //                      by GELU'(aux). Every product of the Pallas bodies runs
 //                      here: LN1*W_qkv, merged*W_out, LN2*W1, GELU*W2,
 //                      cot*W2^T, da*W1^T, cot*W_out^T and dqkv*W_qkv^T.
-//   attn_fwd_kernel    one block per (query tile, head, image): fp32 softmax
-//                      over all S keys, A*V, written through the output's
-//                      strides.
+//   attn_fwd_kernel    the attention forward on the tensor cores (below).
 //   attn_bwd_rows_kernel / attn_bwd_cols_kernel / e_row_kernel
 //                      the attention backward with A recomputed (never
 //                      stored): rows pass -> ds, dq and per-row statistics;
@@ -53,21 +51,49 @@
 // recipe: 128x128 (or 64x64 when the big tiles would leave SMs idle) output
 // tiles, an 8x8 (4x4) register micro-tile per thread read from shared
 // memory as float4, and the next K slice loaded into registers while the
-// current one is multiplied. Tensor cores (TF32/bf16 wgmma) and TMA are not
-// used: the port is held to the fp32 CPU reference first.
+// current one is multiplied. The GEMM and the attention backward do not use
+// the tensor cores: they are fp32 CUDA-core code, held to the fp32 CPU
+// reference.
+//
+// The attention forward (attn_fwd_kernel) replaces the attention of
+// attn_block_pallas.py _fwd_kernel (:81-103) and flash_attention.py
+// _fwd_kernel (:79) and _fwd_kernel2 (:187). It does 4*S*S*dh flops per
+// (image, head) against 16*S*dh bytes, so it is bound by operations; at
+// fp32 on the CUDA cores that bound is 14 us at ViT-B/16, B=8. It runs both
+// products on the tensor cores instead, as 3xTF32 mma.sync (mma_tf32.cuh:
+// three TF32 products of split operands per product, fp32 accuracy), which
+// moves its bound to the TF32 peak (495 TFLOP/s over 3). The design:
+//   - one block of 4 warps per (64-query tile, head, image); each warp owns
+//     16 query rows (one m16 fragment row block) and walks every key tile
+//     in a fixed order, so an output row is written by one warp with no
+//     atomics and no split across blocks: the same bits on every run and
+//     for every layout of the same values;
+//   - Q is loaded once into shared memory; K and V stream through a
+//     two-stage cp.async ring of 32-key tiles, the next tile in flight
+//     while the current one is multiplied; rows padded to dh8 + 4 floats
+//     (dh8: dh rounded up to 8, zero-filled, exact for both products) so
+//     that every fragment load is free of bank conflicts. 16-byte copies
+//     where every operand's base, strides and dh allow them, else 4-byte
+//     copies (a template flag the wrapper picks);
+//   - online softmax in registers (scores in the log2 domain, running row
+//     max and sum, the O accumulator rescaled per tile, one division at the
+//     end); keys at or past S are -inf before the row max;
+//   - P feeds the P*V product straight from the score accumulators, the
+//     product's k index taken in the paired order of mma_tf32.cuh.
+// Its shared memory is fixed by dh (52 KB at dh=64), so S is not bounded.
 //
 // Memory: the MLP wrappers materialise the [B*S, I] hidden activations in
 // device memory (77 MB fp32 at B=32, I=3072), where the Pallas kernels kept
 // [S, I/chunks] tiles in VMEM. The attention probabilities are never stored:
-// each pass recomputes them from q and k. The forward and the rows pass keep
-// whole score rows in shared memory ([16][S], two of them in the rows pass),
-// so S is bounded by the 227 KB a block may opt in to: about 1,490 at dh=64
-// for the backward. tmx_attn_smem lets the wrappers refuse a longer S before
-// launch.
+// each pass recomputes them from q and k. The backward rows pass keeps two
+// whole [16][S] score rows in shared memory, so S is bounded by the 227 KB
+// a block may opt in to: about 1,490 at dh=64 for the backward.
+// tmx_attn_smem lets the wrappers refuse a longer S before launch.
 
 #include <limits.h>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -164,96 +190,193 @@ __device__ __forceinline__ long long head_at(const Strides& t, int b, int h) {
 
 constexpr int kAttThreads = 256;
 constexpr int kMaxDh = 128;
-constexpr int kKeyTile = 64;   // keys per shared-memory tile (fwd, bwd rows)
-constexpr int kFwdQ = 16;      // queries per block (fwd, bwd rows)
+constexpr int kKeyTile = 64;   // keys per shared-memory tile (bwd rows)
+constexpr int kRowQ = 16;      // queries per block (bwd rows)
 constexpr int kColK = 16;      // keys per block (bwd columns)
 constexpr int kColQ = 64;      // queries per tile (bwd columns)
 
-__global__ void __launch_bounds__(kAttThreads)
+// The forward: 4 warps of 16 query rows each; 32-key tiles in a two-stage
+// cp.async ring.
+constexpr int kFwdThreads = 128;
+constexpr int kFwdQ = 64;      // queries per block
+constexpr int kFwdK = 32;      // keys per tile
+constexpr int kFwdStages = 2;
+
+// Copies rows [row0, row0 + ROWS) of one head (row stride `stride`, dh
+// values each) into a [ROWS][DP + 4] tile with cp.async; rows at or past S
+// and columns at or past dh become 0. VEC: 16-byte copies (dh % 4 == 0 and
+// 16-byte aligned rows, checked before launch), else 4-byte copies.
+template <int DP, int ROWS, bool VEC>
+__device__ __forceinline__ void fwd_load_rows(float* dst, const float* src, int row0,
+                                              int S, int stride, int dh) {
+  constexpr int LD = DP + 4;
+  constexpr int W = VEC ? 4 : 1;  // floats per copy
+  constexpr int PER_ROW = DP / W;
+  for (int e = threadIdx.x; e < ROWS * PER_ROW; e += kFwdThreads) {
+    const int r = e / PER_ROW, d = (e % PER_ROW) * W;
+    float* to = dst + r * LD + d;
+    const bool ok = row0 + r < S && d < dh;
+    const float* from = src + (long long)(row0 + r) * stride + d;
+    if constexpr (VEC) {
+      if (ok)
+        cp_async16(to, from);
+      else
+        *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      if (ok)
+        cp_async4(to, from);
+      else
+        *to = 0.f;
+    }
+  }
+}
+
+// One key tile for one warp: s = q k^T (3xTF32), the online-softmax update
+// of (m, l) and o, then o += p v with the score accumulators as the A
+// operand, keys paired. Per lane: rows g and g + 8 of the warp's 16
+// (index 0 and 1 of m and l).
+template <int DP>
+__device__ __forceinline__ void fwd_tile(const float* Qw, const float* Kt,
+                                         const float* Vt, int lane, int k0, int S,
+                                         float scale_log2, float (&o)[DP / 8][4],
+                                         float (&m)[2], float (&l)[2]) {
+  constexpr int LD = DP + 4, NT = DP / 8, KT = kFwdK / 8;
+  const int t = lane & 3;
+  float s[KT][4];
+#pragma unroll
+  for (int n = 0; n < KT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    uint32_t a_hi[4], a_lo[4];
+    load_a_3x(Qw + kk * 8, LD, lane, a_hi, a_lo);
+#pragma unroll
+    for (int n = 0; n < KT; ++n) {
+      uint32_t b_hi[2], b_lo[2];
+      load_bt_3x(Kt + n * 8 * LD + kk * 8, LD, lane, b_hi, b_lo);
+      mma_3xtf32(s[n], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+
+  // online softmax: scale into the log2 domain, mask keys >= S, new max
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < KT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = k0 + n * 8 + 2 * t + e < S;
+      s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
+      s[n][2 + e] = ok ? s[n][2 + e] * scale_log2 : -INFINITY;
+      mx[0] = fmaxf(mx[0], s[n][e]);
+      mx[1] = fmaxf(mx[1], s[n][2 + e]);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the 4 lanes of a group share a row
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < KT; ++n) {
+    s[n][0] = exp2f(s[n][0] - m[0]);
+    s[n][1] = exp2f(s[n][1] - m[0]);
+    s[n][2] = exp2f(s[n][2] - m[1]);
+    s[n][3] = exp2f(s[n][3] - m[1]);
+    l[0] += s[n][0] + s[n][1];
+    l[1] += s[n][2] + s[n][3];
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+
+  // o += p v: the score accumulators are the A operand, keys paired
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    uint32_t a_hi[4], a_lo[4];
+    a_from_acc_3x(s[j], a_hi, a_lo);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t b_hi[2], b_lo[2];
+      load_b_paired_3x(Vt + j * 8 * LD + n * 8, LD, lane, b_hi, b_lo);
+      mma_3xtf32(o[n], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// out = softmax(q k^T * scale) v for one (64-query tile, head, image);
+// scale_log2 = scale * log2(e). DP: dh rounded up to a multiple of 8.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kFwdThreads)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ out, Strides sq,
-                Strides sk, Strides sv, Strides so, int S, int dh, float scale) {
-  extern __shared__ float sm[];
-  const int dp = dh + 1;
+                Strides sk, Strides sv, Strides so, int S, int dh, float scale_log2) {
+  constexpr int LD = DP + 4;  // ld % 8 == 4: conflict-free fragment loads
+  constexpr int NT = DP / 8;  // 8-wide steps along dh
+  extern __shared__ __align__(16) float fwd_sm[];
+  float* Qs = fwd_sm;                          // [kFwdQ][LD]
+  float* Ks = Qs + kFwdQ * LD;                 // [kFwdStages][kFwdK][LD]
+  float* Vs = Ks + kFwdStages * kFwdK * LD;    // [kFwdStages][kFwdK][LD]
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kFwdQ;
-  const int nq = min(kFwdQ, S - q0);
-  float* Qs = sm;                  // [kFwdQ][dh]
-  float* Ts = Qs + kFwdQ * dh;     // [kKeyTile][dp]  K, then V tiles
-  float* Ps = Ts + kKeyTile * dp;  // [kFwdQ][S]      scores, then A
   q += head_at(sq, b, h);
   k += head_at(sk, b, h);
   v += head_at(sv, b, h);
   out += head_at(so, b, h);
-  const int tid = threadIdx.x;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int ntiles = (S + kFwdK - 1) / kFwdK;
 
-  for (int e = tid; e < kFwdQ * dh; e += kAttThreads) {
-    const int i = e / dh, d = e % dh;
-    Qs[e] = (i < nq) ? q[(long long)(q0 + i) * sq.s + d] : 0.f;
-  }
-  for (int k0 = 0; k0 < S; k0 += kKeyTile) {
-    const int nk = min(kKeyTile, S - k0);
-    __syncthreads();
-    for (int e = tid; e < kKeyTile * dh; e += kAttThreads) {
-      const int j = e / dh, d = e % dh;
-      Ts[j * dp + d] = (j < nk) ? k[(long long)(k0 + j) * sk.s + d] : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < kFwdQ * kKeyTile; e += kAttThreads) {
-      const int i = e / kKeyTile, j = e % kKeyTile;
-      if (j < nk) {
-        float s = 0.f;
-        for (int d = 0; d < dh; ++d) s = fmaf(Qs[i * dh + d], Ts[j * dp + d], s);
-        Ps[i * S + k0 + j] = s * scale;
-      }
-    }
-  }
-  __syncthreads();
+  fwd_load_rows<DP, kFwdQ, VEC>(Qs, q, q0, S, sq.s, dh);
+  fwd_load_rows<DP, kFwdK, VEC>(Ks, k, 0, S, sk.s, dh);
+  fwd_load_rows<DP, kFwdK, VEC>(Vs, v, 0, S, sv.s, dh);
+  cp_async_commit();
 
-  const int warp = tid / kWarp, lane = tid % kWarp;
-  for (int i = warp; i < nq; i += kAttThreads / kWarp) {
-    float* row = Ps + i * S;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += kWarp) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < S; j += kWarp) {
-      const float ex = expf(row[j] - m);
-      row[j] = ex;
-      l += ex;
+  // Per lane: rows g and g + 8 of the warp's 16 (index 0 and 1 below).
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running row max (log2 domain)
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+  const float* Qw = Qs + warp * 16 * LD;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kFwdK;
+    if (it + 1 < ntiles) {
+      const int next = (it + 1) % kFwdStages;
+      fwd_load_rows<DP, kFwdK, VEC>(Ks + next * kFwdK * LD, k, k0 + kFwdK, S, sk.s, dh);
+      fwd_load_rows<DP, kFwdK, VEC>(Vs + next * kFwdK * LD, v, k0 + kFwdK, S, sv.s, dh);
     }
-    const float inv = 1.0f / warp_sum(l);
-    for (int j = lane; j < S; j += kWarp) row[j] *= inv;
+    cp_async_commit();    // empty on the last tile: one group per iteration
+    cp_async_wait<1>();   // everything but the newest group: this tile
+    __syncthreads();
+    const float* Kt = Ks + (it % kFwdStages) * kFwdK * LD;
+    const float* Vt = Vs + (it % kFwdStages) * kFwdK * LD;
+    fwd_tile<DP>(Qw, Kt, Vt, lane, k0, S, scale_log2, o, m, l);
+    __syncthreads();  // the next iteration refills the stage just read
   }
 
-  constexpr int R = kFwdQ * kMaxDh / kAttThreads;
-  float o[R];
+  float inv[2];
 #pragma unroll
-  for (int r = 0; r < R; ++r) o[r] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += kKeyTile) {
-    const int nk = min(kKeyTile, S - k0);
-    __syncthreads();
-    for (int e = tid; e < kKeyTile * dh; e += kAttThreads) {
-      const int j = e / dh, d = e % dh;
-      Ts[j * dp + d] = (j < nk) ? v[(long long)(k0 + j) * sv.s + d] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int e = tid + r * kAttThreads;
-      if (e < kFwdQ * dh) {
-        const int i = e / dh, d = e % dh;
-        float acc = o[r];
-        for (int j = 0; j < nk; ++j) acc = fmaf(Ps[i * S + k0 + j], Ts[j * dp + d], acc);
-        o[r] = acc;
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.0f / l[r];
   }
+  const int row = q0 + warp * 16 + g;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = tid + r * kAttThreads;
-    if (e < kFwdQ * dh) {
-      const int i = e / dh, d = e % dh;
-      if (i < nq) out[(long long)(q0 + i) * so.s + d] = o[r];
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = n * 8 + 2 * t + e;
+      if (d >= dh) continue;
+      if (row < S) out[(long long)row * so.s + d] = o[n][e] * inv[0];
+      if (row + 8 < S) out[(long long)(row + 8) * so.s + d] = o[n][2 + e] * inv[1];
     }
   }
 }
@@ -271,14 +394,14 @@ attn_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int H, int dh, float scale) {
   extern __shared__ float sm[];
   const int dp = dh + 1;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kFwdQ;
-  const int nq = min(kFwdQ, S - q0);
-  float* Qs = sm;                   // [kFwdQ][dh]
-  float* Os = Qs + kFwdQ * dh;      // [kFwdQ][dh]   dout rows
-  float* Ks = Os + kFwdQ * dh;      // [kKeyTile][dp]
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRowQ;
+  const int nq = min(kRowQ, S - q0);
+  float* Qs = sm;                   // [kRowQ][dh]
+  float* Os = Qs + kRowQ * dh;      // [kRowQ][dh]   dout rows
+  float* Ks = Os + kRowQ * dh;      // [kKeyTile][dp]
   float* Vs = Ks + kKeyTile * dp;   // [kKeyTile][dp]
-  float* Ps = Vs + kKeyTile * dp;   // [kFwdQ][S]    s, then A, then ds
-  float* Gs = Ps + kFwdQ * S;       // [kFwdQ][S]    dA
+  float* Ps = Vs + kKeyTile * dp;   // [kRowQ][S]    s, then A, then ds
+  float* Gs = Ps + kRowQ * S;       // [kRowQ][S]    dA
   q += head_at(sq, b, h);
   k += head_at(sk, b, h);
   v += head_at(sv, b, h);
@@ -286,7 +409,7 @@ attn_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   dq += head_at(sdq, b, h);
   const int tid = threadIdx.x;
 
-  for (int e = tid; e < kFwdQ * dh; e += kAttThreads) {
+  for (int e = tid; e < kRowQ * dh; e += kAttThreads) {
     const int i = e / dh, d = e % dh;
     const bool ok = i < nq;
     Qs[e] = ok ? q[(long long)(q0 + i) * sq.s + d] : 0.f;
@@ -301,7 +424,7 @@ attn_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
       Vs[j * dp + d] = (j < nk) ? v[(long long)(k0 + j) * sv.s + d] : 0.f;
     }
     __syncthreads();
-    for (int e = tid; e < kFwdQ * kKeyTile; e += kAttThreads) {
+    for (int e = tid; e < kRowQ * kKeyTile; e += kAttThreads) {
       const int i = e / kKeyTile, j = e % kKeyTile;
       if (j < nk) {
         float s = 0.f, g = 0.f;
@@ -344,7 +467,7 @@ attn_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // dq_i = sum_j ds_ij k_j
-  constexpr int R = kFwdQ * kMaxDh / kAttThreads;
+  constexpr int R = kRowQ * kMaxDh / kAttThreads;
   float acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
@@ -359,7 +482,7 @@ attn_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int e = tid + r * kAttThreads;
-      if (e < kFwdQ * dh) {
+      if (e < kRowQ * dh) {
         const int i = e / dh, d = e % dh;
         float a = acc[r];
         for (int j = 0; j < nk; ++j) a = fmaf(Ps[i * S + k0 + j], Ks[j * dp + d], a);
@@ -370,7 +493,7 @@ attn_bwd_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int e = tid + r * kAttThreads;
-    if (e < kFwdQ * dh) {
+    if (e < kRowQ * dh) {
       const int i = e / dh, d = e % dh;
       if (i < nq) dq[(long long)(q0 + i) * sdq.s + d] = acc[r];
     }
@@ -506,13 +629,49 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-size_t fwd_smem(int S, int dh) {
-  return sizeof(float) * ((size_t)kFwdQ * dh + (size_t)kKeyTile * (dh + 1) + (size_t)kFwdQ * S);
+// dh rounded up to the forward's 8-wide fragment steps.
+int fwd_dp(int dh) { return (dh + 7) / 8 * 8; }
+
+// The forward's Q tile and K/V rings, rows of dp + 4 floats: fixed by dh.
+size_t fwd_smem(int dh) {
+  return sizeof(float) * (size_t)(kFwdQ + 2 * kFwdStages * kFwdK) * (fwd_dp(dh) + 4);
+}
+
+struct FwdArgs {
+  const float *q, *k, *v;
+  float* out;
+  Strides sq, sk, sv, so;
+  int B, S, H, dh;
+  float scale_log2;
+};
+
+// Launches attn_fwd_kernel<DP, vec> for DP = fwd_dp(dh), found by walking
+// the 16 instantiations DP = 8, 16, ..., kMaxDh.
+template <int DP>
+cudaError_t launch_fwd(const FwdArgs& a, bool vec, cudaStream_t stream) {
+  if constexpr (DP > kMaxDh) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (fwd_dp(a.dh) != DP) return launch_fwd<DP + 8>(a, vec, stream);
+    auto kernel = vec ? attn_fwd_kernel<DP, true> : attn_fwd_kernel<DP, false>;
+    const size_t smem = fwd_smem(a.dh);
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.S + kFwdQ - 1) / kFwdQ, a.H, a.B);
+    kernel<<<grid, kFwdThreads, smem, stream>>>(a.q, a.k, a.v, a.out, a.sq, a.sk, a.sv,
+                                                 a.so, a.S, a.dh, a.scale_log2);
+    return cudaGetLastError();
+  }
+}
+
+// Every row of every head starts on a 16-byte boundary.
+bool rows_aligned16(const float* p, const Strides& s) {
+  return ((uintptr_t)p & 15) == 0 && s.b % 4 == 0 && s.h % 4 == 0 && s.s % 4 == 0;
 }
 
 size_t rows_smem(int S, int dh) {
-  return sizeof(float) * (2 * (size_t)kFwdQ * dh + 2 * (size_t)kKeyTile * (dh + 1) +
-                          2 * (size_t)kFwdQ * S);
+  return sizeof(float) * (2 * (size_t)kRowQ * dh + 2 * (size_t)kKeyTile * (dh + 1) +
+                          2 * (size_t)kRowQ * S);
 }
 
 size_t cols_smem(int dh) {
@@ -558,13 +717,14 @@ int tmx_gemm(const float* A, const float* B, float* C, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
-// Bytes of dynamic shared memory one attention block needs (the forward, or
-// the larger of the two backward passes), saturated at INT_MAX; and the most
+// Bytes of dynamic shared memory one attention block needs (the forward's,
+// fixed by dh; or the larger of the two backward passes, which grows with
+// S), saturated at INT_MAX; and the most
 // the device lets one block opt in to. The wrappers compare the two before
 // launch.
 int tmx_attn_smem(int S, int dh, int backward) {
   const size_t rs = rows_smem(S, dh), cs = cols_smem(dh);
-  const size_t bytes = backward ? (rs > cs ? rs : cs) : fwd_smem(S, dh);
+  const size_t bytes = backward ? (rs > cs ? rs : cs) : fwd_smem(dh);
   return bytes > (size_t)INT_MAX ? INT_MAX : (int)bytes;
 }
 
@@ -576,20 +736,23 @@ int tmx_smem_optin() {
 }
 
 // q, k, v, out: [B, H, S, dh] operands; strides: [4][3] (batch, head, row)
-// element strides of q, k, v, out in that order.
+// element strides of q, k, v, out in that order. copy_bytes: 16 (every row
+// of q, k and v 16-byte aligned and dh % 4 == 0; refused otherwise) or 4,
+// the width of the kernel's cp.async copies.
 int tmx_attn_fwd(const float* q, const float* k, const float* v, float* out,
                  const long long* strides, int B, int S, int H, int dh, float scale,
-                 void* stream) {
+                 int copy_bytes, void* stream) {
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = {strides[3 * i], strides[3 * i + 1], (int)strides[3 * i + 2]};
-  const size_t smem = fwd_smem(S, dh);
-  cudaError_t err = allow_smem(attn_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kFwdQ - 1) / kFwdQ, H, B);
-  attn_fwd_kernel<<<grid, kAttThreads, smem, (cudaStream_t)stream>>>(
-      q, k, v, out, st[0], st[1], st[2], st[3], S, dh, scale);
-  return (int)cudaGetLastError();
+  const bool vec = copy_bytes == 16;
+  if (!vec && copy_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (vec && !(dh % 4 == 0 && rows_aligned16(q, st[0]) && rows_aligned16(k, st[1]) &&
+               rows_aligned16(v, st[2])))
+    return (int)cudaErrorMisalignedAddress;
+  const FwdArgs a = {q, k, v, out, st[0], st[1], st[2], st[3],
+                     B, S, H, dh, scale * 1.4426950408889634f};
+  return (int)launch_fwd<8>(a, vec, (cudaStream_t)stream);
 }
 
 // q, k, v, dout in and dq, dk, dv out: [B, H, S, dh] operands; strides: [7][3]
@@ -609,7 +772,7 @@ int tmx_attn_bwd(const float* q, const float* k, const float* v, const float* do
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(attn_bwd_cols_kernel, cs);
   if (err != cudaSuccess) return (int)err;
-  attn_bwd_rows_kernel<<<dim3((S + kFwdQ - 1) / kFwdQ, H, B), kAttThreads, rs, s>>>(
+  attn_bwd_rows_kernel<<<dim3((S + kRowQ - 1) / kRowQ, H, B), kAttThreads, rs, s>>>(
       q, k, v, dout, dq, stats, st[0], st[1], st[2], st[3], st[4], B, S, H, dh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

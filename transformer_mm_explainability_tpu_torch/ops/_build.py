@@ -17,11 +17,13 @@ imported: the CPU tests import every module on a machine without ``nvcc``.
 
 Each ops module declares the C entry points it calls (``load``), and
 launches them with the helpers at the end of this file: ``on_cpu`` (the
-dispatch rule every wrapper follows), ``ptr`` and ``stream``.
+dispatch rule every wrapper follows), ``ptr``, ``stream`` and
+``on_device``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -148,5 +150,20 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream(device) -> int:
-    """The current CUDA stream of ``device``, as a ``cudaStream_t``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device``, as a ``cudaStream_t``: read
+    with the raw accessor that PyTorch's own generated kernels launch with,
+    since ``torch.cuda.current_stream`` builds a ``Stream`` object, several
+    microseconds per launch."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_device(device):
+    """``torch.cuda.device(device)``, or a no-op where ``device`` is already
+    the current one: entering that context costs several microseconds,
+    which a wrapper whose kernel runs for a few tens of them feels."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

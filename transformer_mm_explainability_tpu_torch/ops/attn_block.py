@@ -16,7 +16,7 @@ wrapper raises: there is no fallback. Each wrapper counts its CUDA
 launches in ``launches`` (see ``launch_counts``).
 
 The attention step of the two attention blocks goes through
-``ops/flash_attention`` (``attn_fwd_launch`` / ``attn_bwd_launch`` on
+``ops/flash_attention`` (``attn_fwd_launch_qkv`` / ``attn_bwd_launch`` on
 split-head views of the qkv buffer), which launches the attention kernels
 of the same library for every caller.
 
@@ -189,10 +189,11 @@ def _gemm(lib, a, b, stream, trans_b=False, bias=None, res=None, aux=None,
     return out
 
 
-def _check_heads(D: int, nheads: int, S: int, backward: bool) -> None:
+def _check_heads(D: int, nheads: int, S: int, backward: bool,
+                 device) -> None:
     if D % nheads:
         raise RuntimeError(f"width {D} not divisible by {nheads} heads")
-    fa.check_attention(fa.library(), S, D // nheads, backward)
+    fa.ensure_attention(S, D // nheads, backward, device)
 
 
 def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
@@ -202,11 +203,12 @@ def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
     """x [B, S, D] → x + proj(attention(LN(x))).
 
     Replaces ``attn_block_pallas.attn_block_fwd`` (``_fwd_kernel``). Bound
-    by operations (2·B·S·D·4D for the projections plus 4·B·H·S²·dh for
-    attention, fp32 CUDA cores); four launches: LN rows → qkv GEMM with the
-    bias in its epilogue → attention per (query tile, head, image) with A
-    only in shared memory → out-projection GEMM with bias and residual in
-    its epilogue, so qkv and the merged output are the only round trips."""
+    by operations (2·B·S·D·4D for the projections on the fp32 CUDA cores,
+    plus 4·B·H·S²·dh for attention on the tensor cores as 3xTF32); four
+    launches: LN rows → qkv GEMM with the bias in its epilogue → attention
+    per (query tile, head, image) with A only in registers → out-projection
+    GEMM with bias and residual in its epilogue, so qkv and the merged
+    output are the only round trips."""
     if _build.on_cpu(x):
         return attn_block_fwd_plain(x, w_qkv, b_qkv, w_out, b_out, ln_scale,
                                     ln_bias, nheads, eps)
@@ -216,15 +218,15 @@ def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
                b_out=(b_out, (D,)), ln_scale=(ln_scale, (D,)),
                ln_bias=(ln_bias, (D,)))
     lib = library()
-    _check_heads(D, nheads, S, backward=False)
+    _check_heads(D, nheads, S, False, x.device)
     x2 = x.view(B * S, D)
     with torch.cuda.device(x.device):
         st = _build.stream(x.device)
         h1, _, _ = _layer_norm(lib, x2, ln_scale, ln_bias, eps, st)
         qkv = _gemm(lib, h1, w_qkv, st, bias=b_qkv)
         merged = torch.empty_like(x2)
-        fa.attn_fwd_launch(*fa.qkv_heads(qkv.view(B, S, 3 * D), nheads),
-                           fa.heads(merged.view(B, S, D), nheads), st)
+        fa.attn_fwd_launch_qkv(qkv.view(B, S, 3 * D), merged.view(B, S, D),
+                               nheads, st)
         out = _gemm(lib, merged, w_out, st, bias=b_out, res=x2)
     attn_block_fwd.launches += 1
     return out.view(B, S, D)
@@ -322,7 +324,7 @@ def attn_block_bwd(x: torch.Tensor, cot_mid: torch.Tensor, r: torch.Tensor,
                b_qkv=(b_qkv, (3 * D,)), w_out=(w_out, (D, D)),
                ln_scale=(ln_scale, (D,)), ln_bias=(ln_bias, (D,)))
     lib = library()
-    _check_heads(D, nheads, S, backward=True)
+    _check_heads(D, nheads, S, True, x.device)
     x2, c2 = x.view(B * S, D), cot_mid.view(B * S, D)
     dev = x.device
     with torch.cuda.device(dev):

@@ -16,21 +16,26 @@ A tensor on the CPU goes to the plain PyTorch version beside each wrapper
 (``*_plain``). A CUDA tensor goes to the attention kernels of
 ``csrc/attn_block.cu``, or the wrapper raises: there is no fallback. This
 module launches those kernels for every caller: ``attn_fwd_launch`` /
-``attn_bwd_launch`` and ``check_attention`` below also serve the block
-wrappers of ``ops/attn_block``. The kernels take every
-operand as a base pointer plus (batch, head, row) strides, so the per-head
-wrappers accept any ``[B, H, S, dh]`` view whose dh axis is contiguous
-(split-head views of a merged qkv tensor included, without a copy), and
-the qkv wrappers pass split-head views of their merged tensors. A is never
-stored: the forward keeps score rows in shared memory and the backward
-recomputes A from q and k in two passes, rows then columns, with no
-atomics, so e_row is the same on every run. Each wrapper counts its CUDA
-launches in ``launches`` (see ``launch_counts``).
+``attn_fwd_launch_qkv`` / ``attn_bwd_launch`` and ``ensure_attention``
+below also serve the block wrappers of ``ops/attn_block``. The kernels
+take every operand as a base pointer plus (batch, head, row) strides, so
+the per-head wrappers accept any ``[B, H, S, dh]`` view whose dh axis is
+contiguous (split-head views of a merged qkv tensor included, without a
+copy), and the qkv wrappers pass split-head views of their merged tensors.
+A is never stored. The forward runs on the tensor cores as 3xTF32
+``mma.sync`` products (fp32 accuracy: split operands, no TF32 switch
+anywhere) with an online softmax over key tiles streamed by ``cp.async``;
+its shared memory is fixed by dh, so it takes any S. The backward
+recomputes A from q and k on the CUDA cores in two passes, rows then
+columns, with no atomics, so e_row is the same on every run. Neither
+splits a sum across blocks or orders it by timing: the same inputs give the
+same bits, whatever their layout. Each wrapper counts its CUDA launches in
+``launches`` (see ``launch_counts``).
 
 Before launch a wrapper rejects anything but float32, a head dim above
-``tmx_max_dh()`` (128), and a sequence length whose score rows need more
-shared memory than one block may opt in to (about S = 1,490 at dh = 64 for
-the backward on an H100).
+``tmx_max_dh()`` (128), and a backward whose score rows need more shared
+memory than one block may opt in to (about S = 1,490 at dh = 64 on an
+H100).
 
 The JAX module groups heads into 128-lane spans per program
 (``_heads_per_program``), a TPU layout rule; it has no counterpart here:
@@ -49,7 +54,7 @@ from transformer_mm_explainability_tpu_torch.ops import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {  # the attention entry points of csrc/attn_block.cu
-    "tmx_attn_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
+    "tmx_attn_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
     "tmx_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
     "tmx_attn_smem": [_I, _I, _I],
     "tmx_smem_optin": [],
@@ -57,10 +62,16 @@ _SIGNATURES = {  # the attention entry points of csrc/attn_block.cu
 }
 
 
+_lib = None
+
+
 def library() -> ctypes.CDLL:
     """The built and loaded ``csrc/attn_block.cu`` (built on first call),
     with its attention entry points declared."""
-    return _build.load("attn_block", _SIGNATURES)
+    global _lib
+    if _lib is None:
+        _lib = _build.load("attn_block", _SIGNATURES)
+    return _lib
 
 
 def heads(x: torch.Tensor, nheads: int) -> torch.Tensor:
@@ -152,8 +163,9 @@ def _check_r(device, r, B: int, S: int) -> None:
 
 def check_attention(lib, S: int, dh: int, backward: bool) -> None:
     """Raise, before launch, on a head dim or sequence length the attention
-    kernels cannot take: dh above ``tmx_max_dh``, or an S whose score rows
-    need more shared memory than one block may opt in to on this device."""
+    kernels cannot take: dh above ``tmx_max_dh``, or a block that needs
+    more shared memory than one block may opt in to on this device (the
+    forward's is fixed by dh; the backward's score rows grow with S)."""
     if dh > lib.tmx_max_dh():
         raise RuntimeError(f"head dim {dh} > {lib.tmx_max_dh()} is not "
                            "supported by the attention kernels")
@@ -166,26 +178,87 @@ def check_attention(lib, S: int, dh: int, backward: bool) -> None:
             f"{limit}")
 
 
-def _strides(*views) -> ctypes.Array:
-    """(batch, head, row) element strides of [B, H, S, dh] views; the
-    kernels hold a row stride in 32 bits."""
-    for t in views:
-        if not 0 <= t.stride(2) < 2 ** 31:
-            raise RuntimeError(f"row stride {t.stride(2)} does not fit the "
+_accepted = set()   # (S, dh, backward, device) that passed check_attention
+
+
+def ensure_attention(S: int, dh: int, backward: bool, device) -> None:
+    """``check_attention`` on the built library for ``device``, asked once
+    per (S, dh, backward, device): its answer depends on nothing else."""
+    key = (S, dh, backward, device)
+    if key in _accepted:
+        return
+    with _build.on_device(device):
+        check_attention(library(), S, dh, backward)
+    _accepted.add(key)
+
+
+def _stride_array(flat) -> ctypes.Array:
+    """(batch, head, row) element strides, operand after operand, for the
+    kernels, which hold a row stride in 32 bits."""
+    for row in flat[2::3]:
+        if not 0 <= row < 2 ** 31:
+            raise RuntimeError(f"row stride {row} does not fit the "
                                "attention kernels' 32-bit row offsets")
-    return (ctypes.c_longlong * (3 * len(views)))(
-        *(s for t in views for s in t.stride()[:3]))
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def view_args(*views):
+    """(pointers, strides) of [B, H, S, dh] views: each view's data
+    pointer, and its (batch, head, row) element strides, view after view."""
+    return ([t.data_ptr() for t in views],
+            [s for t in views for s in t.stride()[:3]])
+
+
+def _strides(*views) -> ctypes.Array:
+    """The stride array of [B, H, S, dh] views."""
+    return _stride_array(view_args(*views)[1])
+
+
+def copy_width(dh: int, pointers, strides) -> int:
+    """Width in bytes of the forward kernel's ``cp.async`` copies for q, k
+    and v (their pointers and strides, as ``view_args`` gives them): 16
+    where dh is a multiple of 4, every pointer is 16-byte aligned and every
+    stride a multiple of 4 floats, so that every row starts on a 16-byte
+    boundary; else 4. The merged layouts of the model paths take 16."""
+    if dh % 4 or any(p % 16 for p in pointers) or any(s % 4 for s in strides):
+        return 4
+    return 16
+
+
+def qkv_args(qkv, out, nheads: int):
+    """``view_args`` of the split-head views of a merged qkv [B, S, 3D] and
+    output [B, S, D] (``qkv_heads`` and ``heads``), computed without making
+    the views."""
+    D = out.shape[-1]
+    dh = D // nheads
+    base, (bq, sq, _), (bo, so, _) = qkv.data_ptr(), qkv.stride(), out.stride()
+    size = qkv.element_size()
+    return ([base, base + D * size, base + 2 * D * size, out.data_ptr()],
+            [bq, dh, sq] * 3 + [bo, dh, so])
+
+
+def _fwd(pointers, strides, B: int, S: int, H: int, dh: int, stream) -> None:
+    lib = library()
+    _build.check(lib, "tmx_attn_fwd", lib.tmx_attn_fwd(
+        *pointers, _stride_array(strides), B, S, H, dh, 1.0 / math.sqrt(dh),
+        copy_width(dh, pointers[:3], strides[:9]), stream))
 
 
 def attn_fwd_launch(q, k, v, out, stream) -> None:
     """softmax(q·kᵀ/√dh)·v into ``out`` on ``stream``; all four are
     [B, H, S, dh] views with unit stride along dh, and S and dh passed
-    ``check_attention`` (both checked by the caller)."""
+    ``check_attention`` (both checked by the caller). The copy width is
+    picked from q, k and v (``copy_width``)."""
     B, H, S, dh = q.shape
-    lib = library()
-    _build.check(lib, "tmx_attn_fwd", lib.tmx_attn_fwd(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        _strides(q, k, v, out), B, S, H, dh, 1.0 / math.sqrt(dh), stream))
+    _fwd(*view_args(q, k, v, out), B, S, H, dh, stream)
+
+
+def attn_fwd_launch_qkv(qkv, out, nheads: int, stream) -> None:
+    """``attn_fwd_launch`` on the split-head views of a merged qkv
+    [B, S, 3D] and output [B, S, D] (``qkv_args``): the same launch,
+    without making six views per call."""
+    B, S, D = out.shape
+    _fwd(*qkv_args(qkv, out, nheads), B, S, nheads, D // nheads, stream)
 
 
 def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream) -> torch.Tensor:
@@ -209,15 +282,15 @@ def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream) -> torch.Tensor:
 
 def _launch_fwd(q, k, v, out) -> None:
     B, H, S, dh = q.shape
-    check_attention(library(), S, dh, backward=False)
-    with torch.cuda.device(q.device):
+    ensure_attention(S, dh, False, q.device)
+    with _build.on_device(q.device):
         attn_fwd_launch(q, k, v, out, _build.stream(q.device))
 
 
 def _launch_bwd(q, k, v, dout, r, dq, dk, dv) -> torch.Tensor:
     B, H, S, dh = q.shape
-    check_attention(library(), S, dh, backward=True)
-    with torch.cuda.device(q.device):
+    ensure_attention(S, dh, True, q.device)
+    with _build.on_device(q.device):
         return attn_bwd_launch(q, k, v, dout, r, dq, dk, dv,
                                _build.stream(q.device))
 
@@ -229,8 +302,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     [B, H, S, dh].
 
     Replaces ``flash_attention.flash_fwd`` (``_fwd_kernel``). Bound by
-    operations (4·B·H·S²·dh fp32); one block per (16-query tile, head,
-    image) keeps its score rows in shared memory."""
+    operations (4·B·H·S²·dh); both products run on the tensor cores as
+    3xTF32 ``mma.sync`` at fp32 accuracy. One block of 4 warps per
+    (64-query tile, head, image) keeps Q in shared memory, streams K and V
+    in 32-key ``cp.async`` tiles and keeps an online softmax per row, so
+    any S fits."""
     if _build.on_cpu(q):
         return flash_fwd_plain(q, k, v)
     _check(q.device, _heads_shape(q), q=q, k=k, v=v)
@@ -271,7 +347,10 @@ def flash_fwd_qkv(qkv: torch.Tensor, nheads: int) -> torch.Tensor:
     [B, S, D] in the merged-head layout, with no transposes.
 
     Replaces ``flash_attention.flash_fwd_qkv`` (``_fwd_kernel2``): the
-    kernel of ``flash_fwd`` on split-head views of qkv and of the output."""
+    tensor-core kernel of ``flash_fwd`` on split-head views of qkv and of
+    the output (16-byte copies where dh is a multiple of 4: the merged
+    layout then aligns every head's rows); the same bits as ``flash_fwd``
+    on those views."""
     if _build.on_cpu(qkv):
         return flash_fwd_qkv_plain(qkv, nheads)
     B, S, D3 = qkv.shape
@@ -280,7 +359,9 @@ def flash_fwd_qkv(qkv: torch.Tensor, nheads: int) -> torch.Tensor:
     D = D3 // 3
     _check(qkv.device, (B, S, D3), qkv=qkv)
     out = torch.empty((B, S, D), device=qkv.device, dtype=torch.float32)
-    _launch_fwd(*qkv_heads(qkv, nheads), heads(out, nheads))
+    ensure_attention(S, D // nheads, False, qkv.device)
+    with _build.on_device(qkv.device):
+        attn_fwd_launch_qkv(qkv, out, nheads, _build.stream(qkv.device))
     flash_fwd_qkv.launches += 1
     return out
 
