@@ -7,16 +7,24 @@
 2. builds ``csrc/attn_block.cu``, ``csrc/relevancy_chain.cu`` and
    ``csrc/roi_pool.cu`` with ``nvcc`` for ``sm_90a`` (one compiler process
    each, started together) and prints the build time and ptxas's register /
-   spill report, one line per kernel;
-3. kernel phase, each wrapper on the card held to its plain PyTorch version
+   spill report, one line per kernel (the GEMM must not spill);
+3. GEMM phase: each product of the block kernels (g1-g9) and the chain
+   (gc) at the shapes of the main path (B=8), through
+   ``ops/attn_block._gemm``, the tensor-core GEMM of ``csrc/common.cuh``:
+   one line each with the tile it takes, its time (median of 5 event
+   means, with their spread) and TFLOP/s, one PyTorch call's
+   (``torch.addmm`` / ``torch.matmul`` / ``torch.baddbmm`` in fp32, TF32
+   off), the fp32 and 3xTF32 bounds, and max|Δ| from float64 over
+   max|C64| beside the fp32 library's own; a shape past 1e-5 raises;
+4. kernel phase, each wrapper on the card held to its plain PyTorch version
    on the same inputs, with its time and the plain version's time (CUDA
    events, mean of 50 back-to-back calls after 3 warm-up calls; for the
-   three rows that run the attention forward, the median of 5 such means,
-   with their spread), the least time the card could take (``bound_ms``,
-   fp32 on the CUDA cores; for the two flash forward rows, which run on the
-   tensor cores, also ``bound_tc_ms`` at the 3xTF32 rate) and, where one
-   PyTorch call computes the same function, that call's time
-   (``library_ms``):
+   rows that run the GEMM or the attention forward, the median of 5 such
+   means, with their spread), the least time the card could take
+   (``bound_ms``, fp32 on the CUDA cores; for the rows whose products run
+   on the tensor cores, also ``bound_tc_ms`` at the 3xTF32 rate, and
+   ``unit`` says where each row's work runs) and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``):
    - at ViT-B/16 widths (B=8, S=197, D=768, H=12, dh=64, I=3072; fp32,
      TF32 off, within rtol 5e-4 / atol 1e-4): the four block wrappers of
      ``ops/attn_block``; the four of ``ops/flash_attention`` (per-head on
@@ -31,7 +39,7 @@
    - ``ops/roi_pool_pallas`` at the protocol shape (a [50, 76, 1024] map,
      1,000 boxes over an 800×1216 image with a tiny, a clipped and a
      degenerate one, P=14, scale 1/16), EXACTLY equal to its plain version;
-4. ViT path phase, full-width ViT-B/16 (12 layers, seeded random weights,
+5. ViT path phase, full-width ViT-B/16 (12 layers, seeded random weights,
    B=8): ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
    ``relevancy_fused_block``. For each, every launch counter is set to 0
    before the call and must read exactly the path's kernels 12 times after
@@ -45,9 +53,9 @@
    splits the device time of ``relevancy_fused_block2``,
    ``relevancy_fused`` and the chain by kernel and gives the device's idle
    share;
-5. cli phase: ``cli explain-vit --device cuda`` on a generated PNG, again
+6. cli phase: ``cli explain-vit --device cuda`` on a generated PNG, again
    through the kernels;
-6. FRCNN path phase, full-width ``FRCNN_VG`` (ResNet-101 C4, 6000 → 1000
+7. FRCNN path phase, full-width ``FRCNN_VG`` (ResNet-101 C4, 6000 → 1000
    RPN proposals, P=14, 1600 classes, 400 attributes, 36 detections;
    seeded random weights): two generated 600×912 RGB images through
    ``frcnn.preprocess`` (→ 800×1216) and ``frcnn.forward``, every counter
@@ -57,14 +65,14 @@
    1e-5 of each output's scale, the pooled maps exactly); images/s (median
    of 3), a per-stage split from CUDA events and a torch.profiler split
    with the device's idle share;
-7. LXMERT path phase, full-width ``LXMERT_VQA`` (9/5/5 layers, D=768, 12
+8. LXMERT path phase, full-width ``LXMERT_VQA`` (9/5/5 layers, D=768, 12
    heads, 3129 answers; seeded random weights), B=8 questions of St=20
    (several true lengths, padded) on the two images' 36 detections:
    ``LxmertPerturbationRunner(..., "ours_no_lrp").explain_batched`` on the
    card within max|Δ| < 1e-4 of the same call on the CPU; explanations/s
    at B=8 and B=32 and perturbation samples/s (9 steps, image and text) at
    B=8, medians of 3;
-8. LXMERT cli phase: ``cli perturbation --model lxmert --device cuda`` (the
+9. LXMERT cli phase: ``cli perturbation --model lxmert --device cuda`` (the
    synthetic run) and the port's LXMERT example on a generated PNG, which
    must write its two files through the RoIPool kernel (1 launch).
 
@@ -96,6 +104,7 @@ MAP_BAR = 1e-4                     # the repo's relevancy parity target
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 TF32_FLOPS = 495e12   # dense TF32 on the tensor cores; 3xTF32 takes 3 each
 F64_BAR = 1e-5        # forward kernels vs the plain version in float64
+GEMM_BAR = 1e-5       # GEMM: max|Δ| from float64 over max|C64|
 CSRC = "transformer_mm_explainability_tpu_torch/csrc"
 JAX_OPS = "transformer_mm_explainability_tpu/ops"
 KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
@@ -112,6 +121,32 @@ KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
     "roi_pool_pallas": ("roi_pool.cu", "roi_pool_pallas.py:95"),
 }
 LIBRARIES = ("attn_block", "relevancy_chain", "roi_pool")
+_GEMMS = "tensor cores, 3xTF32 (GEMMs"
+BLOCK_UNITS = {   # where the work of each row built on the GEMM runs
+    "attn_block_fwd": f"{_GEMMS} and attention); LayerNorm on the CUDA "
+                      "cores, fp32",
+    "mlp_block_fwd": f"{_GEMMS}); LayerNorm on the CUDA cores, fp32",
+    "mlp_block_bwd": f"{_GEMMS}); LayerNorm and its VJP on the CUDA cores, "
+                     "fp32",
+    "attn_block_bwd": f"{_GEMMS}); attention backward, e_row and LayerNorm "
+                      "on the CUDA cores, fp32",
+    "self_attention_relevancy_pallas": "tensor cores, 3xTF32 (GEMM); Ê "
+                                       "reduction on the CUDA cores, fp32",
+}
+# the products of one relevancy_fused_block2 call at B=8 (M = B·S) and of
+# the chain: name: (M, N, K, trans_b, epilogue, batch, launches per call)
+GEMMS = {
+    "g1 LN1·W_qkv": (B * S, 3 * D, D, False, "bias", 1, 24),
+    "g2 merged·W_out": (B * S, D, D, False, "bias+res", 1, 12),
+    "g3 LN2·W1": (B * S, I, D, False, "bias+gelu", 1, 12),
+    "g4 GELU·W2": (B * S, D, I, False, "bias+res", 1, 12),
+    "g5 LN2·W1": (B * S, I, D, False, "bias", 1, 12),
+    "g6 cot·W2ᵀ": (B * S, I, D, True, "gelu'(aux), aux is C", 1, 12),
+    "g7 da·W1ᵀ": (B * S, D, I, True, "none", 1, 12),
+    "g8 cot·W_outᵀ": (B * S, D, D, True, "none", 1, 12),
+    "g9 dqkv·W_qkvᵀ": (B * S, D, 3 * D, True, "none", 1, 12),
+    "gc E·R + R": (S, S, S, False, "res", B, 12),
+}
 # the RoIPool protocol shape: res4 map of an 800×1216 image, 1000 RPN boxes
 ROI_H, ROI_W, ROI_C, ROI_K, ROI_P = 50, 76, 1024, 1000, 14
 
@@ -213,12 +248,13 @@ def timed(fn, repeats: int) -> tuple:
 def measure(name: str, kernel, plain, library=None, layers: int = 12,
             extra_err: float = 0.0, exact: bool = False,
             bin_pixels: int = 0, repeats: int = 1,
-            tensor_cores: bool = False) -> dict:
+            tensor_cores: bool = False, unit: str = "") -> dict:
     """Hold ``kernel()`` to ``plain()`` (same inputs; equal to the bit when
     ``exact``) and time both, and ``library()`` where given, each as the
     median of ``repeats`` means; one row of the kernels line.
     ``tensor_cores``: the kernel's products run as 3xTF32 on the tensor
-    cores, which adds their bound (``bound_tc_ms``)."""
+    cores, which adds their bound (``bound_tc_ms``). ``unit``: where the
+    kernel's work runs, where the default words do not say it."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -254,8 +290,8 @@ def measure(name: str, kernel, plain, library=None, layers: int = 12,
            "replaces": f"{JAX_OPS}/{replaces}", "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
            "bound_by": bound_by, "library_ms": library_ms,
-           "unit": "tensor cores, 3xTF32" if tensor_cores
-           else "CUDA cores, fp32"}
+           "unit": unit or ("tensor cores, 3xTF32" if tensor_cores
+                            else "CUDA cores, fp32")}
     tc_txt = ""
     if tensor_cores:
         row["bound_tc_ms"] = max(3 * flops / TF32_FLOPS * 1e3, t_bytes)
@@ -266,6 +302,77 @@ def measure(name: str, kernel, plain, library=None, layers: int = 12,
           f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB){tc_txt}{timing}",
           flush=True)
     return row
+
+
+def gemm_phase(ab, gen) -> None:
+    """Each product of the block kernels (g1-g9) and the chain (gc) through
+    ``ops/attn_block._gemm`` at the shapes of the main path: the tile it
+    takes, its time (median of 5 event means) beside one PyTorch call's and
+    both bounds, and its distance from float64, held to GEMM_BAR ·
+    max|C64|."""
+    dev = torch.device("cuda")
+    lib = ab.library()
+    st = torch.cuda.current_stream().cuda_stream
+    total = total_lib = 0.0
+    for name, (M, N, K, trans_b, epi, batch, per_call) in GEMMS.items():
+        lead = (batch,) if batch > 1 else ()
+        rnd = lambda *s_: torch.randn(s_, generator=gen).to(dev)
+        a = rnd(*lead, M, K)
+        b = rnd(*lead, *((N, K) if trans_b else (K, N))) / math.sqrt(K)
+        bias, res, aux = rnd(N) * 0.1, rnd(*lead, M, N), rnd(*lead, M, N)
+        kw = {"bias": bias if "bias" in epi else None,
+              "res": res if "res" in epi else None,
+              "aux": aux if "gelu'" in epi else None,
+              "act": (ab._ACT_MUL_GELU_GRAD if "gelu'" in epi else
+                      ab._ACT_GELU if "gelu" in epi else ab._ACT_NONE)}
+        f64 = {k: v.double() if torch.is_tensor(v) else v
+               for k, v in kw.items()}
+        want = ab.gemm_plain(a.double(), b.double(), trans_b, **f64)
+        own = ab.gemm_plain(a, b, trans_b, **kw)
+        if "gelu'" in epi:   # the product written over aux, as in the path
+            buf = aux.clone()
+            kw.update(aux=buf, out=buf)
+        run = lambda: ab._gemm(lib, a, b, st, trans_b=trans_b, **kw)
+        got = run()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), f"gemm {name}: non-finite output"
+        scale = float(want.abs().max())
+        err = float((got.double() - want).abs().max()) / scale
+        own_err = float((own.double() - want).abs().max()) / scale
+        op_b = b.transpose(-1, -2) if trans_b else b
+        if "bias" in epi:     # one call: the product and the bias
+            library = lambda: torch.addmm(bias, a, op_b)
+        elif batch > 1:       # the chain's whole function
+            library = lambda: torch.baddbmm(res, a, op_b)
+        else:
+            library = lambda: torch.matmul(a, op_b)
+        ms, lo, hi = timed(run, 5)
+        lib_ms = timed(library, 5)[0]
+        flops = 2 * M * N * K * batch
+        nbytes = 4 * batch * (M * K + K * N + M * N
+                              * (1 + ("res" in epi) + ("gelu'" in epi)))
+        nbytes += 4 * N * ("bias" in epi)
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        b32 = max(flops / FP32_FLOPS * 1e3, t_bytes)
+        btc = max(3 * flops / TF32_FLOPS * 1e3, t_bytes)
+        if batch == 1:   # g1-g9: the products of the main path
+            total += per_call * ms
+            total_lib += per_call * lib_ms
+        warps = lib.tmx_gemm_warps(M, N, batch)
+        tile = f"64x64 ({warps} warps of 32x{128 // warps})"
+        shape = f"{batch} x " if batch > 1 else ""
+        print(f"gemm {name}: {shape}{M}x{K}x{N} (MxKxN), B "
+              f"{'[N,K]' if trans_b else '[K,N]'}, epilogue {epi}, copies "
+              f"{ab.gemm_copy_width(a, b)} B, tile {tile}: kernel "
+              f"{ms:.4f} ms ({lo:.4f}-{hi:.4f}) {flops / ms / 1e9:.1f} "
+              f"TFLOP/s; library {lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} "
+              f"TFLOP/s; bounds fp32 {b32:.4f} ms, 3xTF32 {btc:.4f} ms; "
+              f"max|Δ|/max|C64| {err:.2e} (bar {GEMM_BAR:g}; fp32 library "
+              f"{own_err:.2e}); {per_call} launches per call", flush=True)
+        assert err <= GEMM_BAR, f"gemm {name}: {err} of max|C64| from float64"
+    print(f"gemm per relevancy_fused_block2 call (B={B}, g1-g9): kernel "
+          f"{total:.3f} ms, library {total_lib:.3f} ms (sum of launches x "
+          f"median event means)", flush=True)
 
 
 def block_kernel_phase(ab, gen) -> dict:
@@ -299,9 +406,10 @@ def block_kernel_phase(ab, gen) -> dict:
                                             bl1, H, EPS)),
     }
     # no single PyTorch call computes a fused block: library_ms is null;
-    # attn_block_fwd runs the attention forward, timed as a median of 5
-    return {name: measure(name, kernel, plain,
-                          repeats=5 if name == "attn_block_fwd" else 1)
+    # their products run on the tensor cores, each row timed as a median
+    # of 5
+    return {name: measure(name, kernel, plain, repeats=5, tensor_cores=True,
+                          unit=BLOCK_UNITS[name])
             for name, (kernel, plain) in calls.items()}
 
 
@@ -391,7 +499,8 @@ def chain_kernel_phase(rp, cams, grads) -> dict:
     return {name: measure(
         name, lambda: rp.self_attention_relevancy_pallas(cams, grads),
         lambda: rp.self_attention_relevancy_pallas_plain(cams, grads),
-        layers=cams.shape[1], extra_err=err)}
+        layers=cams.shape[1], extra_err=err, repeats=5, tensor_cores=True,
+        unit=BLOCK_UNITS[name])}
 
 
 def roi_kernel_phase(rpool, gen) -> dict:
@@ -538,8 +647,7 @@ def check_maps(path: str, maps, refs: dict) -> None:
 # kernel-name patterns (mangled or demangled): the port's kernels first,
 # then cuDNN's convolutions and cuBLAS / cuDNN products
 KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
-                 ("gemm 128x128", r"gemm_kernel(<|ILi)128"),
-                 ("gemm 64x64", r"gemm_kernel(<|ILi)64"),
+                 ("GEMM 64x64 (tensor cores)", "gemm_tc_kernel"),
                  ("attn fwd", "attn_fwd_kernel"),
                  ("attn bwd rows", "attn_bwd_rows_kernel"),
                  ("attn bwd cols", "attn_bwd_cols_kernel"),
@@ -851,11 +959,14 @@ def main() -> int:
                 path.with_suffix(".log").read_text()):
             print(f"  ptxas {lib}: {kernel}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads")
+            assert not kernel.startswith("gemm_tc_kernel") or st + ld == 0, \
+                f"{kernel} spills"
     mods = (ab, fa, rp, rpool)
     for mod in mods:
         mod.library()
 
     gen = torch.Generator().manual_seed(0)
+    gemm_phase(ab, torch.Generator().manual_seed(4))
     rows = block_kernel_phase(ab, gen)
     rows.update(flash_kernel_phase(fa, gen))
 

@@ -87,6 +87,46 @@ def test_other_devices_raise():
         attn_fwd(tab, a, 2)
 
 
+def _gemm_case(case):
+    """Operands of ``_gemm`` that the kernel would misread: a 3-D a with a
+    shared 2-D b (its row stride taken for a batch stride), and others."""
+    z = lambda *s: torch.zeros(s)
+    a, b, kw = z(3, 5, 8), z(3, 8, 6), {}
+    if case == "shared 2-D b":
+        b = z(8, 6)
+    elif case == "2-D out":
+        kw["out"] = z(5, 6)
+    elif case == "2-D res":
+        kw["res"] = z(5, 6)
+    elif case == "other batch":
+        b = z(2, 8, 6)
+    elif case == "other K":
+        b = z(3, 7, 6)
+    elif case == "transposed a":
+        a = z(3, 8, 5).transpose(1, 2)
+    elif case == "float64 aux":
+        kw.update(aux=z(3, 5, 6).double(), act=tab._ACT_MUL_GELU_GRAD)
+    elif case == "bias of other N":
+        kw["bias"] = z(5)
+    elif case == "4-D a":
+        a, b = z(1, 3, 5, 8), z(1, 3, 8, 6)
+    return a, b, kw
+
+
+@pytest.mark.parametrize("case,match", [
+    ("shared 2-D b", "both be 2-D or both 3-D"), ("4-D a", "both be 2-D"),
+    ("2-D out", "out has shape"), ("2-D res", "res has shape"),
+    ("other batch", "b has shape"), ("other K", "b has shape"),
+    ("transposed a", "a must be contiguous"), ("float64 aux", "float64"),
+    ("bias of other N", "bias has shape")])
+def test_gemm_refuses_operands_before_launch(case, match):
+    """``_gemm`` checks its operands before it touches the library: with no
+    library at all, each bad case raises its own error."""
+    a, b, kw = _gemm_case(case)
+    with pytest.raises(RuntimeError, match=match):
+        tab._gemm(None, a, b, 0, **kw)
+
+
 def test_nvcc_missing_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "nvcc")

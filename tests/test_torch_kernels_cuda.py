@@ -1,5 +1,6 @@
 """The port's CUDA kernels (csrc/attn_block.cu, csrc/relevancy_chain.cu,
-csrc/roi_pool.cu) against their plain versions, on the card.
+csrc/roi_pool.cu) against their plain versions, on the card; their GEMM
+(csrc/common.cuh) also against float64.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
@@ -20,6 +21,7 @@ import torch
 
 from transformer_mm_explainability_tpu_torch.models import frcnn as tfrcnn
 from transformer_mm_explainability_tpu_torch.models import vit as tvit
+from transformer_mm_explainability_tpu_torch.ops import _build
 from transformer_mm_explainability_tpu_torch.ops import attn_block as tab
 from transformer_mm_explainability_tpu_torch.ops import flash_attention as tfa
 from transformer_mm_explainability_tpu_torch.ops import relevancy_pallas as trp
@@ -419,6 +421,170 @@ def test_fused_paths_on_kernels_match_plain_chains(cuda, path, counts):
                 tvit.relevancy_streamed_row(model, images, targets),
                 tvit.relevancy_streamed(model, images, targets)):
         assert float((got - ref).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the GEMM of csrc/common.cuh (3xTF32 on the tensor cores), through
+# ops/attn_block._gemm and the chain wrapper, against float64
+# ---------------------------------------------------------------------------
+
+# max|Δ| from float64 over max|C64|: 3xTF32 keeps fp32 accuracy (about
+# 1e-7 here), a single TF32 product misses the bar (about 3e-4;
+# tests/test_torch_gemm_tf32.py emulates both on the CPU)
+GEMM_BAR = 1e-5
+GEMM_DIMS = (1, 7, 33, 197, 1576)
+GEMM_SHAPES = ([(m, n, k) for m in GEMM_DIMS for n in GEMM_DIMS
+                for k in (1, 197)]
+               + [(m, n, k) for m, n in ((1576, 768), (33, 197), (7, 1576))
+                  for k in (7, 33, 1576, 3072)])
+GEMM_EPILOGUES = ("bias", "bias_res", "bias_gelu", "gelu_grad_aux_is_out",
+                  "res")
+
+
+def gemm_operands(M, N, K, trans_b, seed=0, lead=()):
+    rng = np.random.RandomState(seed)
+    a = rng.randn(*lead, M, K).astype(np.float32)
+    b = rng.randn(*lead, *((N, K) if trans_b else (K, N))).astype(np.float32)
+    return a, b
+
+
+def gemm_f64(a, b, trans_b, **kw):
+    """The GEMM's function (``gemm_plain``) in float64."""
+    return tab.gemm_plain(a.double(), b.double(), trans_b,
+                          **{k: v.double() if torch.is_tensor(v) else v
+                             for k, v in kw.items()})
+
+
+def gemm_cuda(a, b, **kw):
+    return tab._gemm(tab.library(), a, b, _build.stream(a.device), **kw)
+
+
+def assert_near_f64(got, want):
+    err = float((got.double() - want).abs().max())
+    scale = float(want.abs().max())
+    assert err <= GEMM_BAR * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("M,N,K", GEMM_SHAPES)
+def test_gemm_within_1e5_of_float64_and_repeats_bits(cuda, M, N, K,
+                                                      trans_b):
+    a, b = (torch.from_numpy(t).to(cuda)
+            for t in gemm_operands(M, N, K, trans_b))
+    row_b = K if trans_b else N
+    assert tab.gemm_copy_width(a, b) == (16 if K % 4 == row_b % 4 == 0
+                                         else 4)
+    got = gemm_cuda(a, b, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    assert_near_f64(got, gemm_f64(a, b, trans_b))
+    assert torch.equal(gemm_cuda(a, b, trans_b=trans_b), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("M,N,K", [(197, 768, 768), (33, 197, 77)])
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+def test_gemm_epilogues_within_1e5_of_float64(cuda, epilogue, M, N, K,
+                                              trans_b):
+    """Each epilogue of the block kernels, with 8-byte (N even) and
+    scalar (N odd) accesses; GELU'(aux) written over aux itself, as
+    mlp_block_bwd does."""
+    a, b = (torch.from_numpy(t).to(cuda)
+            for t in gemm_operands(M, N, K, trans_b, seed=1))
+    rng = np.random.RandomState(2)
+    bias, res, aux = (torch.from_numpy(t.astype(np.float32)).to(cuda)
+                      for t in (rng.randn(N), rng.randn(M, N),
+                                rng.randn(M, N)))
+    kw = {"bias": dict(bias=bias),
+          "bias_res": dict(bias=bias, res=res),
+          "bias_gelu": dict(bias=bias, act=tab._ACT_GELU),
+          "gelu_grad_aux_is_out": dict(aux=aux, act=tab._ACT_MUL_GELU_GRAD),
+          "res": dict(res=res)}[epilogue]
+    want = gemm_f64(a, b, trans_b, **kw)
+    if "aux" in kw:
+        kw["out"] = kw["aux"] = aux.clone()
+        got = gemm_cuda(a, b, trans_b=trans_b, **kw)
+        assert got is kw["out"]
+        again = gemm_cuda(a, b, trans_b=trans_b,
+                          **{**kw, "out": aux.clone(), "aux": aux.clone()})
+    else:
+        got = gemm_cuda(a, b, trans_b=trans_b, **kw)
+        again = gemm_cuda(a, b, trans_b=trans_b, **kw)
+    torch.cuda.synchronize()
+    assert_near_f64(got, want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bt,M,N,K", [(8, 197, 197, 197), (3, 64, 40, 96)])
+def test_gemm_batched_within_1e5_of_float64(cuda, Bt, M, N, K):
+    """Batched products with the chain's residual epilogue: planes of
+    197-float rows (most rows start off the 16-byte grid: 4-byte copies)
+    and aligned planes (16-byte copies)."""
+    a, b = (torch.from_numpy(t).to(cuda)
+            for t in gemm_operands(M, N, K, False, seed=3, lead=(Bt,)))
+    res = torch.from_numpy(np.random.RandomState(4).randn(Bt, M, N)
+                           .astype(np.float32)).to(cuda)
+    assert tab.gemm_copy_width(a, b) == (4 if K % 4 else 16)
+    got = gemm_cuda(a, b, res=res)
+    torch.cuda.synchronize()
+    assert got.shape == (Bt, M, N)
+    assert_near_f64(got, gemm_f64(a, b, False, res=res))
+    assert torch.equal(gemm_cuda(a, b, res=res), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_gemm_operand_off_by_one_float_takes_4_byte_copies(cuda, which,
+                                                           trans_b):
+    """An operand that starts one float past a 16-byte boundary: 4-byte
+    copies, the same shared-memory contents, so the bits of the 16-byte
+    copies of the same values."""
+    M, N, K = 197, 96, 768
+    a, b = (torch.from_numpy(t).to(cuda)
+            for t in gemm_operands(M, N, K, trans_b, seed=5))
+    dense = gemm_cuda(a, b, trans_b=trans_b)
+    t = a if which == "a" else b
+    buf = torch.empty(t.numel() + 1, device=cuda)
+    shifted = buf[1:].view(t.shape)
+    shifted.copy_(t)
+    a2, b2 = (shifted, b) if which == "a" else (a, shifted)
+    assert tab.gemm_copy_width(a, b) == 16
+    assert tab.gemm_copy_width(a2, b2) == 4
+    got = gemm_cuda(a2, b2, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert_near_f64(got, gemm_f64(a, b, trans_b))
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+def test_gemm_refuses_16_byte_copies_of_unaligned_rows(cuda):
+    lib = tab.library()
+    buf = torch.randn(33 * 8 + 1, device=cuda)
+    a, b = buf[1:].view(33, 8), torch.randn(8, 16, device=cuda)
+    out = torch.empty(33, 16, device=cuda)
+    err = lib.tmx_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), 33, 16, 8,
+                       0, None, None, None, tab._ACT_NONE, 1, 0, 0, 0, 16,
+                       _build.stream(cuda))
+    with pytest.raises(RuntimeError, match="tmx_gemm"):
+        _build.check(lib, "tmx_gemm", err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [197, 128])
+def test_relevancy_chain_within_1e5_of_float64(cuda, S):
+    """The chain's products through the tensor-core GEMM (4-byte copies at
+    S = 197, 16-byte at S = 128), against the plain chain in float64."""
+    cams, grads = (torch.from_numpy(t).to(cuda)
+                   for t in chain_inputs(2, 6, 3, S, seed=6))
+    got = trp.self_attention_relevancy_pallas(cams, grads)
+    want = trp.self_attention_relevancy_pallas_plain(cams.double(),
+                                                     grads.double())
+    torch.cuda.synchronize()
+    assert_near_f64(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -27,13 +27,13 @@
 //                      also writes (mean, 1/sigma) for the backward.
 //   ln_vjp_kernel      LayerNorm input-cotangent (the Pallas _ln_vjp) plus
 //                      the residual skip, one warp per row.
-//   gemm_kernel        (common.cuh) tiled fp32 GEMM (shared-memory tiles,
-//                      register micro-tile, register prefetch of the next K
-//                      slice) with an optional transposed B and fused
-//                      epilogues: bias, residual add, exact-erf GELU, multiply
-//                      by GELU'(aux). Every product of the Pallas bodies runs
-//                      here: LN1*W_qkv, merged*W_out, LN2*W1, GELU*W2,
-//                      cot*W2^T, da*W1^T, cot*W_out^T and dqkv*W_qkv^T.
+//   gemm_tc_kernel     (common.cuh) the fp32 GEMM on the tensor cores,
+//                      3xTF32 mma.sync fed by a cp.async ring, with an
+//                      optional transposed B and fused epilogues: bias,
+//                      residual add, exact-erf GELU, multiply by GELU'(aux).
+//                      Every product of the Pallas bodies runs here:
+//                      LN1*W_qkv, merged*W_out, LN2*W1, GELU*W2, cot*W2^T,
+//                      da*W1^T, cot*W_out^T and dqkv*W_qkv^T.
 //   attn_fwd_kernel    the attention forward on the tensor cores (below).
 //   attn_bwd_rows_kernel / attn_bwd_cols_kernel / e_row_kernel
 //                      the attention backward with A recomputed (never
@@ -45,15 +45,15 @@
 //
 // What bounds them on this card: the branches do 1.05 / 1.86 / 2.79 / 1.92
 // GFLOP per image and layer (attention fwd / MLP fwd / MLP bwd / attention
-// bwd) against a few MB of traffic, so at fp32 on the CUDA cores (67 TFLOP/s
-// published peak) they are bound by operations, not by bytes. The GEMM is
-// where the time goes. Its design answers that with the classic SIMT
-// recipe: 128x128 (or 64x64 when the big tiles would leave SMs idle) output
-// tiles, an 8x8 (4x4) register micro-tile per thread read from shared
-// memory as float4, and the next K slice loaded into registers while the
-// current one is multiplied. The GEMM and the attention backward do not use
-// the tensor cores: they are fp32 CUDA-core code, held to the fp32 CPU
-// reference.
+// bwd) against a few MB of traffic, so they are bound by operations, not
+// by bytes. The GEMM is where the time goes; it runs on the tensor cores
+// as 3xTF32 (three TF32 products of split operands per product, fp32
+// accuracy: mma_tf32.cuh), whose bound is the TF32 peak (495 TFLOP/s) over
+// three, against 67 TFLOP/s for fp32 on the CUDA cores. Its design is in
+// common.cuh. The attention forward runs on the tensor cores the same way
+// (below); the LayerNorm rows and the attention backward are fp32
+// CUDA-core code. All of it is held to the fp32 CPU reference, and the
+// GEMM and the attention forward also to float64 on the card.
 //
 // The attention forward (attn_fwd_kernel) replaces the attention of
 // attn_block_pallas.py _fwd_kernel (:81-103) and flash_attention.py
@@ -621,14 +621,6 @@ __global__ void e_row_kernel(const float* __restrict__ e_part, float* __restrict
   e_row[idx] = s * (1.0f / H);
 }
 
-// Sets the dynamic shared-memory limit a launch needs (above the 48 KB
-// default); the launch itself reports a size the card cannot give.
-template <typename F>
-cudaError_t allow_smem(F* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // dh rounded up to the forward's 8-wide fragment steps.
 int fwd_dp(int dh) { return (dh + 7) / 8 * 8; }
 
@@ -709,13 +701,21 @@ int tmx_layer_norm_vjp(const float* dy, const float* x, const float* mean,
   return (int)cudaGetLastError();
 }
 
+// C = epilogue(A op(B)) for `batch` products (common.cuh): A [M, K], B
+// [K, N] or, with trans_b, [N, K]; bias [N] or null; res, aux [M, N] or
+// null (aux may be C); act: an Act. bsA, bsB, bsC: element batch strides.
+// copy_bytes: 16 (every row of A and B 16-byte aligned; refused
+// otherwise) or 4, the width of the kernel's cp.async copies.
 int tmx_gemm(const float* A, const float* B, float* C, int M, int N, int K,
              int trans_b, const float* bias, const float* res, const float* aux,
-             int act, void* stream) {
-  gemm<false>(A, B, C, M, N, K, trans_b != 0, bias, res, aux, act, 1, 0, 0, 0,
-              (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+             int act, int batch, long long bsA, long long bsB, long long bsC,
+             int copy_bytes, void* stream) {
+  const GemmArgs p = {A, B, C, bias, res, aux, bsA, bsB, bsC, M, N, K, act, false};
+  return (int)gemm(p, trans_b != 0, batch, copy_bytes, (cudaStream_t)stream);
 }
+
+// Warps per 64 x 64 block that tmx_gemm takes for this output (4 or 8).
+int tmx_gemm_warps(int M, int N, int batch) { return gemm_warps(M, N, batch); }
 
 // Bytes of dynamic shared memory one attention block needs (the forward's,
 // fixed by dh; or the larger of the two backward passes, which grows with

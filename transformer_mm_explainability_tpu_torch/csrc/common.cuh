@@ -1,5 +1,5 @@
-// The tiled fp32 GEMM (and the GELU of its epilogues) shared by the port's
-// CUDA sources.
+// The fp32 GEMM on the tensor cores (and the GELU of its epilogues) shared
+// by the port's CUDA sources.
 //
 // Each csrc/<name>.cu is built on its own into one shared library (one
 // translation unit), so everything here has internal linkage. ops/_build.py
@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -26,135 +28,12 @@ __device__ __forceinline__ float gelu_grad_f(float x) {
   return cdf + x * pdf;
 }
 
-// ---------------------------------------------------------------------------
-// GEMM: C = epilogue(A @ op(B)),  op(B) = B[K,N] or B[N,K]^T. BATCHED: one
-// product per z = blockIdx.z, operands offset by z times their batch
-// strides (elements); res and aux share C's layout and batch stride. The
-// single product compiles without the batch arithmetic.
-// ---------------------------------------------------------------------------
-
-enum Act { kActNone = 0, kActGelu = 1, kActMulGeluGrad = 2 };
-
-template <int BM, int BN, int BK, int TM, int TN, bool TRANS_B, bool BATCHED>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-gemm_kernel(const float* __restrict__ A, const float* __restrict__ B, float* C,
-            int M, int N, int K, const float* __restrict__ bias,
-            const float* __restrict__ res, const float* aux, int act,
-            long long bsA, long long bsB, long long bsC) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int A_PER = BM * BK / NT;
-  constexpr int B_PER = BN * BK / NT;
-  constexpr int GM = TM / 4, GN = TN / 4;  // float4 groups per micro-tile
-  constexpr int SPAN_M = BM / GM, SPAN_N = BN / GN;
-  static_assert(BM * BK % NT == 0 && BN * BK % NT == 0, "tile/thread mismatch");
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "micro-tile must be float4 groups");
-
-  // +4 padding: transposed stores are bank-conflict free, float4 reads stay
-  // 16-byte aligned.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-
-  if constexpr (BATCHED) {
-    const long long z = blockIdx.z;
-    A += z * bsA;
-    B += z * bsB;
-    C += z * bsC;
-    if (res) res += z * bsC;
-    if (aux) aux += z * bsC;
-  }
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  float ra[A_PER], rb[B_PER];
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * NT, r = e / BK, c = e % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      ra[i] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * NT;
-      if (TRANS_B) {  // B is [N, K]: walk K fastest
-        const int r = e / BK, c = e % BK;
-        const int gn = n0 + r, gk = k0 + c;
-        rb[i] = (gn < N && gk < K) ? B[(size_t)gn * K + gk] : 0.f;
-      } else {  // B is [K, N]: walk N fastest
-        const int r = e / BN, c = e % BN;
-        const int gk = k0 + r, gn = n0 + c;
-        rb[i] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.f;
-      }
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * NT;
-      As[e % BK][e / BK] = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int e = tid + i * NT;
-      if (TRANS_B)
-        Bs[e % BK][e / BK] = rb[i];
-      else
-        Bs[e / BN][e % BN] = rb[i];
-    }
-  };
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store();
-    __syncthreads();
-    if (k0 + BK < K) load(k0 + BK);  // in flight while this slice is used
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        const float4 t = *reinterpret_cast<const float4*>(&As[kk][g * SPAN_M + ty * 4]);
-        a[g * 4 + 0] = t.x; a[g * 4 + 1] = t.y; a[g * 4 + 2] = t.z; a[g * 4 + 3] = t.w;
-      }
-#pragma unroll
-      for (int g = 0; g < GN; ++g) {
-        const float4 t = *reinterpret_cast<const float4*>(&Bs[kk][g * SPAN_N + tx * 4]);
-        b[g * 4 + 0] = t.x; b[g * 4 + 1] = t.y; b[g * 4 + 2] = t.z; b[g * 4 + 3] = t.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + (i / 4) * SPAN_M + ty * 4 + (i % 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + (j / 4) * SPAN_N + tx * 4 + (j % 4);
-      if (n >= N) continue;
-      const size_t idx = (size_t)m * N + n;
-      float v = acc[i][j];
-      if (bias) v += bias[n];
-      if (act == kActGelu) v = gelu_f(v);
-      if (act == kActMulGeluGrad) v *= gelu_grad_f(aux[idx]);
-      if (res) v += res[idx];
-      C[idx] = v;
-    }
-  }
+// Sets the dynamic shared-memory limit a launch needs (above the 48 KB
+// default); the launch itself reports a size the card cannot give.
+template <typename F>
+cudaError_t allow_smem(F* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 int num_sms() {
@@ -168,37 +47,318 @@ int num_sms() {
   return sms;
 }
 
-template <int BM, int BN, int BK, int TM, int TN, bool BATCHED>
-void launch_gemm(const float* A, const float* B, float* C, int M, int N, int K,
-                 bool trans_b, const float* bias, const float* res,
-                 const float* aux, int act, int batch, long long bsA,
-                 long long bsB, long long bsC, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  const int threads = (BM / TM) * (BN / TN);
-  if (trans_b)
-    gemm_kernel<BM, BN, BK, TM, TN, true, BATCHED><<<grid, threads, 0, stream>>>(
-        A, B, C, M, N, K, bias, res, aux, act, bsA, bsB, bsC);
-  else
-    gemm_kernel<BM, BN, BK, TM, TN, false, BATCHED><<<grid, threads, 0, stream>>>(
-        A, B, C, M, N, K, bias, res, aux, act, bsA, bsB, bsC);
+// ---------------------------------------------------------------------------
+// GEMM: C = epilogue(A @ op(B)), op(B) = B[K,N] or B[N,K]^T, any M, N, K >= 1;
+// A, B and C row-major with rows of K, N (or K) and N floats. One product
+// per z = blockIdx.z, operands offset by z times their batch strides
+// (elements; a single product has z = 0); bias is [N], res and aux share
+// C's layout and batch stride. The epilogue, per element: + bias, then
+// GELU, or * GELU'(aux), then + res. aux may be C itself: the thread that
+// writes C[m,n] is the one that read aux[m,n], and no other reads it.
+//
+// It runs on the tensor cores as 3xTF32 mma.sync (mma_tf32.cuh), which
+// holds an fp32 product to a few ulps where a single TF32 product keeps
+// about three decimal digits. The products of the block branches (7.2
+// GFLOP per image and layer at ViT-B) are bound by operations, and the
+// fp32 CUDA cores (67 TFLOP/s) are a seventh of the TF32 rate (495, three
+// products each). The design:
+//   - a 64 x 64 output tile per block of 4 warps, each warp 32 x 32 (2 x 4
+//     m16n8 accumulators); 32-deep k slices in a three-stage cp.async ring,
+//     two slices in flight while one is multiplied. Bigger tiles (128 x
+//     128, 128 x 64, 64 x 128) were slower over the main path's shapes
+//     (PERF.md): the 768-wide outputs at M = 1576 make 78 tiles of 128 x 128
+//     for 132 SMs, and the bigger warp tiles cost registers and so blocks
+//     in flight. Where the grid has no more tiles than the card has SMs
+//     (the chain's 197 x 197 planes at B = 8: 128 tiles), a block of 8
+//     warps of 32 x 16 keeps twice the warps in flight (gemm_warps);
+//   - every operand split into hi/lo as its fragment is read (split_tf32_fast;
+//     the A and B^T fragments through ldmatrix). Splitting whole tiles once
+//     per stage into hi/lo planes was slower: it trades split instructions
+//     for twice the shared-memory reads and another barrier per stage;
+//   - summed over all of k in one mma accumulator, a product drifts from
+//     float64 as k grows (1.1-2.4e-5 of max|C| at k = 1576-3072 on the H100,
+//     where fp32 sums stay near 1e-6): the tensor cores' fp32 accumulation
+//     loses more than rounding to nearest does. So each 32-deep slice is
+//     summed into a fresh accumulator d (lo*hi, then hi*lo, then hi*hi: one
+//     round of independent mma at a time) and d is added to acc in fp32;
+//   - shared-memory rows padded so that every fragment load hits 32 banks:
+//     A and B^T tiles [rows][32 + 4] (ld % 8 == 4), B[K,N] tiles
+//     [32][64 + 8] (ld % 32 == 8);
+//   - tails zero-filled in shared memory (exact in the product), so every
+//     M, N, K runs; 16-byte copies where every row of A and B starts on a
+//     16-byte boundary, else 4-byte copies (the VEC flag, picked by the
+//     caller). The shared-memory contents, and so the bits, are the same;
+//   - the epilogue straight from the accumulator registers to global
+//     memory, two neighbouring columns at a time (8-byte accesses where N
+//     is even and the pointers allow);
+//   - each output element is summed by one thread in a fixed k order, with
+//     no split over k and no atomics: the same bits on every run.
+// The one template choice is the warps' layout, WN = 2 or 4 columns of warps
+// (gemm_warps); TRANS_B and VEC pick the loaders.
+// ---------------------------------------------------------------------------
+
+enum Act { kActNone = 0, kActGelu = 1, kActMulGeluGrad = 2 };
+
+struct GemmArgs {
+  const float* A;
+  const float* B;
+  float* C;
+  const float* bias;
+  const float* res;
+  const float* aux;
+  long long bsA, bsB, bsC;
+  int M, N, K, act;
+  bool pair;  // N even; C, bias, res, aux 8-byte aligned: float2 epilogue
+};
+
+constexpr int kGemmBM = 64, kGemmBN = 64;  // output tile per block
+constexpr int kGemmWM = 2;                   // rows of warps
+constexpr int kGemmBK = 32;                  // k per stage
+constexpr int kGemmST = 3;                   // cp.async stages
+constexpr int kGemmFlush = 4;                // k8 steps per fresh accumulator
+constexpr int kGemmLdK = kGemmBK + 4;        // A and B^T tile rows (k values)
+constexpr int kGemmLdN = kGemmBN + 8;        // B[K,N] tile rows (n values)
+
+template <bool TRANS_B>
+constexpr size_t gemm_smem() {
+  return sizeof(float) * kGemmST *
+         (kGemmBM * kGemmLdK + (TRANS_B ? kGemmBN * kGemmLdK : kGemmBK * kGemmLdN));
 }
 
-// 128x128 tiles (8x8 micro-tile) where they cover the SMs, else 64x64 (4x4):
-// big tiles would leave SMs idle on the 768-wide outputs at small batch.
-// gemm<false> is one product (batch 1, strides unused); gemm<true> runs
-// batch products, and only a source that batches instantiates it.
-template <bool BATCHED>
-void gemm(const float* A, const float* B, float* C, int M, int N, int K,
-          bool trans_b, const float* bias, const float* res, const float* aux,
-          int act, int batch, long long bsA, long long bsB, long long bsC,
-          cudaStream_t stream) {
-  const long big_tiles = (long)((M + 127) / 128) * ((N + 127) / 128) * batch;
-  if (big_tiles >= num_sms())
-    launch_gemm<128, 128, 8, 8, 8, BATCHED>(A, B, C, M, N, K, trans_b, bias, res,
-                                            aux, act, batch, bsA, bsB, bsC, stream);
-  else
-    launch_gemm<64, 64, 8, 4, 4, BATCHED>(A, B, C, M, N, K, trans_b, bias, res,
-                                          aux, act, batch, bsA, bsB, bsC, stream);
+// Copies the ROWS x COLS tile at src (row stride ld) into dst (row stride
+// LD) with cp.async; elements at or past rows_valid / cols_valid become 0.
+// With VEC, cols_valid is a multiple of 4 (checked before launch).
+template <int ROWS, int COLS, int LD, int THREADS, bool VEC>
+__device__ __forceinline__ void gemm_load_tile(float* dst, const float* src, int ld,
+                                               int rows_valid, int cols_valid) {
+  constexpr int W = VEC ? 4 : 1;  // floats per copy
+  constexpr int PER_ROW = COLS / W;
+  static_assert(ROWS * PER_ROW % THREADS == 0, "tile/thread mismatch");
+#pragma unroll
+  for (int i = 0; i < ROWS * PER_ROW / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / PER_ROW, c = (e % PER_ROW) * W;
+    float* to = dst + r * LD + c;
+    const bool ok = r < rows_valid && c < cols_valid;
+    const float* from = src + (long long)r * ld + c;
+    if constexpr (VEC) {
+      if (ok)
+        cp_async16(to, from);
+      else
+        *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      if (ok)
+        cp_async4(to, from);
+      else
+        *to = 0.f;
+    }
+  }
+}
+
+// v + bias, then the activation, then + res: one output element.
+__device__ __forceinline__ float gemm_epilogue(float v, const GemmArgs& p, long long idx,
+                                               int n, const float* res, const float* aux) {
+  if (p.bias) v += p.bias[n];
+  if (p.act == kActGelu) v = gelu_f(v);
+  if (p.act == kActMulGeluGrad) v *= gelu_grad_f(aux[idx]);
+  if (res) v += res[idx];
+  return v;
+}
+
+template <int WN, bool TRANS_B, bool VEC>
+__global__ void __launch_bounds__(32 * kGemmWM * WN)
+gemm_tc_kernel(GemmArgs p) {
+  constexpr int BM = kGemmBM, BN = kGemmBN, WM = kGemmWM, ST = kGemmST;
+  constexpr int FLUSH = kGemmFlush;
+  constexpr int THREADS = 32 * WM * WN;
+  constexpr int TM = BM / WM, TN = BN / WN;  // warp tile
+  constexpr int MT = TM / 16, NT = TN / 8;   // m16 / n8 fragments per warp
+  constexpr int BK = kGemmBK, LDK = kGemmLdK, LDN = kGemmLdN;
+  constexpr int A_TILE = BM * LDK;
+  constexpr int B_TILE = TRANS_B ? BN * LDK : BK * LDN;
+  static_assert(TM % 16 == 0 && NT % 2 == 0, "warp tile must be m16 x n16 fragments");
+  static_assert((BK / 8) % FLUSH == 0, "FLUSH must divide the k8 steps of a stage");
+
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                // [ST][BM][LDK]
+  float* Bs = smem + ST * A_TILE;  // [ST][BN][LDK] (B^T) or [ST][BK][LDN]
+
+  const long long z = blockIdx.z;
+  const int M = p.M, N = p.N, K = p.K;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const float* Ab = p.A + z * p.bsA + (long long)m0 * K;
+  const float* Bb = p.B + z * p.bsB + (TRANS_B ? (long long)n0 * K : (long long)n0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / WN, wn = warp % WN;
+
+  auto load = [&](int stage, int k0) {
+    gemm_load_tile<BM, BK, LDK, THREADS, VEC>(As + stage * A_TILE, Ab + k0, K, M - m0,
+                                              K - k0);
+    if constexpr (TRANS_B)
+      gemm_load_tile<BN, BK, LDK, THREADS, VEC>(Bs + stage * B_TILE, Bb + k0, K, N - n0,
+                                                K - k0);
+    else
+      gemm_load_tile<BK, BN, LDN, THREADS, VEC>(Bs + stage * B_TILE,
+                                                Bb + (long long)k0 * N, N, K - k0, N - n0);
+  };
+
+  float acc[MT][NT][4], d[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int KT = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < KT) load(s, s * BK);
+    cp_async_commit();  // one group per slice, empty past the last
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<ST - 2>();  // slice kt has landed (this thread's copies)
+    __syncthreads();          // everyone's; and slice kt - 1 is consumed
+    if (kt + ST - 1 < KT) load((kt + ST - 1) % ST, (kt + ST - 1) * BK);
+    cp_async_commit();
+    const float* a = As + (kt % ST) * A_TILE + wm * TM * LDK;
+    const float* b = Bs + (kt % ST) * B_TILE + (TRANS_B ? wn * TN * LDK : wn * TN);
+#pragma unroll
+    for (int step = 0; step < BK / 8; ++step) {
+      const int kk = step * 8;
+      uint32_t a_hi[MT][4], a_lo[MT][4], b_hi[NT][2], b_lo[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        load_a_ldsm_3x(a + i * 16 * LDK + kk, LDK, lane, a_hi[i], a_lo[i]);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        if constexpr (TRANS_B) {
+          load_bt2_ldsm_3x(b + j * 8 * LDK + kk, LDK, lane, b_hi + j, b_lo + j);
+        } else {
+          load_b_3x(b + kk * LDN + j * 8, LDN, lane, b_hi[j], b_lo[j]);
+          load_b_3x(b + kk * LDN + j * 8 + 8, LDN, lane, b_hi[j + 1], b_lo[j + 1]);
+        }
+      }
+      // lo*hi + hi*lo + hi*hi, one round of independent mma at a time,
+      // into d; d is added to acc in fp32 every FLUSH steps (see above)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (step % FLUSH == 0)
+            mma_tf32_zero(d[i][j], a_lo[i], b_hi[j]);
+          else
+            mma_tf32(d[i][j], a_lo[i], b_hi[j]);
+        }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], a_hi[i], b_lo[j]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], a_hi[i], b_hi[j]);
+      if (step % FLUSH == FLUSH - 1) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: c0, c1 at (row g, columns 2t, 2t + 1); c2, c3 at row g + 8
+  const int g = lane >> 2, t = lane & 3;
+  float* C = p.C + z * p.bsC;
+  const float* res = p.res ? p.res + z * p.bsC : nullptr;
+  const float* aux = p.aux ? p.aux + z * p.bsC : nullptr;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * TM + i * 16 + g + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + wn * TN + j * 8 + 2 * t;
+        if (n >= N) continue;
+        const long long idx = (long long)m * N + n;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (p.pair) {  // n even and N even: n + 1 < N
+          if (p.bias) {
+            const float2 bb = *reinterpret_cast<const float2*>(p.bias + n);
+            v0 += bb.x;
+            v1 += bb.y;
+          }
+          if (p.act == kActGelu) {
+            v0 = gelu_f(v0);
+            v1 = gelu_f(v1);
+          } else if (p.act == kActMulGeluGrad) {
+            const float2 x = *reinterpret_cast<const float2*>(aux + idx);
+            v0 *= gelu_grad_f(x.x);
+            v1 *= gelu_grad_f(x.y);
+          }
+          if (res) {
+            const float2 r = *reinterpret_cast<const float2*>(res + idx);
+            v0 += r.x;
+            v1 += r.y;
+          }
+          *reinterpret_cast<float2*>(C + idx) = make_float2(v0, v1);
+        } else {
+          C[idx] = gemm_epilogue(v0, p, idx, n, res, aux);
+          if (n + 1 < N) C[idx + 1] = gemm_epilogue(v1, p, idx + 1, n + 1, res, aux);
+        }
+      }
+    }
+  }
+}
+
+bool aligned(const void* p, int bytes) { return ((uintptr_t)p & (bytes - 1)) == 0; }
+
+// Warps per 64 x 64 block of a launch: 8 (of 32 x 16) where the grid has no
+// more tiles than the card has SMs, so one block per SM; else 4 (of 32 x
+// 32), which run more of the block products' tiles at once.
+int gemm_warps(int M, int N, int batch) {
+  const long long tiles =
+      (long long)((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN) * batch;
+  return tiles <= num_sms() ? 8 : 4;
+}
+
+template <int WN>
+cudaError_t launch_gemm(const GemmArgs& p, bool trans_b, bool vec, int batch,
+                        cudaStream_t stream) {
+  auto kernel = trans_b ? (vec ? gemm_tc_kernel<WN, true, true>
+                               : gemm_tc_kernel<WN, true, false>)
+                        : (vec ? gemm_tc_kernel<WN, false, true>
+                               : gemm_tc_kernel<WN, false, false>);
+  const size_t smem = trans_b ? gemm_smem<true>() : gemm_smem<false>();
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + kGemmBN - 1) / kGemmBN, (p.M + kGemmBM - 1) / kGemmBM, batch);
+  kernel<<<grid, 32 * kGemmWM * WN, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The GEMM of every caller. Checks the arguments, sets p.pair and launches
+// gemm_tc_kernel for `batch` products. copy_bytes: 16 (every row of A and B
+// 16-byte aligned: the pointers, K, B's row length and the batch strides;
+// refused otherwise) or 4, the width of the cp.async copies.
+cudaError_t gemm(GemmArgs p, bool trans_b, int batch, int copy_bytes, cudaStream_t stream) {
+  if (p.M < 1 || p.N < 1 || p.K < 1 || batch < 1 || batch > 65535 ||
+      (p.M + kGemmBM - 1) / kGemmBM > 65535)
+    return cudaErrorInvalidValue;
+  const bool vec = copy_bytes == 16;
+  if (!vec && copy_bytes != 4) return cudaErrorInvalidValue;
+  if (vec && !(aligned(p.A, 16) && aligned(p.B, 16) && p.K % 4 == 0 &&
+               (trans_b || p.N % 4 == 0) && p.bsA % 4 == 0 && p.bsB % 4 == 0))
+    return cudaErrorMisalignedAddress;
+  p.pair = p.N % 2 == 0 && p.bsC % 2 == 0 && aligned(p.C, 8) && aligned(p.bias, 8) &&
+           aligned(p.res, 8) && aligned(p.aux, 8);
+  if (gemm_warps(p.M, p.N, batch) == 8) return launch_gemm<4>(p, trans_b, vec, batch, stream);
+  return launch_gemm<2>(p, trans_b, vec, batch, stream);
 }
 
 }  // namespace

@@ -29,7 +29,7 @@
 // Shared-memory tiles read by these loaders: a row stride ld with
 // ld % 8 == 4 (in floats) makes every loader below free of bank conflicts
 // (the 32 lanes hit 32 distinct banks) and keeps 16-byte rows aligned for
-// cp.async.
+// cp.async; load_b_3x has its own rule.
 
 #pragma once
 
@@ -57,6 +57,16 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// split_tf32 with lo = x - hi passed unrounded, two integer operations
+// fewer: an mma reads a .tf32 operand at TF32 precision whatever its 13 low
+// bits hold (CUTLASS's fast fp32 split leaves them set the same way), so lo
+// enters the product cut to TF32, within 2^-10 of lo: about 2^-21 of x,
+// the size of the dropped lo*lo term. The GEMM's float64 gates hold it.
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // c += A * B, one TF32 product.
 __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
                                          const uint32_t b[2]) {
@@ -65,6 +75,16 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = A * B, one TF32 product into a fresh accumulator.
+__device__ __forceinline__ void mma_tf32_zero(float d[4], const uint32_t a[4],
+                                              const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
 }
 
 // c += A * B at fp32 accuracy: lo*hi + hi*lo + hi*hi, small terms first.
@@ -117,6 +137,58 @@ __device__ __forceinline__ void a_from_acc_3x(const float c[4], uint32_t hi[4],
   split_tf32(c[2], hi[1], lo[1]);
   split_tf32(c[1], hi[2], lo[2]);
   split_tf32(c[3], hi[3], lo[3]);
+}
+
+// ---------------------------------------------------------------------------
+// The GEMM's loaders (common.cuh): they split with split_tf32_fast, and the
+// row-major ones read through ldmatrix, one instruction for what load_a_3x
+// reads in four. ldmatrix .x4 reads four 8x8 b16 matrices, here four 8 x 4
+// blocks of fp32: lane l gives the address of row l % 8 of block l / 8
+// (16-byte aligned) and receives element (g, t) of each block, the layout
+// of an mma fragment. With ld % 8 == 4 the eight rows of a block hit
+// distinct banks.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(const float* row, uint32_t r[4]) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// A, 16x8, row-major at a with row stride ld: the blocks (rows 0-7, k 0-3),
+// (8-15, 0-3), (0-7, 4-7), (8-15, 4-7) are a0..a3.
+__device__ __forceinline__ void load_a_ldsm_3x(const float* a, int ld, int lane,
+                                               uint32_t hi[4], uint32_t lo[4]) {
+  const int q = lane >> 3, r = lane & 7;
+  uint32_t v[4];
+  ldsm_x4(a + ((q & 1) * 8 + r) * ld + (q >> 1) * 4, v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32_fast(__uint_as_float(v[e]), hi[e], lo[e]);
+}
+
+// Two B fragments, n 0-7 and 8-15, stored transposed as for load_bt_3x: the
+// blocks (n 0-7, k 0-3), (0-7, 4-7), (8-15, 0-3), (8-15, 4-7) are b0 and b1
+// of the first, then of the second.
+__device__ __forceinline__ void load_bt2_ldsm_3x(const float* bt, int ld, int lane,
+                                                 uint32_t hi[2][2], uint32_t lo[2][2]) {
+  const int q = lane >> 3, r = lane & 7;
+  uint32_t v[4];
+  ldsm_x4(bt + ((q >> 1) * 8 + r) * ld + (q & 1) * 4, v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    split_tf32_fast(__uint_as_float(v[e]), hi[e >> 1][e & 1], lo[e >> 1][e & 1]);
+}
+
+// B, 8x8, stored as rows of k (B[k][n] = b[k * ld + n]), in the mma's own
+// k order: b0 from row t, b1 from row t + 4; e.g. a B[K,N] weight tile.
+// ldmatrix cannot transpose 32-bit elements, so two scalar loads; lane
+// (g, t) reads t * ld + g, so ld % 32 == 8 (or 24) keeps them on 32 banks.
+__device__ __forceinline__ void load_b_3x(const float* b, int ld, int lane,
+                                          uint32_t hi[2], uint32_t lo[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  split_tf32_fast(b[t * ld + g], hi[0], lo[0]);
+  split_tf32_fast(b[(t + 4) * ld + g], hi[1], lo[1]);
 }
 
 // ---------------------------------------------------------------------------

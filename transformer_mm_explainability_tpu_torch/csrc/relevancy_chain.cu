@@ -13,9 +13,10 @@
 //
 //   ehat_kernel   E[b] = (1/H) sum_h relu(A[b,h] * G[b,h]), one thread per
 //                 element of the S x S plane, heads summed in a fixed order.
-//   gemm_kernel   (common.cuh) batched fp32 GEMM, the image in blockIdx.z,
-//                 with a residual epilogue: R_next[b] = E[b] R[b] + R[b],
-//                 written to the other of two ping-pong buffers.
+//   gemm_tc_kernel (common.cuh) the batched fp32 GEMM on the tensor cores
+//                 (3xTF32 mma.sync), the image in blockIdx.z, with a
+//                 residual epilogue: R_next[b] = E[b] R[b] + R[b], written
+//                 to the other of two ping-pong buffers.
 //
 // No padding: both kernels bound-check their tiles, so S = 197 runs as is.
 //
@@ -25,8 +26,10 @@
 // coalesced streaming pass with 2H independent loads per thread in flight.
 // It loads scalars: a [S, S] plane of fp32 holds S^2 elements, odd for
 // S = 197, so the planes of consecutive heads are not 16-byte aligned and a
-// float4 load would need a second code path. The GEMM is the SIMT template
-// the block kernels use (64x64 tiles at S = 197, 128 blocks at B = 8).
+// float4 load would need a second code path. The GEMM is the one the block
+// kernels use; at S = 197 its rows are not 16-byte aligned either, so the
+// wrapper asks for its 4-byte copies (copy_bytes), and it takes 64 x 64
+// tiles of 8 warps (128 blocks at B = 8, one per SM).
 
 #include "common.cuh"
 
@@ -66,9 +69,11 @@ const char* tmx_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 // (batch, layer, head) element strides of cams, then of grads. e: scratch
 // [B, S, S]; r0: [B, S, S] holding I on entry; r1: scratch [B, S, S]. Runs
 // layers start..L-1; the result is in r0 when L - start is even, else r1.
+// copy_bytes: the GEMM's cp.async width, 16 (every row of e, r0 and r1
+// 16-byte aligned) or 4.
 int tmx_relevancy_chain(const float* cams, const float* grads, float* e, float* r0,
                         float* r1, const long long* strides, int B, int L, int H, int S,
-                        int start, void* stream) {
+                        int start, int copy_bytes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int SS = S * S;
   const dim3 grid((SS + kEhatThreads - 1) / kEhatThreads, B);
@@ -80,9 +85,9 @@ int tmx_relevancy_chain(const float* cams, const float* grads, float* e, float* 
         strides[3], strides[5], H, SS);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    gemm<true>(e, cur, nxt, S, S, S, false, nullptr, cur, nullptr, kActNone, B, SS, SS,
-               SS, st);
-    err = cudaGetLastError();
+    const GemmArgs p = {e, cur, nxt, nullptr, cur, nullptr, SS, SS, SS, S, S, S, kActNone,
+                        false};
+    err = gemm(p, false, B, copy_bytes, st);
     if (err != cudaSuccess) return (int)err;
     float* t = cur;
     cur = nxt;

@@ -41,10 +41,13 @@ from transformer_mm_explainability_tpu_torch.ops.attention import (
     gelu, merge_heads, split_heads)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {  # the LN and GEMM entry points (attention: flash_attention)
     "tmx_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "tmx_layer_norm_vjp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "tmx_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    "tmx_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _L, _L, _L,
+                 _I, _P],
+    "tmx_gemm_warps": [_I, _I, _I],
 }
 _ACT_NONE, _ACT_GELU, _ACT_MUL_GELU_GRAD = 0, 1, 2
 _ptr = _build.ptr
@@ -176,16 +179,65 @@ def _ln_vjp_cuda(lib, dy, x2, mean, rstd, scale, cot, stream):
     return out
 
 
+def gemm_plain(a, b, trans_b=False, bias=None, res=None, aux=None,
+               act=_ACT_NONE):
+    """``_gemm``'s function in plain PyTorch, in the operands' dtype (the
+    GEMM's gates run it in float64)."""
+    c = a @ (b.transpose(-1, -2) if trans_b else b)
+    if bias is not None:
+        c = c + bias
+    if act == _ACT_GELU:
+        c = gelu(c)
+    elif act == _ACT_MUL_GELU_GRAD:
+        c = c * _gelu_grad(aux)
+    if res is not None:
+        c = c + res
+    return c
+
+
+def gemm_copy_width(a, b) -> int:
+    """Width in bytes of the GEMM's ``cp.async`` copies for ``_gemm``'s
+    operands a and b (either layout of b): 16 where every row of both
+    starts on a 16-byte boundary (``fa.copy_width`` over K, b's row length
+    and the batch strides), else 4."""
+    strides = [b.shape[-1]]
+    if a.dim() == 3:
+        strides += [a.stride(0), b.stride(0)]
+    return fa.copy_width(a.shape[-1], (a.data_ptr(), b.data_ptr()), strides)
+
+
 def _gemm(lib, a, b, stream, trans_b=False, bias=None, res=None, aux=None,
           act=_ACT_NONE, out=None):
-    """``epilogue(a @ b)`` (``a @ bᵀ`` with ``trans_b``); a is [M, K]."""
-    M, K = a.shape
-    N = b.shape[0] if trans_b else b.shape[1]
+    """``epilogue(a @ b)`` (``a @ bᵀ`` with ``trans_b``) on the tensor
+    cores: ``+ bias``, then GELU (``_ACT_GELU``) or ``× GELU'(aux)``
+    (``_ACT_MUL_GELU_GRAD``), then ``+ res``. a is [M, K], or a batch
+    [Bt, M, K]; b, res, aux and out alike, each product's rows contiguous,
+    res and aux in out's layout (aux may be out). Every operand is float32,
+    contiguous and of that shape, or it is refused before the launch. The
+    copy width follows the operands (``gemm_copy_width``); ``gemm_plain``
+    is the same function in PyTorch."""
+    if a.dim() not in (2, 3) or b.dim() != a.dim():
+        raise RuntimeError(f"a and b must both be 2-D or both 3-D, not "
+                           f"{a.dim()}-D and {b.dim()}-D")
+    *lead, M, K = a.shape
+    N = b.shape[-2] if trans_b else b.shape[-1]
     if out is None:
-        out = torch.empty((M, N), device=a.device, dtype=torch.float32)
+        out = torch.empty((*lead, M, N), device=a.device, dtype=torch.float32)
+    c = (*lead, M, N)
+    args = {"a": (a, a.shape), "out": (out, c),
+            "b": (b, (*lead, N, K) if trans_b else (*lead, K, N))}
+    for name, t, shape in (("bias", bias, (N,)), ("res", res, c),
+                           ("aux", aux, c)):
+        if t is not None:
+            args[name] = (t, shape)
+    _cuda_args(a.device, **args)
+    batch, bs = 1, (0, 0, 0)
+    if lead:
+        batch, bs = lead[0], (a.stride(0), b.stride(0), out.stride(0))
     _build.check(lib, "tmx_gemm", lib.tmx_gemm(
         _ptr(a), _ptr(b), _ptr(out), M, N, K, int(trans_b), _ptr(bias),
-        _ptr(res), _ptr(aux), act, stream))
+        _ptr(res), _ptr(aux), act, batch, *bs,
+        gemm_copy_width(a, b), stream))
     return out
 
 
@@ -203,12 +255,12 @@ def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
     """x [B, S, D] → x + proj(attention(LN(x))).
 
     Replaces ``attn_block_pallas.attn_block_fwd`` (``_fwd_kernel``). Bound
-    by operations (2·B·S·D·4D for the projections on the fp32 CUDA cores,
-    plus 4·B·H·S²·dh for attention on the tensor cores as 3xTF32); four
-    launches: LN rows → qkv GEMM with the bias in its epilogue → attention
-    per (query tile, head, image) with A only in registers → out-projection
-    GEMM with bias and residual in its epilogue, so qkv and the merged
-    output are the only round trips."""
+    by operations (2·B·S·D·4D for the projections plus 4·B·H·S²·dh for
+    attention, all on the tensor cores as 3xTF32); four launches: LN rows
+    → qkv GEMM with the bias in its epilogue → attention per (query tile,
+    head, image) with A only in registers → out-projection GEMM with bias
+    and residual in its epilogue, so qkv and the merged output are the
+    only round trips."""
     if _build.on_cpu(x):
         return attn_block_fwd_plain(x, w_qkv, b_qkv, w_out, b_out, ln_scale,
                                     ln_bias, nheads, eps)
@@ -239,9 +291,9 @@ def mlp_block_fwd(x_mid: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """x_mid → x_mid + GELU_erf(LN2(x_mid)·w1 + b1)·w2 + b2.
 
     Replaces ``attn_block_pallas.mlp_block_fwd`` (``_mlp_fwd_kernel``).
-    Bound by operations (4·B·S·D·I, fp32); LN rows → W1 GEMM with bias and
-    exact GELU in its epilogue → W2 GEMM with bias and residual in its
-    epilogue. The [B*S, I] hidden goes through device memory once each way
+    Bound by operations (4·B·S·D·I, 3xTF32 on the tensor cores); LN rows
+    → W1 GEMM with bias and exact GELU in its epilogue → W2 GEMM with bias
+    and residual in its epilogue. The [B*S, I] hidden goes through device memory once each way
     (the Pallas kernel kept [S, I/chunks] tiles in VMEM)."""
     if _build.on_cpu(x_mid):
         return mlp_block_fwd_plain(x_mid, w1, b1, w2, b2, ln_scale, ln_bias,
@@ -270,9 +322,9 @@ def mlp_block_bwd(x_mid: torch.Tensor, cot_out: torch.Tensor,
     a1 = LN2(x_mid)·w1 + b1 recomputed (no a1 tape).
 
     Replaces ``attn_block_pallas.mlp_block_bwd`` (``_mlp_bwd_kernel``).
-    Bound by operations (6·B·S·D·I, fp32); LN rows → a1 GEMM → cot·w2ᵀ
-    GEMM whose epilogue multiplies by GELU'(a1) in place over a1 → ·w1ᵀ
-    GEMM → LN-VJP rows with the residual skip."""
+    Bound by operations (6·B·S·D·I, 3xTF32 on the tensor cores); LN rows
+    → a1 GEMM → cot·w2ᵀ GEMM whose epilogue multiplies by GELU'(a1) in
+    place over a1 → ·w1ᵀ GEMM → LN-VJP rows with the residual skip."""
     if _build.on_cpu(x_mid):
         return mlp_block_bwd_plain(x_mid, cot_out, w1, b1, w2, ln_scale,
                                    ln_bias, eps, chunks)
@@ -308,8 +360,8 @@ def attn_block_bwd(x: torch.Tensor, cot_mid: torch.Tensor, r: torch.Tensor,
     (cot_x [B, S, D] with the residual skip, e_row [B, S]).
 
     Replaces ``attn_block_pallas.attn_block_bwd`` (``_bwd_kernel``). Bound
-    by operations (4·B·S·D·3D + 2·B·S·D² for the projections, 10·B·H·S²·dh
-    for attention, fp32). LN rows → qkv GEMM → cot·W_outᵀ GEMM → attention
+    by operations (4·B·S·D·3D + 2·B·S·D² for the projections, 3xTF32 on
+    the tensor cores; 10·B·H·S²·dh for attention, fp32). LN rows → qkv GEMM → cot·W_outᵀ GEMM → attention
     backward (rows pass: A, dA, the softmax-VJP row sums and dq; columns
     pass: A recomputed from the saved row max and 1/sum, dk, dv and the
     per-head fold Σ_q r_q relu(A∘dA); heads summed in a fixed order, so

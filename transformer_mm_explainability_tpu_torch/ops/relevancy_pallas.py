@@ -30,11 +30,12 @@ from typing import Dict
 import torch
 
 from transformer_mm_explainability_tpu_torch.ops import _build
+from transformer_mm_explainability_tpu_torch.ops import flash_attention as fa
 from transformer_mm_explainability_tpu_torch.ops import relevancy as rl
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "tmx_relevancy_chain": [_P] * 6 + [_I] * 5 + [_P],
+    "tmx_relevancy_chain": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 
@@ -76,7 +77,7 @@ def self_attention_relevancy_pallas(cams: torch.Tensor, grads: torch.Tensor,
     Replaces ``relevancy_pallas.self_attention_relevancy_pallas``
     (``_chain_kernel``). Bound by bytes: the captures are read once
     (2·B·L·H·S²·4 bytes) against 2·B·L·S³ chain FLOPs; per layer a
-    streaming head reduction into Ê and a batched SIMT GEMM with a
+    streaming head reduction into Ê and a batched tensor-core GEMM with a
     residual epilogue (see the source note in the ``.cu`` file)."""
     if _build.on_cpu(cams):
         return self_attention_relevancy_pallas_plain(cams, grads, start_layer)
@@ -94,7 +95,8 @@ def self_attention_relevancy_pallas(cams: torch.Tensor, grads: torch.Tensor,
     with torch.cuda.device(dev):
         _build.check(lib, "tmx_relevancy_chain", lib.tmx_relevancy_chain(
             p(cams), p(grads), p(e), p(r0), p(r1), strides, B, L, H, S,
-            first, _build.stream(dev)))
+            first, fa.copy_width(S, (p(e), p(r0), p(r1)), (S * S,)),
+            _build.stream(dev)))
     self_attention_relevancy_pallas.launches += 1
     return r1 if (L - first) % 2 else r0
 
