@@ -7,7 +7,8 @@
 2. builds ``csrc/attn_block.cu``, ``csrc/relevancy_chain.cu`` and
    ``csrc/roi_pool.cu`` with ``nvcc`` for ``sm_90a`` (one compiler process
    each, started together) and prints the build time and ptxas's register /
-   spill report, one line per kernel (the GEMM must not spill);
+   spill report, one line per kernel (the GEMM and the attention backward
+   must not spill);
 3. GEMM phase: each product of the block kernels (g1-g9) and the chain
    (gc) at the shapes of the main path (B=8), through
    ``ops/attn_block._gemm``, the tensor-core GEMM of ``csrc/common.cuh``:
@@ -19,12 +20,14 @@
 4. kernel phase, each wrapper on the card held to its plain PyTorch version
    on the same inputs, with its time and the plain version's time (CUDA
    events, mean of 50 back-to-back calls after 3 warm-up calls; for the
-   rows that run the GEMM or the attention forward, the median of 5 such
+   rows that run the GEMM or the attention kernels, the median of 5 such
    means, with their spread), the least time the card could take
    (``bound_ms``, fp32 on the CUDA cores; for the rows whose products run
    on the tensor cores, also ``bound_tc_ms`` at the 3xTF32 rate, and
    ``unit`` says where each row's work runs) and, where one PyTorch call
-   computes the same function, that call's time (``library_ms``):
+   computes the same function, that call's time (``library_ms``; the
+   backward rows also print the time of ``torch.autograd.grad`` through
+   SDPA, which is not the same function: no ``e_row``):
    - at ViT-B/16 widths (B=8, S=197, D=768, H=12, dh=64, I=3072; fp32,
      TF32 off, within rtol 5e-4 / atol 1e-4): the four block wrappers of
      ``ops/attn_block``; the four of ``ops/flash_attention`` (per-head on
@@ -34,8 +37,11 @@
      [8, 12, 12, 197, 197] captures of ``vit.capture`` (strided views, no
      copy), start_layer 0 and 1. ``flash_fwd`` and ``flash_fwd_qkv`` are
      also held within 1e-5 of their plain versions run in float64 (which a
-     single TF32 product would miss), and ``flash_fwd`` runs at S = 4,000
-     against its plain version;
+     single TF32 product would miss), ``flash_bwd_ehat`` and
+     ``flash_bwd_ehat_qkv`` each of dq, dk, dv and e_row within 1e-5 ·
+     max|ref| of float64 at B=8 and at S = 2,000; ``flash_fwd`` runs at
+     S = 4,000 and ``flash_bwd_ehat`` at S = 2,000 and 4,000 against their
+     plain versions;
    - ``ops/roi_pool_pallas`` at the protocol shape (a [50, 76, 1024] map,
      1,000 boxes over an 800×1216 image with a tiny, a clipped and a
      degenerate one, P=14, scale 1/16), EXACTLY equal to its plain version;
@@ -103,7 +109,7 @@ MAP_BAR = 1e-4                     # the repo's relevancy parity target
 # H100 SXM published peaks: fp32 outside the tensor cores, HBM3
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 TF32_FLOPS = 495e12   # dense TF32 on the tensor cores; 3xTF32 takes 3 each
-F64_BAR = 1e-5        # forward kernels vs the plain version in float64
+F64_BAR = 1e-5        # attention kernels vs the plain version in float64
 GEMM_BAR = 1e-5       # GEMM: max|Δ| from float64 over max|C64|
 CSRC = "transformer_mm_explainability_tpu_torch/csrc"
 JAX_OPS = "transformer_mm_explainability_tpu/ops"
@@ -128,11 +134,14 @@ BLOCK_UNITS = {   # where the work of each row built on the GEMM runs
     "mlp_block_fwd": f"{_GEMMS}); LayerNorm on the CUDA cores, fp32",
     "mlp_block_bwd": f"{_GEMMS}); LayerNorm and its VJP on the CUDA cores, "
                      "fp32",
-    "attn_block_bwd": f"{_GEMMS}); attention backward, e_row and LayerNorm "
-                      "on the CUDA cores, fp32",
+    "attn_block_bwd": f"{_GEMMS} and attention backward); e_row head sum "
+                      "and LayerNorm on the CUDA cores, fp32",
     "self_attention_relevancy_pallas": "tensor cores, 3xTF32 (GEMM); Ê "
                                        "reduction on the CUDA cores, fp32",
 }
+# rows #6 and #8: the function's 5 products run as 9 on the tensor cores
+FLASH_BWD_UNIT = ("tensor cores, 3xTF32 (attention backward, 9 products for "
+                  "the function's 5); e_row head sum on the CUDA cores, fp32")
 # the products of one relevancy_fused_block2 call at B=8 (M = B·S) and of
 # the chain: name: (M, N, K, trans_b, epilogue, batch, launches per call)
 GEMMS = {
@@ -424,6 +433,7 @@ def flash_kernel_phase(fa, gen) -> dict:
     q, k, v = (t.contiguous() for t in views)
     dout = dview.contiguous()
     fwd = dict(repeats=5, tensor_cores=True)
+    bwd = dict(repeats=5, tensor_cores=True, unit=FLASH_BWD_UNIT)
     rows = {
         "flash_fwd": measure(
             "flash_fwd", lambda: fa.flash_fwd(q, k, v),
@@ -431,7 +441,7 @@ def flash_kernel_phase(fa, gen) -> dict:
             **fwd),
         "flash_bwd_ehat": measure(
             "flash_bwd_ehat", lambda: fa.flash_bwd_ehat(q, k, v, dout, r),
-            lambda: fa.flash_bwd_ehat_plain(q, k, v, dout, r)),
+            lambda: fa.flash_bwd_ehat_plain(q, k, v, dout, r), **bwd),
         # SDPA on the split-head views of the same qkv: the same attention,
         # its output left per head
         "flash_fwd_qkv": measure(
@@ -441,8 +451,18 @@ def flash_kernel_phase(fa, gen) -> dict:
         "flash_bwd_ehat_qkv": measure(
             "flash_bwd_ehat_qkv",
             lambda: fa.flash_bwd_ehat_qkv(qkv, dmerged, r, H),
-            lambda: fa.flash_bwd_ehat_qkv_plain(qkv, dmerged, r, H)),
+            lambda: fa.flash_bwd_ehat_qkv_plain(qkv, dmerged, r, H), **bwd),
     }
+    # a yardstick only: PyTorch's own attention backward computes dq, dk,
+    # dv without the e_row fold, so it stays out of library_ms
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = sdpa(qg, kg, vg)
+    ms, lo, hi = timed(lambda: torch.autograd.grad(out, (qg, kg, vg), dout,
+                                                   retain_graph=True), 5)
+    print(f"library torch.autograd.grad through SDPA fp32 for (dq, dk, dv) "
+          f"at {tuple(q.shape)}: {ms:.4f} ms ({lo:.4f}-{hi:.4f}); not the "
+          f"same function (no e_row)", flush=True)
+    del qg, kg, vg, out
     # the per-head kernels on split-head views of qkv == the qkv kernels
     out = fa.flash_fwd(*views)
     assert torch.equal(out, fa.heads(fa.flash_fwd_qkv(qkv, H), H))
@@ -470,7 +490,17 @@ def flash_kernel_phase(fa, gen) -> dict:
               f"distance from float64 {own:.3e}", flush=True)
         assert err <= F64_BAR, f"{name}: {err} from float64"
 
-    # a length whose score rows the old forward could not hold
+    # the backward's fp32 accuracy, output by output: at B=8, then S=2000
+    for name, err in bwd_f64_gate(fa, "B=8 S=197", qkv, dmerged, r, H).items():
+        rows[name]["max_rel_err_f64"] = err
+    lqkv, ldm = rnd(1, 2000, 6 * DH), rnd(1, 2000, 2 * DH)
+    lr = torch.rand((1, 2000), generator=gen).to(dev)
+    for name, err in bwd_f64_gate(fa, "B=1 H=2 S=2000", lqkv, ldm, lr,
+                                  2).items():
+        rows[name]["max_rel_err_f64"] = max(rows[name]["max_rel_err_f64"],
+                                            err)
+
+    # lengths whose score rows the old kernels could not hold
     lq, lk, lv = (rnd(1, 2, 4000, DH) for _ in range(3))
     got = fa.flash_fwd(lq, lk, lv)
     want = fa.flash_fwd_plain(lq, lk, lv)
@@ -481,7 +511,59 @@ def flash_kernel_phase(fa, gen) -> dict:
           f"kernel {cuda_ms(lambda: fa.flash_fwd(lq, lk, lv), 10):.4f} ms, "
           f"plain {cuda_ms(lambda: fa.flash_fwd_plain(lq, lk, lv), 10):.4f} "
           f"ms", flush=True)
+    lib = fa.library()
+    for L in (2000, 4000):
+        assert lib.tmx_attn_smem(L, DH, 1) == lib.tmx_attn_smem(S, DH, 1)
+        args = (*(rnd(1, 2, L, DH) for _ in range(4)),
+                torch.rand((1, L), generator=gen).to(dev))
+        got = fa.flash_bwd_ehat(*args)
+        want = fa.flash_bwd_ehat_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        print(f"kernel flash_bwd_ehat at S={L} (B=1, H=2, dh={DH}; shared "
+              f"memory {lib.tmx_attn_smem(L, DH, 1)} bytes a block, as at "
+              f"S={S}): max|Δ| {err:.3e} (rtol 5e-4, atol 1e-4), kernel "
+              f"{cuda_ms(lambda: fa.flash_bwd_ehat(*args), 10):.4f} ms, plain "
+              f"{cuda_ms(lambda: fa.flash_bwd_ehat_plain(*args), 10):.4f} ms",
+              flush=True)
     return rows
+
+
+def bwd_f64_gate(fa, label: str, qkv, dmerged, r, nheads: int) -> dict:
+    """``flash_bwd_ehat`` on per-head copies of a merged qkv and cotangent,
+    and ``flash_bwd_ehat_qkv`` on the merged tensors: each of dq, dk, dv
+    and e_row within F64_BAR · max|ref| of the plain version in float64
+    (the fp32 plain version's own distance printed beside it); returns the
+    worst max|Δ| / max|ref| per wrapper."""
+    q, k, v = (t.contiguous() for t in fa.qkv_heads(qkv, nheads))
+    per_head = (q, k, v, fa.heads(dmerged, nheads).contiguous(), r)
+
+    def split(dqkv, e_row):
+        return (*fa.qkv_heads(dqkv, nheads), e_row)
+
+    runs = {
+        "flash_bwd_ehat": (
+            lambda: fa.flash_bwd_ehat(*per_head),
+            lambda t: fa.flash_bwd_ehat_plain(*(x.to(t) for x in per_head))),
+        "flash_bwd_ehat_qkv": (
+            lambda: split(*fa.flash_bwd_ehat_qkv(qkv, dmerged, r, nheads)),
+            lambda t: split(*fa.flash_bwd_ehat_qkv_plain(
+                qkv.to(t), dmerged.to(t), r.to(t), nheads)))}
+    worst = {}
+    for name, (kernel, plain) in runs.items():
+        got, want64, own = kernel(), plain(torch.float64), plain(torch.float32)
+        rel = [[float((x.double() - w).abs().max() / w.abs().max())
+                for x, w in zip(out, want64)] for out in (got, own)]
+        print(f"kernel {name} {label} vs its plain version in float64, "
+              f"max|Δ|/max|ref| of dq, dk, dv, e_row: "
+              f"{', '.join(f'{e:.2e}' for e in rel[0])} (bar {F64_BAR:g}); "
+              f"the fp32 plain version's own: "
+              f"{', '.join(f'{e:.2e}' for e in rel[1])}", flush=True)
+        assert max(rel[0]) <= F64_BAR, f"{name} {label}: {rel[0]}"
+        worst[name] = max(rel[0])
+    return worst
 
 
 def chain_kernel_phase(rp, cams, grads) -> dict:
@@ -649,8 +731,8 @@ def check_maps(path: str, maps, refs: dict) -> None:
 KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
                  ("GEMM 64x64 (tensor cores)", "gemm_tc_kernel"),
                  ("attn fwd", "attn_fwd_kernel"),
-                 ("attn bwd rows", "attn_bwd_rows_kernel"),
-                 ("attn bwd cols", "attn_bwd_cols_kernel"),
+                 ("attn bwd q pass", "attn_bwd_q_kernel"),
+                 ("attn bwd kv pass", "attn_bwd_kv_kernel"),
                  ("layernorm fwd", "ln_fwd_kernel"),
                  ("layernorm vjp", "ln_vjp_kernel"),
                  ("e_row", "e_row_kernel"),
@@ -959,8 +1041,8 @@ def main() -> int:
                 path.with_suffix(".log").read_text()):
             print(f"  ptxas {lib}: {kernel}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads")
-            assert not kernel.startswith("gemm_tc_kernel") or st + ld == 0, \
-                f"{kernel} spills"
+            assert not kernel.startswith(("gemm_tc_kernel", "attn_bwd_")) \
+                or st + ld == 0, f"{kernel} spills"
     mods = (ab, fa, rp, rpool)
     for mod in mods:
         mod.library()

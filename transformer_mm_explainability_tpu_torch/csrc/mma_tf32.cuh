@@ -191,6 +191,23 @@ __device__ __forceinline__ void load_b_3x(const float* b, int ld, int lane,
   split_tf32_fast(b[(t + 4) * ld + g], hi[1], lo[1]);
 }
 
+// The paired-k pair of a_from_acc_3x / load_b_paired_3x with split_tf32_fast,
+// for the attention backward (attn_block.cu).
+__device__ __forceinline__ void a_from_acc_fast_3x(const float c[4], uint32_t hi[4],
+                                                   uint32_t lo[4]) {
+  split_tf32_fast(c[0], hi[0], lo[0]);
+  split_tf32_fast(c[2], hi[1], lo[1]);
+  split_tf32_fast(c[1], hi[2], lo[2]);
+  split_tf32_fast(c[3], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void load_b_paired_fast_3x(const float* b, int ld, int lane,
+                                                      uint32_t hi[2], uint32_t lo[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  split_tf32_fast(b[(2 * t) * ld + g], hi[0], lo[0]);
+  split_tf32_fast(b[(2 * t + 1) * ld + g], hi[1], lo[1]);
+}
+
 // ---------------------------------------------------------------------------
 // cp.async: global -> shared without a register round trip. A thread's
 // copies since its last commit form one group; wait<N> returns once at most

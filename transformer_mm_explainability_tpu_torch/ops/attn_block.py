@@ -360,13 +360,13 @@ def attn_block_bwd(x: torch.Tensor, cot_mid: torch.Tensor, r: torch.Tensor,
     (cot_x [B, S, D] with the residual skip, e_row [B, S]).
 
     Replaces ``attn_block_pallas.attn_block_bwd`` (``_bwd_kernel``). Bound
-    by operations (4·B·S·D·3D + 2·B·S·D² for the projections, 3xTF32 on
-    the tensor cores; 10·B·H·S²·dh for attention, fp32). LN rows → qkv GEMM → cot·W_outᵀ GEMM → attention
-    backward (rows pass: A, dA, the softmax-VJP row sums and dq; columns
-    pass: A recomputed from the saved row max and 1/sum, dk, dv and the
-    per-head fold Σ_q r_q relu(A∘dA); heads summed in a fixed order, so
-    e_row is deterministic) → dqkv·W_qkvᵀ GEMM → LN-VJP rows. A never
-    reaches device memory."""
+    by operations (4·B·S·D·3D + 2·B·S·D² for the projections and
+    10·B·H·S²·dh for attention, all 3xTF32 on the tensor cores). LN rows →
+    qkv GEMM → cot·W_outᵀ GEMM → attention backward (q pass: the online
+    row statistics and dq; kv pass: A recomputed from the saved row max and
+    1/sum, dk, dv and the per-head fold Σ_q r_q relu(A∘dA); heads summed in
+    a fixed order, so e_row is deterministic) → dqkv·W_qkvᵀ GEMM → LN-VJP
+    rows. A never reaches device memory."""
     if _build.on_cpu(x):
         return attn_block_bwd_plain(x, cot_mid, r, w_qkv, b_qkv, w_out,
                                     ln_scale, ln_bias, nheads, eps)

@@ -22,20 +22,20 @@ take every operand as a base pointer plus (batch, head, row) strides, so
 the per-head wrappers accept any ``[B, H, S, dh]`` view whose dh axis is
 contiguous (split-head views of a merged qkv tensor included, without a
 copy), and the qkv wrappers pass split-head views of their merged tensors.
-A is never stored. The forward runs on the tensor cores as 3xTF32
+A is never stored. Both directions run on the tensor cores as 3xTF32
 ``mma.sync`` products (fp32 accuracy: split operands, no TF32 switch
-anywhere) with an online softmax over key tiles streamed by ``cp.async``;
-its shared memory is fixed by dh, so it takes any S. The backward
-recomputes A from q and k on the CUDA cores in two passes, rows then
-columns, with no atomics, so e_row is the same on every run. Neither
-splits a sum across blocks or orders it by timing: the same inputs give the
-same bits, whatever their layout. Each wrapper counts its CUDA launches in
-``launches`` (see ``launch_counts``).
+anywhere) over tiles streamed by ``cp.async``. The forward keeps an online
+softmax over key tiles. The backward runs two passes that recompute A from
+q and k: a q pass (online row statistics, then dq) and a kv pass (dk, dv
+and the per-head fold), with no atomics, so e_row is the same on every
+run. Neither direction splits a sum across blocks or orders it by timing:
+the same inputs give the same bits, whatever their layout. Both keep
+shared memory fixed by dh, so they take any S. Each wrapper counts its CUDA
+launches in ``launches`` (see ``launch_counts``).
 
 Before launch a wrapper rejects anything but float32, a head dim above
-``tmx_max_dh()`` (128), and a backward whose score rows need more shared
-memory than one block may opt in to (about S = 1,490 at dh = 64 on an
-H100).
+``tmx_max_dh()`` (128), and a block that needs more shared memory than
+one block may opt in to on the device.
 
 The JAX module groups heads into 128-lane spans per program
 (``_heads_per_program``), a TPU layout rule; it has no counterpart here:
@@ -55,7 +55,7 @@ from transformer_mm_explainability_tpu_torch.ops import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {  # the attention entry points of csrc/attn_block.cu
     "tmx_attn_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
-    "tmx_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _F, _P],
+    "tmx_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _F, _I, _P],
     "tmx_attn_smem": [_I, _I, _I],
     "tmx_smem_optin": [],
     "tmx_max_dh": [],
@@ -165,7 +165,7 @@ def check_attention(lib, S: int, dh: int, backward: bool) -> None:
     """Raise, before launch, on a head dim or sequence length the attention
     kernels cannot take: dh above ``tmx_max_dh``, or a block that needs
     more shared memory than one block may opt in to on this device (the
-    forward's is fixed by dh; the backward's score rows grow with S)."""
+    library reports the need of each direction for S and dh)."""
     if dh > lib.tmx_max_dh():
         raise RuntimeError(f"head dim {dh} > {lib.tmx_max_dh()} is not "
                            "supported by the attention kernels")
@@ -209,17 +209,13 @@ def view_args(*views):
             [s for t in views for s in t.stride()[:3]])
 
 
-def _strides(*views) -> ctypes.Array:
-    """The stride array of [B, H, S, dh] views."""
-    return _stride_array(view_args(*views)[1])
-
-
 def copy_width(dh: int, pointers, strides) -> int:
-    """Width in bytes of the forward kernel's ``cp.async`` copies for q, k
-    and v (their pointers and strides, as ``view_args`` gives them): 16
-    where dh is a multiple of 4, every pointer is 16-byte aligned and every
-    stride a multiple of 4 floats, so that every row starts on a 16-byte
-    boundary; else 4. The merged layouts of the model paths take 16."""
+    """Width in bytes of the attention kernels' ``cp.async`` copies for the
+    operands they read (q, k, v and, backward, dout: their pointers and
+    strides, as ``view_args`` gives them): 16 where dh is a multiple of 4,
+    every pointer is 16-byte aligned and every stride a multiple of 4
+    floats, so that every row starts on a 16-byte boundary; else 4. The
+    merged layouts of the model paths take 16."""
     if dh % 4 or any(p % 16 for p in pointers) or any(s % 4 for s in strides):
         return 4
     return 16
@@ -265,18 +261,20 @@ def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream) -> torch.Tensor:
     """Attention backward into (dq, dk, dv) and the fold
     e_row = r · mean_h relu(A∘dA), returned [B, S]; q … dv are
     [B, H, S, dh] views with unit stride along dh, r is [B, S] contiguous
-    (checked by the caller, as for ``attn_fwd_launch``)."""
+    (checked by the caller, as for ``attn_fwd_launch``). The copy width is
+    picked from q, k, v and dout (``copy_width``)."""
     B, H, S, dh = q.shape
     dev = q.device
     stats = torch.empty((3, B, H, S), device=dev)
     e_part = torch.empty((B, H, S), device=dev)
     e_row = torch.empty((B, S), device=dev)
+    pointers, strides = view_args(q, k, v, dout, dq, dk, dv)
     lib = library()
     p = _build.ptr
     _build.check(lib, "tmx_attn_bwd", lib.tmx_attn_bwd(
-        p(q), p(k), p(v), p(dout), p(r), p(dq), p(dk), p(dv), p(stats),
-        p(e_part), p(e_row), _strides(q, k, v, dout, dq, dk, dv), B, S, H,
-        dh, 1.0 / math.sqrt(dh), stream))
+        *pointers[:4], p(r), *pointers[4:], p(stats), p(e_part), p(e_row),
+        _stride_array(strides), B, S, H, dh, 1.0 / math.sqrt(dh),
+        copy_width(dh, pointers[:4], strides[:12]), stream))
     return e_row
 
 
@@ -327,9 +325,11 @@ def flash_bwd_ehat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with ``e_row = r · mean_h relu(A ∘ dA)``.
 
     Replaces ``flash_attention.flash_bwd_ehat`` (``_bwd_kernel``). Bound by
-    operations (10·B·H·S²·dh fp32): a rows pass (A, dA, the softmax-VJP row
-    sums, dq), a columns pass (A recomputed, dk, dv, the per-head fold) and
-    a fixed-order sum over heads."""
+    operations (10·B·H·S²·dh for the function's five products), all of
+    them run on the tensor cores as 3xTF32 ``mma.sync``: a q pass (the
+    online row statistics, then dq), a kv pass (A recomputed from the saved
+    row max and 1/sum, dk, dv, the per-head fold) and a fixed-order sum
+    over heads. Shared memory is fixed by dh, so any S fits."""
     if _build.on_cpu(q):
         return flash_bwd_ehat_plain(q, k, v, dout, r)
     B, H, S, dh = _heads_shape(q)
