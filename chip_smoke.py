@@ -80,7 +80,34 @@
    B=8, medians of 3;
 9. LXMERT cli phase: ``cli perturbation --model lxmert --device cuda`` (the
    synthetic run) and the port's LXMERT example on a generated PNG, which
-   must write its two files through the RoIPool kernel (1 launch).
+   must write its two files through the RoIPool kernel (1 launch);
+10. VisualBERT path phase, full-width ``VISUAL_BERT_VQA2`` (BERT-base, 12
+   layers, D=768, 12 heads, 2048-d boxes, 3129 answers; seeded random
+   weights), B=8 questions of S_t=128 (8-20 real tokens) on N_v=100 boxes
+   (10-100 real): ``relevancy_row`` within max|Δ| < 1e-4 of ``capture`` +
+   ``generate_ours`` on the card and of the CPU on two samples, scores
+   within rtol 1e-4 / atol 1e-5; explanations/s at B=8 and 32, image and text
+   perturbation samples/s at N=8 (explain + 9 steps), medians of 3, peak
+   memory and torch.profiler splits of an explain and of a perturbation
+   batch; every kernel counter 0 across the phase;
+11. VisualBERT cli phase: ``cli perturbation --device cuda`` (default model)
+   on synthetic samples, then on files written to ``build/smoke/vqa`` (a
+   100-box 2048-d object TSV of two images, 8 questions, the answer
+   vocabulary, a small WordPiece vocabulary) at full width, which must
+   print nine step accuracies;
+12. CLIP path phase, full-width CLIP ViT-B/32 (224 px, width 768, 12
+   layers; text 77 tokens, width 512, 8 heads, 12 layers; seeded random
+   weights): ``interpret`` on one generated image through
+   ``clip_preprocess`` and 4 texts through ``bpe.tokenize``, R_txt and
+   R_img within 1e-4 of the CPU, logits within rtol 1e-4 / atol 1e-5;
+   interpret calls/s (median of 3) and a profile; RN50 (stages (3, 4, 6,
+   3), width 64, embed 1024) ``encode_image`` within rtol 1e-4 of the CPU
+   (atol 1e-5 of the features' scale); every
+   kernel counter 0;
+13. CLIP cli phase: ``cli explain-clip IMG TEXT... --device cuda`` writes
+   one PNG per text.
+
+Each phase prints its seconds.
 
 It then prints one JSON line describing every kernel and, as its last line,
 the device line. Any failure raises, so the exit code is non-zero; without
@@ -106,6 +133,7 @@ DH = D // H
 EPS = 1e-6
 TOL = dict(rtol=5e-4, atol=1e-4)   # fp32 reduction order, kernel vs plain
 MAP_BAR = 1e-4                     # the repo's relevancy parity target
+SCORE_TOL = dict(rtol=1e-4, atol=1e-5)   # answer scores / logits vs the CPU
 # H100 SXM published peaks: fp32 outside the tensor cores, HBM3
 FP32_FLOPS, HBM_BYTES_S = 67e12, 3.35e12
 TF32_FLOPS = 495e12   # dense TF32 on the tensor cores; 3xTF32 takes 3 each
@@ -911,6 +939,19 @@ def frcnn_phase(mods, frcnn, rpool, card: str):
     return got["roi_pool_pallas"], outs
 
 
+def _rate(call, size) -> float:
+    """Items per second of ``call()``: the median of 3 timed trials, each
+    between two ``torch.cuda.synchronize()``."""
+    trials = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        trials.append(size / (time.perf_counter() - t0))
+    return statistics.median(trials)
+
+
 def lxmert_phase(lx, pert_runner, dets, card: str) -> None:
     """Full-width LXMERT_VQA ours_no_lrp on the card against the CPU, and
     its rates."""
@@ -952,20 +993,10 @@ def lxmert_phase(lx, pert_runner, dets, card: str) -> None:
     assert err < MAP_BAR, f"lxmert: cams differ from the CPU by {err}"
     del ref
 
-    def rate(call, size) -> float:
-        trials = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            trials.append(size / (time.perf_counter() - t0))
-        return statistics.median(trials)
-
     big = {k: torch.cat([v] * 4) for k, v in batch.items()}
     print(f"explanations/s LXMERT_VQA ours_no_lrp fp32: B={n} "
-          f"{rate(lambda: runner.explain_batched(batch), n):.1f}, B=32 "
-          f"{rate(lambda: runner.explain_batched(big), 32):.1f} (median "
+          f"{_rate(lambda: runner.explain_batched(batch), n):.1f}, B=32 "
+          f"{_rate(lambda: runner.explain_batched(big), 32):.1f} (median "
           f"of 3) on {card}", flush=True)
     soft = torch.rand((n, cfg.num_qa_labels), generator=gen).numpy()
     for text in (False, True):
@@ -975,7 +1006,7 @@ def lxmert_phase(lx, pert_runner, dets, card: str) -> None:
         assert accs.shape == (n, len(pr.steps))
         print(f"perturbation samples/s LXMERT_VQA ours_no_lrp "
               f"{'text' if text else 'image'} (9 steps, B={n}): "
-              f"{rate(lambda: pr.run_samples_batched(batch, soft), n):.1f} "
+              f"{_rate(lambda: pr.run_samples_batched(batch, soft), n):.1f} "
               f"(median of 3) on {card}", flush=True)
 
 
@@ -1006,18 +1037,283 @@ def lxmert_cli_phase(cli, example, rpool) -> None:
           "launches 1", flush=True)
 
 
+def _feature_tsv(path: pathlib.Path, n_images: int, n_boxes: int) -> None:
+    """A bottom-up-attention object TSV of ``n_images`` images with
+    ``n_boxes`` 2048-d boxes each, from a seed."""
+    import base64
+
+    import numpy as np
+
+    enc = lambda a: base64.b64encode(a.tobytes()).decode()
+    rows = []
+    for i in range(n_images):
+        rng = np.random.RandomState(i)
+        n = n_boxes
+        rows.append("\t".join([
+            f"img{i}", "480", "640", enc(np.arange(n, dtype=np.int64)),
+            enc(rng.rand(n).astype(np.float32)),
+            enc(np.arange(n, dtype=np.int64)),
+            enc(rng.rand(n).astype(np.float32)), str(n),
+            enc((rng.rand(n, 4) * 400).astype(np.float32)),
+            enc(rng.rand(n, 2048).astype(np.float32))]))
+    path.write_text("\n".join(rows) + "\n")
+
+
+def _cli_json(cli, argv) -> dict:
+    """``cli.main(argv)`` with its output captured; returns the JSON of its
+    last line (printed too)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    print(f"  {' '.join(argv[:3])} ...: rc {rc}; {lines[-1]}", flush=True)
+    assert rc == 0, (argv, rc)
+    return json.loads(lines[-1])
+
+
+def visual_bert_phase(mods, vb, evb, pert_runner, card: str) -> None:
+    """Full-width VISUAL_BERT_VQA2 (BERT-base, 2048-d boxes, 3129 answers;
+    seeded random weights), B=8 questions of S_t=128 (8-20 real tokens) on
+    N_v=100 boxes (10-100 real): ``relevancy_row`` against ``capture`` +
+    ``generate_ours`` on the card and against the CPU, rates, a profile,
+    and the perturbation CLI on synthetic samples and on data files. No
+    kernel of the port lies on this path: every counter must read 0."""
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+
+    reset_counts(mods)
+    cfg = vb.VISUAL_BERT_VQA2
+    params = vb.init_params(0, cfg, "cuda")
+    gen = torch.Generator().manual_seed(5)
+    n, St, Nv = 8, 128, 100
+    lengths = torch.tensor([20, 14, 9, 17, 8, 20, 12, 11])
+    num_boxes = torch.tensor([100, 36, 10, 57, 80, 23, 64, 100])
+    ar = torch.arange(St)[None].expand(n, St)
+    mask = (ar < lengths[:, None]).int()
+    ids = torch.randint(1000, cfg.bert.vocab_size, (n, St), generator=gen)
+    ids[:, 0] = 101                                     # [CLS]
+    ids[ar == (lengths - 2)[:, None]] = 1029            # ?
+    ids[ar == (lengths - 1)[:, None]] = 102             # [SEP]
+    batch = {
+        "input_ids": ids * mask, "input_mask": mask,
+        "visual_embeddings": torch.rand((n, Nv, 2048), generator=gen),
+        "visual_mask": (torch.arange(Nv)[None] < num_boxes[:, None]).int(),
+        "num_boxes": num_boxes,
+    }
+    dev = {k: v.cuda() for k, v in batch.items()}
+    scores, row = vb.relevancy_row(params, dev, None, cfg)
+    c_scores, attn, grads = vb.capture(params, dev, None, cfg)
+    want = evb.generate_ours(attn, grads, vb.cls_index(dev["input_mask"]))
+    del attn, grads
+    err = float((row - want).abs().max())
+    s_err = float((scores - c_scores).abs().max())
+    print(f"path visual_bert relevancy_row B={n} S={St}+{Nv}: vs capture + "
+          f"generate_ours on the card max|Δ| {err:.3e} (bar {MAP_BAR:g}; "
+          f"max|row| {float(want.abs().max()):.3e}), scores max|Δ| "
+          f"{s_err:.3e}", flush=True)
+    assert torch.isfinite(row).all() and err < MAP_BAR, err
+    assert torch.allclose(scores, c_scores, **SCORE_TOL)
+    cpu = params_to(params, "cpu")
+    two = {k: v[:2] for k, v in batch.items()}
+    r_scores, r_row = vb.relevancy_row(cpu, two, None, cfg)
+    del cpu
+    err = float((row[:2].cpu() - r_row).abs().max())
+    print(f"path visual_bert relevancy_row samples 0-1 vs the CPU max|Δ| "
+          f"{err:.3e} (bar {MAP_BAR:g}), scores max|Δ| "
+          f"{float((scores[:2].cpu() - r_scores).abs().max()):.3e}",
+          flush=True)
+    assert err < MAP_BAR, f"visual_bert: rows differ from the CPU by {err}"
+    assert torch.allclose(scores[:2].cpu(), r_scores, **SCORE_TOL)
+
+    runner = pert_runner.VisualBertPerturbationRunner(
+        params, cfg, "ours_no_lrp", device="cuda")
+    big = {k: torch.cat([v] * 4) for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    runner.explain_batched(batch)
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    runner.explain_batched(big)
+    peak32 = torch.cuda.max_memory_allocated() / 2**30
+    rate8 = _rate(lambda: runner.explain_batched(batch), n)
+    rate32 = _rate(lambda: runner.explain_batched(big), 4 * n)
+    print(f"explanations/s VISUAL_BERT_VQA2 ours_no_lrp (relevancy_row) "
+          f"fp32: B={n} {rate8:.1f}, B={4 * n} {rate32:.1f} (median of 3); "
+          f"peak device memory {peak8:.2f} / {peak32:.2f} GiB; on {card}",
+          flush=True)
+    profile(f"visual_bert explain B={n}",
+            lambda: runner.explain_batched(batch), 1e3 * n / rate8,
+            show_other=6)
+    soft = torch.rand((n, cfg.num_labels), generator=gen).numpy()
+    for text in (False, True):
+        pr = pert_runner.VisualBertPerturbationRunner(
+            params, cfg, "ours_no_lrp", text_pert=text, device="cuda")
+        accs = pr.run_samples_batched(batch, soft)
+        assert accs.shape == (n, len(pr.steps)) and np.isfinite(accs).all()
+        rate = _rate(lambda: pr.run_samples_batched(batch, soft), n)
+        kind = "text" if text else "image"
+        print(f"perturbation samples/s VISUAL_BERT_VQA2 ours_no_lrp {kind} "
+              f"(explain + 9 steps, N={n}): {rate:.1f} (median of 3) on "
+              f"{card}", flush=True)
+        if not text:
+            profile(f"visual_bert image perturbation N={n}",
+                    lambda: pr.run_samples_batched(batch, soft),
+                    1e3 * n / rate, show_other=4)
+    got = counts(mods)
+    assert all(v == 0 for v in got.values()), f"visual_bert: launches {got}"
+    print(f"path visual_bert launches: {got}", flush=True)
+
+
+def visual_bert_cli_phase(mods, cli) -> None:
+    """``cli perturbation --device cuda`` with the default model: synthetic
+    samples, then the data-file path at full width (a 100-box TSV of two
+    images, 8 questions, an answer vocabulary, a WordPiece vocabulary)."""
+    reset_counts(mods)
+    summary = _cli_json(cli, ["perturbation", "--device", "cuda",
+                              "--num-samples", "8"])
+    assert summary["num_samples"] == 4 and len(summary["steps"]) == 9
+    work = ROOT / "build" / "smoke" / "vqa"
+    work.mkdir(parents=True, exist_ok=True)
+    _feature_tsv(work / "feats.tsv", 2, 100)
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "what", "is", "on", "the",
+             "table", "?", "how", "many", "cups", "are", "there", "color",
+             "of", "cup", "a", "in", "picture"]
+    (work / "vocab.txt").write_text("\n".join(words) + "\n")
+    answers = ["yes", "no", "2", "red", "cup"]
+    (work / "a2l.json").write_text(json.dumps(
+        {a: i for i, a in enumerate(answers)}))
+    (work / "l2a.json").write_text(json.dumps(answers))
+    sents = ["what is on the table?", "how many cups are there?",
+             "what color is the cup?", "is there a cup in the picture?"]
+    (work / "q.json").write_text(json.dumps(
+        [{"question_id": i, "img_id": f"img{i % 2}", "sent": sents[i % 4],
+          "label": {answers[i % 5]: 1.0}} for i in range(8)]))
+    summary = _cli_json(cli, [
+        "perturbation", "--device", "cuda", "--num-samples", "8",
+        "--questions", str(work / "q.json"), "--features",
+        str(work / "feats.tsv"), "--ans2label", str(work / "a2l.json"),
+        "--label2ans", str(work / "l2a.json"), "--bert-vocab",
+        str(work / "vocab.txt")])
+    torch.cuda.synchronize()
+    assert summary["num_samples"] == 8
+    assert len(summary["step_accuracies"]) == 9
+    got = counts(mods)
+    assert all(v == 0 for v in got.values()), got
+    print(f"cli perturbation --device cuda (visual_bert): synthetic and "
+          f"data files ok, nine step accuracies; launches {got}", flush=True)
+
+
+def clip_phase(mods, clip, eclip, bpe, img_ops, card: str) -> None:
+    """Full-width CLIP ViT-B/32 ``interpret`` on one generated image and 4
+    texts against the CPU, its rate, and RN50's ``encode_image`` against
+    the CPU; seeded random weights. No kernel of the port lies on this
+    path: every counter must read 0."""
+    import dataclasses
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+
+    reset_counts(mods)
+    cfg = clip.CLIP_VIT_B_32
+    params = clip.init_params(0, cfg, "cuda")
+    gen = torch.Generator().manual_seed(6)
+    raw = torch.randint(0, 256, (300, 400, 3), generator=gen,
+                        dtype=torch.uint8)
+    image = img_ops.clip_preprocess(raw.cuda(), cfg.image_resolution)
+    texts = ["a photo of a dog", "a photo of a cat", "a red car on a road",
+             "two people playing chess in a park"]
+    tokens = torch.as_tensor(bpe.tokenize(texts, cfg.context_length)).cuda()
+    R_txt, R_img, logits = eclip.interpret(params, image, tokens, cfg)
+    cpu = params_to(params, "cpu")
+    c_txt, c_img, c_logits = eclip.interpret(cpu, image.cpu(), tokens.cpu(),
+                                             cfg)
+    err = max(float((R_txt.cpu() - c_txt).abs().max()),
+              float((R_img.cpu() - c_img).abs().max()))
+    print(f"path clip ViT-B/32 interpret 4 texts: R_txt / R_img vs the CPU "
+          f"max|Δ| {err:.3e} (bar {MAP_BAR:g}; max|R_img| "
+          f"{float(c_img.abs().max()):.3e}), logits max|Δ| "
+          f"{float((logits.cpu() - c_logits).abs().max()):.3e}", flush=True)
+    assert R_img.shape == (4, 49) and R_txt.shape == (4, 77, 77)
+    assert torch.isfinite(R_img).all() and torch.isfinite(R_txt).all()
+    assert err < MAP_BAR, f"clip: maps differ from the CPU by {err}"
+    assert torch.allclose(logits.cpu(), c_logits, **SCORE_TOL)
+    rate = _rate(lambda: eclip.interpret(params, image, tokens, cfg), 1)
+    print(f"interpret calls/s CLIP ViT-B/32 (1 image, 4 texts) fp32: "
+          f"{rate:.1f} (median of 3) on {card}", flush=True)
+    profile("clip interpret ViT-B/32 4 texts",
+            lambda: eclip.interpret(params, image, tokens, cfg), 1e3 / rate,
+            show_other=4)
+    del params, cpu
+
+    rn = dataclasses.replace(cfg, embed_dim=1024, vision_layers=(3, 4, 6, 3),
+                             vision_width=64)
+    rparams = clip.init_params(1, rn, "cuda")
+    images = torch.stack([image, image.flip(1)])
+    with torch.no_grad():
+        feats, _ = clip.encode_image(rparams, images, rn)
+        c_feats, _ = clip.encode_image(params_to(rparams, "cpu"),
+                                       images.cpu(), rn)
+    scale = float(c_feats.abs().max())
+    rel = float(((feats.cpu() - c_feats).abs()
+                 / c_feats.abs().clamp(min=1e-30)).max())
+    print(f"path clip RN50 encode_image 2 images: features [2, 1024] vs the "
+          f"CPU max rel|Δ| {rel:.3e}, max|Δ| "
+          f"{float((feats.cpu() - c_feats).abs().max()):.3e} (scale "
+          f"{scale:.3e})", flush=True)
+    assert feats.shape == (2, 1024) and torch.isfinite(feats).all()
+    # the random tower's features span ~1e3; its entries near 0 take an
+    # absolute floor of 1e-5 of that scale
+    assert torch.allclose(feats.cpu(), c_feats, rtol=1e-4,
+                          atol=1e-5 * scale), rel
+    got = counts(mods)
+    assert all(v == 0 for v in got.values()), f"clip: launches {got}"
+    print(f"path clip launches: {got}", flush=True)
+
+
+def clip_cli_phase(mods, cli) -> None:
+    import numpy as np
+    from PIL import Image
+
+    reset_counts(mods)
+    work = ROOT / "build" / "smoke"
+    arr = (np.random.RandomState(2).rand(240, 320, 3) * 255).astype(np.uint8)
+    Image.fromarray(arr).save(work / "clip_input.png")
+    prefix = work / "clip"
+    out = _cli_json(cli, ["explain-clip", str(work / "clip_input.png"),
+                          "a dog", "a cat", "a car", "--device", "cuda",
+                          "--output-prefix", str(prefix)])
+    torch.cuda.synchronize()
+    assert len(out["probs"]) == 3
+    for path in out["outputs"]:
+        assert np.asarray(Image.open(path)).shape == (224, 224, 3)
+    got = counts(mods)
+    assert all(v == 0 for v in got.values()), got
+    print(f"cli explain-clip --device cuda: ok, {len(out['outputs'])} PNGs; "
+          f"launches {got}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     from transformer_mm_explainability_tpu_torch import cli
+    from transformer_mm_explainability_tpu_torch.data import bpe
     from transformer_mm_explainability_tpu_torch.examples import (
         lxmert_explainability as example)
+    from transformer_mm_explainability_tpu_torch.explain import clip as eclip
+    from transformer_mm_explainability_tpu_torch.explain import (
+        visual_bert as evb)
     from transformer_mm_explainability_tpu_torch.harness import pert_runner
+    from transformer_mm_explainability_tpu_torch.models import clip
     from transformer_mm_explainability_tpu_torch.models import frcnn
     from transformer_mm_explainability_tpu_torch.models import lxmert as lx
     from transformer_mm_explainability_tpu_torch.models import vit
+    from transformer_mm_explainability_tpu_torch.models import (
+        visual_bert as vb)
+    from transformer_mm_explainability_tpu_torch.ops import image as img_ops
     from transformer_mm_explainability_tpu_torch.ops import _build
     from transformer_mm_explainability_tpu_torch.ops import attn_block as ab
     from transformer_mm_explainability_tpu_torch.ops import flash_attention as fa
@@ -1047,10 +1343,25 @@ def main() -> int:
     for mod in mods:
         mod.library()
 
+    phase_s = {}
+
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
     gen = torch.Generator().manual_seed(0)
-    gemm_phase(ab, torch.Generator().manual_seed(4))
-    rows = block_kernel_phase(ab, gen)
-    rows.update(flash_kernel_phase(fa, gen))
+    timed_phase("gemm", gemm_phase, ab, torch.Generator().manual_seed(4))
+
+    def kernel_rows():
+        rows = block_kernel_phase(ab, gen)
+        rows.update(flash_kernel_phase(fa, gen))
+        return rows
+
+    rows = timed_phase("kernels (block, flash)", kernel_rows)
 
     dev = torch.device("cuda")
     model = vit.init_params(0, vit.VIT_B_16, dev)
@@ -1059,18 +1370,30 @@ def main() -> int:
     _, attn, grads = vit.capture(model, images, targets)
     # [L, B, H, S, S] → batch first, as views
     cams, grads = attn.movedim(1, 0), grads.movedim(1, 0)
-    rows.update(chain_kernel_phase(rp, cams, grads))
-    rows.update(roi_kernel_phase(rpool, gen))
+    rows.update(timed_phase("kernels (chain)", chain_kernel_phase, rp, cams,
+                            grads))
+    rows.update(timed_phase("kernels (roi_pool)", roi_kernel_phase, rpool,
+                            gen))
 
-    launches = path_phase(mods, vit, rp, model, images, targets, cams, grads,
-                          card)
+    launches = timed_phase("vit paths", path_phase, mods, vit, rp, model,
+                           images, targets, cams, grads, card)
     del attn, grads, cams, model
-    cli_phase(ab, cli)
+    timed_phase("cli explain-vit", cli_phase, ab, cli)
     torch.cuda.empty_cache()
-    launches["roi_pool_pallas"], dets = frcnn_phase(mods, frcnn, rpool, card)
+    launches["roi_pool_pallas"], dets = timed_phase(
+        "frcnn", frcnn_phase, mods, frcnn, rpool, card)
     torch.cuda.empty_cache()
-    lxmert_phase(lx, pert_runner, dets, card)
-    lxmert_cli_phase(cli, example, rpool)
+    timed_phase("lxmert", lxmert_phase, lx, pert_runner, dets, card)
+    timed_phase("lxmert cli + example", lxmert_cli_phase, cli, example,
+                rpool)
+    torch.cuda.empty_cache()
+    timed_phase("visual_bert", visual_bert_phase, mods, vb, evb,
+                pert_runner, card)
+    timed_phase("visual_bert cli", visual_bert_cli_phase, mods, cli)
+    torch.cuda.empty_cache()
+    timed_phase("clip", clip_phase, mods, clip, eclip, bpe, img_ops, card)
+    timed_phase("clip cli", clip_cli_phase, mods, cli)
+    print(f"phases: {sum(phase_s.values()):.1f} s in all", flush=True)
     for name, n in launches.items():
         rows[name]["launches"] = n
 

@@ -24,6 +24,7 @@ from transformer_mm_explainability_tpu.harness import pert_runner as jrunner
 from transformer_mm_explainability_tpu.models import bert as jbert
 from transformer_mm_explainability_tpu.models import lxmert as jlx
 from transformer_mm_explainability_tpu.utils import convert as jconvert
+from transformer_mm_explainability_tpu_torch._device import params_to
 from transformer_mm_explainability_tpu_torch.explain import lxmert as texplain
 from transformer_mm_explainability_tpu_torch.harness import pert_runner
 from transformer_mm_explainability_tpu_torch.models import bert as tbert
@@ -290,10 +291,17 @@ def test_unknown_method_and_visual_bert_runner_raise(tparams):
     with pytest.raises(ValueError, match="unknown lxmert"):
         pert_runner.LxmertPerturbationRunner(tparams, TCFG, "grad_x_input",
                                              device="cpu")
-    with pytest.raises(NotImplementedError, match="VisualBERT"):
-        pert_runner.VisualBertPerturbationRunner(None, None)
+    # the VisualBERT runner raises for an LRP method (before it looks at
+    # the parameters)
+    for method in ("partial_lrp", "transformer_att", "ours_with_lrp"):
+        with pytest.raises(NotImplementedError, match="LRP engine"):
+            pert_runner.VisualBertPerturbationRunner(None, None, method,
+                                                     device="cpu")
     assert pert_runner.LXMERT_METHODS == jrunner.LXMERT_METHODS
     assert pert_runner._LX_NEEDS_LRP == jrunner._LX_NEEDS_LRP
+    assert pert_runner.VISUALBERT_METHODS == jrunner.VISUALBERT_METHODS
+    assert pert_runner._VB_NEEDS_LRP == jrunner._VB_NEEDS_LRP
+    assert pert_runner._VISUALBERT_ALIASES == jrunner._VISUALBERT_ALIASES
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +409,7 @@ def test_init_params_seeded_and_moved():
     b = tlx.init_params(torch.Generator().manual_seed(7), TCFG, device="cpu")
     for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
         assert torch.equal(x, y)
-    moved = tlx.params_to(a, "cpu")
+    moved = params_to(a, "cpu")
     assert all(x is y for x, y in zip(jax.tree.leaves(a),
                                       jax.tree.leaves(moved)))
     shapes = jax.eval_shape(lambda: jlx.init_params(jax.random.PRNGKey(0),

@@ -1,7 +1,8 @@
 """The port's perturbation harness against the JAX package: the keep masks,
 the packed prefixes, the step-batched image and text perturbations on
-given cams, the LXMERT runner's perturbation programs, ``run_loop``, the
-``perturbation`` CLI, the data readers and the LXMERT example.
+given cams, the VisualBERT and LXMERT runners' perturbation programs,
+``run_loop``, the ``perturbation`` CLI for both models, the data readers
+and the LXMERT example.
 
 Stated tolerance: exact everywhere. Rankings are stable sorts in both
 packages (padded boxes at −inf and zero relevancies tie), keep counts come
@@ -32,6 +33,7 @@ from transformer_mm_explainability_tpu_torch.models import lxmert as tlx
 from transformer_mm_explainability_tpu_torch.utils import convert as tconvert
 
 from test_torch_lxmert import JCFG, TCFG, lxmert_batch, lxmert_numpy_params
+import test_torch_visual_bert as tvbt
 
 
 def _tied_cams(rng, N, S):
@@ -187,6 +189,59 @@ def test_runner_perturbation_equals_jax(params, text):
     assert torch.is_tensor(dev) and torch.equal(dev, torch.from_numpy(got))
 
 
+@pytest.fixture(scope="module")
+def vb_params():
+    jp = tvbt.numpy_params(lambda: tvbt.jvb.init_params(
+        jax.random.PRNGKey(0), tvbt.JCFG), seed=1)
+    return jp, tconvert.visual_bert_from_jax_numpy(jp, tvbt.TCFG,
+                                                   device="cpu")
+
+
+@pytest.mark.parametrize("method,positive,text", [
+    ("ours_no_lrp", False, False), ("ours_no_lrp", True, False),
+    ("ours_no_lrp", False, True), ("ours_no_lrp", True, True),
+    ("rollout", False, False)])
+def test_visual_bert_runner_perturbation_equals_jax(vb_params, method,
+                                                    positive, text):
+    """The port's VisualBERT run_samples_batched gives the JAX runner's
+    step accuracies (padded text and boxes; the text steps keep CLS, ``?``
+    and SEP), and its explain step the JAX runner's cams."""
+    jp, tp = vb_params
+    b = tvbt.vb_batch(10)
+    b["num_boxes"] = b["visual_mask"].sum(1).astype(np.int32)
+    soft = np.random.RandomState(11).rand(3, 13).astype(np.float32)
+    jr = jrunner.VisualBertPerturbationRunner(jp, tvbt.JCFG, method,
+                                              positive=positive,
+                                              text_pert=text)
+    want = jr.run_samples_batched(tvbt.jx(b), soft)
+    runner = pert_runner.VisualBertPerturbationRunner(
+        tp, tvbt.TCFG, method, positive=positive, text_pert=text,
+        device="cpu")
+    got = runner.run_samples_batched(b, soft)
+    assert got.shape == (3, 9) and runner.steps == jr.steps
+    np.testing.assert_array_equal(got, want)
+    js, jcam = jr.explain_batched(tvbt.jx(b))
+    ts, tcam = runner.explain_batched(b)
+    np.testing.assert_allclose(ts, js, **tvbt.TOL)
+    np.testing.assert_allclose(tcam, jcam, **tvbt.MAP_TOL)
+    np.testing.assert_array_equal(runner.run_sample(
+        {k: v[:1] for k, v in b.items()}, soft[0]), got[0])
+
+
+def test_visual_bert_runner_aliases_and_unknown_methods(vb_params):
+    _, tp = vb_params
+    with pytest.raises(NotImplementedError, match="LRP engine"):
+        pert_runner.VisualBertPerturbationRunner(tp, tvbt.TCFG,
+                                                 "transformer_att",
+                                                 device="cpu")
+    with pytest.raises(ValueError, match="unknown visual_bert"):
+        pert_runner.VisualBertPerturbationRunner(tp, tvbt.TCFG,
+                                                 "ours_no_lrp_no_norm",
+                                                 device="cpu")
+    assert cli.main(["perturbation", "--device", "cpu", "--method",
+                     "ablation_no_aggregation"]) == 2
+
+
 def test_run_loop_collates_and_pads(params):
     _, tp = params
     runner = pert_runner.LxmertPerturbationRunner(tp, TCFG, "raw_attn",
@@ -216,8 +271,20 @@ def test_cli_perturbation_lxmert_smoke_on_cpu(capsys):
     assert summary["num_samples"] == 3 and len(summary["steps"]) == 9
 
 
+@pytest.mark.parametrize("text", ["false", "true"])
+def test_cli_perturbation_visual_bert_smoke_on_cpu(capsys, text):
+    """The default model (VisualBERT), synthetic samples."""
+    assert cli.main(["perturbation", "--device", "cpu", "--num-samples", "3",
+                     "--is-text-pert", text]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["num_samples"] == 3
+    assert summary["steps"] == list(
+        tpert.TEXT_STEPS if text == "true" else tpert.IMAGE_STEPS_VISUALBERT)
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--device", "cpu"], "VisualBERT"),
+    (["--model", "visual_bert", "--device", "cpu", "--method",
+      "partial_lrp"], "LRP engine"),
     (["--model", "lxmert", "--device", "cpu", "--method", "partial_lrp"],
      "slice 6")])
 def test_cli_perturbation_unported_parts_exit_2(capsys, argv, match):
@@ -304,6 +371,44 @@ def test_cli_perturbation_lxmert_with_data_files_on_cpu(monkeypatch,
     assert all(0.0 <= a <= 0.6 for a in summary["step_accuracies"])
 
 
+def test_cli_perturbation_visual_bert_with_data_files_on_cpu(
+        monkeypatch, tmp_path, capsys):
+    """The VisualBERT protocol path on 2 samples: 128-token questions,
+    features padded to 100 boxes, random weights (of a tiny BERT with
+    2048-d visual features and 128 positions in place of VISUAL_BERT_VQA2,
+    to keep the test short); the sample whose image has no features is
+    skipped."""
+    from transformer_mm_explainability_tpu_torch.models import bert as tbert
+
+    monkeypatch.setattr(pert_runner.vb, "VISUAL_BERT_VQA2",
+                        pert_runner.vb.VisualBERTConfig(
+                            bert=tbert.BertConfig(**dict(
+                                pert_runner.SMOKE_BERT,
+                                max_position_embeddings=128))))
+    tsv = _feature_tsv(tmp_path / "feats.tsv")
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "what", "is", "on", "the",
+             "table", "?"]
+    (tmp_path / "vocab.txt").write_text("\n".join(words) + "\n")
+    (tmp_path / "a2l.json").write_text(json.dumps({"yes": 0, "cup": 1}))
+    (tmp_path / "l2a.json").write_text(json.dumps(["yes", "cup"]))
+    (tmp_path / "q.json").write_text(json.dumps(
+        [{"question_id": i, "img_id": f"img{i}", "sent": "what is on the "
+          "table?", "label": {"cup": 0.6}} for i in range(3)]))
+    rc = cli.main(["perturbation", "--device", "cpu", "--num-samples", "3",
+                   "--batch-size", "2", "--is-positive-pert", "true",
+                   "--questions", str(tmp_path / "q.json"),
+                   "--features", tsv, "--ans2label", str(tmp_path / "a2l.json"),
+                   "--label2ans", str(tmp_path / "l2a.json"),
+                   "--bert-vocab", str(tmp_path / "vocab.txt")])
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["num_samples"] == 2
+    assert summary["steps"] == list(tpert.IMAGE_STEPS_VISUALBERT)
+    # soft scores are float32: 0.6 reads 0.6000000238
+    assert all(0.0 <= a <= np.float32(0.6)
+               for a in summary["step_accuracies"]), summary
+
+
 def test_lxmert_example_on_cpu(tmp_path, capsys):
     """image → tiny FRCNN → tiny LXMERT → the two figures, on the CPU."""
     from PIL import Image
@@ -329,3 +434,8 @@ def test_example_and_cli_default_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA device requested"):
         pert_runner.LxmertPerturbationRunner(
             tlx.init_params(0, TCFG, "cpu"), TCFG)
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        cli.main(["perturbation"])
+    with pytest.raises(RuntimeError, match="CUDA device requested"):
+        pert_runner.VisualBertPerturbationRunner(
+            tvbt.tvb.init_params(0, tvbt.TCFG, "cpu"), tvbt.TCFG)

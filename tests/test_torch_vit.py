@@ -339,12 +339,15 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0 []"
     assert len(mods) >= 10
-    # the FRCNN → LXMERT slice is among them
+    # the FRCNN → LXMERT, VisualBERT and CLIP slices are among them
     for name in ("models.frcnn", "models.resnet", "models.bert",
                  "models.lxmert", "explain.lxmert", "ops.roi_pool_pallas",
                  "harness.perturbation", "harness.pert_runner",
                  "data.vqa", "data.tokenization",
-                 "examples.lxmert_explainability"):
+                 "examples.lxmert_explainability",
+                 "models.visual_bert", "explain.visual_bert",
+                 "utils.mmf_loader", "models.clip", "models.clip_resnet",
+                 "explain.clip", "utils.clip_loader", "data.bpe"):
         assert f"transformer_mm_explainability_tpu_torch.{name}" in mods
 
 

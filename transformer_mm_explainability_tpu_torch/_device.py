@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and moving parameter
+trees between devices."""
 
 from __future__ import annotations
 
@@ -15,3 +16,15 @@ def resolve_device(device) -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
     return device
+
+
+def params_to(tree, device):
+    """The same tree (dicts, NamedTuples, lists of tensors) with every
+    tensor on ``device`` (no copy where it is there already)."""
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(params_to(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to(v, device) for v in tree)
+    return tree.to(device)

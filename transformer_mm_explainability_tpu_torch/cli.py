@@ -3,22 +3,31 @@
     python -m transformer_mm_explainability_tpu_torch.cli explain-vit IMG \
         [--checkpoint CKPT] [--class-index N] [--output PNG] [--seed S] \
         [--device cuda|cpu]
+    python -m transformer_mm_explainability_tpu_torch.cli explain-clip IMG \
+        TEXT [TEXT ...] [--checkpoint CLIP.pt] [--start-layer N] \
+        [--start-layer-text N] [--output-prefix P] [--seed S] \
+        [--device cuda|cpu]
     python -m transformer_mm_explainability_tpu_torch.cli perturbation \
-        --model lxmert [--method ours_no_lrp] [--num-samples N] \
-        [--is-positive-pert BOOL] [--is-text-pert BOOL] [--questions JSON \
-        --features TSV --ans2label JSON --label2ans JSON --bert-vocab TXT] \
-        [--checkpoint CKPT] [--seed S] [--device cuda|cpu]
+        [--model visual_bert|lxmert] [--method ours_no_lrp] \
+        [--num-samples N] [--is-positive-pert BOOL] [--is-text-pert BOOL] \
+        [--questions JSON --features TSV --ans2label JSON --label2ans JSON \
+        --bert-vocab TXT] [--checkpoint CKPT] [--seed S] [--device cuda|cpu]
 
 ``explain-vit`` computes the ViT-B/16 relevancy map through
 ``models/vit.relevancy_fused_block2`` (the block kernels on CUDA, their
 plain versions on the CPU) and writes the overlay figure. Without
 ``--checkpoint`` the weights are random, drawn from ``--seed``.
 
+``explain-clip`` runs ``explain/clip.interpret`` (CLIP ViT-B/32 unless the
+checkpoint says otherwise) on the image and the texts, writes one overlay
+PNG per text (``PREFIX_i.png``) and prints the softmax over the texts.
+
 ``perturbation`` is the JAX package's subcommand (the same flags, plus
-``--device``): the LXMERT positive/negative perturbation benchmark through
-``harness/pert_runner``. Without the data flags it runs the pipeline on
-synthetic samples and a tiny random LXMERT. ``--model visual_bert`` and the
-four LRP methods are not ported yet and exit with 2 and a message.
+``--device``): the VisualBERT (default) or LXMERT positive / negative
+perturbation benchmark through ``harness/pert_runner``. Without the data
+flags it runs the pipeline on synthetic samples and a tiny random model.
+The methods that need LRP relevance exit with 2 and a message naming the
+LRP engine, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ def str2bool(v: str) -> bool:
 
 
 # union of the per-model method families; each runner validates its own
-# surface (pert_runner.LXMERT_METHODS + aliases)
+# surface (pert_runner.VISUALBERT_METHODS / LXMERT_METHODS + aliases)
 METHODS = ["ours_with_lrp", "ours_no_lrp", "transformer_att",
            "transformer_attribution", "partial_lrp", "raw_attn",
            "attn_gradcam", "rollout", "ours_no_lrp_no_norm",
@@ -55,6 +64,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="timm ViT state dict (torch.save) to convert+load")
     sp.add_argument("--class-index", type=int, default=None)
     sp.add_argument("--output", default="vit_relevancy.png")
+    sp.add_argument("--seed", type=int, default=1234)
+    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    sp = sub.add_parser("explain-clip", help="CLIP bi-modal relevancy")
+    sp.add_argument("image", help="image path (png/jpg)")
+    sp.add_argument("texts", nargs="+")
+    sp.add_argument("--checkpoint", default=None,
+                    help="OpenAI CLIP .pt (TorchScript or state dict)")
+    sp.add_argument("--start-layer", type=int, default=-1)
+    sp.add_argument("--start-layer-text", type=int, default=-1)
+    sp.add_argument("--output-prefix", default="clip_relevancy")
     sp.add_argument("--seed", type=int, default=1234)
     sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
@@ -77,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--method", default="ours_no_lrp", choices=METHODS,
                     help="explanation method (reference --method)")
     sp.add_argument("--checkpoint", default=None,
-                    help="LXMERT torch state dict to convert+load")
+                    help="MMF VisualBERT checkpoint (.ckpt/.pth or a "
+                         "tarball) or LXMERT torch state dict")
     sp.add_argument("--seed", type=int, default=1234)
     sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
@@ -126,6 +147,49 @@ def cmd_explain_vit(args) -> int:
     return 0
 
 
+def cmd_explain_clip(args) -> int:
+    from PIL import Image
+
+    from transformer_mm_explainability_tpu_torch._device import resolve_device
+    from transformer_mm_explainability_tpu_torch.data import bpe
+    from transformer_mm_explainability_tpu_torch.explain import clip as expl
+    from transformer_mm_explainability_tpu_torch.models import clip
+    from transformer_mm_explainability_tpu_torch.ops import image as img_ops
+    from transformer_mm_explainability_tpu_torch.utils import (
+        visualization as viz)
+
+    device = resolve_device(args.device)
+    if args.checkpoint:
+        from transformer_mm_explainability_tpu_torch.utils.clip_loader import (
+            load_clip)
+
+        params, cfg = load_clip(args.checkpoint, device)
+    else:
+        print("note: no --checkpoint; using random weights (smoke mode)")
+        cfg = clip.CLIP_VIT_B_32
+        params = clip.init_params(args.seed, cfg, device)
+
+    raw = np.array(Image.open(args.image).convert("RGB"))
+    img = img_ops.clip_preprocess(torch.as_tensor(raw, device=device),
+                                  cfg.image_resolution)
+    tokens = torch.as_tensor(bpe.tokenize(args.texts, cfg.context_length),
+                             device=device)
+    _, R_img, logits = expl.interpret(
+        params, img, tokens, cfg, start_layer=args.start_layer,
+        start_layer_text=args.start_layer_text)
+    grid = cfg.image_resolution // cfg.vision_patch_size
+    probs = torch.softmax(logits, -1)[0].cpu().numpy()
+    img_np, R_img = img.cpu().numpy(), R_img.cpu().numpy()
+    outputs = []
+    for i in range(len(args.texts)):
+        out = f"{args.output_prefix}_{i}.png"
+        Image.fromarray(viz.relevancy_figure(img_np, R_img[i],
+                                             (grid, grid))).save(out)
+        outputs.append(out)
+    print(json.dumps({"probs": probs.tolist(), "outputs": outputs}))
+    return 0
+
+
 def cmd_perturbation(args) -> int:
     from transformer_mm_explainability_tpu_torch._device import resolve_device
     from transformer_mm_explainability_tpu_torch.harness import pert_runner
@@ -136,11 +200,17 @@ def cmd_perturbation(args) -> int:
     except NotImplementedError as e:
         print(f"perturbation: {e}")
         return 2
+    except ValueError as e:
+        if "perturbation method" in str(e):
+            print(f"perturbation: {e}")
+            return 2
+        raise
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"explain-vit": cmd_explain_vit,
+            "explain-clip": cmd_explain_clip,
             "perturbation": cmd_perturbation}[args.command](args)
 
 

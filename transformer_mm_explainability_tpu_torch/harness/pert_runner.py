@@ -1,16 +1,15 @@
-"""Perturbation benchmark runner, LXMERT part, in PyTorch.
+"""Perturbation benchmark runners, in PyTorch.
 
 Counterpart of ``transformer_mm_explainability_tpu/harness/pert_runner.py``.
 Streams VQA samples, explains the model's PREDICTED answer with the chosen
 method, runs the step-batched perturbation forward, and prints running
 per-step accuracies as the reference does.
 
-LXMERT's method table has the reference's 11 names. Seven run here; the
-four that need LRP relevance (``_LX_NEEDS_LRP``) raise
-``NotImplementedError`` until the LRP engine (``models/lxmert_lrp.py``,
-ROADMAP slice 6) is ported. ``VisualBertPerturbationRunner`` and
-``--model visual_bert`` wait for the VisualBERT slice and raise the same
-way.
+Method tables have the reference's names: VisualBERT's 6 (plus the
+``transformer_att`` alias and the JAX package's ``ours_with_lrp``
+extension) and LXMERT's 11. The methods that need LRP relevance
+(``_VB_NEEDS_LRP``, ``_LX_NEEDS_LRP``) raise ``NotImplementedError`` until
+the LRP engine (ROADMAP A4) is ported; every other method runs.
 
 N samples × n_steps ride one batch axis through one explain + perturb
 call; ``run_loop`` collates to a fixed batch and keeps one batch in flight
@@ -26,10 +25,16 @@ from typing import Dict, Iterable
 import numpy as np
 import torch
 
-from transformer_mm_explainability_tpu_torch._device import resolve_device
+from transformer_mm_explainability_tpu_torch._device import (
+    params_to,
+    resolve_device,
+)
 from transformer_mm_explainability_tpu_torch.explain import lxmert as elx
+from transformer_mm_explainability_tpu_torch.explain import visual_bert as evb
 from transformer_mm_explainability_tpu_torch.harness import perturbation as pert
+from transformer_mm_explainability_tpu_torch.models import bert
 from transformer_mm_explainability_tpu_torch.models import lxmert as lx
+from transformer_mm_explainability_tpu_torch.models import visual_bert as vb
 
 # LXMERT method names (reference: perturbation.py:217-240)
 LXMERT_METHODS = (
@@ -44,15 +49,22 @@ _LXMERT_ALIASES = {
 }
 _LX_NEEDS_LRP = {"ours_with_lrp", "ours_with_lrp_no_normalization",
                  "transformer_att", "partial_lrp"}
+# VisualBERT method names (reference: evaluation_loop.py:82-87)
 VISUALBERT_METHODS = (
     "transformer_attribution", "ours_no_lrp", "partial_lrp",
     "raw_attn", "attn_gradcam", "rollout",
 )
+_VISUALBERT_ALIASES = {
+    # the LXMERT pipeline's name for the same baseline
+    "transformer_att": "transformer_attribution",
+}
+_VB_NEEDS_LRP = {"transformer_attribution", "partial_lrp", "ours_with_lrp"}
 _NOT_PORTED_LRP = ("needs LRP relevance: the LRP engine "
                    "(models/lxmert_lrp.py) is not ported yet (ROADMAP "
                    "slice 6)")
-_NOT_PORTED_VB = ("the VisualBERT perturbation runner is not ported yet "
-                  "(ROADMAP, the VisualBERT slice)")
+_NOT_PORTED_VB_LRP = ("needs LRP relevance: the LRP engine "
+                      "(visual_bert.relprop, models/bert_lrp.py) is not "
+                      "ported yet (ROADMAP A4)")
 
 
 def _resolve(method: str, table, aliases, model: str) -> str:
@@ -73,14 +85,89 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-class VisualBertPerturbationRunner:
-    """The VisualBERT runner of the JAX package; not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED_VB)
+def _as_batch(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-class LxmertPerturbationRunner:
+class _Runner:
+    """What both runners share over their ``submit_batched``."""
+
+    def run_samples_batched(self, batch, soft_targets) -> np.ndarray:
+        """N samples explained + perturbed in one call → ``[N, steps]``."""
+        return _host(self.submit_batched(batch, soft_targets))
+
+    def run_sample(self, batch, soft_targets) -> np.ndarray:
+        return self.run_samples_batched(batch, soft_targets)[0]
+
+
+class VisualBertPerturbationRunner(_Runner):
+    """MMF-style VisualBERT VQA pipeline on ``device``. Batch leaves carry
+    a leading sample axis N (N=1 for the reference's per-sample protocol),
+    may be numpy arrays or tensors, and go to ``device``; the parameters
+    are moved there (no copy where they are there already)."""
+
+    def __init__(self, params, cfg, method: str = "ours_no_lrp",
+                 positive: bool = False, text_pert: bool = False,
+                 device="cuda"):
+        # "ours_with_lrp": the JAX package's extension beyond the
+        # reference's 6-name table
+        method = _resolve(method, VISUALBERT_METHODS + ("ours_with_lrp",),
+                          _VISUALBERT_ALIASES, "visual_bert")
+        if method in _VB_NEEDS_LRP:
+            raise NotImplementedError(f"visual_bert method {method!r} "
+                                      + _NOT_PORTED_VB_LRP)
+        self.device = resolve_device(device)
+        self.params = params_to(params, self.device)
+        self.cfg = cfg
+        self.method = method
+        self.positive = positive
+        self.text_pert = text_pert
+        self.steps = (pert.TEXT_STEPS if text_pert
+                      else pert.IMAGE_STEPS_VISUALBERT)
+
+    def _explain(self, batch):
+        """(scores, cam [N, S]) for the predicted answer."""
+        if self.method == "ours_no_lrp":
+            # the streamed row fold: no [L, N, H, S, S] stacks
+            return vb.relevancy_row(self.params, batch, None, self.cfg)
+        scores, attn, grads = vb.capture(self.params, batch, None, self.cfg)
+        cam = evb.METHODS_FROM_CAPTURE[self.method](
+            attn, grads, vb.cls_index(batch["input_mask"]))
+        return scores, cam
+
+    def _forward_scores(self, b):
+        with torch.no_grad():
+            return vb.forward(self.params, b["input_ids"], b["input_mask"],
+                              b.get("visual_embeddings"),
+                              visual_mask=b.get("visual_mask"),
+                              cfg=self.cfg)["scores"]
+
+    def explain_batched(self, batch):
+        """``(scores, cam)`` as numpy arrays."""
+        scores, cam = self._explain(_as_batch(batch, self.device))
+        return _host(scores), _host(cam)
+
+    def submit_batched(self, batch, soft_targets) -> torch.Tensor:
+        """Explain + N × steps perturbation; returns the DEVICE tensor
+        ``[N, n_steps]`` without waiting for it."""
+        batch = _as_batch(batch, self.device)
+        targets = torch.as_tensor(_as_2d(soft_targets), device=self.device)
+        _, cam = self._explain(batch)
+        S_text = batch["input_ids"].shape[1]
+        if self.text_pert:
+            text_len = batch["input_mask"].sum(dim=1)
+            ar = torch.arange(S_text, device=self.device)[None, :]
+            # protect [CLS](0), '?'(len-2) and [SEP](len-1)
+            always = (ar == 0) | (ar >= (text_len - 2)[:, None])
+            return pert.run_text_perturbation_batch(
+                self._forward_scores, batch, cam[:, :S_text], targets,
+                self.steps, self.positive, always, text_len)
+        return pert.run_image_perturbation_batch(
+            self._forward_scores, batch, cam[:, S_text:], targets,
+            self.steps, self.positive, num_boxes=batch.get("num_boxes"))
+
+
+class LxmertPerturbationRunner(_Runner):
     """LXMERT VQA pipeline (the reference's ``ModelPert``) on ``device``.
 
     Consumes precomputed FRCNN features (the reference recomputes the CNN
@@ -96,16 +183,12 @@ class LxmertPerturbationRunner:
             raise NotImplementedError(f"lxmert method {method!r} "
                                       + _NOT_PORTED_LRP)
         self.device = resolve_device(device)
-        self.params = lx.params_to(params, self.device)
+        self.params = params_to(params, self.device)
         self.cfg = cfg
         self.method = method
         self.positive = positive
         self.text_pert = text_pert
         self.steps = pert.LXMERT_STEPS
-
-    def _batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items()}
 
     def _explain(self, batch):
         """(scores, cam_text [N, St], cam_image [N, Sv]) for the predicted
@@ -150,14 +233,15 @@ class LxmertPerturbationRunner:
 
     def explain_batched(self, batch):
         """``(scores, cam_text, cam_image)`` as numpy arrays."""
-        scores, cam_text, cam_image = self._explain(self._batch(batch))
+        scores, cam_text, cam_image = self._explain(
+            _as_batch(batch, self.device))
         return _host(scores), _host(cam_text), _host(cam_image)
 
     def submit_batched(self, batch, soft_targets) -> torch.Tensor:
         """Explain + N × steps perturbation; returns the DEVICE tensor
         ``[N, n_steps]`` without waiting for it, so that a caller can
         overlap the next batch's host work."""
-        batch = self._batch(batch)
+        batch = _as_batch(batch, self.device)
         targets = torch.as_tensor(_as_2d(soft_targets), device=self.device)
         _, cam_text, cam_image = self._explain(batch)
         if self.text_pert:
@@ -173,13 +257,6 @@ class LxmertPerturbationRunner:
         return pert.run_image_perturbation_batch(
             self._forward_scores, batch, cam_image, targets, self.steps,
             self.positive, num_boxes=batch.get("num_boxes"))
-
-    def run_samples_batched(self, batch, soft_targets) -> np.ndarray:
-        """N samples explained + perturbed in one call → ``[N, steps]``."""
-        return _host(self.submit_batched(batch, soft_targets))
-
-    def run_sample(self, batch, soft_targets) -> np.ndarray:
-        return self.run_samples_batched(batch, soft_targets)[0]
 
 
 def _collate(buf):
@@ -272,8 +349,6 @@ def run_from_args(args) -> int:
         BertTokenizer)
 
     model = getattr(args, "model", "visual_bert")
-    if model != "lxmert":
-        raise NotImplementedError(_NOT_PORTED_VB)
     batch_size = getattr(args, "batch_size", 8) or 8
     device = getattr(args, "device", "cuda")
 
@@ -291,35 +366,59 @@ def run_from_args(args) -> int:
         return 2
     tok = BertTokenizer(vocab_path=args.bert_vocab)
 
+    if model == "lxmert":
+        max_boxes, max_len, mask_key = 36, 20, "attention_mask"
+        cfg = dataclasses.replace(lx.LXMERT_VQA, num_qa_labels=len(vocab))
+        params = (lx.init_params(args.seed, cfg, device)
+                  if not args.checkpoint
+                  else _load_lx(args.checkpoint, cfg, device))
+        runner = LxmertPerturbationRunner(params, cfg, args.method,
+                                          args.is_positive_pert,
+                                          args.is_text_pert, device=device)
+    else:
+        max_boxes, max_len, mask_key = 100, 128, "input_mask"
+        cfg = dataclasses.replace(vb.VISUAL_BERT_VQA2, num_labels=len(vocab))
+        params = (vb.init_params(args.seed, cfg, device)
+                  if not args.checkpoint
+                  else _load_vb(args.checkpoint, cfg, device))
+        runner = VisualBertPerturbationRunner(params, cfg, args.method,
+                                              args.is_positive_pert,
+                                              args.is_text_pert,
+                                              device=device)
     feats = vqa_data.FeatureStore(vqa_data.load_obj_tsv(args.features),
-                                  max_boxes=36)
-    cfg = dataclasses.replace(lx.LXMERT_VQA, num_qa_labels=len(vocab))
-    params = (lx.init_params(args.seed, cfg, device) if not args.checkpoint
-              else _load_lx(args.checkpoint, cfg, device))
-    runner = LxmertPerturbationRunner(params, cfg, args.method,
-                                      args.is_positive_pert,
-                                      args.is_text_pert, device=device)
+                                  max_boxes=max_boxes)
 
     def gen():
         for item in dataset.sampled(args.num_samples, args.seed):
             if item["img_id"] not in feats:
                 continue
             f = feats[item["img_id"]]
-            enc = tok.encode_vqa(item["sent"], max_len=20)
+            enc = tok.encode_vqa(item["sent"], max_len=max_len)
             # host (numpy) samples: _collate stacks them on the host
             batch = {
                 "input_ids": enc["input_ids"][None],
-                "attention_mask": enc["input_mask"][None],
-                "visual_feats": f["features"][None],
-                "visual_pos": f["boxes"][None],
+                mask_key: enc["input_mask"][None],
                 "num_boxes": np.asarray([f["num_boxes"]], np.int32),
-                "visual_mask": (np.arange(36) < f["num_boxes"])[None]
+                "visual_mask": (np.arange(max_boxes) < f["num_boxes"])[None]
                 .astype(np.int32),
             }
+            if model == "lxmert":
+                batch["visual_feats"] = f["features"][None]
+                batch["visual_pos"] = f["boxes"][None]
+            else:
+                batch["visual_embeddings"] = f["features"][None]
             yield batch, vocab.soft_scores(item.get("label", {}))
 
     run_loop(runner, gen(), args.num_samples, batch_size=batch_size)
     return 0
+
+
+def _load_vb(path, cfg, device="cuda"):
+    from transformer_mm_explainability_tpu_torch.utils.mmf_loader import (
+        load_visual_bert)
+
+    params, _ = load_visual_bert(path, cfg, device)
+    return params
 
 
 def _load_lx(path, cfg, device="cuda"):
@@ -331,34 +430,48 @@ def _load_lx(path, cfg, device="cuda"):
     return convert.lxmert_from_state_dict(sd, cfg, device)
 
 
-# the tiny LXMERT of the synthetic run (the JAX package's, for both)
+# the tiny models of the synthetic run (the JAX package's)
 SMOKE_LXMERT = dict(vocab_size=100, hidden_size=64, num_attention_heads=4,
                     intermediate_size=128, l_layers=2, x_layers=2,
                     r_layers=2, num_qa_labels=13, visual_feat_dim=32,
                     max_position_embeddings=40)
+SMOKE_BERT = dict(vocab_size=100, hidden_size=64, num_hidden_layers=2,
+                  num_attention_heads=4, intermediate_size=128,
+                  max_position_embeddings=40)
+SMOKE_VISUAL_BERT = vb.VisualBERTConfig(bert=bert.BertConfig(**SMOKE_BERT),
+                                        visual_embedding_dim=32,
+                                        num_labels=13)
 
 
 def _smoke(args) -> int:
-    """The pipeline on synthetic samples and a tiny random LXMERT."""
-    if getattr(args, "model", "visual_bert") != "lxmert":
-        raise NotImplementedError(_NOT_PORTED_VB)
+    """The pipeline on synthetic samples and a tiny random model."""
+    model = getattr(args, "model", "visual_bert")
     device = getattr(args, "device", "cuda")
     rng = np.random.RandomState(args.seed)
     n = min(args.num_samples, 4)
-    cfg = lx.LxmertConfig(**SMOKE_LXMERT)
-    params = lx.init_params(args.seed, cfg, device)
-    runner = LxmertPerturbationRunner(params, cfg, args.method,
-                                      args.is_positive_pert,
-                                      args.is_text_pert, device=device)
+    if model == "lxmert":
+        cfg = lx.LxmertConfig(**SMOKE_LXMERT)
+        runner = LxmertPerturbationRunner(
+            lx.init_params(args.seed, cfg, device), cfg, args.method,
+            args.is_positive_pert, args.is_text_pert, device=device)
+        mask_key, visual_key = "attention_mask", "visual_feats"
+    else:
+        cfg = SMOKE_VISUAL_BERT
+        runner = VisualBertPerturbationRunner(
+            vb.init_params(args.seed, cfg, device), cfg, args.method,
+            args.is_positive_pert, args.is_text_pert, device=device)
+        mask_key, visual_key = "input_mask", "visual_embeddings"
 
     def gen():
         for _ in range(n):
-            yield ({
+            sample = {
                 "input_ids": rng.randint(1, 99, (1, 12)),
-                "attention_mask": np.ones((1, 12), np.int32),
-                "visual_feats": rng.randn(1, 9, 32).astype(np.float32),
-                "visual_pos": rng.rand(1, 9, 4).astype(np.float32),
-            }, _soft(rng, 13))
+                mask_key: np.ones((1, 12), np.int32),
+                visual_key: rng.randn(1, 9, 32).astype(np.float32),
+            }
+            if model == "lxmert":
+                sample["visual_pos"] = rng.rand(1, 9, 4).astype(np.float32)
+            yield sample, _soft(rng, 13)
 
     run_loop(runner, gen(), n, batch_size=min(4, n))
     return 0

@@ -101,6 +101,20 @@ def unstack(params: Dict[str, Any], i: int) -> Dict[str, Any]:
     return params[i]
 
 
+def layer(p: Dict[str, Any], x: torch.Tensor, cfg: BertConfig,
+          mask: Optional[torch.Tensor] = None,
+          tap: Optional[torch.Tensor] = None):
+    """One post-LN layer (``p`` unstacked): ``(x_out, attn_probs)``."""
+    attn_out, probs = multi_head_self_attention(
+        p["attn"], x, cfg.num_attention_heads, mask=mask, tap=tap)
+    x = layer_norm(x + attn_out, p["attn_ln"]["scale"], p["attn_ln"]["bias"],
+                   cfg.layer_norm_eps)
+    h = gelu(x @ p["mlp"]["w1"] + p["mlp"]["b1"])
+    h = h @ p["mlp"]["w2"] + p["mlp"]["b2"]
+    return layer_norm(x + h, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"],
+                      cfg.layer_norm_eps), probs
+
+
 def encoder(params: Dict[str, Any], hidden: torch.Tensor, cfg: BertConfig,
             mask: Optional[torch.Tensor] = None,
             taps: Optional[torch.Tensor] = None, return_tape: bool = False):
@@ -110,20 +124,12 @@ def encoder(params: Dict[str, Any], hidden: torch.Tensor, cfg: BertConfig,
     ``[L, B, H, S, S]`` (optional). Returns ``(hidden, attn_probs
     [L, B, H, S, S])``, plus the per-layer input tape ``[L, B, S, D]`` when
     ``return_tape``."""
+    stacked = {k: params[k] for k in ("attn", "attn_ln", "mlp", "mlp_ln")}
     probs, tape = [], []
     for i in range(cfg.num_hidden_layers):
-        p = unstack({k: params[k] for k in ("attn", "attn_ln", "mlp",
-                                           "mlp_ln")}, i)
         tape.append(hidden)
-        attn_out, pr = multi_head_self_attention(
-            p["attn"], hidden, cfg.num_attention_heads, mask=mask,
-            tap=None if taps is None else taps[i])
-        x = layer_norm(hidden + attn_out, p["attn_ln"]["scale"],
-                       p["attn_ln"]["bias"], cfg.layer_norm_eps)
-        h = gelu(x @ p["mlp"]["w1"] + p["mlp"]["b1"])
-        h = h @ p["mlp"]["w2"] + p["mlp"]["b2"]
-        hidden = layer_norm(x + h, p["mlp_ln"]["scale"], p["mlp_ln"]["bias"],
-                            cfg.layer_norm_eps)
+        hidden, pr = layer(unstack(stacked, i), hidden, cfg, mask,
+                           None if taps is None else taps[i])
         probs.append(pr)
     if return_tape:
         return hidden, torch.stack(probs), torch.stack(tape)

@@ -160,18 +160,6 @@ def init_params(seed: Union[int, torch.Generator] = 0,
     }
 
 
-def params_to(tree, device):
-    """The same tree with every tensor on ``device`` (no copy where it is
-    there already)."""
-    if isinstance(tree, dict):
-        return {k: params_to(v, device) for k, v in tree.items()}
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(params_to(v, device) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_to(v, device) for v in tree)
-    return tree.to(device)
-
-
 def _attn_block(p_attn, p_ln, x_q, x_kv, H, mask, tap, eps):
     """attention + residual + LN (LxmertSelfAttentionLayer /
     LxmertCrossAttentionLayer + LxmertAttentionOutput)."""

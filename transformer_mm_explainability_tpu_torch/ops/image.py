@@ -1,7 +1,8 @@
 """Image preprocessing in PyTorch, channel-last ``[H, W, C]``.
 
 Counterpart of the resize / crop / normalise part of
-``transformer_mm_explainability_tpu/ops/image.py``. ``jax.image.resize``
+``transformer_mm_explainability_tpu/ops/image.py`` and of its CLIP
+pipeline (``clip_preprocess``). ``jax.image.resize``
 uses the Keys cubic with a = -0.5 and antialiases when it shrinks;
 ``F.interpolate(mode="bicubic")`` uses a = -0.75 and no antialias unless
 ``antialias=True``, which selects the a = -0.5 separable filter scaled on
@@ -14,6 +15,10 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
 
 def resize(image: torch.Tensor, size: Tuple[int, int],
            method: str = "bicubic") -> torch.Tensor:
@@ -50,3 +55,15 @@ def normalize(image: torch.Tensor, mean: Sequence[float],
     mean = torch.as_tensor(mean, dtype=image.dtype, device=image.device)
     std = torch.as_tensor(std, dtype=image.dtype, device=image.device)
     return (image - mean) / std
+
+
+def clip_preprocess(image: torch.Tensor, n_px: int = 224) -> torch.Tensor:
+    """uint8 / float ``[H, W, 3]`` (RGB, 0-255 or 0-1) → normalised
+    ``[n_px, n_px, 3]`` float32: bicubic resize of the shortest side to
+    ``n_px``, centre crop, CLIP mean / std (``clip._transform``). A float
+    image whose max exceeds 2 is taken as 0-255."""
+    img = image.float()
+    if image.dtype == torch.uint8 or float(img.max()) > 2.0:
+        img = img / 255.0
+    img = resize_shortest_edge(img, n_px, method="bicubic")
+    return normalize(center_crop(img, n_px), CLIP_MEAN, CLIP_STD)

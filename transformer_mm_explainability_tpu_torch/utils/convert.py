@@ -2,7 +2,9 @@
 
 Counterpart of ``transformer_mm_explainability_tpu/utils/convert.py`` for
 the models the port has: timm ViT, the detectron2-layout Faster R-CNN
-(``unc-nlp/frcnn-vg-finetuned``) and HF LXMERT with its BERT encoders.
+(``unc-nlp/frcnn-vg-finetuned``), HF LXMERT with its BERT encoders,
+VisualBERT (its MMF state dict is read by ``utils/mmf_loader``) and OpenAI
+CLIP with a ViT or a ModifiedResNet vision tower.
 Linear weights are stored input-major (``x @ w + b``, the transpose of
 torch's ``[out, in]``); the ViT patchify conv becomes a ``[P*P*C, D]``
 matmul weight in ``models/vit.patchify``'s (row, col, channel) order; qkv
@@ -392,3 +394,139 @@ def lxmert_from_state_dict(sd: Mapping[str, Any], cfg,
                         "w2": a3w, "b2": a3b},
     }
     return lxmert_from_jax_numpy(tree, cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# VisualBERT (the MMF state dict is read by utils/mmf_loader)
+# ---------------------------------------------------------------------------
+
+def visual_bert_from_jax_numpy(tree: Mapping[str, Any], cfg,
+                               device="cuda") -> Dict[str, Any]:
+    """The JAX ``models/visual_bert`` params pytree (numpy leaves) → the
+    port's tree on ``device``. ``cfg`` (a
+    ``models.visual_bert.VisualBERTConfig``) must have the tree's depth and
+    widths."""
+    got = (len(tree["encoder"]["attn"][0]),
+           tuple(np.shape(tree["visual"]["projection"]["w"])),
+           np.shape(tree["head"]["classifier"]["w"])[-1])
+    want = (cfg.bert.num_hidden_layers,
+            (cfg.visual_embedding_dim, cfg.bert.hidden_size), cfg.num_labels)
+    if got != want:
+        raise ValueError(f"(layers, projection, labels) {got} do not fit "
+                         f"the config's {want}")
+    return _to_torch(tree, device)
+
+
+# ---------------------------------------------------------------------------
+# CLIP (the OpenAI CLIP state dict; hyperparameters sniffed from shapes as
+# the reference's build_model does)
+# ---------------------------------------------------------------------------
+
+def clip_from_jax_numpy(tree: Mapping[str, Any], cfg,
+                        device="cuda") -> Dict[str, Any]:
+    """The JAX ``models/clip`` params pytree (numpy leaves; HWIO convs in a
+    ResNet tower) → the port's tree on ``device``. ``cfg`` (a
+    ``models.clip.CLIPConfig``) must have the tree's depths."""
+    got = len(tree["text"]["blocks"]["ln1"]["scale"])
+    if cfg.is_resnet:
+        got = (got, tuple(len(b) for b in tree["visual"]["layers"]))
+        want = (cfg.transformer_layers, tuple(cfg.vision_layers))
+    else:
+        got = (got, len(tree["visual"]["blocks"]["ln1"]["scale"]))
+        want = (cfg.transformer_layers, cfg.vision_layers)
+    if got != want:
+        raise ValueError(f"(text, vision) depths {got} do not fit the "
+                         f"config's {want}")
+    return _to_torch(tree, device, hwio=cfg.is_resnet)
+
+
+def _clip_tower_np(sd: Mapping[str, Any], prefix: str, layers: int):
+    blocks = []
+    for i in range(layers):
+        p = f"{prefix}.resblocks.{i}"
+        w_out, b_out = _lin(sd, f"{p}.attn.out_proj")
+        w1, b1 = _lin(sd, f"{p}.mlp.c_fc")
+        w2, b2 = _lin(sd, f"{p}.mlp.c_proj")
+        blocks.append({
+            "ln1": _ln(sd, f"{p}.ln_1"),
+            "attn": AttentionParams(
+                w_qkv=_np(sd[f"{p}.attn.in_proj_weight"]).T,
+                b_qkv=_np(sd[f"{p}.attn.in_proj_bias"]),
+                w_out=w_out, b_out=b_out),
+            "ln2": _ln(sd, f"{p}.ln_2"),
+            "mlp": {"w1": w1, "b1": b1, "w2": w2, "b2": b2},
+        })
+    return _stack(blocks)
+
+
+def _count(sd: Mapping[str, Any], prefix: str, part: int) -> int:
+    return len({k.split(".")[part] for k in sd if k.startswith(prefix)})
+
+
+def clip_from_state_dict(sd: Mapping[str, Any], device="cuda",
+                         **config_overrides):
+    """An OpenAI CLIP state dict (ViT or ModifiedResNet vision tower) →
+    ``(params on device, CLIPConfig)``. Head counts are not in the shapes
+    (OpenAI CLIP uses width/64): pass ``transformer_heads=...`` for other
+    models."""
+    import dataclasses
+
+    from transformer_mm_explainability_tpu_torch.models import clip_resnet
+    from transformer_mm_explainability_tpu_torch.models.clip import (
+        CLIPConfig)
+
+    width = _np(sd["ln_final.weight"]).shape[0]
+    text_cfg = dict(
+        context_length=_np(sd["positional_embedding"]).shape[0],
+        vocab_size=_np(sd["token_embedding.weight"]).shape[0],
+        transformer_width=width, transformer_heads=width // 64,
+        transformer_layers=_count(sd, "transformer.resblocks.", 2))
+    if "visual.proj" in sd:
+        conv1 = _np(sd["visual.conv1.weight"])
+        patch = conv1.shape[-1]
+        grid = int(round(
+            (_np(sd["visual.positional_embedding"]).shape[0] - 1) ** 0.5))
+        cfg = CLIPConfig(
+            embed_dim=_np(sd["text_projection"]).shape[1],
+            image_resolution=grid * patch,
+            vision_layers=_count(sd, "visual.transformer.resblocks.", 3),
+            vision_width=conv1.shape[0], vision_patch_size=patch, **text_cfg)
+    else:
+        counts = []
+        while f"visual.layer{len(counts) + 1}.0.conv1.weight" in sd:
+            si, bi = len(counts) + 1, 0
+            while f"visual.layer{si}.{bi}.conv1.weight" in sd:
+                bi += 1
+            counts.append(bi)
+        spacial = int(round((_np(
+            sd["visual.attnpool.positional_embedding"]).shape[0] - 1) ** 0.5))
+        cfg = CLIPConfig(
+            embed_dim=_np(sd["visual.attnpool.c_proj.weight"]).shape[0],
+            image_resolution=spacial * 32, vision_layers=tuple(counts),
+            vision_width=_np(sd["visual.layer1.0.conv1.weight"]).shape[1],
+            vision_patch_size=32, **text_cfg)
+    if config_overrides:
+        cfg = dataclasses.replace(cfg, **config_overrides)
+    text = {
+        "token_embedding": _np(sd["token_embedding.weight"]),
+        "positional_embedding": _np(sd["positional_embedding"]),
+        "blocks": _clip_tower_np(sd, "transformer", cfg.transformer_layers),
+        "ln_final": _ln(sd, "ln_final"),
+        "text_projection": _np(sd["text_projection"]),
+    }
+    if cfg.is_resnet:
+        visual = clip_resnet.tree_np(sd)
+    else:
+        visual = {
+            "conv1": patch_conv_to_matmul(sd["visual.conv1.weight"]),
+            "class_embedding": _np(sd["visual.class_embedding"]),
+            "positional_embedding": _np(sd["visual.positional_embedding"]),
+            "ln_pre": _ln(sd, "visual.ln_pre"),
+            "blocks": _clip_tower_np(sd, "visual.transformer",
+                                     cfg.vision_layers),
+            "ln_post": _ln(sd, "visual.ln_post"),
+            "proj": _np(sd["visual.proj"]),
+        }
+    tree = {"visual": visual, "text": text,
+            "logit_scale": _np(sd["logit_scale"])}
+    return clip_from_jax_numpy(tree, cfg, device), cfg
