@@ -9,14 +9,17 @@
    each, started together) and prints the build time and ptxas's register /
    spill report, one line per kernel (the GEMM and the attention backward
    must not spill);
-3. GEMM phase: each product of the block kernels (g1-g9) and the chain
-   (gc) at the shapes of the main path (B=8), through
+3. GEMM phase: each product of the block kernels (g1-g9) and the chain's
+   product unpadded (gc, on no path since the chain pads its rows) at the
+   shapes of the main path (B=8), through
    ``ops/attn_block._gemm``, the tensor-core GEMM of ``csrc/common.cuh``:
    one line each with the tile it takes, its time (median of 5 event
    means, with their spread) and TFLOP/s, one PyTorch call's
    (``torch.addmm`` / ``torch.matmul`` / ``torch.baddbmm`` in fp32, TF32
    off), the fp32 and 3xTF32 bounds, and max|Δ| from float64 over
-   max|C64| beside the fp32 library's own; a shape past 1e-5 raises;
+   max|C64| beside the fp32 library's own; a shape past 1e-5 raises; gc
+   also gives the kernel's and ``torch.baddbmm``'s device time alone
+   (torch.profiler), without the host's launch path;
 4. kernel phase, each wrapper on the card held to its plain PyTorch version
    on the same inputs, with its time and the plain version's time (CUDA
    events, mean of 50 back-to-back calls after 3 warm-up calls; for the
@@ -33,9 +36,15 @@
      ``ops/attn_block``; the four of ``ops/flash_attention`` (per-head on
      contiguous [8, 12, 197, 64] tensors, qkv on a [8, 197, 2304] qkv, then
      the per-head wrappers on split-head views of that qkv, which must give
-     the qkv wrappers' bits); ``ops/relevancy_pallas``'s chain on the
-     [8, 12, 12, 197, 197] captures of ``vit.capture`` (strided views, no
-     copy), start_layer 0 and 1. ``flash_fwd`` and ``flash_fwd_qkv`` are
+     the qkv wrappers' bits); ``ops/relevancy_pallas``'s chain on
+     attention-scale [8, 12, 12, 197, 197] captures, batch-first views of
+     [12, 8, ...] stacks as ``vit.capture`` gives them (no copy),
+     start_layer 0 and 1, the row also within 1e-5 · max|R64| of the chain
+     in float64, a bar that R = I and a chain of single-pass TF32 products
+     must both miss, with its device time split between the reduction (one
+     launch) and the 12 products, and one product's device time beside
+     ``torch.baddbmm`` on the padded shapes (gc padded). ``flash_fwd`` and
+     ``flash_fwd_qkv`` are
      also held within 1e-5 of their plain versions run in float64 (which a
      single TF32 product would miss), ``flash_bwd_ehat`` and
      ``flash_bwd_ehat_qkv`` each of dq, dk, dv and e_row within 1e-5 ·
@@ -44,14 +53,20 @@
      plain versions;
    - ``ops/roi_pool_pallas`` at the protocol shape (a [50, 76, 1024] map,
      1,000 boxes over an 800×1216 image with a tiny, a clipped and a
-     degenerate one, P=14, scale 1/16), EXACTLY equal to its plain version;
+     degenerate one, P=14, scale 1/16), EXACTLY equal to its plain version,
+     with the L2 reads of the earlier schedule (every bin's window) and of
+     the box pixels, the kernel's own device time
+     beside the wrapper's, and what ``roi_bin_bounds``'s torch operations
+     (the earlier kernel's bins, now the plain version's) take on the
+     device;
 5. ViT path phase, full-width ViT-B/16 (12 layers, seeded random weights,
    B=8): ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
    ``relevancy_fused_block``. For each, every launch counter is set to 0
    before the call and must read exactly the path's kernels 12 times after
    it (and 0 for every other wrapper); the [8, 196] maps must lie within
    max|Δ| < 1e-4 of ``relevancy``, ``relevancy_streamed_row`` and
-   ``relevancy_streamed`` (plain PyTorch on the card). Then the chain path,
+   ``relevancy_streamed`` (plain PyTorch on the card), whose largest entry
+   must be at least 10 times that bar. Then the chain path,
    ``capture`` + ``self_attention_relevancy_auto``, launches the chain
    kernel once and its R[:, 0, 1:] matches ``relevancy``. Maps/s is the
    median of 3 timed trials per path at B=8 and B=32, the forward probes
@@ -69,7 +84,8 @@
    other wrapper 0; the same images with ``roi_pool_impl="xla"`` give the
    same outputs (bit for bit, or the differences are printed and held to
    1e-5 of each output's scale, the pooled maps exactly); images/s (median
-   of 3), a per-stage split from CUDA events and a torch.profiler split
+   of 3), a per-stage split from CUDA events (median of 3 forwards; the
+   ``roi_pool`` stage on a line of its own) and a torch.profiler split
    with the device's idle share;
 8. LXMERT path phase, full-width ``LXMERT_VQA`` (9/5/5 layers, D=768, 12
    heads, 3129 answers; seeded random weights), B=8 questions of St=20
@@ -170,8 +186,11 @@ BLOCK_UNITS = {   # where the work of each row built on the GEMM runs
 # rows #6 and #8: the function's 5 products run as 9 on the tensor cores
 FLASH_BWD_UNIT = ("tensor cores, 3xTF32 (attention backward, 9 products for "
                   "the function's 5); e_row head sum on the CUDA cores, fp32")
-# the products of one relevancy_fused_block2 call at B=8 (M = B·S) and of
-# the chain: name: (M, N, K, trans_b, epilogue, batch, launches per call)
+# the products of one relevancy_fused_block2 call at B=8 (M = B·S) and the
+# chain's product unpadded (gc; the chain runs it on rows padded to SP
+# floats, timed in the chain phase): name: (M, N, K, trans_b, epilogue,
+# batch, launches per call)
+SP = -(-S // 4) * 4
 GEMMS = {
     "g1 LN1·W_qkv": (B * S, 3 * D, D, False, "bias", 1, 24),
     "g2 merged·W_out": (B * S, D, D, False, "bias+res", 1, 12),
@@ -182,7 +201,7 @@ GEMMS = {
     "g7 da·W1ᵀ": (B * S, D, I, True, "none", 1, 12),
     "g8 cot·W_outᵀ": (B * S, D, D, True, "none", 1, 12),
     "g9 dqkv·W_qkvᵀ": (B * S, D, 3 * D, True, "none", 1, 12),
-    "gc E·R + R": (S, S, S, False, "res", B, 12),
+    "gc E·R + R": (S, S, S, False, "res", B, 0),
 }
 # the RoIPool protocol shape: res4 map of an 800×1216 image, 1000 RPN boxes
 ROI_H, ROI_W, ROI_C, ROI_K, ROI_P = 50, 76, 1024, 1000, 14
@@ -280,6 +299,42 @@ def timed(fn, repeats: int) -> tuple:
     """(median, min, max) of ``repeats`` runs of ``cuda_ms(fn)``."""
     runs = [cuda_ms(fn) for _ in range(repeats)]
     return statistics.median(runs), min(runs), max(runs)
+
+
+def device_ms(fn, iters: int = 20) -> dict:
+    """(device ms, launches) per call of ``fn()``, by kernel name, from
+    torch.profiler over ``iters`` calls after one warm-up call: the
+    kernels' own time, without the host's launch path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "device_time_total", None)
+        us = ev.cuda_time_total if us is None else us
+        ms, n = out.get(ev.key, (0.0, 0.0))
+        out[ev.key] = (ms + us / 1e3 / iters, n + ev.count / iters)
+    return out
+
+
+def ms_of(times: dict, pattern: str = "") -> float:
+    """Device ms per call of the ``device_ms`` kernels whose name matches."""
+    return sum(t for k, (t, _) in times.items() if re.search(pattern, k))
+
+
+def launches_of(times: dict, pattern: str = "") -> float:
+    """Launches per call of the ``device_ms`` kernels whose name matches."""
+    return sum(n for k, (_, n) in times.items() if re.search(pattern, k))
 
 
 def measure(name: str, kernel, plain, library=None, layers: int = 12,
@@ -398,6 +453,12 @@ def gemm_phase(ab, gen) -> None:
         warps = lib.tmx_gemm_warps(M, N, batch)
         tile = f"64x64 ({warps} warps of 32x{128 // warps})"
         shape = f"{batch} x " if batch > 1 else ""
+        dev_txt = ""
+        if batch > 1:    # the chain's: device time alone, no host path
+            own, lib_dev = device_ms(run), device_ms(library)
+            dev_txt = (f"; device time kernel "
+                       f"{ms_of(own, 'gemm_tc_kernel'):.4f} ms, library "
+                       f"{ms_of(lib_dev):.4f} ms (torch.profiler, 20 calls)")
         print(f"gemm {name}: {shape}{M}x{K}x{N} (MxKxN), B "
               f"{'[N,K]' if trans_b else '[K,N]'}, epilogue {epi}, copies "
               f"{ab.gemm_copy_width(a, b)} B, tile {tile}: kernel "
@@ -405,7 +466,8 @@ def gemm_phase(ab, gen) -> None:
               f"TFLOP/s; library {lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} "
               f"TFLOP/s; bounds fp32 {b32:.4f} ms, 3xTF32 {btc:.4f} ms; "
               f"max|Δ|/max|C64| {err:.2e} (bar {GEMM_BAR:g}; fp32 library "
-              f"{own_err:.2e}); {per_call} launches per call", flush=True)
+              f"{own_err:.2e}); {per_call} launches per call{dev_txt}",
+              flush=True)
         assert err <= GEMM_BAR, f"gemm {name}: {err} of max|C64| from float64"
     print(f"gemm per relevancy_fused_block2 call (B={B}, g1-g9): kernel "
           f"{total:.3f} ms, library {total_lib:.3f} ms (sum of launches x "
@@ -594,9 +656,42 @@ def bwd_f64_gate(fa, label: str, qkv, dmerged, r, nheads: int) -> dict:
     return worst
 
 
-def chain_kernel_phase(rp, cams, grads) -> dict:
-    """The chain at start_layer 1, then the row (start_layer 0, all L
-    layers) with the larger of the two errors."""
+def chain_captures() -> tuple:
+    """Attention-scale captures [B, 12, H, S, S] as batch-first views of
+    [12, B, H, S, S] stacks, as ``vit.capture`` gives them: rows of |randn|
+    summing to one, randn gradients. The products then move R well away
+    from I, where random ViT-B/16 captures leave it within about 1e-2."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape = (12, B, H, S, S)
+    cams = torch.randn(shape, generator=gen, device="cuda").abs_()
+    cams /= cams.sum(-1, keepdim=True)
+    grads = torch.randn(shape, generator=gen, device="cuda")
+    return cams.movedim(1, 0), grads.movedim(1, 0)
+
+
+def chain_f64(cams, grads) -> torch.Tensor:
+    """The rule-6 chain in float64 (the plain chain takes its Ê in fp32
+    whatever the captures' dtype)."""
+    e = torch.clamp(cams.double() * grads.double(), min=0).mean(dim=2)
+    R = torch.eye(S, dtype=torch.float64, device=e.device).expand(B, S, S)
+    for i in range(e.shape[1]):
+        R = R + e[:, i] @ R
+    return R
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 stored significand bits), as one TF32 pass of
+    the tensor cores reads it."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def chain_kernel_phase(rp) -> dict:
+    """The chain on attention-scale captures: at start_layer 1, then the
+    row (start_layer 0, all 12 layers) within F64_BAR · max|R64| of the
+    chain in float64, where a chain with no products (R = I) and one whose
+    products are a single TF32 pass both miss that bar; then the call's
+    device time split between the reduction and the products."""
+    cams, grads = chain_captures()
     got = rp.self_attention_relevancy_pallas(cams, grads, 1)
     want = rp.self_attention_relevancy_pallas_plain(cams, grads, 1)
     torch.cuda.synchronize()
@@ -605,9 +700,56 @@ def chain_kernel_phase(rp, cams, grads) -> dict:
     print(f"kernel self_attention_relevancy_pallas start_layer=1: max|Δ| "
           f"{err:.3e} on captures {tuple(cams.shape)}, strides "
           f"{cams.stride()}", flush=True)
+    call = lambda: rp.self_attention_relevancy_pallas(cams, grads)
+    got = call()
+    assert got.is_contiguous() and got.shape == (B, S, S)
+    want64 = chain_f64(cams, grads)
+    scale = float(want64.abs().max())
+    off = lambda R: float((R.double() - want64).abs().max()) / scale
+    rel = off(got)
+    moved = off(torch.eye(S, device=got.device).expand(B, S, S))
+    e = torch.clamp(cams * grads, min=0).mean(dim=2)
+    one_pass = torch.eye(S, device=got.device).expand(B, S, S)
+    for i in range(e.shape[1]):
+        one_pass = one_pass + tf32(e[:, i].contiguous()) @ tf32(
+            one_pass.contiguous())
+    rel_tf32 = off(one_pass)
+    del want64, e, one_pass
+    print(f"kernel self_attention_relevancy_pallas vs float64: max|Δ| / "
+          f"max|R64| {rel:.2e} (bar {F64_BAR:g}); max|R64| {scale:.4f}, "
+          f"max|R64 - I| / max|R64| {moved:.2e} (R = I misses the bar by "
+          f"that), one TF32 pass per product {rel_tf32:.2e}", flush=True)
+    assert rel <= F64_BAR, f"chain: {rel} of max|R64| from float64"
+    assert moved > 100 * F64_BAR and rel_tf32 > F64_BAR, \
+        f"chain: the float64 bar cannot fail a wrong chain ({moved}, " \
+        f"{rel_tf32})"
+    t = device_ms(call)
+    red, prod = ms_of(t, "ehat_kernel"), ms_of(t, "gemm_tc_kernel")
+    n_prod = launches_of(t, "gemm_tc_kernel")
+    # gc padded: one layer's product as the chain runs it (E and R padded
+    # to SP columns with zeros, 16-byte copies) beside torch.baddbmm on
+    # the same operands
+    gen = torch.Generator().manual_seed(5)
+    e = torch.zeros((B, S, SP))
+    e[..., :S] = torch.rand((B, S, S), generator=gen) / S
+    r = torch.zeros((B, SP, SP))
+    r[:, :S, :S] = torch.randn((B, S, S), generator=gen)
+    e, r = e.to(cams.device), r.to(cams.device)
+    lib_t = device_ms(lambda: torch.baddbmm(r[:, :S], e, r))
+    print(f"split self_attention_relevancy_pallas {tuple(cams.shape)}: "
+          f"reduction {red:.4f} ms in {launches_of(t, 'ehat_kernel'):g} "
+          f"launch(es), products {prod:.4f} ms in {n_prod:g} launches "
+          f"({prod / max(n_prod, 1) * 1e3:.2f} us each), other "
+          f"{ms_of(t) - red - prod:.4f} ms; device time per call "
+          f"(torch.profiler, 20 calls)", flush=True)
+    print(f"gemm gc padded E·R + R: {B} x {S}x{SP}x{SP} (MxKxN), 16-byte "
+          f"copies: kernel {prod / max(n_prod, 1):.4f} ms per launch in the "
+          f"chain; torch.baddbmm {ms_of(lib_t):.4f} ms in "
+          f"{launches_of(lib_t):g} launch(es) on the same shapes; device "
+          f"time (torch.profiler)", flush=True)
     name = "self_attention_relevancy_pallas"
     return {name: measure(
-        name, lambda: rp.self_attention_relevancy_pallas(cams, grads),
+        name, call,
         lambda: rp.self_attention_relevancy_pallas_plain(cams, grads),
         layers=cams.shape[1], extra_err=err, repeats=5, tensor_cores=True,
         unit=BLOCK_UNITS[name])}
@@ -628,14 +770,33 @@ def roi_kernel_phase(rpool, gen) -> dict:
                               [img_w - 3, img_h - 3, img_w + 50, img_h + 50],
                               [5.0, 5.0, 5.0, 5.0]])
     boxes = boxes.to(dev)
-    hs, he, ws, we = rpool.roi_bin_bounds(boxes, ROI_P, 1 / 16, ROI_H, ROI_W)
+    bounds = lambda: rpool.roi_bin_bounds(boxes, ROI_P, 1 / 16, ROI_H, ROI_W)
+    hs, he, ws, we = bounds()
     bin_pixels = int(((he - hs)[:, :, None] * (we - ws)[:, None, :]).sum())
+    # the rows and columns some bin covers are one interval each
+    span = lambda lo, hi: (hi - lo).clamp(min=0)
+    box_pixels = int((span(hs[:, 0], he[:, -1])
+                      * span(ws[:, 0], we[:, -1])).sum())
     name = "roi_pool_pallas"
+    call = lambda: rpool.roi_pool_pallas(feats, boxes, ROI_P, 1 / 16)
     # no single PyTorch call computes RoIPool (torchvision is not there)
-    return {name: measure(
-        name, lambda: rpool.roi_pool_pallas(feats, boxes, ROI_P, 1 / 16),
-        lambda: rpool.roi_pool_plain(feats, boxes, ROI_P, 1 / 16),
-        exact=True, bin_pixels=bin_pixels)}
+    row = measure(name, call,
+                  lambda: rpool.roi_pool_plain(feats, boxes, ROI_P, 1 / 16),
+                  exact=True, bin_pixels=bin_pixels)
+    t, tb = device_ms(call), device_ms(bounds)
+    gb = lambda pixels: pixels * ROI_C * 4 / 1e9
+    print(f"roi_pool reads at the protocol shape: {gb(bin_pixels):.3f} GB "
+          f"bin by bin (the earlier schedule: every bin's window), "
+          f"{gb(box_pixels):.3f} GB of box pixels; output "
+          f"{ROI_K * ROI_P ** 2 * ROI_C * 4 / 1e9:.3f} GB", flush=True)
+    print(f"roi_pool device time: kernel {ms_of(t, 'roi_pool_kernel'):.4f} "
+          f"ms in {launches_of(t, 'roi_pool_kernel'):g} launch, all "
+          f"kernels of the call {ms_of(t):.4f} ms, wrapper (events) "
+          f"{row['ms']:.4f} ms; roi_bin_bounds in torch (the earlier "
+          f"kernel's bins, now the plain version's) {ms_of(tb):.4f} ms in "
+          f"{launches_of(tb):g} launches, {cuda_ms(bounds):.4f} ms by events "
+          f"(torch.profiler, 20 calls)", flush=True)
+    return {name: row}
 
 
 def reset_counts(mods) -> None:
@@ -744,14 +905,17 @@ def path_phase(mods, vit, rp, model, images, targets, cams, grads,
 
 
 def check_maps(path: str, maps, refs: dict) -> None:
+    """maps within MAP_BAR of each reference, whose largest entry is at
+    least 10 · MAP_BAR (maps of zeros miss the bar)."""
     assert maps.shape == (B, S - 1), maps.shape
     assert torch.isfinite(maps).all(), f"{path}: non-finite maps"
     for name, other in refs.items():
         err = float((maps - other).abs().max())
+        top = float(other.abs().max())
         print(f"path {path} maps vs {name}: max|Δ| {err:.3e} (bar "
-              f"{MAP_BAR:g}; max|map| {float(other.abs().max()):.3e})",
-              flush=True)
+              f"{MAP_BAR:g}; max|map| {top:.3e})", flush=True)
         assert err < MAP_BAR, f"{path}: maps differ from {name} by {err}"
+        assert top >= 10 * MAP_BAR, f"{path}: {name}'s maps are {top}"
 
 
 # kernel-name patterns (mangled or demangled): the port's kernels first,
@@ -912,26 +1076,36 @@ def frcnn_phase(mods, frcnn, rpool, card: str):
     print(f"images/s FRCNN_VG 800x1216 fp32: {rate:.2f} (median of 3, "
           f"{len(pre)} images each) on {card}", flush=True)
 
-    marks = []
+    stages = []
+    for _ in range(3):
+        marks = []
 
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
 
-    start = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    with torch.no_grad():
-        frcnn.forward(params, pre[0], cfg, on_stage=mark)
-    torch.cuda.synchronize()
-    prev, split = start, []
-    for name, ev in marks:
-        split.append(f"{name} {prev.elapsed_time(ev):.2f} ms")
-        prev = ev
-    print(f"split frcnn.forward (CUDA events between stage ends): "
-          f"{', '.join(split)}; total {start.elapsed_time(prev):.2f} ms",
-          flush=True)
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        with torch.no_grad():
+            frcnn.forward(params, pre[0], cfg, on_stage=mark)
+        torch.cuda.synchronize()
+        prev, split = start, {}
+        for name, ev in marks:
+            split[name] = prev.elapsed_time(ev)
+            prev = ev
+        split["total"] = start.elapsed_time(prev)
+        stages.append(split)
+    print(f"split frcnn.forward (CUDA events between stage ends, median of "
+          f"3 forwards): " + ", ".join(
+              f"{k} {statistics.median(st[k] for st in stages):.2f} ms"
+              for k in stages[0]), flush=True)
+    roi = [st["roi_pool"] for st in stages]
+    print(f"frcnn roi_pool stage ({cfg.post_nms_topk} rois, P "
+          f"{cfg.pooler_resolution}): "
+          f"{statistics.median(roi):.3f} ms ({min(roi):.3f}-{max(roi):.3f}), "
+          f"CUDA events between the rpn+nms and roi_pool marks", flush=True)
     with torch.no_grad():
         profile("frcnn.forward FRCNN_VG 800x1216",
                 lambda: frcnn.forward(params, pre[0], cfg), 1e3 / rate,
@@ -1370,8 +1544,7 @@ def main() -> int:
     _, attn, grads = vit.capture(model, images, targets)
     # [L, B, H, S, S] → batch first, as views
     cams, grads = attn.movedim(1, 0), grads.movedim(1, 0)
-    rows.update(timed_phase("kernels (chain)", chain_kernel_phase, rp, cams,
-                            grads))
+    rows.update(timed_phase("kernels (chain)", chain_kernel_phase, rp))
     rows.update(timed_phase("kernels (roi_pool)", roi_kernel_phase, rpool,
                             gen))
 

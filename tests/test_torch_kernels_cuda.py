@@ -89,6 +89,19 @@ def chain_inputs(B, L, H, S, seed=0):
     return cams, grads
 
 
+def chain_f64(cams, grads, start_layer=0):
+    """The rule-6 chain in float64, [B, L, H, S, S] x2 -> [B, S, S]: Ê_l =
+    mean_h relu(A ∘ G), R ← R + Ê_l·R from R = I. (The port's plain chain
+    takes its Ê in fp32 whatever the captures' dtype.)"""
+    e = torch.clamp(cams.double() * grads.double(), min=0).mean(dim=2)
+    e = e[:, start_layer:]
+    B, S = cams.shape[0], cams.shape[-1]
+    R = torch.eye(S, dtype=torch.float64, device=cams.device).expand(B, S, S)
+    for i in range(e.shape[1]):
+        R = R + e[:, i] @ R
+    return R
+
+
 def roi_inputs(H, W, C, K, seed=0, stride=16):
     """A feature map [H, W, C] and K xyxy boxes over its H·stride × W·stride
     image; the first three (where K allows) are a tiny, a clipped and a
@@ -106,6 +119,27 @@ def roi_inputs(H, W, C, K, seed=0, stride=16):
     n = min(K, len(special))
     boxes[:n] = special[:n]
     return feats, boxes.astype(np.float32)
+
+
+def roi_edge_boxes(H, W, stride=16):
+    """xyxy boxes over the H·stride × W·stride image that exercise the bin
+    arithmetic: roi < P, past the map's edges, outside it, degenerate,
+    inverted, corners on and just under the .5 rounding edge, the whole
+    map."""
+    Wi, Hi = W * stride, H * stride
+    return np.array([
+        [0, 0, 2, 2],                          # tiny: roi 1 < P
+        [Wi - 3, Hi - 3, Wi + 50, Hi + 50],    # past the right / lower edge
+        [-90, -70, -20, -30],                  # wholly above-left of the map
+        [Wi + 40, 10, Wi + 90, 60],            # wholly right of the map
+        [5, 5, 5, 5],                          # degenerate
+        [60, 50, 20, 10],                      # inverted: roi clamped to 1
+        [24, 40, 56, 88],                      # x·s + 0.5 exactly an integer
+        [23.999998, 39.999996, 55.999996, 87.99999],   # just under it
+        [8, 8, 8 + 16 * 5, 8 + 16 * 3],        # roi 6 and 4 (< P = 14)
+        [0, 0, Wi - 1, Hi - 1],                # the whole map
+        [-30, 20, Wi / 2, Hi + 30],            # clipped on two sides
+    ], np.float32)
 
 
 # TINY of tests/test_frcnn.py
@@ -477,16 +511,18 @@ def test_relevancy_chain_past_last_layer_launches_nothing(cuda):
 
 
 @pytest.mark.cuda
-def test_relevancy_chain_reads_strided_capture_views(cuda):
+@pytest.mark.parametrize("B,L,H,S", [(3, 4, 2, 50), (8, 12, 12, 197)])
+def test_relevancy_chain_reads_strided_capture_views(cuda, B, L, H, S):
     """capture's [L, B, H, S, S] stacks, batch axis moved first, go in
     without a copy and give what their contiguous copies give."""
     cams, grads = (torch.from_numpy(t).to(cuda).movedim(1, 0).contiguous()
-                   .movedim(0, 1) for t in chain_inputs(3, 4, 2, 50, seed=2))
+                   .movedim(0, 1) for t in chain_inputs(B, L, H, S, seed=2))
     assert not cams.is_contiguous()
     got = trp.self_attention_relevancy_pallas(cams, grads)
     want = trp.self_attention_relevancy_pallas(cams.contiguous(),
                                                grads.contiguous())
     assert torch.equal(got, want)
+    assert got.is_contiguous() and got.shape == (B, S, S)
 
 
 @pytest.mark.cuda
@@ -674,27 +710,41 @@ def test_gemm_refuses_16_byte_copies_of_unaligned_rows(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [197, 128])
-def test_relevancy_chain_within_1e5_of_float64(cuda, S):
-    """The chain's products through the tensor-core GEMM (4-byte copies at
-    S = 197, 16-byte at S = 128), against the plain chain in float64."""
+@pytest.mark.parametrize("B,L,H,S", [(2, 6, 3, 197), (2, 6, 3, 128),
+                                     (2, 6, 3, 200), (8, 12, 12, 197),
+                                     (16, 2, 2, 197)])
+def test_relevancy_chain_within_1e5_of_float64(cuda, B, L, H, S):
+    """The chain's products through the tensor-core GEMM on rows padded to
+    a multiple of 4 floats (16-byte copies; 197 → 200, 128 and 200 as
+    they are), against the plain chain in float64 and in fp32 (rtol 5e-4,
+    atol 1e-4), at ViT-B/16's B = 8, L = 12, H = 12, S = 197 too; at
+    B = 16 the products have more tiles than the card has SMs (4 warps a
+    tile)."""
     cams, grads = (torch.from_numpy(t).to(cuda)
-                   for t in chain_inputs(2, 6, 3, S, seed=6))
+                   for t in chain_inputs(B, L, H, S, seed=6))
     got = trp.self_attention_relevancy_pallas(cams, grads)
-    want = trp.self_attention_relevancy_pallas_plain(cams.double(),
-                                                     grads.double())
+    assert got.is_contiguous() and got.shape == (B, S, S)
+    want = chain_f64(cams, grads)
     torch.cuda.synchronize()
     assert_near_f64(got, want)
+    moved = float((want - torch.eye(S, device=cuda)).abs().max())
+    assert moved > 100 * GEMM_BAR * float(want.abs().max())   # R far from I
+    torch.testing.assert_close(
+        got, trp.self_attention_relevancy_pallas_plain(cams, grads), **TOL)
 
 
 # ---------------------------------------------------------------------------
 # ops/roi_pool_pallas and models/frcnn
 # ---------------------------------------------------------------------------
 
-# (H, W, C, K, P): the JAX test's shape, C not a multiple of 4, K = 1, and
-# the protocol shape ([50, 76, 1024] res4 map of an 800×1216 image)
+# (H, W, C, K, P): the JAX test's shape, C not a multiple of 4 (30, 5, 3:
+# one float per thread), K = 1, the protocol shape ([50, 76, 1024] res4 map
+# of an 800×1216 image) at K = 1, 300 and 1000, C = 1020 (float4, a partial
+# last chunk of channels) and P = 20 (two bands of column bins)
 CUDA_ROI = [(25, 38, 96, 11, 14), (13, 17, 30, 7, 4), (9, 9, 5, 1, 2),
-            (50, 76, 1024, 1, 14), (50, 76, 1024, 300, 14)]
+            (50, 76, 1024, 1, 14), (50, 76, 1024, 300, 14),
+            (50, 76, 1024, 1000, 14), (50, 76, 1020, 200, 14),
+            (50, 76, 3, 1000, 14), (30, 40, 64, 50, 20)]
 
 
 @pytest.mark.cuda
@@ -710,6 +760,34 @@ def test_roi_pool_kernel_equals_plain(cuda, H, W, C, K, P):
     want = trpool.roi_pool_plain(feats, boxes, P, 1 / 16)
     assert got.shape == (K, P, P, C)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1024, 3])
+@pytest.mark.parametrize("P", [14, 4, 3, 20, 1])
+def test_roi_pool_kernel_equals_plain_on_edge_boxes(cuda, C, P):
+    """roi < P (a row or column in several bins), boxes past and outside
+    the map, degenerate and inverted boxes, .5 rounding edges; the kernel's
+    own bins (fp32 multiply, then add) against ``roi_bin_bounds``."""
+    rng = np.random.RandomState(7)
+    feats = torch.from_numpy(rng.randn(14, 18, C).astype(np.float32)).to(cuda)
+    boxes = torch.from_numpy(roi_edge_boxes(14, 18)).to(cuda)
+    got = trpool.roi_pool_pallas(feats, boxes, P, 1 / 16)
+    assert torch.equal(got, trpool.roi_pool_plain(feats, boxes, P, 1 / 16))
+
+
+@pytest.mark.cuda
+def test_roi_pool_kernel_takes_strided_boxes_and_odd_scales(cuda):
+    """Boxes as a strided view, and a scale that is not a power of two (its
+    products round), against the plain version."""
+    feats, boxes = (torch.from_numpy(t).to(cuda)
+                    for t in roi_inputs(40, 52, 16, 64, seed=8, stride=13))
+    strided = boxes.t().contiguous().t()
+    assert not strided.is_contiguous()
+    for scale in (1 / 13, 1 / 3, 0.0731):
+        got = trpool.roi_pool_pallas(feats, strided, 7, scale)
+        assert torch.equal(got, trpool.roi_pool_plain(feats, boxes, 7,
+                                                      scale))
 
 
 @pytest.mark.cuda

@@ -10,10 +10,12 @@ and returns ``[B, S, S]``. A CPU tensor goes to the plain version, the
 port's batched ``ops/relevancy.self_attention_relevancy``; a CUDA tensor
 goes to the kernels of ``csrc/relevancy_chain.cu`` (built by
 ``ops/_build.py`` at first use), or the wrapper raises: there is no
-fallback. Per layer, one kernel reduces the heads into Ê and a batched
-GEMM writes ``Ê·R + R`` into the other of two buffers; R never leaves the
-device between layers. The JAX kernel pads S to 128; these kernels bound-
-check their tiles, so S runs unpadded and the result is the unpadded chain.
+fallback. One kernel reduces the heads of every layer into Ê at once, then
+per layer a batched GEMM writes ``Ê·R + R`` into the other of two buffers;
+R never leaves the device between layers. The JAX kernel pads S to 128;
+these kernels pad S to ``padded(S)``, the next multiple of 4, with zeros,
+which add exact zeros to every product, so the result is the unpadded
+chain.
 
 The captures may be any strided view whose last two axes are a contiguous
 ``[S, S]`` plane, e.g. ``capture``'s ``[L, B, H, S, S]`` stacks with the
@@ -30,13 +32,18 @@ from typing import Dict
 import torch
 
 from transformer_mm_explainability_tpu_torch.ops import _build
-from transformer_mm_explainability_tpu_torch.ops import flash_attention as fa
 from transformer_mm_explainability_tpu_torch.ops import relevancy as rl
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "tmx_relevancy_chain": [_P] * 6 + [_I] * 6 + [_P],
 }
+
+
+def padded(S: int) -> int:
+    """The kernels' row length: S rounded up to a multiple of 4, so that
+    every row of Ê and R starts on a 16-byte boundary."""
+    return -(-S // 4) * 4
 
 
 def library() -> ctypes.CDLL:
@@ -76,29 +83,30 @@ def self_attention_relevancy_pallas(cams: torch.Tensor, grads: torch.Tensor,
 
     Replaces ``relevancy_pallas.self_attention_relevancy_pallas``
     (``_chain_kernel``). Bound by bytes: the captures are read once
-    (2·B·L·H·S²·4 bytes) against 2·B·L·S³ chain FLOPs; per layer a
-    streaming head reduction into Ê and a batched tensor-core GEMM with a
-    residual epilogue (see the source note in the ``.cu`` file)."""
+    (2·B·L·H·S²·4 bytes) against 2·B·L·S³ chain FLOPs; one streaming head
+    reduction into Ê for every layer, then per layer a batched tensor-core
+    GEMM with a residual epilogue on rows padded to ``padded(S)`` (see the
+    source note in the ``.cu`` file)."""
     if _build.on_cpu(cams):
         return self_attention_relevancy_pallas_plain(cams, grads, start_layer)
     _check(cams, grads)
     B, L, H, S, _ = cams.shape
     first = range(L)[start_layer:].start
     dev = cams.device
-    r0 = torch.eye(S, device=dev).expand(B, S, S).contiguous()
     if first == L:      # no layer to fold: R stays I, nothing is launched
-        return r0
+        return torch.eye(S, device=dev).expand(B, S, S).contiguous()
     lib = library()
-    r1, e = torch.empty_like(r0), torch.empty_like(r0)
+    Sp = padded(S)
+    e = torch.empty((B, L - first, S, Sp), device=dev)
+    r = torch.empty((2, B, Sp, Sp), device=dev)     # set by the kernel
     strides = (ctypes.c_longlong * 6)(*cams.stride()[:3], *grads.stride()[:3])
     p = _build.ptr
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.check(lib, "tmx_relevancy_chain", lib.tmx_relevancy_chain(
-            p(cams), p(grads), p(e), p(r0), p(r1), strides, B, L, H, S,
-            first, fa.copy_width(S, (p(e), p(r0), p(r1)), (S * S,)),
-            _build.stream(dev)))
+            p(cams), p(grads), p(e), p(r[0]), p(r[1]), strides, B, L, H, S,
+            Sp, first, _build.stream(dev)))
     self_attention_relevancy_pallas.launches += 1
-    return r1 if (L - first) % 2 else r0
+    return r[(L - first) % 2, :, :S, :S].contiguous()
 
 
 def self_attention_relevancy_auto(cams_b: torch.Tensor, grads_b: torch.Tensor,

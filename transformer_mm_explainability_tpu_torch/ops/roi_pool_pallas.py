@@ -10,8 +10,10 @@ each bin is the max over its rows × columns, and an empty bin, or a
 maximum that is not finite, gives 0.
 
 ``roi_bin_bounds`` computes the bins in integer torch arithmetic on the
-boxes' device, and both versions take their bins from it. A CPU tensor goes
-to ``roi_pool_plain``; a CUDA tensor goes to the kernel of
+boxes' device, and the plain version takes its bins from it; the kernel
+computes the same bins itself from the boxes (multiply, then add, each
+rounded to fp32, then the same integer arithmetic). A CPU tensor goes to
+``roi_pool_plain``; a CUDA tensor goes to the kernel of
 ``csrc/roi_pool.cu`` (built by ``ops/_build.py`` at first use), or the
 wrapper raises: there is no fallback. The TPU knobs of the JAX wrapper
 (``c_tile``, ``interpret``) have no counterpart.
@@ -28,7 +30,7 @@ from transformer_mm_explainability_tpu_torch.ops import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "tmx_roi_pool": [_P] * 6 + [_I] * 5 + [_P],
+    "tmx_roi_pool": [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P],
 }
 # boxes per step of the plain version: its candidate-window gather holds
 # H·P·K_cand·C floats per box (23 MB at [50, 76, 1024], P = 14), so 16 boxes
@@ -141,9 +143,10 @@ def roi_pool_pallas(features: torch.Tensor, boxes: torch.Tensor,
 
     Replaces ``roi_pool_pallas.roi_pool_pallas`` (``_kernel``). Bound by
     bytes: the map read once and the output written once (see the source
-    note in ``csrc/roi_pool.cu``): one block per (box, bin row), threads
-    along C with float4 accesses, bins from ``roi_bin_bounds``. The inputs
-    are checked before any launch, on either device."""
+    note in ``csrc/roi_pool.cu``): one block per (box, chunk of channels,
+    group of bin rows), each thread walking its rows once across a band of
+    column bins, the bins computed in the kernel, streaming stores. The
+    inputs are checked before any launch, on either device."""
     _check(features, boxes)
     if _build.on_cpu(features):
         return roi_pool_plain(features, boxes, output_size, spatial_scale)
@@ -153,13 +156,12 @@ def roi_pool_pallas(features: torch.Tensor, boxes: torch.Tensor,
     out = torch.empty((K, P, P, C), device=dev, dtype=torch.float32)
     if K == 0:          # nothing to pool: no launch, no count
         return out
-    bounds = roi_bin_bounds(boxes, P, spatial_scale, H, W)
-    hs, he, ws, we = (t.contiguous() for t in bounds)
+    boxes = boxes.contiguous()
     lib = library()
     p = _build.ptr
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         _build.check(lib, "tmx_roi_pool", lib.tmx_roi_pool(
-            p(features), p(hs), p(he), p(ws), p(we), p(out), K, H, W, C, P,
+            p(features), p(boxes), p(out), K, H, W, C, P, spatial_scale,
             _build.stream(dev)))
     roi_pool_pallas.launches += 1
     return out
