@@ -122,6 +122,39 @@
    kernel counter 0;
 13. CLIP cli phase: ``cli explain-clip IMG TEXT... --device cuda`` writes
    one PNG per text.
+14. DETR path phase, full-width ``DETR_R50`` (ResNet-50, d_model 256, 8
+   heads, 6 + 6 layers, FFN 2048, 100 queries, 91 + 1 classes; seeded
+   random weights) on a generated 800×1066 image through
+   ``detr_eval.prepare_image`` (→ 800×1088, S = 25×34 = 850): random
+   weights keep no query above 0.5, so it explains the top queries by
+   score. The K = 4 rows of ``ours_no_lrp``, ``attn_gradcam`` and
+   ``rollout`` through ``explain/detr.generate`` on the card within 1e-4
+   of the CPU's rows from its ``capture_multi`` (a family whose max|row|
+   is under 1e-3 held within 1e-2 of it); ``ablation_no_aggregation``,
+   whose float64 rows lie below fp32's range (exactly 0 in fp32 on both
+   sides), held on that capture with its gradients scaled by a power of
+   two, the CPU's rows within 1e-4 of max|row| of float64 and the card's
+   within 1e-4 of max|row| of the CPU's; logits and boxes within rtol
+   1e-4 / atol 1e-5 of the CPU (the layers' biases drawn too: zero biases
+   make the no-aggregation rows 0 at any scale); the card's
+   ``capture_multi`` gradients equal to K ``capture`` calls of the image,
+   one query each (within 1e-4 of each family's max|g|, the probabilities
+   to the bit); K = 8
+   rows in one pass equal to two passes of 4; the masks the card makes
+   from the CPU's rows equal to the CPU's; finite rows, and exactly 0 in
+   the columns of padded tokens when a pad mask covers the last two
+   feature columns; a batching-rule fallback of ``is_grads_batched`` is an
+   error; every kernel counter 0. Then ``explain_image`` images/s and
+   explained queries/s at K = 8 and 32 (one pass each) and 64 (two passes
+   of 32), medians of 3; at K = 32 a split by CUDA events between calls
+   of the functions ``explain_image`` makes (detection forward,
+   ``keep_detections``, ``capture_multi``, ``rows_from_capture``, the
+   masks and their bits) and the host clock, with ``capture_multi``'s
+   tapped forward timed alone, a profile with the device's idle share,
+   and peak memory;
+15. DETR cli phase: ``cli detr-eval --device cuda --shortest 800`` on a
+   generated two-image mini-COCO under ``build/smoke/coco``, which must
+   exit 0 and print the 12 COCO segm stats.
 
 Each phase prints its seconds.
 
@@ -1468,6 +1501,325 @@ def clip_cli_phase(mods, cli) -> None:
           f"launches {got}", flush=True)
 
 
+def _held(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """DETR rows on the card within MAP_BAR of the CPU's. A family whose
+    rows stay under 10 · MAP_BAR, where that bar says nothing, is held
+    within 1e-2 of its max|row|: GradCAM's head weights are means over
+    Q·S = 85,000 gradients of both signs, and fp32 cancellation there
+    leaves its rows 1.3e-3 of max|row| apart between an H100 and the CPU,
+    where a wrong row is off by the order of max|row|."""
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    bar = MAP_BAR if top >= 10 * MAP_BAR else 1e-2 * top
+    kind = "" if top >= 10 * MAP_BAR else " (relative: max|row| < 1e-3)"
+    print(f"path detr {name} K=4: vs the CPU max|Δ| {err:.3e} (bar "
+          f"{bar:.3e}{kind}; max|row| {top:.3e})", flush=True)
+    assert torch.isfinite(got).all(), f"detr {name}: non-finite rows"
+    assert err <= bar, f"detr {name}: rows differ from the CPU by {err}"
+
+
+def _random_biases(tree, gen: torch.Generator) -> None:
+    """Draw every bias of a DETR layer tree (attention, FFN, LayerNorm)
+    from 0.1·N(0, 1), in place. ``init_params`` zeroes them, as the JAX
+    package does; then the first decoder layer's values are 0 (tgt starts
+    at 0), its Ê is 0 and every no-aggregation row is exactly 0 at any
+    scale. With the biases drawn those rows are not 0, but at full width
+    they still lie below fp32's range (see ``_no_aggregation``)."""
+    items = tree._asdict().items() if hasattr(tree, "_fields") \
+        else tree.items()
+    for name, leaf in items:
+        if isinstance(leaf, dict) or hasattr(leaf, "_fields"):
+            _random_biases(leaf, gen)
+        elif name.startswith("b"):
+            leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen).to(
+                leaf.device))
+
+
+def _no_aggregation(detr, edetr, cfg, attn, grads, tq, tv, got, want):
+    """The ``ablation_no_aggregation`` family on the card. Its rows are a
+    product of every layer's Ê with no identity (6 encoder, 6 decoder
+    self-attention and the last cross-attention: 13 factors of
+    ~1e-4-1e-2 row sums), whose float64 value on the CPU's capture lies
+    below fp32's least subnormal 2^-149: the fp32 rows are exactly 0 on
+    both sides and say nothing. So the family is held on the CPU's capture
+    with every gradient scaled by 2^p, which scales each Ê by 2^p and the
+    rows by 2^(13p) exactly (powers of two, all terms ≥ 0): the CPU's fp32
+    rows there within 1e-4 · max of the float64 rows times 2^(13p), and
+    the card's within 1e-4 · max of the CPU's. ``got``: the card's rows of
+    the family through ``generate``; ``want``: the CPU's."""
+    import math
+
+    n = cfg.num_encoder_layers + cfg.num_decoder_layers + 1
+    wide = lambda taps: detr.DETRTaps(*(x.double() for x in taps))
+    f64 = edetr.rows_from_capture("ablation_no_aggregation", wide(attn),
+                                  wide(grads), tq, tv)
+    m64 = float(f64.abs().max())
+    assert m64 > 0.0, "detr no-aggregation: float64 rows are 0"
+    if m64 < 2.0 ** -149:
+        assert float(got.abs().max()) == 0.0 == float(want.abs().max())
+        print(f"path detr ablation_no_aggregation K=4: not held at its own "
+              f"scale: float64 max|row| {m64:.3e} < 2^-149, so the fp32 "
+              f"rows are 0 on the card and the CPU", flush=True)
+    else:
+        _held("ablation_no_aggregation", got, want)
+    p = math.floor(-math.log2(m64) / n)
+    scaled = detr.DETRTaps(*(g * 2.0 ** p for g in grads))
+    ref = edetr.rows_from_capture("ablation_no_aggregation", attn, scaled,
+                                  tq, tv)
+    top = float(ref.abs().max())
+    err64 = float((ref.double() - f64 * 2.0 ** (n * p)).abs().max())
+    on_card = edetr.rows_from_capture(
+        "ablation_no_aggregation", detr.DETRTaps(*(x.cuda() for x in attn)),
+        detr.DETRTaps(*(x.cuda() for x in scaled)), tq.cuda(),
+        None if tv is None else tv.cuda()).cpu()
+    err = float((on_card - ref).abs().max())
+    print(f"path detr ablation_no_aggregation K=4, gradients × 2^{p} (rows "
+          f"× 2^{n * p}): CPU fp32 vs float64 max|Δ| {err64:.3e}, card vs "
+          f"CPU max|Δ| {err:.3e} (bar 1e-4 · max|row| = {1e-4 * top:.3e}; "
+          f"max|row| {top:.3e})", flush=True)
+    assert top > 0.0 and torch.isfinite(on_card).all()
+    assert err64 <= 1e-4 * top, "detr no-aggregation: fp32 vs float64"
+    assert err <= 1e-4 * top, "detr no-aggregation: card vs CPU"
+
+
+def detr_phase(mods, detr, edetr, dsegm, deval, card: str) -> None:
+    """Full-width DETR_R50 explanation segmentation on one generated
+    800×1066 image (S = 850): gates against the CPU and against the
+    replicated capture, rates at K = 8, 32 and 64, a stage split, a
+    profile and peak memory at K = 32. No kernel of the port lies on this
+    path: every counter must read 0."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+
+    warnings.filterwarnings("error", message=".*batching rule.*")
+    reset_counts(mods)
+    cfg = detr.DETR_R50
+    params = detr.init_params(0, cfg, "cuda")
+    gen = torch.Generator().manual_seed(7)
+    _random_biases(params["encoder"], gen)
+    _random_biases(params["decoder"], gen)
+    raw = torch.randint(0, 256, (800, 1066, 3), generator=gen,
+                        dtype=torch.uint8).numpy()
+    image, valid = deval.prepare_image(raw, 800, device="cuda")
+    assert tuple(image.shape) == (800, 1088, 3)
+    S = 25 * 34
+    with torch.no_grad():
+        out = detr.forward(params, image[None], valid[None], cfg)
+    assert out["feat_hw"] == (25, 34)
+    logits = out["pred_logits"][0].cpu().numpy()
+    q, c, _ = dsegm.keep_detections(logits, 0.0, 64)
+    tq, tc = q[:4], c[:4]
+
+    # the CPU: one capture of the K = 4 targets, every family from it
+    cpu = params_to(params, "cpu")
+    t0 = time.perf_counter()
+    c_tq = torch.as_tensor(tq, dtype=torch.long)
+    c_out, c_attn, c_grads = detr.capture_multi(
+        cpu, image.cpu(), edetr._one_hots(c_tq, torch.as_tensor(
+            tc, dtype=torch.long), cfg), valid.cpu(), cfg)
+    c_tv = edetr._token_valid(image.cpu(), valid.cpu(), cfg)
+    c_rows = {m: edetr.rows_from_capture(m, c_attn, c_grads, c_tq, c_tv)
+              for m in ("ours_no_lrp", "ablation_no_aggregation",
+                        "attn_gradcam", "rollout")}
+    print(f"path detr DETR_R50 800x1088 (S={S}) CPU capture K=4 and rows: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del cpu
+    for name, want in (("pred_logits", c_out["pred_logits"]),
+                       ("pred_boxes", c_out["pred_boxes"])):
+        err = float((out[name].cpu() - want).abs().max())
+        print(f"path detr {name}: vs the CPU max|Δ| {err:.3e} (rtol 1e-4, "
+              f"atol 1e-5)", flush=True)
+        assert torch.allclose(out[name].cpu(), want, **SCORE_TOL), name
+    for m, want in c_rows.items():
+        got = edetr.generate(m, params, image, tq, tc, cfg, valid)
+        if m == "ablation_no_aggregation":
+            _no_aggregation(detr, edetr, cfg, c_attn, c_grads, c_tq, c_tv,
+                            got, want)
+        else:
+            _held(m, got, want)
+    del c_attn, c_grads
+
+    # capture_multi: one forward + one batched backward == K forwards, one
+    # per query. Each at B=1: a batch of 4 copies takes other cuDNN
+    # algorithms, and the encoder's gradients (small fp32 sums that
+    # cancel) then move by up to 8e-3 of max|g|, as far as the CPU's are
+    # from the card's; at B=1 the forwards are the same bits and only the
+    # batching of the backward differs
+    oh = edetr._one_hots(torch.as_tensor(tq, device="cuda").long(),
+                         torch.as_tensor(tc, device="cuda").long(), cfg)
+    _, attn, grads = detr.capture_multi(params, image, oh, valid, cfg)
+    rel = dict.fromkeys(detr.DETRTaps._fields, 0.0)
+    for k in range(4):
+        _, r_attn, r_grads = detr.capture(params, image[None], oh[k:k + 1],
+                                          valid[None], cfg)
+        for fam in rel:
+            g, r = getattr(grads, fam)[:, k], getattr(r_grads, fam)[:, 0]
+            rel[fam] = max(rel[fam], float((g - r).abs().max()
+                                           / r.abs().max()))
+            assert torch.equal(getattr(attn, fam)[:, k],
+                               getattr(r_attn, fam)[:, 0]), fam
+    print(f"path detr capture_multi K=4 vs 4 captures of one query each: "
+          f"probabilities equal, grads max|Δ| / max|g| {rel} (bar 1e-4)",
+          flush=True)
+    assert all(v <= 1e-4 for v in rel.values()), rel
+    del attn, grads, r_attn, r_grads
+
+    # chunking is batching: 8 rows in one pass == two passes of 4
+    one = edetr.generate("ours_no_lrp", params, image, q[:8], c[:8], cfg,
+                         valid)
+    two = torch.cat([edetr.generate("ours_no_lrp", params, image, q[i:i + 4],
+                                    c[i:i + 4], cfg, valid)
+                     for i in (0, 4)])
+    err = float((one - two).abs().max())
+    print(f"path detr K=8 one pass vs two passes of 4: max|Δ| {err:.3e} "
+          f"(bar {MAP_BAR:g}; max|row| {float(one.abs().max()):.3e})",
+          flush=True)
+    assert err < MAP_BAR and torch.isfinite(one).all()
+
+    # masks of the same rows: the card's Otsu + upsample == the CPU's
+    rows = c_rows["ours_no_lrp"]
+    m_cpu = dsegm.masks_from_relevancy(rows, (25, 34), (800, 1088))
+    m_gpu = dsegm.masks_from_relevancy(rows.cuda(), (25, 34), (800, 1088))
+    assert torch.equal(m_gpu.cpu(), m_cpu), "detr: masks differ"
+    print(f"path detr masks of the CPU's rows on the card: equal, "
+          f"{int(m_cpu.sum())} of {m_cpu.numel()} pixels set", flush=True)
+
+    # padded tokens: a pad mask over the last two feature columns
+    cut = valid.clone()
+    cut[:, 1000:] = 0
+    padded = edetr.generate("ours_no_lrp", params, image, tq, tc, cfg, cut)
+    cols = padded.reshape(4, 25, 34)[:, :, 32:]
+    assert torch.isfinite(padded).all() and float(cols.abs().max()) == 0.0
+    print(f"path detr padded tokens (feature columns 32-33): rows finite, "
+          f"their columns 0; max|row| {float(padded.abs().max()):.3e}",
+          flush=True)
+
+    rates = {}
+    for K in (8, 32, 64):
+        scfg = dsegm.SegmConfig(confidence_threshold=0.0, max_detections=K)
+        call = lambda: dsegm.explain_image(params, image, cfg, scfg,
+                                           pad_valid=valid, pack_masks=True)
+        res = call()
+        assert res["masks_packed"].shape == (K, 800, 136), K
+        if K == 32:
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        rates[K] = _rate(call, 1)
+        print(f"explain_image DETR_R50 800x1088 K={K} "
+              f"({-(-K // 32)} pass{'es' if K > 32 else ''}): "
+              f"{rates[K]:.2f} images/s, {K * rates[K]:.1f} queries/s "
+              f"(median of 3) on {card}", flush=True)
+    print(f"peak device memory DETR_R50 explain_image K=32: {peak:.2f} GiB",
+          flush=True)
+
+    # the K = 32 stage split: CUDA events between calls of the functions
+    # explain_image makes, in its order, and the host clock around all;
+    # what the events do not cover is host time (medians of 3). The
+    # tapped forward alone (detr.forward with detr.zero_taps, as
+    # capture_multi calls it) is timed apart: capture_multi less it is
+    # the batched backward
+    scfg = dsegm.SegmConfig(confidence_threshold=0.0, max_detections=32)
+    names = ("detection forward", "logits to the host, keep_detections",
+             "capture_multi", "chain (rows_from_capture)",
+             "masks, bits to the host")
+    stages = {k: [] for k in names + ("host, the rest",
+                                      "capture_multi's tapped forward")}
+    tv = edetr._token_valid(image, valid, cfg)
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        with torch.no_grad():
+            o = detr.forward(params, image[None], valid[None], cfg)
+        ev[1].record()
+        qk, ck, _ = dsegm.keep_detections(o["pred_logits"][0].cpu().numpy(),
+                                          0.0, 32)
+        tq32 = torch.as_tensor(qk, device="cuda").long()
+        oh = edetr._one_hots(tq32, torch.as_tensor(ck, device="cuda").long(),
+                             cfg)
+        ev[2].record()
+        _, a, g = detr.capture_multi(params, image, oh, valid, cfg)
+        ev[3].record()
+        r = edetr.rows_from_capture("ours_no_lrp", a, g, tq32, tv)
+        del a, g
+        ev[4].record()
+        dsegm.pack_mask_bits(dsegm.masks_from_relevancy(
+            r, (25, 34), (800, 1088))).cpu()
+        ev[5].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        for i, k in enumerate(names):
+            stages[k].append(ev[i].elapsed_time(ev[i + 1]))
+        stages["host, the rest"].append(wall - ev[0].elapsed_time(ev[5]))
+        ev[6].record()
+        with torch.enable_grad():
+            detr.forward(params, image[None], valid[None], cfg,
+                         detr.zero_taps(cfg, 1, S, device="cuda",
+                                        requires_grad=True))
+        ev[7].record()
+        torch.cuda.synchronize()
+        stages["capture_multi's tapped forward"].append(
+            ev[6].elapsed_time(ev[7]))
+    med = {k: statistics.median(v) for k, v in stages.items()}
+    fwd = med.pop("capture_multi's tapped forward")
+    call_ms = 1e3 / rates[32]
+    print(f"detr stage split K=32 (CUDA events, medians of 3; "
+          f"{sum(med.values()):.1f} ms in all; one explain_image call "
+          f"{call_ms:.1f} ms): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+          + f"; of capture_multi, the tapped forward alone {fwd:.2f} ms, "
+          f"so the batched backward {med['capture_multi'] - fwd:.2f} ms",
+          flush=True)
+    profile("detr explain_image DETR_R50 K=32",
+            lambda: dsegm.explain_image(params, image, cfg, scfg,
+                                        pad_valid=valid, pack_masks=True),
+            call_ms, show_other=6)
+    got = counts(mods)
+    assert all(v == 0 for v in got.values()), f"detr: launches {got}"
+    print(f"path detr launches: {got}", flush=True)
+
+
+def detr_cli_phase(mods, cli) -> None:
+    """``cli detr-eval --device cuda --shortest 800`` on a generated
+    two-image mini-COCO (480×640 images, one polygon each)."""
+    import numpy as np
+    from PIL import Image
+
+    reset_counts(mods)
+    work = ROOT / "build" / "smoke" / "coco"
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(3)
+    images, anns = [], []
+    for i in range(2):
+        arr = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(work / f"img{i}.jpg")
+        images.append({"id": i, "height": 480, "width": 640,
+                       "file_name": f"img{i}.jpg"})
+        anns.append({"id": 10 + i, "image_id": i, "category_id": 1 + i,
+                     "iscrowd": 0, "bbox": [100, 80, 200, 150],
+                     "segmentation": [[100, 80, 300, 80, 300, 230, 100,
+                                       230]]})
+    (work / "instances.json").write_text(json.dumps(
+        {"images": images, "annotations": anns,
+         "categories": [{"id": 1, "name": "a"}, {"id": 2, "name": "b"}]}))
+    stats = _cli_json(cli, ["detr-eval", "--device", "cuda", "--shortest",
+                            "800", "--coco-path", str(work),
+                            "--annotations", str(work / "instances.json")])
+    torch.cuda.synchronize()
+    assert len(stats) == 12 and all(-1.0 <= v <= 1.0 for v in stats.values())
+    got = counts(mods)
+    assert all(v == 0 for v in got.values()), got
+    print(f"cli detr-eval --device cuda: ok, 12 stats; launches {got}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1478,6 +1830,10 @@ def main() -> int:
     from transformer_mm_explainability_tpu_torch.examples import (
         lxmert_explainability as example)
     from transformer_mm_explainability_tpu_torch.explain import clip as eclip
+    from transformer_mm_explainability_tpu_torch.explain import detr as edetr
+    from transformer_mm_explainability_tpu_torch.harness import detr_eval
+    from transformer_mm_explainability_tpu_torch.harness import detr_segm
+    from transformer_mm_explainability_tpu_torch.models import detr
     from transformer_mm_explainability_tpu_torch.explain import (
         visual_bert as evb)
     from transformer_mm_explainability_tpu_torch.harness import pert_runner
@@ -1566,6 +1922,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed_phase("clip", clip_phase, mods, clip, eclip, bpe, img_ops, card)
     timed_phase("clip cli", clip_cli_phase, mods, cli)
+    torch.cuda.empty_cache()
+    timed_phase("detr", detr_phase, mods, detr, edetr, detr_segm, detr_eval,
+                card)
+    timed_phase("detr cli", detr_cli_phase, mods, cli)
     print(f"phases: {sum(phase_s.values()):.1f} s in all", flush=True)
     for name, n in launches.items():
         rows[name]["launches"] = n

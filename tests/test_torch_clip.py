@@ -351,9 +351,23 @@ def test_clip_preprocess_equals_jax(kind):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-def test_loaders_without_their_model_raise():
-    with pytest.raises(NotImplementedError, match="A3"):
-        clip_loader.load_detr("detr.pth")
+def test_loaders_without_their_model_raise(tmp_path):
+    """Every loader has its model now: ``load_detr``, which raised until
+    the DETR slice, loads a release checkpoint (here of the tiny DETR of
+    tests/test_torch_detr.py) into the port's tree."""
+    from test_torch_detr import (JCFG as DETR_J, TCFG as DETR_T,
+                                 detr_numpy_params, release_state_dict)
+
+    tree = detr_numpy_params(DETR_J)
+    path = tmp_path / "detr.pth"
+    torch.save({"model": release_state_dict(tree)}, path)
+    params, cfg = clip_loader.load_detr(str(path), DETR_T, device="cpu")
+    assert cfg is DETR_T
+    np.testing.assert_array_equal(params["query_embed"].numpy(),
+                                  tree["query_embed"])
+    np.testing.assert_array_equal(
+        params["encoder"]["self_attn"].w_k.numpy(),
+        tree["encoder"]["self_attn"].w_k)
 
 
 def test_cli_explain_clip_on_cpu(monkeypatch, tmp_path, capsys):

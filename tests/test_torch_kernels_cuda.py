@@ -1,6 +1,7 @@
 """The port's CUDA kernels (csrc/attn_block.cu, csrc/relevancy_chain.cu,
 csrc/roi_pool.cu) against their plain versions, on the card; their GEMM
-(csrc/common.cuh) also against float64.
+(csrc/common.cuh) also against float64. The DETR explanation path, which
+runs no kernel of the port, on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
@@ -841,3 +842,79 @@ def test_frcnn_forward_pallas_equals_xla_on_cuda(cuda):
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5,
                                    msg=k)
+
+
+def _bias_leaves(tree):
+    """Every bias tensor (a leaf whose name starts with ``b``) of a DETR
+    layer tree of dicts and NamedTuples."""
+    items = tree._asdict().items() if hasattr(tree, "_fields") \
+        else tree.items()
+    for name, leaf in items:
+        if isinstance(leaf, dict) or hasattr(leaf, "_fields"):
+            yield from _bias_leaves(leaf)
+        elif name.startswith("b"):
+            yield leaf
+
+
+@pytest.mark.cuda
+def test_detr_explain_image_cuda_equals_cpu(cuda):
+    """The DETR explanation path at a tiny size (D 32, 4 heads, 2 + 3
+    layers, one bottleneck per stage) on the card against the CPU: rows
+    of every non-LRP method within rtol 1e-4 / atol 1e-5, the masks of the
+    same rows equal, ``explain_image``'s detections equal, no kernel
+    launched. The layers' biases are drawn: ``init_params`` zeroes them,
+    and then the first decoder layer's values and Ê are 0 and every
+    no-aggregation row is 0 on both sides. Those rows (a product of every
+    layer's Ê) are ~1e-13 here, so their absolute bar scales with them."""
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.explain import detr as ed
+    from transformer_mm_explainability_tpu_torch.harness import detr_segm
+    from transformer_mm_explainability_tpu_torch.models import detr
+
+    cfg = detr.DETRConfig(num_classes=7, num_queries=6, d_model=32,
+                          nheads=4, num_encoder_layers=2,
+                          num_decoder_layers=3, dim_feedforward=64,
+                          backbone_stages=(1, 1, 1, 1))
+    cpu = detr.init_params(0, cfg, "cpu")
+    gen = torch.Generator().manual_seed(7)
+    for tree in (cpu["encoder"], cpu["decoder"]):
+        for leaf in _bias_leaves(tree):
+            leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen))
+    params = params_to(cpu, cuda)
+    img = torch.from_numpy(np.random.RandomState(4).randn(64, 96, 3)
+                           .astype(np.float32))
+    valid = torch.zeros(64, 96)
+    valid[:40, :60] = 1.0
+    q, c = np.array([0, 3, 5, 1]), np.array([1, 2, 6, 0])
+    mods = (tab, tfa, trp, trpool)
+    for mod in mods:
+        mod.reset_launch_counts()
+    for method in ("ours_no_lrp", "ours_no_lrp_no_norm",
+                   "ablation_no_self_in_10", "ablation_no_aggregation",
+                   "raw_attn", "attn_gradcam", "rollout"):
+        want = ed.generate(method, cpu, img, q, c, cfg, valid)
+        got = ed.generate(method, params, img.to(cuda), q, c, cfg,
+                          valid.to(cuda))
+        top = float(want.abs().max())
+        assert top > 0, method
+        atol = 1e-5 * top if method == "ablation_no_aggregation" else 1e-5
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=atol,
+                                   msg=method)
+        assert torch.isfinite(got).all()
+        if method == "ours_no_lrp":
+            assert float(want.abs().max()) > 1e-3
+            m_cpu = detr_segm.masks_from_relevancy(want, (2, 3), (64, 96))
+            m_gpu = detr_segm.masks_from_relevancy(want.to(cuda), (2, 3),
+                                                   (64, 96))
+            assert torch.equal(m_gpu.cpu(), m_cpu)
+    segm = detr_segm.SegmConfig(confidence_threshold=0.0, max_detections=5,
+                                max_queries_per_pass=2)
+    a = detr_segm.explain_image(cpu, img, cfg, segm, pad_valid=valid)
+    b = detr_segm.explain_image(params, img.to(cuda), cfg, segm,
+                                pad_valid=valid.to(cuda))
+    for k in ("query_idx", "classes"):
+        np.testing.assert_array_equal(a[k], b[k])
+    np.testing.assert_allclose(a["scores"], b["scores"], rtol=1e-4)
+    assert b["masks"].shape == (5, 64, 96)
+    for mod in mods:
+        assert all(n == 0 for n in mod.launch_counts().values())

@@ -339,7 +339,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0 []"
     assert len(mods) >= 10
-    # the FRCNN → LXMERT, VisualBERT and CLIP slices are among them
+    # the FRCNN → LXMERT, VisualBERT, CLIP and DETR slices are among them
     for name in ("models.frcnn", "models.resnet", "models.bert",
                  "models.lxmert", "explain.lxmert", "ops.roi_pool_pallas",
                  "harness.perturbation", "harness.pert_runner",
@@ -347,7 +347,12 @@ def test_port_imports_no_jax():
                  "examples.lxmert_explainability",
                  "models.visual_bert", "explain.visual_bert",
                  "utils.mmf_loader", "models.clip", "models.clip_resnet",
-                 "explain.clip", "utils.clip_loader", "data.bpe"):
+                 "explain.clip", "utils.clip_loader", "data.bpe",
+                 "models.detr", "explain.detr", "harness.detr_segm",
+                 "harness.detr_eval", "harness.coco_eval",
+                 "harness.panoptic", "data.coco", "ops.otsu",
+                 "models.matcher", "models.detr_segm_heads",
+                 "utils.box_ops"):
         assert f"transformer_mm_explainability_tpu_torch.{name}" in mods
 
 

@@ -9,7 +9,14 @@ import torch
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``, raising when CUDA is asked for and there
     is none: entry points default to ``"cuda"`` and never move to the CPU
-    on their own."""
+    on their own.
+
+    It also turns TF32 off in cuBLAS and cuDNN: the port computes in fp32,
+    and PyTorch's default lets cuDNN round convolution inputs to TF32 (a
+    random DETR-R50 moves by 3e-2 in its encoder probabilities for a 1e-7
+    change in a feature, ``models/detr.init_params``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

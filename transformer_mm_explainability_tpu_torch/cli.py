@@ -12,6 +12,10 @@
         [--num-samples N] [--is-positive-pert BOOL] [--is-text-pert BOOL] \
         [--questions JSON --features TSV --ans2label JSON --label2ans JSON \
         --bert-vocab TXT] [--checkpoint CKPT] [--seed S] [--device cuda|cpu]
+    python -m transformer_mm_explainability_tpu_torch.cli detr-eval \
+        --coco-path DIR [--annotations JSON] [--max-images N] \
+        [--shortest 800] [--method ours_no_lrp] [--checkpoint DETR.pth] \
+        [--seed S] [--device cuda|cpu]
 
 ``explain-vit`` computes the ViT-B/16 relevancy map through
 ``models/vit.relevancy_fused_block2`` (the block kernels on CUDA, their
@@ -28,6 +32,13 @@ perturbation benchmark through ``harness/pert_runner``. Without the data
 flags it runs the pipeline on synthetic samples and a tiny random model.
 The methods that need LRP relevance exit with 2 and a message naming the
 LRP engine, which is not ported yet.
+
+``detr-eval`` is the JAX package's subcommand (the same flags, plus
+``--device``): DETR explanation-segmentation on a COCO split through
+``harness/detr_eval.evaluate`` (DETR-R50; random weights from ``--seed``
+without ``--checkpoint``), printing the 12 COCO segm stats as one JSON
+line. Without ``--coco-path`` it prints a hint and exits 0; a method that
+needs LRP relevance exits with 2.
 """
 
 from __future__ import annotations
@@ -99,6 +110,23 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--checkpoint", default=None,
                     help="MMF VisualBERT checkpoint (.ckpt/.pth or a "
                          "tarball) or LXMERT torch state dict")
+    sp.add_argument("--seed", type=int, default=1234)
+    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    sp = sub.add_parser("detr-eval",
+                        help="DETR explanation-segmentation eval")
+    sp.add_argument("--coco-path", default=None,
+                    help="dir containing annotations json + images")
+    sp.add_argument("--annotations", default=None,
+                    help="instances json (defaults to "
+                         "<coco-path>/annotations/instances_val2017.json)")
+    sp.add_argument("--masks", action="store_true")
+    sp.add_argument("--max-images", type=int, default=None)
+    sp.add_argument("--shortest", type=int, default=800)
+    sp.add_argument("--method", default="ours_no_lrp", choices=METHODS,
+                    help="explanation method (reference --method)")
+    sp.add_argument("--checkpoint", default=None,
+                    help="DETR release checkpoint (detr-r50-e632da11.pth)")
     sp.add_argument("--seed", type=int, default=1234)
     sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p
@@ -207,11 +235,57 @@ def cmd_perturbation(args) -> int:
         raise
 
 
+def cmd_detr_eval(args) -> int:
+    import os
+
+    if not args.coco_path:
+        print("detr-eval: pass --coco-path DIR (images) and "
+              "--annotations instances.json; see harness/detr_eval.py "
+              "for the programmatic API.")
+        return 0
+
+    from transformer_mm_explainability_tpu_torch._device import resolve_device
+    from transformer_mm_explainability_tpu_torch.data.coco import (
+        CocoDetection)
+    from transformer_mm_explainability_tpu_torch.explain import detr as expl
+    from transformer_mm_explainability_tpu_torch.harness import (detr_eval,
+                                                                 detr_segm)
+    from transformer_mm_explainability_tpu_torch.models import detr
+
+    if args.method not in expl.DETR_METHODS:
+        print(f"detr-eval: {args.method!r} is not a DETR method; valid: "
+              f"{sorted(expl.DETR_METHODS)}")
+        return 2
+    if args.method in expl.LRP_METHODS:
+        print(f"detr-eval: {args.method!r} needs the LRP relprop, which is "
+              "not ported yet (ROADMAP A4)")
+        return 2
+    device = resolve_device(args.device)
+    ann = args.annotations or os.path.join(
+        args.coco_path, "annotations", "instances_val2017.json")
+    dataset = CocoDetection(ann, image_root=args.coco_path)
+    if args.checkpoint:
+        from transformer_mm_explainability_tpu_torch.utils.clip_loader import (
+            load_detr)
+
+        params, cfg = load_detr(args.checkpoint, device=device)
+    else:
+        print("note: no --checkpoint; random weights (protocol smoke)")
+        cfg = detr.DETR_R50
+        params = detr.init_params(args.seed, cfg, device)
+    result = detr_eval.evaluate(
+        params, dataset, cfg, detr_segm.SegmConfig(method=args.method),
+        max_images=args.max_images, shortest=args.shortest)
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"explain-vit": cmd_explain_vit,
             "explain-clip": cmd_explain_clip,
-            "perturbation": cmd_perturbation}[args.command](args)
+            "perturbation": cmd_perturbation,
+            "detr-eval": cmd_detr_eval}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,242 @@
+"""DETR explanation generators (encoder-decoder relevancy), in PyTorch.
+
+Counterpart of ``transformer_mm_explainability_tpu/explain/detr.py``
+(reference: DETR/modules/ExplanationGenerator.py).
+
+``generate_ours`` (:142-195, the use_lrp=False path):
+  R_ii = I; per encoder layer R_ii += Ê R_ii (rule 6);
+  R_qq = I, R_qi = 0; per decoder layer rules 6+7 on the query
+  self-attention, then rule 10 (with the NaN→0 guard, :42) on the
+  cross-attention; the output is the row R_qi[target_query].
+
+All K explained queries of an image share ONE forward and one K-batched
+backward (``models/detr.capture_multi``), and every chain runs batched over
+K with tensors (the functions of ``ops/relevancy`` take leading batch
+axes), where the JAX package ``vmap``s a per-example chain.
+
+The LRP methods (``ours_with_lrp``, ``transformer_att``, ``partial_lrp``)
+need the LRP engine (``models/detr_lrp.relprop``), which is not ported
+(ROADMAP A4): they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from transformer_mm_explainability_tpu_torch.models import detr as detr_model
+from transformer_mm_explainability_tpu_torch.models.detr import DETRTaps
+from transformer_mm_explainability_tpu_torch.ops import relevancy as rl
+
+# the reference mask generator's --method family
+# (DETR/mask_generator.py:95-115)
+DETR_METHODS = (
+    "ours_with_lrp", "ours_no_lrp", "ours_no_lrp_no_norm",
+    "ablation_no_self_in_10", "ablation_no_aggregation",
+    "transformer_att", "partial_lrp", "raw_attn", "attn_gradcam",
+    "rollout",
+)
+LRP_METHODS = ("ours_with_lrp", "transformer_att", "partial_lrp")
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    # Ê and both carries accumulate in fp32 at least (float64 captures
+    # give float64 rows), whatever the capture dtype
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _avg(cam: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    dt = _wide(cam.dtype)
+    return rl.avg_heads(cam.to(dt), grad.to(dt))
+
+
+def relevancy_from_capture(
+    attn: DETRTaps, grads: DETRTaps,
+    normalize_self_attention: bool = True,
+    apply_self_in_rule_10: bool = True,
+    aggregate: bool = True,
+    token_valid: Optional[torch.Tensor] = None,  # [S] 1 = real token
+) -> torch.Tensor:
+    """Propagation → full R_qi ``[..., Q, S]``. attn / grads leaves are
+    ``[L, ..., H, ...]``: any batch axes (K queries) between the layer and
+    head axes.
+
+    ``token_valid`` marks the real (non-padded) encoder tokens: padded
+    rows of R_ii stay identity rows whose plain eq. 8+9 division would be
+    0/0; without the mask one padded token NaN-poisons the rule-10 product
+    and the NaN→0 guard wipes EVERY cross-attention addition (see
+    ``ops/relevancy.handle_residual``)."""
+    enc = attn.enc_self
+    batch = enc.shape[1:-3]
+    S, Q = enc.shape[-1], attn.dec_self.shape[-1]
+    dev, dt = enc.device, _wide(enc.dtype)
+    R_ii = torch.eye(S, device=dev, dtype=dt).expand(batch + (S, S))
+    for cam, grad in zip(attn.enc_self, grads.enc_self):
+        add = _avg(cam, grad) @ R_ii
+        R_ii = R_ii + add if aggregate else add
+
+    R_qq = torch.eye(Q, device=dev, dtype=dt).expand(batch + (Q, Q))
+    R_qi = torch.zeros(batch + (Q, S), device=dev, dtype=dt)
+    for c_s, g_s, c_x, g_x in zip(attn.dec_self, grads.dec_self,
+                                  attn.dec_cross, grads.dec_cross):
+        add_qq, add_qi = rl.apply_self_attention_rules(R_qq, R_qi,
+                                                       _avg(c_s, g_s))
+        if aggregate:
+            R_qq, R_qi = R_qq + add_qq, R_qi + add_qi
+        else:
+            R_qq, R_qi = add_qq, add_qi
+        add_qi, _ = rl.apply_mm_attention_rules(
+            R_qq, R_ii, _avg(c_x, g_x),
+            apply_normalization=normalize_self_attention,
+            apply_self_in_rule_10=apply_self_in_rule_10,
+            nan_to_zero=True, q_valid=token_valid)
+        R_qi = R_qi + add_qi if aggregate else add_qi
+    return R_qi
+
+
+def _token_valid(image: torch.Tensor, pad_valid: Optional[torch.Tensor],
+                 cfg: detr_model.DETRConfig) -> Optional[torch.Tensor]:
+    """pad_valid ``[H, W]`` → the flattened ``[S]`` encoder-token mask, the
+    strided downsample of the captured forward (``models/detr.forward``)."""
+    if pad_valid is None:
+        return None
+    Him, Wim = image.shape[:2]
+    feat_hw = (Him // cfg.stride, Wim // cfg.stride)
+    return detr_model.feature_valid(pad_valid, (Him, Wim),
+                                    feat_hw).reshape(-1)
+
+
+def _one_hots(target_queries: torch.Tensor, target_classes: torch.Tensor,
+              cfg: detr_model.DETRConfig) -> torch.Tensor:
+    """``[K, Q, C+1]`` per-query class one-hots (the backward's
+    cotangents)."""
+    K = target_queries.shape[0]
+    oh = torch.zeros((K, cfg.num_queries, cfg.num_classes + 1),
+                     device=target_queries.device)
+    oh[torch.arange(K, device=oh.device), target_queries,
+       target_classes] = 1.0
+    return oh
+
+
+def _rows(R_qi: torch.Tensor, target_queries: torch.Tensor) -> torch.Tensor:
+    return R_qi[torch.arange(R_qi.shape[0], device=R_qi.device),
+                target_queries]
+
+
+def _capture(params, image, target_queries, target_classes, cfg,
+             pad_valid):
+    """``capture_multi`` of the K targets → ``(queries, attn, grads,
+    token_valid)``; the targets may be numpy arrays or tensors."""
+    tq = torch.as_tensor(target_queries, dtype=torch.long,
+                         device=image.device)
+    tc = torch.as_tensor(target_classes, dtype=torch.long,
+                         device=image.device)
+    _, attn, grads = detr_model.capture_multi(
+        params, image, _one_hots(tq, tc, cfg), pad_valid, cfg)
+    return tq, attn, grads, _token_valid(image, pad_valid, cfg)
+
+
+# the "ours" family: relevancy_from_capture's options per method name
+# (mask_generator.py:95-115; the no-aggregation ablation,
+# GeneratorAlbationNoAgg, ExplanationGenerator.py:310-403, also skips the
+# normalisation)
+OURS = {
+    "ours_no_lrp": {},
+    "ours_no_lrp_no_norm": {"normalize_self_attention": False},
+    "ablation_no_self_in_10": {"apply_self_in_rule_10": False},
+    "ablation_no_aggregation": {"normalize_self_attention": False,
+                                "aggregate": False},
+}
+
+
+def rows_from_capture(method: str, attn: DETRTaps, grads: DETRTaps,
+                      target_queries: torch.Tensor,
+                      token_valid: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """A non-LRP method's ``[K, S]`` rows from a K-batched capture
+    (leaves ``[L, K, H, ...]``, ``models/detr.capture_multi``)."""
+    if method in OURS:
+        return _rows(relevancy_from_capture(attn, grads,
+                                            token_valid=token_valid,
+                                            **OURS[method]), target_queries)
+    if method == "raw_attn":
+        return generate_raw_attn(attn, target_queries)
+    if method == "attn_gradcam":
+        return generate_attn_gradcam(attn, grads, target_queries)
+    if method == "rollout":
+        return generate_rollout(attn, target_queries)
+    raise ValueError(f"{method!r} is not a non-LRP DETR method")
+
+
+def generate_ours(
+    params: Dict[str, Any],
+    image: torch.Tensor,                 # [H, W, 3]
+    target_queries,                      # [K] query indices
+    target_classes,                      # [K] class indices
+    cfg: detr_model.DETRConfig = detr_model.DETR_R50,
+    pad_valid: Optional[torch.Tensor] = None,  # [H, W] 1 = valid
+    normalize_self_attention: bool = True,
+    apply_self_in_rule_10: bool = True,
+    aggregate: bool = True,
+) -> torch.Tensor:
+    """K relevancy rows ``[K, S]``: one shared forward, one K-batched
+    backward, the chains batched over K."""
+    tq, attn, grads, tv = _capture(params, image, target_queries,
+                                   target_classes, cfg, pad_valid)
+    return _rows(relevancy_from_capture(
+        attn, grads, normalize_self_attention, apply_self_in_rule_10,
+        aggregate, token_valid=tv), tq)
+
+
+def generate_ours_no_agg(params, image, target_queries, target_classes,
+                         cfg=detr_model.DETR_R50, pad_valid=None,
+                         normalize_self_attention: bool = False):
+    """Ablation: overwrite instead of aggregate."""
+    return generate_ours(params, image, target_queries, target_classes, cfg,
+                         pad_valid, normalize_self_attention, True,
+                         aggregate=False)
+
+
+def generate(method: str, params, image, target_queries, target_classes,
+             cfg=detr_model.DETR_R50, pad_valid=None) -> torch.Tensor:
+    """Dispatch a reference method name → ``[K, S]`` relevancy rows
+    (mask_generator.py:95-115): one ``capture_multi``, then
+    ``rows_from_capture``. ``target_queries`` / ``target_classes`` may be
+    numpy arrays or tensors."""
+    if method not in DETR_METHODS:
+        raise ValueError(
+            f"unknown DETR explanation method {method!r}; valid: "
+            f"{sorted(DETR_METHODS)}")
+    if method in LRP_METHODS:
+        raise NotImplementedError(
+            f"DETR method {method!r} needs the LRP relprop "
+            "(models/detr_lrp), which is not ported yet (ROADMAP A4)")
+    tq, attn, grads, tv = _capture(params, image, target_queries,
+                                   target_classes, cfg, pad_valid)
+    return rows_from_capture(method, attn, grads, tq, tv)
+
+
+# --- capture-only baselines ------------------------------------------------
+
+def generate_raw_attn(attn: DETRTaps, target_queries: torch.Tensor
+                      ) -> torch.Tensor:
+    """Head-mean of the last decoder cross-attention (:226-238)."""
+    return _rows(attn.dec_cross[-1].mean(dim=1), target_queries)
+
+
+def generate_attn_gradcam(attn: DETRTaps, grads: DETRTaps,
+                          target_queries: torch.Tensor) -> torch.Tensor:
+    """GradCAM on the last decoder cross-attention (:282-305)."""
+    return _rows(rl.grad_cam(attn.dec_cross[-1], grads.dec_cross[-1]),
+                 target_queries)
+
+
+def generate_rollout(attn: DETRTaps, target_queries: torch.Tensor
+                     ) -> torch.Tensor:
+    """Rollout baseline (:240-273): separate image and query rollouts
+    bridged by the last cross-attention's head mean."""
+    R_ii = rl.compute_rollout_attention(attn.enc_self.mean(dim=2).movedim(0, 1))
+    R_qq = rl.compute_rollout_attention(attn.dec_self.mean(dim=2).movedim(0, 1))
+    cam_qi = attn.dec_cross[-1].mean(dim=1)
+    return _rows(R_qq.transpose(-1, -2) @ (cam_qi @ R_ii), target_queries)

@@ -4,8 +4,9 @@ Counterpart of ``transformer_mm_explainability_tpu/utils/clip_loader.py``:
 ``load_clip`` takes the OpenAI CLIP release files that ``clip.load``
 takes (TorchScript archives or plain state dicts), ``load_timm_vit`` timm
 ``vit_base_patch16_224`` checkpoints and ``load_lxmert_hf`` HF
-``unc-nlp/lxmert-vqa-uncased`` state dicts. Each returns the port's params
-on ``device`` and the config. ``load_detr`` waits for the DETR slice.
+``unc-nlp/lxmert-vqa-uncased`` state dicts and ``load_detr`` the facebook
+DETR release (``detr-r50-e632da11.pth``). Each returns the port's params
+on ``device`` and the config.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Any, Dict
 
 import torch
 
+from transformer_mm_explainability_tpu_torch._device import resolve_device
 from transformer_mm_explainability_tpu_torch.utils import convert
 
 
@@ -57,5 +59,12 @@ def load_lxmert_hf(path: str, cfg=None, device="cuda"):
 
 
 def load_detr(path: str, cfg=None, device="cuda"):
-    raise NotImplementedError(
-        "load_detr: the DETR model is not ported yet (ROADMAP A3)")
+    """DETR release checkpoint (detr-r50-e632da11.pth style) →
+    ``(params, cfg)`` for ``models/detr`` (backbone, transformer, heads);
+    ``cfg`` defaults to ``DETR_R50``."""
+    from transformer_mm_explainability_tpu_torch.models.detr import DETR_R50
+
+    cfg = cfg or DETR_R50
+    device = resolve_device(device)
+    sd = _to_state_dict(torch.load(path, map_location="cpu"))
+    return convert.detr_from_state_dict(sd, cfg, device), cfg

@@ -3,8 +3,10 @@
 Counterpart of ``transformer_mm_explainability_tpu/utils/convert.py`` for
 the models the port has: timm ViT, the detectron2-layout Faster R-CNN
 (``unc-nlp/frcnn-vg-finetuned``), HF LXMERT with its BERT encoders,
-VisualBERT (its MMF state dict is read by ``utils/mmf_loader``) and OpenAI
-CLIP with a ViT or a ModifiedResNet vision tower.
+VisualBERT (its MMF state dict is read by ``utils/mmf_loader``), OpenAI
+CLIP with a ViT or a ModifiedResNet vision tower, and the facebook DETR
+release (a torchvision ResNet, torch-MHA attention with a fused
+``in_proj``).
 Linear weights are stored input-major (``x @ w + b``, the transpose of
 torch's ``[out, in]``); the ViT patchify conv becomes a ``[P*P*C, D]``
 matmul weight in ``models/vit.patchify``'s (row, col, channel) order; qkv
@@ -166,6 +168,8 @@ def _to_torch(tree, device, hwio: bool = False):
         return cls(*(_to_torch(v, device, hwio) for v in tree))
     if isinstance(tree, (list, tuple)):
         return [_to_torch(v, device, hwio) for v in tree]
+    if tree is None:            # an absent layer (a DETR segm adapter)
+        return None
     t = torch.from_numpy(np.array(_np(tree)))
     if hwio and t.dim() == 4:
         t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -530,3 +534,125 @@ def clip_from_state_dict(sd: Mapping[str, Any], device="cuda",
     tree = {"visual": visual, "text": text,
             "logit_scale": _np(sd["logit_scale"])}
     return clip_from_jax_numpy(tree, cfg, device), cfg
+
+
+# ---------------------------------------------------------------------------
+# DETR (facebook detr-r50 release layout: torchvision ResNet under
+# backbone.0.body.*, torch-MHA fused in_proj in the transformer)
+# ---------------------------------------------------------------------------
+
+def _tv_bn(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {"weight": _np(sd[f"{prefix}.weight"]),
+            "bias": _np(sd[f"{prefix}.bias"]),
+            "mean": _np(sd[f"{prefix}.running_mean"]),
+            "var": _np(sd[f"{prefix}.running_var"])}
+
+
+def _resnet_np(sd: Mapping[str, Any], prefix: str, stages):
+    """torchvision ResNet (frozen BN) → the JAX ``models/resnet`` tree with
+    numpy leaves (HWIO convs)."""
+    layers = []
+    for si, n_blocks in enumerate(stages):
+        blocks = []
+        for bi in range(n_blocks):
+            p = f"{prefix}layer{si + 1}.{bi}"
+            blk = {
+                "conv1": {"w": _conv_hwio(sd[f"{p}.conv1.weight"])},
+                "bn1": _tv_bn(sd, f"{p}.bn1"),
+                "conv2": {"w": _conv_hwio(sd[f"{p}.conv2.weight"])},
+                "bn2": _tv_bn(sd, f"{p}.bn2"),
+                "conv3": {"w": _conv_hwio(sd[f"{p}.conv3.weight"])},
+                "bn3": _tv_bn(sd, f"{p}.bn3"),
+            }
+            if f"{p}.downsample.0.weight" in sd:
+                blk["downsample"] = {
+                    "w": _conv_hwio(sd[f"{p}.downsample.0.weight"])}
+                blk["downsample_bn"] = _tv_bn(sd, f"{p}.downsample.1")
+            blocks.append(blk)
+        layers.append(blocks)
+    return {"conv1": {"w": _conv_hwio(sd[f"{prefix}conv1.weight"])},
+            "bn1": _tv_bn(sd, f"{prefix}bn1"), "layers": layers}
+
+
+def resnet_from_state_dict(sd: Mapping[str, Any], prefix: str = "",
+                           stages=(3, 4, 6, 3),
+                           device="cuda") -> Dict[str, Any]:
+    """torchvision ResNet (frozen BN) keys under ``prefix`` → the port's
+    ``models/resnet`` tree on ``device``; ``stages``: blocks per stage."""
+    return _to_torch(_resnet_np(sd, prefix, stages), device, hwio=True)
+
+
+def _mha_from_in_proj(sd: Mapping[str, Any],
+                      prefix: str) -> CrossAttentionParams:
+    """torch MultiheadAttention's fused in_proj (rows q; k; v) →
+    ``CrossAttentionParams`` with numpy leaves (the split the reference
+    performs at load, DETR/modules/layers.py:711-726)."""
+    w = _np(sd[f"{prefix}.in_proj_weight"])
+    b = _np(sd[f"{prefix}.in_proj_bias"])
+    D = w.shape[1]
+    wo, bo = _lin(sd, f"{prefix}.out_proj")
+    return CrossAttentionParams(
+        w_q=w[:D].T, b_q=b[:D], w_k=w[D:2 * D].T, b_k=b[D:2 * D],
+        w_v=w[2 * D:].T, b_v=b[2 * D:], w_out=wo, b_out=bo)
+
+
+def detr_from_jax_numpy(tree: Mapping[str, Any], cfg,
+                        device="cuda") -> Dict[str, Any]:
+    """The JAX ``models/detr`` params pytree (numpy leaves, HWIO backbone
+    convs, layers stacked on a leading axis) → the port's tree on
+    ``device``. ``cfg`` (a ``models.detr.DETRConfig``) must have the
+    tree's depths."""
+    got = (len(tree["encoder"]["norm1"]["scale"]),
+           len(tree["decoder"]["norm1"]["scale"]),
+           tuple(len(b) for b in tree["backbone"]["layers"]))
+    want = (cfg.num_encoder_layers, cfg.num_decoder_layers,
+            tuple(cfg.backbone_stages))
+    if got != want:
+        raise ValueError(f"(encoder, decoder, backbone) depths {got} do not "
+                         f"fit the config's {want}")
+    return _to_torch(tree, device, hwio=True)
+
+
+def detr_from_state_dict(sd: Mapping[str, Any], cfg,
+                         device="cuda") -> Dict[str, Any]:
+    """facebook/detr release checkpoint (``detr-r50-e632da11.pth``'s
+    ``model``) → the port's ``models/detr`` tree on ``device``."""
+    def ffn(p):
+        w1, b1 = _lin(sd, f"{p}.linear1")
+        w2, b2 = _lin(sd, f"{p}.linear2")
+        return {"w1": w1, "b1": b1, "w2": w2, "b2": b2}
+
+    enc = []
+    for i in range(cfg.num_encoder_layers):
+        p = f"transformer.encoder.layers.{i}"
+        enc.append({
+            "self_attn": _mha_from_in_proj(sd, f"{p}.self_attn"),
+            "norm1": _ln(sd, f"{p}.norm1"), "norm2": _ln(sd, f"{p}.norm2"),
+            "ffn": ffn(p),
+        })
+    dec = []
+    for i in range(cfg.num_decoder_layers):
+        p = f"transformer.decoder.layers.{i}"
+        dec.append({
+            "self_attn": _mha_from_in_proj(sd, f"{p}.self_attn"),
+            "cross_attn": _mha_from_in_proj(sd, f"{p}.multihead_attn"),
+            "norm1": _ln(sd, f"{p}.norm1"), "norm2": _ln(sd, f"{p}.norm2"),
+            "norm3": _ln(sd, f"{p}.norm3"), "ffn": ffn(p),
+        })
+    cw, cb = _lin(sd, "class_embed")
+    bbox = []
+    for i in range(3):
+        w, b = _lin(sd, f"bbox_embed.layers.{i}")
+        bbox.append({"w": w, "b": b})
+    ip_w = _np(sd["input_proj.weight"])[:, :, 0, 0]  # [D, C, 1, 1]
+    tree = {
+        "backbone": _resnet_np(sd, "backbone.0.body.", cfg.backbone_stages),
+        "input_proj": {"w": ip_w.T, "b": _np(sd["input_proj.bias"])},
+        "query_embed": _np(sd["query_embed.weight"]),
+        "encoder": _stack(enc),
+        "decoder": _stack(dec),
+        "decoder_norm": _ln(sd, "transformer.decoder.norm"),
+        "class_embed": {"w": cw, "b": cb},
+        "bbox_embed": bbox,
+    }
+    return detr_from_jax_numpy(tree, cfg, device)
