@@ -154,7 +154,26 @@
    and peak memory;
 15. DETR cli phase: ``cli detr-eval --device cuda --shortest 800`` on a
    generated two-image mini-COCO under ``build/smoke/coco``, which must
-   exit 0 and print the 12 COCO segm stats.
+   exit 0 and print the 12 COCO segm stats: with random weights, then
+   with a release-format checkpoint of the seeded weights
+   (``utils/convert.detr_to_state_dict``) whose class-1 bias is raised so
+   that about 8 queries of the first image clear 0.5, for ``ours_no_lrp``
+   and the three LRP methods, each of which must make masks;
+16. the LRP phases, one per family, each after its family's phase (the
+   relprop of ``models/{bert,lxmert,detr}_lrp``, plain PyTorch): LXMERT_VQA
+   (B=8, St=20, on FRCNN detections made in the phase: RoIPool 1 launch
+   per image, every other counter 0) with its four LRP methods,
+   VISUAL_BERT_VQA2 (the batch of 10) with its three, through the runners;
+   DETR_R50 (the image of 14) with its three through
+   ``explain/detr.generate`` at K = 8. Each method's rows are held within
+   ``LRP_BAR`` (1e-4) of max|row|, per row, of the same call run in
+   float64 on the card, of each example run alone (B=1; K=1), and the
+   card's of the CPU's at two layers of each stack (``LRP_BARS`` states
+   each other bar and why); explanations/s at B=8, ``explain_image``
+   images/s and queries/s at K = 8 and 32, peak memory, a split of the
+   DETR call at K = 32 (the tapped forward, the batched relprop, the rows)
+   and a profile. The cli phases also run an LRP method: ``cli
+   perturbation`` (both models) and the LXMERT example.
 
 Each phase prints its seconds.
 
@@ -1031,7 +1050,8 @@ def cli_phase(ab, cli) -> None:
 
 def frcnn_phase(mods, frcnn, rpool, card: str):
     """Full-width FRCNN_VG on two generated 600×912 images; returns the
-    RoIPool launches of the path's run and the two detections."""
+    RoIPool launches of the path's run, the two detections, and a function
+    that detects on the two images again (one RoIPool launch each)."""
     import dataclasses
 
     dev = torch.device("cuda")
@@ -1143,7 +1163,12 @@ def frcnn_phase(mods, frcnn, rpool, card: str):
         profile("frcnn.forward FRCNN_VG 800x1216",
                 lambda: frcnn.forward(params, pre[0], cfg), 1e3 / rate,
                 show_other=6)
-    return got["roi_pool_pallas"], outs
+
+    def detect():
+        with torch.no_grad():
+            return [frcnn.forward(params, p, cfg) for p in pre]
+
+    return got["roi_pool_pallas"], outs, detect
 
 
 def _rate(call, size) -> float:
@@ -1159,14 +1184,10 @@ def _rate(call, size) -> float:
     return statistics.median(trials)
 
 
-def lxmert_phase(lx, pert_runner, dets, card: str) -> None:
-    """Full-width LXMERT_VQA ours_no_lrp on the card against the CPU, and
-    its rates."""
-    import numpy as np
-
-    cfg = lx.LXMERT_VQA
-    params = lx.init_params(0, cfg, "cuda")
-    gen = torch.Generator().manual_seed(3)
+def _lx_batch(cfg, dets, gen: torch.Generator) -> dict:
+    """B=8 questions of St=20 (true lengths 6-20) on the FRCNN
+    detections ``dets`` (36 boxes each, alternating images), on the
+    host."""
     n, St = 8, 20
     lengths = torch.tensor([20, 14, 9, 17, 6, 20, 12, 8])
     ar = torch.arange(St)[None].expand(n, St)
@@ -1182,6 +1203,19 @@ def lxmert_phase(lx, pert_runner, dets, card: str) -> None:
         "visual_mask": torch.stack([d["valid"] for d in det]).int().cpu(),
     }
     batch["num_boxes"] = batch["visual_mask"].sum(1)
+    return batch
+
+
+def lxmert_phase(lx, pert_runner, dets, card: str) -> None:
+    """Full-width LXMERT_VQA ours_no_lrp on the card against the CPU, and
+    its rates."""
+    import numpy as np
+
+    cfg = lx.LXMERT_VQA
+    params = lx.init_params(0, cfg, "cuda")
+    gen = torch.Generator().manual_seed(3)
+    batch = _lx_batch(cfg, dets, gen)
+    n, St = batch["input_ids"].shape
     runner = pert_runner.LxmertPerturbationRunner(params, cfg, "ours_no_lrp",
                                                   device="cuda")
     scores, cam_text, cam_image = runner.explain_batched(batch)
@@ -1221,27 +1255,31 @@ def lxmert_cli_phase(cli, example, rpool) -> None:
     import numpy as np
     from PIL import Image
 
-    rc = cli.main(["perturbation", "--model", "lxmert", "--device", "cuda",
-                   "--num-samples", "8"])
-    assert rc == 0
+    for method in ("ours_no_lrp", "ours_with_lrp"):
+        rc = cli.main(["perturbation", "--model", "lxmert", "--device",
+                       "cuda", "--num-samples", "8", "--method", method])
+        assert rc == 0, method
     work_dir = ROOT / "build" / "smoke"
     work_dir.mkdir(parents=True, exist_ok=True)
     arr = (np.random.RandomState(1).rand(240, 320, 3) * 255).astype(np.uint8)
     Image.fromarray(arr).save(work_dir / "lxmert_input.png")
     prefix = work_dir / "lxmert"
-    rpool.reset_launch_counts()
-    rc = example.main([str(work_dir / "lxmert_input.png"),
-                       "what is in the picture?", "--device", "cuda",
-                       "--output-prefix", str(prefix)])
-    torch.cuda.synchronize()
-    assert rc == 0
-    assert rpool.launch_counts() == {"roi_pool_pallas": 1}
-    fig = np.asarray(Image.open(f"{prefix}_image.png"))
-    assert fig.shape == (240, 320, 3), fig.shape
-    assert "<span" in pathlib.Path(f"{prefix}_text.html").read_text()
-    print("cli perturbation --model lxmert --device cuda: ok; example "
-          "lxmert_explainability --device cuda: ok, roi_pool_pallas "
-          "launches 1", flush=True)
+    for method in ("ours_no_lrp", "ours_with_lrp"):
+        rpool.reset_launch_counts()
+        rc = example.main([str(work_dir / "lxmert_input.png"),
+                           "what is in the picture?", "--device", "cuda",
+                           "--output-prefix", str(prefix), "--method",
+                           method])
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert rpool.launch_counts() == {"roi_pool_pallas": 1}
+        fig = np.asarray(Image.open(f"{prefix}_image.png"))
+        assert fig.shape == (240, 320, 3), fig.shape
+        assert "<span" in pathlib.Path(f"{prefix}_text.html").read_text()
+    print("cli perturbation --model lxmert --device cuda (ours_no_lrp, "
+          "ours_with_lrp): ok; example lxmert_explainability --device cuda "
+          "(the same two methods): ok, roi_pool_pallas launches 1 each",
+          flush=True)
 
 
 def _feature_tsv(path: pathlib.Path, n_images: int, n_boxes: int) -> None:
@@ -1281,6 +1319,26 @@ def _cli_json(cli, argv) -> dict:
     return json.loads(lines[-1])
 
 
+def _vb_batch(cfg, gen: torch.Generator) -> dict:
+    """B=8 VQA questions of S_t=128 (8-20 real tokens, the ``?`` at
+    ``len - 2``) on N_v=100 2048-d boxes (10-100 real), on the host."""
+    n, St, Nv = 8, 128, 100
+    lengths = torch.tensor([20, 14, 9, 17, 8, 20, 12, 11])
+    num_boxes = torch.tensor([100, 36, 10, 57, 80, 23, 64, 100])
+    ar = torch.arange(St)[None].expand(n, St)
+    mask = (ar < lengths[:, None]).int()
+    ids = torch.randint(1000, cfg.bert.vocab_size, (n, St), generator=gen)
+    ids[:, 0] = 101                                     # [CLS]
+    ids[ar == (lengths - 2)[:, None]] = 1029            # ?
+    ids[ar == (lengths - 1)[:, None]] = 102             # [SEP]
+    return {
+        "input_ids": ids * mask, "input_mask": mask,
+        "visual_embeddings": torch.rand((n, Nv, 2048), generator=gen),
+        "visual_mask": (torch.arange(Nv)[None] < num_boxes[:, None]).int(),
+        "num_boxes": num_boxes,
+    }
+
+
 def visual_bert_phase(mods, vb, evb, pert_runner, card: str) -> None:
     """Full-width VISUAL_BERT_VQA2 (BERT-base, 2048-d boxes, 3129 answers;
     seeded random weights), B=8 questions of S_t=128 (8-20 real tokens) on
@@ -1296,21 +1354,9 @@ def visual_bert_phase(mods, vb, evb, pert_runner, card: str) -> None:
     cfg = vb.VISUAL_BERT_VQA2
     params = vb.init_params(0, cfg, "cuda")
     gen = torch.Generator().manual_seed(5)
-    n, St, Nv = 8, 128, 100
-    lengths = torch.tensor([20, 14, 9, 17, 8, 20, 12, 11])
-    num_boxes = torch.tensor([100, 36, 10, 57, 80, 23, 64, 100])
-    ar = torch.arange(St)[None].expand(n, St)
-    mask = (ar < lengths[:, None]).int()
-    ids = torch.randint(1000, cfg.bert.vocab_size, (n, St), generator=gen)
-    ids[:, 0] = 101                                     # [CLS]
-    ids[ar == (lengths - 2)[:, None]] = 1029            # ?
-    ids[ar == (lengths - 1)[:, None]] = 102             # [SEP]
-    batch = {
-        "input_ids": ids * mask, "input_mask": mask,
-        "visual_embeddings": torch.rand((n, Nv, 2048), generator=gen),
-        "visual_mask": (torch.arange(Nv)[None] < num_boxes[:, None]).int(),
-        "num_boxes": num_boxes,
-    }
+    batch = _vb_batch(cfg, gen)
+    n, St = batch["input_ids"].shape
+    Nv = batch["visual_mask"].shape[1]
     dev = {k: v.cuda() for k, v in batch.items()}
     scores, row = vb.relevancy_row(params, dev, None, cfg)
     c_scores, attn, grads = vb.capture(params, dev, None, cfg)
@@ -1379,9 +1425,10 @@ def visual_bert_cli_phase(mods, cli) -> None:
     samples, then the data-file path at full width (a 100-box TSV of two
     images, 8 questions, an answer vocabulary, a WordPiece vocabulary)."""
     reset_counts(mods)
-    summary = _cli_json(cli, ["perturbation", "--device", "cuda",
-                              "--num-samples", "8"])
-    assert summary["num_samples"] == 4 and len(summary["steps"]) == 9
+    for method in ("ours_no_lrp", "transformer_attribution"):
+        summary = _cli_json(cli, ["perturbation", "--device", "cuda",
+                                  "--num-samples", "8", "--method", method])
+        assert summary["num_samples"] == 4 and len(summary["steps"]) == 9
     work = ROOT / "build" / "smoke" / "vqa"
     work.mkdir(parents=True, exist_ok=True)
     _feature_tsv(work / "feats.tsv", 2, 100)
@@ -1598,21 +1645,10 @@ def detr_phase(mods, detr, edetr, dsegm, deval, card: str) -> None:
 
     warnings.filterwarnings("error", message=".*batching rule.*")
     reset_counts(mods)
-    cfg = detr.DETR_R50
-    params = detr.init_params(0, cfg, "cuda")
-    gen = torch.Generator().manual_seed(7)
-    _random_biases(params["encoder"], gen)
-    _random_biases(params["decoder"], gen)
-    raw = torch.randint(0, 256, (800, 1066, 3), generator=gen,
-                        dtype=torch.uint8).numpy()
-    image, valid = deval.prepare_image(raw, 800, device="cuda")
-    assert tuple(image.shape) == (800, 1088, 3)
+    cfg, params, image, valid, q, c = _detr_setup(detr, deval, dsegm)
     S = 25 * 34
     with torch.no_grad():
         out = detr.forward(params, image[None], valid[None], cfg)
-    assert out["feat_hw"] == (25, 34)
-    logits = out["pred_logits"][0].cpu().numpy()
-    q, c, _ = dsegm.keep_detections(logits, 0.0, 64)
     tq, tc = q[:4], c[:4]
 
     # the CPU: one capture of the K = 4 targets, every family from it
@@ -1786,9 +1822,38 @@ def detr_phase(mods, detr, edetr, dsegm, deval, card: str) -> None:
     print(f"path detr launches: {got}", flush=True)
 
 
-def detr_cli_phase(mods, cli) -> None:
+def _detr_checkpoint(detr, deval, dsegm, path: pathlib.Path, raw,
+                     n_kept: int = 8) -> float:
+    """A release-format DETR_R50 checkpoint (``utils/convert.
+    detr_to_state_dict``) of ``_detr_setup``'s seeded weights whose
+    class-1 bias is raised midway between the raises that let ``n_kept``
+    and ``n_kept + 1`` queries of ``raw`` (an RGB image as ``detr-eval``
+    prepares it) clear the 0.5 threshold; returns the raise. The random
+    model's queries have near-equal logits, so the CLI's own forward may
+    keep a few more or fewer."""
+    from transformer_mm_explainability_tpu_torch.utils import convert
+
+    cfg, params, *_ = _detr_setup(detr, deval, dsegm)
+    image, valid = deval.prepare_image(raw, 800, device="cuda")
+    with torch.no_grad():
+        z = detr.forward(params, image[None], valid[None],
+                         cfg)["pred_logits"][0].double()
+    # class 1 clears 0.5 once its logit + δ exceeds logsumexp of the others
+    others = torch.cat([z[:, :1], z[:, 2:]], dim=1).logsumexp(-1)
+    need = (others - z[:, 1]).sort().values
+    delta = float(need[n_kept - 1] + need[n_kept]) / 2
+    sd = convert.detr_to_state_dict(params)
+    sd["class_embed.bias"][1] += delta
+    torch.save({"model": sd}, path)
+    return delta
+
+
+def detr_cli_phase(mods, cli, detr, deval, dsegm) -> None:
     """``cli detr-eval --device cuda --shortest 800`` on a generated
-    two-image mini-COCO (480×640 images, one polygon each)."""
+    two-image mini-COCO (480×640 images, one polygon each): with random
+    weights (no query kept), then with a checkpoint whose raised class
+    bias keeps queries of the first image, for ``ours_no_lrp`` and the
+    three LRP methods. With the checkpoint every call must make masks."""
     import numpy as np
     from PIL import Image
 
@@ -1796,10 +1861,11 @@ def detr_cli_phase(mods, cli) -> None:
     work = ROOT / "build" / "smoke" / "coco"
     work.mkdir(parents=True, exist_ok=True)
     rng = np.random.RandomState(3)
-    images, anns = [], []
+    images, anns, raws = [], [], []
     for i in range(2):
         arr = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
         Image.fromarray(arr).save(work / f"img{i}.jpg")
+        raws.append(np.asarray(Image.open(work / f"img{i}.jpg")))
         images.append({"id": i, "height": 480, "width": 640,
                        "file_name": f"img{i}.jpg"})
         anns.append({"id": 10 + i, "image_id": i, "category_id": 1 + i,
@@ -1809,15 +1875,420 @@ def detr_cli_phase(mods, cli) -> None:
     (work / "instances.json").write_text(json.dumps(
         {"images": images, "annotations": anns,
          "categories": [{"id": 1, "name": "a"}, {"id": 2, "name": "b"}]}))
-    stats = _cli_json(cli, ["detr-eval", "--device", "cuda", "--shortest",
-                            "800", "--coco-path", str(work),
-                            "--annotations", str(work / "instances.json")])
+    argv = ["detr-eval", "--device", "cuda", "--shortest", "800",
+            "--coco-path", str(work), "--annotations",
+            str(work / "instances.json")]
+    stats = _cli_json(cli, argv)
     torch.cuda.synchronize()
     assert len(stats) == 12 and all(-1.0 <= v <= 1.0 for v in stats.values())
+
+    ckpt = work / "detr_raised.pth"
+    delta = _detr_checkpoint(detr, deval, dsegm, ckpt, raws[0])
+    made = []
+    explain_image = dsegm.explain_image
+
+    def counted(*args, **kw):
+        out = explain_image(*args, **kw)
+        made.append((out["masks_packed"].shape[0],
+                     int(np.unpackbits(out["masks_packed"]).sum())))
+        return out
+
+    dsegm.explain_image = counted
+    try:
+        for method in ("ours_no_lrp",) + DETR_LRP:
+            made.clear()
+            stats = _cli_json(cli, argv + ["--checkpoint", str(ckpt),
+                                           "--method", method])
+            torch.cuda.synchronize()
+            assert len(stats) == 12
+            print(f"  detr-eval --method {method} --checkpoint (class-1 "
+                  f"bias + {delta:.3f}): masks (kept queries, pixels set) "
+                  f"per image {made}", flush=True)
+            assert len(made) == 2 and made[0][0] > 0, made
+            assert all(px > 0 for k, px in made if k), made
+    finally:
+        dsegm.explain_image = explain_image
     got = counts(mods)
     assert all(v == 0 for v in got.values()), got
-    print(f"cli detr-eval --device cuda: ok, 12 stats; launches {got}",
+    print(f"cli detr-eval --device cuda: ok, 12 stats; with the checkpoint "
+          f"every method made masks; launches {got}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the LRP methods (relprop: models/{bert,lxmert,detr}_lrp, ops/lrp): plain
+# PyTorch, no kernel of the port; every counter but RoIPool's reads 0
+# ---------------------------------------------------------------------------
+
+VB_LRP = ("transformer_attribution", "partial_lrp", "ours_with_lrp")
+LX_LRP = ("ours_with_lrp", "ours_with_lrp_no_normalization",
+          "transformer_att", "partial_lrp")
+DETR_LRP = ("ours_with_lrp", "transformer_att", "partial_lrp")
+# Each LRP method's rows are held, per row (max|Δ_row| / max|row| of the
+# reference), against: the same call in float64 on the card; each example
+# alone (B=1; DETR: each query alone, K=1), in float64; and the CPU at two
+# layers of each stack, in float64 and in fp32. LRP_BAR holds where fp32
+# rounding allows it; LRP_BARS states each other bar and why.
+LRP_BAR = 1e-4
+_DEPTH = ("fp32 LRP cams sit 1e-2 to 4e-1 of their max from float64 at full "
+          "width, more in the layers walked back last (the rules divide by "
+          "near-cancelling sums: q·kᵀ of small random weights, residual "
+          "adds), and these rows read every layer's cam")
+_NORM = ("its normalised chain divides by row sums of R − I, which cancel "
+         "in fp32 for LRP Ê of 1e-6")
+LRP_BARS = {  # (family, method, check): (bar, why)
+    ("visual_bert", "transformer_attribution", "fp32 vs float64"):
+        (0.5, _DEPTH),
+    ("visual_bert", "ours_with_lrp", "fp32 vs float64"): (0.5, _DEPTH),
+    ("visual_bert", "partial_lrp", "fp32 vs float64"):
+        (1e-2, "the last layer's cam after the head's α-β"),
+    ("visual_bert", "transformer_attribution", "fp32 card vs CPU"):
+        (0.1, _DEPTH),
+    ("visual_bert", "ours_with_lrp", "fp32 card vs CPU"): (0.1, _DEPTH),
+    ("visual_bert", "partial_lrp", "fp32 card vs CPU"):
+        (1e-2, "the last layer's cam after the head's α-β"),
+    ("lxmert", "ours_with_lrp", "fp32 vs float64"): (0.5, _DEPTH),
+    ("lxmert", "ours_with_lrp_no_normalization", "fp32 vs float64"):
+        (0.5, _DEPTH),
+    ("lxmert", "transformer_att", "fp32 vs float64"): (0.5, _DEPTH),
+    ("lxmert", "partial_lrp", "fp32 vs float64"):
+        (1e-2, "the last x-layer's cams after the head's α-β"),
+    ("lxmert", "ours_with_lrp", "fp32 card vs CPU"): (1e-2, _DEPTH),
+    ("lxmert", "ours_with_lrp_no_normalization", "fp32 card vs CPU"):
+        (1e-3, _DEPTH),
+    ("lxmert", "transformer_att", "fp32 card vs CPU"): (1e-3, _DEPTH),
+    ("detr", "ours_with_lrp", "fp32 vs float64"): (0.5, _NORM),
+    ("detr", "ours_with_lrp", "fp32 card vs CPU"): (0.5, _NORM),
+    ("detr", "ours_with_lrp", "float64 card vs CPU"):
+        (1e-2, _NORM + ", and at 2 + 2 layers in float64 too"),
+}
+
+
+def _row_dist(got, want) -> float:
+    """max over the rows b of max|got_b − want_b| / max|want_b|."""
+    import numpy as np
+
+    host = lambda x: np.asarray(x.cpu() if torch.is_tensor(x) else x,
+                                np.float64)
+    g, w = host(got), host(want)
+    g, w = g.reshape(len(g), -1), w.reshape(len(w), -1)
+    top = np.abs(w).max(axis=1)
+    assert np.isfinite(g).all() and np.isfinite(w).all(), "non-finite rows"
+    assert (top > 0).all(), "a row of the reference is 0"
+    return float((np.abs(g - w).max(axis=1) / top).max())
+
+
+def _gate(family: str, method: str, check: str, dist: float) -> None:
+    bar, why = LRP_BARS.get((family, method, check), (LRP_BAR, ""))
+    print(f"  {family} {method}: rows {check} max|Δ_row|/max|row| "
+          f"{dist:.3e} (bar {bar:g}{': ' + why if why else ''})",
           flush=True)
+    assert dist <= bar, f"{family} {method} {check}: {dist} > {bar}"
+
+
+def _cast(batch: dict, dtype: torch.dtype) -> dict:
+    """``batch`` with its floating leaves in ``dtype``."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
+def _peak_gib(call):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _split(label: str, stages) -> None:
+    """CUDA events between ``stages`` (``(name, fn)`` run in order, each
+    taking the previous one's result), medians of 3."""
+    times = {name: [] for name, _ in stages}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(stages) + 1)]
+        ev[0].record()
+        out = None
+        for i, (name, fn) in enumerate(stages):
+            out = fn(out)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(times):
+            times[name].append(ev[i].elapsed_time(ev[i + 1]))
+        del out
+    print(f"split {label} (CUDA events, medians of 3): " + ", ".join(
+        f"{k} {statistics.median(v):.2f} ms" for k, v in times.items()),
+        flush=True)
+
+
+def _lrp_models(init, cfg, small):
+    """``{"card": (cfg, fp32, float64), "small": ..., "small_cpu": ...}``:
+    the full-width model on the card and the two-layer one on the card and
+    the CPU, each in fp32 and float64."""
+    from transformer_mm_explainability_tpu_torch._device import params_to
+
+    both = lambda p: (p, params_to(p, torch.float64))
+    ps = init(small, "cuda")
+    return {"card": (cfg,) + both(init(cfg, "cuda")),
+            "small": (small,) + both(ps),
+            "small_cpu": (small,) + both(params_to(ps, "cpu"))}
+
+
+def _hold_lrp(family: str, method: str, run, n: int, models,
+              n_cpu: int = 0) -> None:
+    """The gates of one LRP method. ``run(cfg, params, sel, device)``
+    returns the rows of examples ``sel`` (a slice of the ``n``), computed
+    in the dtype of ``params``; the CPU takes the first ``n_cpu`` (all by
+    default)."""
+    cfg, p, p64 = models["card"]
+    every = slice(0, n)
+    alone = lambda q: [run(cfg, q, slice(i, i + 1), "cuda")
+                       for i in range(n)]
+    cat = lambda rows: torch.cat([torch.as_tensor(r) for r in rows])
+    rows, rows64 = run(cfg, p, every, "cuda"), run(cfg, p64, every, "cuda")
+    one, one64 = cat(alone(p)), cat(alone(p64))
+    scfg, ps, ps64 = models["small"]
+    _, pc, pc64 = models["small_cpu"]
+    _gate(family, method, "fp32 vs float64", _row_dist(rows, rows64))
+    _gate(family, method, f"float64 B={n} vs B=1", _row_dist(rows64, one64))
+    print(f"  {family} {method}: rows fp32 B={n} vs B=1 max|Δ_row|/max|row| "
+          f"{_row_dist(rows, one):.3e} (fp32 rounding of other product "
+          f"shapes; the float64 line above is the batch gate)", flush=True)
+    few = slice(0, n_cpu or n)
+    _gate(family, method, "float64 card vs CPU",
+          _row_dist(run(scfg, ps64, few, "cuda"),
+                    run(scfg, pc64, few, "cpu")))
+    _gate(family, method, "fp32 card vs CPU",
+          _row_dist(run(scfg, ps, few, "cuda"), run(scfg, pc, few, "cpu")))
+
+
+def visual_bert_lrp_phase(mods, vb, evb, pert_runner, card: str) -> None:
+    """Full-width VISUAL_BERT_VQA2 (B=8, S_t=128, N_v=100; the batch of
+    ``visual_bert_phase``): the three LRP methods through the runner, held
+    by ``_hold_lrp`` (the CPU at 2 layers); explanations/s and peak memory.
+    Every counter reads 0."""
+    import dataclasses
+
+    import numpy as np
+
+    reset_counts(mods)
+    cfg = vb.VISUAL_BERT_VQA2
+    batch = _vb_batch(cfg, torch.Generator().manual_seed(5))
+    n = batch["input_ids"].shape[0]
+    models = _lrp_models(lambda c, dev: vb.init_params(0, c, dev), cfg,
+                         dataclasses.replace(cfg, bert=dataclasses.replace(
+                             cfg.bert, num_hidden_layers=2)))
+    for m in VB_LRP:
+        def run(c, p, sel, dev, m=m):
+            b = _cast({k: v[sel] for k, v in batch.items()},
+                      p["pooler"]["w"].dtype)
+            return pert_runner.VisualBertPerturbationRunner(
+                p, c, m, device=dev).explain_batched(b)[1]
+
+        r = pert_runner.VisualBertPerturbationRunner(models["card"][1], cfg,
+                                                     m, device="cuda")
+        (_, cam), peak = _peak_gib(lambda: r.explain_batched(batch))
+        rate = _rate(lambda: r.explain_batched(batch), n)
+        print(f"explanations/s VISUAL_BERT_VQA2 {m} fp32: B={n} {rate:.1f} "
+              f"(median of 3); peak device memory {peak:.2f} GiB; "
+              f"max|row| {float(np.abs(cam).max()):.3e}; on {card}",
+              flush=True)
+        _hold_lrp("visual_bert", m, run, n, models)
+    p, dev = models["card"][1], {k: v.cuda() for k, v in batch.items()}
+    ci = vb.cls_index(dev["input_mask"])
+    _split(f"visual_bert transformer_attribution B={n}", (
+        ("capture with the tape",
+         lambda _: vb.capture(p, dev, None, cfg, return_tape=True)),
+        ("relprop", lambda c: (c, vb.relprop(p, c[3], torch.nn.functional.
+                                               one_hot(c[0].argmax(-1),
+                                                       cfg.num_labels),
+                                               cfg)[1])),
+        ("rows", lambda c: evb.generate_transformer_att(c[1], c[0][2],
+                                                        ci))))
+    # where fp32 loses the accuracy: each layer's cam against float64 for
+    # the same answers, in the relprop's order (the last layer first)
+    p64 = models["card"][2]
+    scores, _, _, tape = vb.capture(p, dev, None, cfg, return_tape=True)
+    one_hot = torch.nn.functional.one_hot(scores.argmax(-1), cfg.num_labels)
+    _, c32 = vb.relprop(p, tape, one_hot, cfg)
+    _, _, _, tape = vb.capture(p64, _cast(dev, torch.float64), None, cfg,
+                               return_tape=True)
+    _, c64 = vb.relprop(p64, tape, one_hot, cfg)
+    print("visual_bert relprop cams fp32 vs float64, max|Δ|/max|cam| per "
+          "layer, last first: " + ", ".join(
+              f"{_row_dist(c32[i][None], c64[i][None]):.1e}"
+              for i in reversed(range(len(c64)))), flush=True)
+    got = counts(mods)
+    assert all(v == 0 for v in got.values()), f"visual_bert lrp: {got}"
+    print(f"path visual_bert lrp launches: {got}", flush=True)
+
+
+def lxmert_lrp_phase(mods, lx, pert_runner, detect, card: str) -> None:
+    """Full-width LXMERT_VQA (B=8, St=20) on FRCNN detections made in this
+    phase (one RoIPool launch per image): the four LRP methods through the
+    runner, held by ``_hold_lrp`` (the CPU at 2 + 2 + 2 layers; a row is
+    the text row then the image row); explanations/s and peak memory.
+    RoIPool reads one launch per image, every other counter 0."""
+    import dataclasses
+
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch.explain import lxmert as elx
+    from transformer_mm_explainability_tpu_torch.models import lxmert_lrp
+
+    reset_counts(mods)
+    dets = detect()
+    cfg = lx.LXMERT_VQA
+    batch = _lx_batch(cfg, dets, torch.Generator().manual_seed(3))
+    n = batch["input_ids"].shape[0]
+    models = _lrp_models(lambda c, dev: lx.init_params(0, c, dev), cfg,
+                         dataclasses.replace(cfg, l_layers=2, x_layers=2,
+                                             r_layers=2))
+    both = lambda out: np.concatenate([out[1], out[2]], axis=1)
+    for m in LX_LRP:
+        def run(c, p, sel, dev, m=m):
+            b = _cast({k: v[sel] for k, v in batch.items()},
+                      p["pooler"]["w"].dtype)
+            return both(pert_runner.LxmertPerturbationRunner(
+                p, c, m, device=dev).explain_batched(b))
+
+        r = pert_runner.LxmertPerturbationRunner(models["card"][1], cfg, m,
+                                                 device="cuda")
+        out, peak = _peak_gib(lambda: r.explain_batched(batch))
+        rate = _rate(lambda: r.explain_batched(batch), n)
+        print(f"explanations/s LXMERT_VQA {m} fp32: B={n} {rate:.1f} "
+              f"(median of 3); peak device memory {peak:.2f} GiB; "
+              f"max|row| {float(np.abs(both(out)).max()):.3e}; on {card}",
+              flush=True)
+        _hold_lrp("lxmert", m, run, n, models)
+    p, dev = models["card"][1], {k: v.cuda() for k, v in batch.items()}
+    _split(f"lxmert ours_with_lrp B={n}", (
+        ("capture with the tape",
+         lambda _: lx.capture(p, dev, None, cfg, return_tape=True)),
+        ("relprop", lambda c: (c, lxmert_lrp.relprop(
+            p, c[3], torch.nn.functional.one_hot(c[0].argmax(-1),
+                                                 cfg.num_qa_labels),
+            c[3]["lang_mask"], c[3]["visn_mask"], cfg)[2])),
+        ("rows", lambda c: elx.generate_ours_lrp(
+            c[1], c[0][2], text_valid=dev["attention_mask"],
+            visual_valid=dev["visual_mask"]))))
+    torch.cuda.synchronize()
+    got = counts(mods)
+    want = {name: len(dets) * (name == "roi_pool_pallas") for name in got}
+    assert got == want, f"lxmert lrp: launches {got}, expected {want}"
+    print(f"path lxmert lrp launches (detections of {len(dets)} images "
+          f"included): {got}", flush=True)
+
+
+def _detr_setup(detr, deval, dsegm):
+    """DETR_R50 with seeded random weights (and drawn transformer biases)
+    on a generated 800×1066 image (→ 800×1088, S = 850): ``(cfg, params,
+    image, valid, queries and classes by descending score)``."""
+    cfg = detr.DETR_R50
+    params = detr.init_params(0, cfg, "cuda")
+    gen = torch.Generator().manual_seed(7)
+    _random_biases(params["encoder"], gen)
+    _random_biases(params["decoder"], gen)
+    raw = torch.randint(0, 256, (800, 1066, 3), generator=gen,
+                        dtype=torch.uint8).numpy()
+    image, valid = deval.prepare_image(raw, 800, device="cuda")
+    assert tuple(image.shape) == (800, 1088, 3)
+    with torch.no_grad():
+        out = detr.forward(params, image[None], valid[None], cfg)
+    assert out["feat_hw"] == (25, 34)
+    q, c, _ = dsegm.keep_detections(out["pred_logits"][0].cpu().numpy(),
+                                    0.0, 64)
+    return cfg, params, image, valid, q, c
+
+
+def detr_lrp_phase(mods, detr, edetr, dsegm, deval, card: str) -> None:
+    """Full-width DETR_R50 (the image of ``detr_phase``, S = 850): the
+    three LRP methods through ``explain/detr.generate`` at K = 8, held by
+    ``_hold_lrp`` (each query alone is K = 1; the CPU at 2 + 2 layers and
+    K = 4); ``explain_image`` images/s and queries/s at K = 8 and 32 with
+    peak memory, a split of the call at K = 32 by CUDA events, and a
+    profile. Every counter reads 0."""
+    import dataclasses
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+
+    reset_counts(mods)
+    cfg, params, image, valid, q, c = _detr_setup(detr, deval, dsegm)
+    n = 8
+    small = dataclasses.replace(cfg, num_encoder_layers=2,
+                                num_decoder_layers=2)
+    models = _lrp_models(lambda c_, dev: params_to(dict(
+        params, encoder=detr._layer(params["encoder"],
+                                    slice(0, c_.num_encoder_layers)),
+        decoder=detr._layer(params["decoder"],
+                            slice(0, c_.num_decoder_layers))), dev),
+        cfg, small)
+    for m in DETR_LRP:
+        def run(c_, p, sel, dev, m=m):
+            dt = p["input_proj"]["w"].dtype
+            return edetr.generate(m, p, image.to(dev, dt), q[:n][sel],
+                                  c[:n][sel], c_, valid.to(dev))
+
+        print(f"path detr {m} K={n}: max|row| "
+              f"{float(run(cfg, params, slice(0, n), 'cuda').abs().max()):.3e}",
+              flush=True)
+        _hold_lrp("detr", m, run, n, models, n_cpu=4)
+    del models
+
+    for m in DETR_LRP:
+        for K in (8, 32):
+            scfg = dsegm.SegmConfig(confidence_threshold=0.0,
+                                    max_detections=K, method=m)
+            call = lambda: dsegm.explain_image(params, image, cfg, scfg,
+                                               pad_valid=valid,
+                                               pack_masks=True)
+            res, peak = _peak_gib(call)
+            assert res["masks_packed"].shape == (K, 800, 136), (m, K)
+            rate = _rate(call, 1)
+            print(f"explain_image DETR_R50 800x1088 {m} K={K}: {rate:.2f} "
+                  f"images/s, {K * rate:.1f} queries/s (median of 3); peak "
+                  f"device memory {peak:.2f} GiB; on {card}", flush=True)
+
+    # the K = 32 split of the two LRP shapes: the tapped forward (with the
+    # batched backward for ours_with_lrp; without gradients for
+    # partial_lrp), the K-batched relprop, the rows
+    tq32 = torch.as_tensor(q[:32], device="cuda").long()
+    oh = edetr._one_hots(tq32, torch.as_tensor(c[:32], device="cuda").long(),
+                         cfg)
+    tv = edetr._token_valid(image, valid, cfg)
+    for m in ("ours_with_lrp", "partial_lrp"):
+        full = m == "ours_with_lrp"
+
+        def forward(_, full=full):
+            if full:
+                return detr.capture_multi(params, image, oh, valid, cfg,
+                                          return_tape=True)
+            with torch.no_grad():
+                return detr.forward(params, image[None], valid[None], cfg,
+                                    return_tape=True), None, None
+
+        def relprop(o, full=full):
+            with torch.no_grad():
+                return o, edetr._relprop_cams(params, o[0]["tape"], oh, cfg,
+                                              last_cross_only=not full)
+
+        def rows(c, full=full):
+            with torch.no_grad():
+                if full:
+                    return edetr._rows(edetr.relevancy_from_capture(
+                        c[1], c[0][2], token_valid=tv), tq32)
+                return edetr.generate_partial_lrp(c[1], tq32)
+
+        _split(f"detr {m} K=32", (("forward", forward), ("relprop", relprop),
+                                  ("rows", rows)))
+    scfg = dsegm.SegmConfig(confidence_threshold=0.0, max_detections=32,
+                            method="ours_with_lrp")
+    call = lambda: dsegm.explain_image(params, image, cfg, scfg,
+                                       pad_valid=valid, pack_masks=True)
+    profile("detr explain_image DETR_R50 ours_with_lrp K=32", call,
+            1e3 / _rate(call, 1), show_other=6)
+    got = counts(mods)
+    assert all(v == 0 for v in got.values()), f"detr lrp: launches {got}"
+    print(f"path detr lrp launches: {got}", flush=True)
 
 
 def main() -> int:
@@ -1909,14 +2380,19 @@ def main() -> int:
     del attn, grads, cams, model
     timed_phase("cli explain-vit", cli_phase, ab, cli)
     torch.cuda.empty_cache()
-    launches["roi_pool_pallas"], dets = timed_phase(
+    launches["roi_pool_pallas"], dets, detect = timed_phase(
         "frcnn", frcnn_phase, mods, frcnn, rpool, card)
     torch.cuda.empty_cache()
     timed_phase("lxmert", lxmert_phase, lx, pert_runner, dets, card)
+    timed_phase("lxmert lrp", lxmert_lrp_phase, mods, lx, pert_runner,
+                detect, card)
+    del detect
     timed_phase("lxmert cli + example", lxmert_cli_phase, cli, example,
                 rpool)
     torch.cuda.empty_cache()
     timed_phase("visual_bert", visual_bert_phase, mods, vb, evb,
+                pert_runner, card)
+    timed_phase("visual_bert lrp", visual_bert_lrp_phase, mods, vb, evb,
                 pert_runner, card)
     timed_phase("visual_bert cli", visual_bert_cli_phase, mods, cli)
     torch.cuda.empty_cache()
@@ -1925,7 +2401,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed_phase("detr", detr_phase, mods, detr, edetr, detr_segm, detr_eval,
                 card)
-    timed_phase("detr cli", detr_cli_phase, mods, cli)
+    torch.cuda.empty_cache()
+    timed_phase("detr lrp", detr_lrp_phase, mods, detr, edetr, detr_segm,
+                detr_eval, card)
+    timed_phase("detr cli", detr_cli_phase, mods, cli, detr, detr_eval,
+                detr_segm)
     print(f"phases: {sum(phase_s.values()):.1f} s in all", flush=True)
     for name, n in launches.items():
         rows[name]["launches"] = n

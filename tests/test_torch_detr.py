@@ -2,8 +2,9 @@
 ``forward`` on plain and padded images, ``capture_multi`` (against JAX and
 against the port's own ``capture`` of the image replicated K times), the
 seven non-LRP method names through ``generate``, the three LRP names
-raising, the padded-token rule of the relevancy chain, the R50 backbone,
-and the release state-dict converter.
+(relprop with the forward's key-padding bias), the padded-token rule of
+the relevancy chain, the R50 backbone, and the release state-dict
+converter.
 
 The transformer is the JAX tests' tiny one (D 32, 4 heads, 2 + 2 layers,
 6 queries, 7 classes; tests/test_detr.py:24-32) on 64×96 images. Its
@@ -16,7 +17,15 @@ reference is computed once per module, in one jitted call.
 
 Stated tolerances: rtol 1e-4 / atol 1e-5 for logits, boxes, captured
 probabilities and gradients and relevancy rows; the converters' parameters
-exactly.
+exactly. The LRP methods' rows against JAX's relprop with ``mask=bias``:
+1e-4 · max|row| for ``transformer_att`` and ``partial_lrp`` (measured
+3.1e-5), 1e-3 · max|row| for ``ours_with_lrp`` (measured 2.5e-4 in fp32):
+its chain normalises rows of signed LRP cams, and the elementwise cams
+already differ by up to 2.1e-3 of their size between two fp32
+implementations (``tests/test_torch_lrp.py``). A float64 comparison does
+not help there: JAX's chain takes Ê in fp32 and its LayerNorm keeps fp32
+statistics under x64 (measured 8.0e-4). The port's chain on JAX's cams is
+held to rtol 1e-4 / atol 1e-5.
 """
 
 import dataclasses
@@ -29,6 +38,7 @@ import torch
 
 from transformer_mm_explainability_tpu.explain import detr as jexpl
 from transformer_mm_explainability_tpu.models import detr as jdetr
+from transformer_mm_explainability_tpu.models import detr_lrp as jdetr_lrp
 from transformer_mm_explainability_tpu.models import resnet as jresnet
 from transformer_mm_explainability_tpu.utils import convert as jconvert
 from transformer_mm_explainability_tpu_torch.explain import detr as texpl
@@ -90,6 +100,29 @@ def image_and_valid(h=64, w=96, seed=0):
     valid = np.zeros((h, w), np.float32)
     valid[:40, :60] = 1.0
     return img, valid
+
+
+def jax_relprop_cams(params, image, oh, cfg, pad_valid, masked=True):
+    """JAX ``explain/detr._relprop_cams`` with ``mask=bias`` passed on to
+    ``detr_lrp.relprop`` when ``masked`` (JAX's own omits it, so its
+    relprop recomputes unmasked probabilities)."""
+    feats = jresnet.forward(params["backbone"], image[None],
+                            dilation_last=cfg.dilation)
+    _, Hf, Wf, C = feats.shape
+    src = (feats.reshape(1, Hf * Wf, C) @ params["input_proj"]["w"]
+           + params["input_proj"]["b"])
+    valid = pad_valid[None][:, ::image.shape[0] // Hf,
+                            ::image.shape[1] // Wf][:, :Hf, :Wf]
+    pos = jdetr.sine_position_encoding(valid, cfg.d_model // 2).reshape(
+        1, Hf * Wf, cfg.d_model)
+    bias = ((1.0 - valid.reshape(1, Hf * Wf)) * -1e9)[:, None, None, :]
+    hs, _, _, tape = jdetr.transformer_forward(
+        params, src, pos, bias, cfg, jdetr.zero_taps(cfg, 1, Hf * Wf),
+        return_tape=True)
+    cams = jax.vmap(lambda o: jdetr_lrp.relprop(
+        params, tape, hs, o[None], cfg,
+        mask=bias if masked else None)[1])(oh)
+    return jdetr.DETRTaps(*(jnp.moveaxis(c[:, :, 0], 0, 1) for c in cams))
 
 
 @pytest.fixture(scope="module")
@@ -245,13 +278,56 @@ def test_generate_unpadded_equals_jax(tparams, jref):
                        valid))
 
 
+@pytest.fixture(scope="module")
+def jlrp(jparams):
+    """JAX's rows of the three LRP methods on the padded image, from its
+    relprop with the key-padding bias (one jitted call), and its cams."""
+    img, valid = image_and_valid()
+    tq, tc = jnp.asarray(TQ), jnp.asarray(TC)
+    oh = jexpl._one_hots(tq, tc, JCFG)
+
+    def refs(p, im, v):
+        cams = jax_relprop_cams(p, im, oh, JCFG, v)
+        _, _, grads = jdetr.capture_multi(p, im, oh, v, JCFG)
+        tv = jexpl._token_valid(im, v, JCFG)
+        R = jexpl._per_example(cams, grads, lambda a, g:
+                               jexpl.relevancy_from_capture(
+                                   a, g, token_valid=tv))
+        return {"cams": cams, "grads": grads,
+                "ours_with_lrp": jnp.take_along_axis(
+                    R, tq[:, None, None], axis=1)[:, 0],
+                "transformer_att": jexpl.generate_transformer_att(
+                    cams, grads, tq),
+                "partial_lrp": jexpl.generate_partial_lrp(cams, tq)}
+
+    return jax.jit(refs)(jparams, jnp.asarray(img), jnp.asarray(valid))
+
+
 @pytest.mark.parametrize("method", ["ours_with_lrp", "transformer_att",
                                     "partial_lrp"])
-def test_lrp_methods_raise_naming_a4(tparams, method):
+def test_lrp_methods_raise_naming_a4(tparams, jlrp, method):
+    """The three LRP methods (which raised before the LRP engine was
+    ported) through ``generate`` on the padded image, against JAX's
+    relprop with the key-padding bias; the ours chain also on JAX's own
+    cams and gradients."""
     assert method in texpl.DETR_METHODS and method in jexpl.DETR_METHODS
-    img, _ = image_and_valid()
-    with pytest.raises(NotImplementedError, match="A4"):
-        texpl.generate(method, tparams, torch.tensor(img), TQ, TC, TCFG)
+    img, valid = image_and_valid()
+    rows = texpl.generate(method, tparams, torch.tensor(img), TQ, TC, TCFG,
+                          torch.tensor(valid)).numpy()
+    want = np.asarray(jlrp[method])
+    top = np.abs(want).max()
+    bar = 1e-3 if method == "ours_with_lrp" else 1e-4
+    assert rows.shape == (4, 6) and top > 0 and np.isfinite(rows).all()
+    np.testing.assert_allclose(rows, want, rtol=0, atol=bar * top)
+    if method == "ours_with_lrp":
+        taps = lambda t: tdetr.DETRTaps(*(torch.tensor(np.asarray(x))
+                                          for x in t))
+        tv = texpl._token_valid(torch.tensor(img), torch.tensor(valid), TCFG)
+        chain = texpl.relevancy_from_capture(taps(jlrp["cams"]),
+                                             taps(jlrp["grads"]),
+                                             token_valid=tv)
+        np.testing.assert_allclose(texpl._rows(chain, torch.tensor(TQ)),
+                                   want, **TOL)
 
 
 def test_unknown_method_lists_the_valid_ones(tparams):
@@ -411,6 +487,18 @@ def release_state_dict(tree):
         sd[f"bbox_embed.layers.{i}.weight"] = t(lp["w"].T)
         sd[f"bbox_embed.layers.{i}.bias"] = t(lp["b"])
     return sd
+
+
+def test_detr_to_state_dict_round_trips(tparams):
+    """``detr_to_state_dict`` is the inverse of ``detr_from_state_dict``
+    (the smoke writes its DETR checkpoint with it)."""
+    sd = tconvert.detr_to_state_dict(tparams)
+    assert sd.keys() == release_state_dict(detr_numpy_params(JCFG)).keys()
+    back = tconvert.detr_from_state_dict(sd, TCFG, device="cpu")
+    got, want = flat(back), flat(tparams)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_release_converters_equal_jax(jparams_r50, tmp_path):

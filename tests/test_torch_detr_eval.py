@@ -361,10 +361,12 @@ def run_cli(argv):
     return rc, buf.getvalue().strip().splitlines()
 
 
-def test_cli_detr_eval_cpu(mini_coco):
+def test_cli_detr_eval_cpu(mini_coco, tmp_path):
     """Without --coco-path: the hint, rc 0. With it: DETR-R50 (random
     weights) on the mini-COCO, the 12 stats as the last line. An LRP
-    method exits 2 naming the LRP engine."""
+    method (which exited 2 before the LRP engine was ported) explains
+    queries: a release checkpoint of random weights whose class-1 bias is
+    raised keeps all 100 queries of an image, explained in passes of 32."""
     d, path = mini_coco
     rc, lines = run_cli(["detr-eval", "--device", "cpu"])
     assert rc == 0 and "--coco-path" in lines[-1]
@@ -374,9 +376,33 @@ def test_cli_detr_eval_cpu(mini_coco):
     assert rc == 0
     stats = json.loads(lines[-1])
     assert len(stats) == 12 and all(-1.0 <= v <= 1.0 for v in stats.values())
-    rc, lines = run_cli(["detr-eval", "--device", "cpu", "--coco-path",
-                         str(d), "--method", "partial_lrp"])
-    assert rc == 2 and "A4" in lines[-1]
+    from transformer_mm_explainability_tpu_torch.models import detr
+
+    params = detr.init_params(0, detr.DETR_R50, "cpu")
+    sd = tconvert.detr_to_state_dict(params)
+    sd["class_embed.bias"][1] += 20.0
+    torch.save({"model": sd}, tmp_path / "detr.pth")
+    calls = []
+    generate = teval.detr_segm.expl_detr.generate
+
+    def counted(method, *args, **kw):
+        rows = generate(method, *args, **kw)
+        calls.append((method, rows.shape))
+        return rows
+
+    import unittest.mock
+    with unittest.mock.patch.object(teval.detr_segm.expl_detr, "generate",
+                                    counted):
+        rc, lines = run_cli(["detr-eval", "--device", "cpu", "--coco-path",
+                             str(d), "--annotations", str(path),
+                             "--shortest", "64", "--max-images", "1",
+                             "--method", "partial_lrp", "--checkpoint",
+                             str(tmp_path / "detr.pth")])
+    assert rc == 0
+    stats = json.loads(lines[-1])
+    assert len(stats) == 12 and all(-1.0 <= v <= 1.0 for v in stats.values())
+    assert [m for m, _ in calls] == ["partial_lrp"] * 4
+    assert sum(shape[0] for _, shape in calls) == 100
 
 
 def test_cli_detr_eval_turns_tf32_off(mini_coco):

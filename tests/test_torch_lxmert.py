@@ -1,14 +1,17 @@
 """The port's LXMERT slice against the JAX package: BERT encoder, LXMERT
-forward and capture, every ``explain/lxmert`` function, the runner's seven
-non-LRP methods and the converters, at the tiny LXMERT of
-``cli perturbation``'s synthetic run.
+forward and capture, every ``explain/lxmert`` function, the runner's
+eleven methods (the four LRP ones through ``models/lxmert_lrp``) and the
+converters, at the tiny LXMERT of ``cli perturbation``'s synthetic run.
 
 Weights are numpy draws in the JAX package's tree (the structure of its
 ``init_params``, from ``jax.eval_shape``), carried across with
 ``lxmert_from_jax_numpy``; inputs are numpy from a seed, with padded tokens
 and boxes. Stated tolerances: rtol 1e-4 / atol 1e-5 for ``qa_scores`` and
 ``capture``'s probabilities and gradients (fp32 on both sides, in other
-summation orders); atol 1e-5 for every explanation map.
+summation orders); atol 1e-5 for every explanation map; 1e-4 · max|map|
+for the LRP methods' maps, each example against JAX run on that example
+alone (the port's LRP sums are per example, ``ops/lrp``; measured ≤ 1.1e-5
+in fp32).
 """
 
 import dataclasses
@@ -161,8 +164,7 @@ def test_bert_encoder_and_mask_equal_jax(jparams, tparams):
 
 def _both(captures, names, lrp=False):
     """The JAX capture tensors as JAX and as torch arguments; with ``lrp``
-    the cams are random (the LRP engine is not ported), the gradients the
-    captured ones."""
+    the cams are random, the gradients the captured ones."""
     (_, ja, jg), _ = captures
     caps = {"attn": ja, "grads": jg}
     if lrp:
@@ -278,25 +280,84 @@ def test_runner_methods_equal_jax(tparams, captures, method):
     assert np.isfinite(cam_text).all() and np.isfinite(cam_image).all()
 
 
+@pytest.fixture(scope="module")
+def lrp_refs(jparams):
+    """What the JAX runner's explain computes for each example alone: the
+    capture, and the relprop cams of the predicted answer."""
+    from transformer_mm_explainability_tpu.models import lxmert_lrp
+
+    def one(p, bb):
+        scores, attn, grads = jlx.capture(p, bb, None, JCFG)
+        out = jlx.forward(p, bb["input_ids"], bb["attention_mask"],
+                          bb["visual_feats"], bb["visual_pos"],
+                          visual_mask=bb["visual_mask"], cfg=JCFG,
+                          return_tape=True)
+        oh = jax.nn.one_hot(jnp.argmax(scores, -1), JCFG.num_qa_labels)
+        _, _, cams = lxmert_lrp.relprop(p, out["tape"], oh,
+                                        out["tape"]["lang_mask"],
+                                        out["tape"]["visn_mask"], JCFG)
+        return scores, grads, cams
+
+    b = lxmert_batch()
+    run = jax.jit(one)
+    return [(run(jparams, {k: jnp.asarray(v[i:i + 1])
+                           for k, v in b.items()}),
+             {k: jnp.asarray(b[k][i:i + 1])
+              for k in ("attention_mask", "visual_mask")})
+            for i in range(B)]
+
+
+LRP_RUNNER = {  # method (or alias): the JAX runner's generator and kwargs
+    "ours_with_lrp": ("generate_ours_lrp", {}, True),
+    "ours_with_lrp_no_normalization": (
+        "generate_ours_lrp", {"normalize_self_attention": False}, True),
+    "transformer_att": ("generate_transformer_att", {}, False),
+    "transformer_attribution": ("generate_transformer_att", {}, False),
+    "partial_lrp": ("generate_partial_lrp", {}, False),
+}
+
+
 @pytest.mark.parametrize("method", ["ours_with_lrp", "partial_lrp",
                                     "transformer_att", "transformer_attribution",
                                     "ours_with_lrp_no_normalization"])
-def test_lrp_methods_raise_not_implemented(tparams, method):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        pert_runner.LxmertPerturbationRunner(tparams, TCFG, method,
-                                             device="cpu")
+def test_lrp_methods_raise_not_implemented(tparams, lrp_refs, method):
+    """The four LRP methods (and the alias), which raised before the LRP
+    engine was ported: the port's runner at B=3 against the JAX runner's
+    explain of each example alone."""
+    runner = pert_runner.LxmertPerturbationRunner(tparams, TCFG, method,
+                                                  device="cpu")
+    scores, cam_text, cam_image = runner.explain_batched(lxmert_batch())
+    fn, kw, masks = LRP_RUNNER[method]
+    for i, ((js, jg, jcams), m) in enumerate(lrp_refs):
+        args = (jcams,) if fn == "generate_partial_lrp" else (jcams, jg)
+        if masks:
+            kw = dict(kw, text_valid=m["attention_mask"],
+                      visual_valid=m["visual_mask"])
+        tt, ti = getattr(jexplain, fn)(*args, **kw)
+        np.testing.assert_allclose(scores[i], np.asarray(js)[0], **TOL)
+        for got, want in ((cam_text[i], np.asarray(tt)[0, 0]),
+                          (cam_image[i], np.asarray(ti)[0, 0])):
+            top = np.abs(want).max()
+            assert top > 0 and np.isfinite(got).all()
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * top)
 
 
 def test_unknown_method_and_visual_bert_runner_raise(tparams):
     with pytest.raises(ValueError, match="unknown lxmert"):
         pert_runner.LxmertPerturbationRunner(tparams, TCFG, "grad_x_input",
                                              device="cpu")
-    # the VisualBERT runner raises for an LRP method (before it looks at
-    # the parameters)
+    with pytest.raises(ValueError, match="unknown visual_bert"):
+        pert_runner.VisualBertPerturbationRunner(None, None, "grad_x_input",
+                                                 device="cpu")
+    # every LRP method of both tables resolves (VisualBERT's alias too)
     for method in ("partial_lrp", "transformer_att", "ours_with_lrp"):
-        with pytest.raises(NotImplementedError, match="LRP engine"):
-            pert_runner.VisualBertPerturbationRunner(None, None, method,
-                                                     device="cpu")
+        assert pert_runner._resolve(
+            method, pert_runner.VISUALBERT_METHODS + ("ours_with_lrp",),
+            pert_runner._VISUALBERT_ALIASES, "visual_bert") \
+            in pert_runner._VB_NEEDS_LRP
+    for method in pert_runner._LX_NEEDS_LRP:
+        assert pert_runner.LxmertPerturbationRunner(
+            tparams, TCFG, method, device="cpu").method == method
     assert pert_runner.LXMERT_METHODS == jrunner.LXMERT_METHODS
     assert pert_runner._LX_NEEDS_LRP == jrunner._LX_NEEDS_LRP
     assert pert_runner.VISUALBERT_METHODS == jrunner.VISUALBERT_METHODS

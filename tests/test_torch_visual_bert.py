@@ -1,6 +1,7 @@
 """The port's VisualBERT against the JAX package: embeddings (with and
 without image-text alignment), the forward with both poolers, ``capture``,
-the streamed ``relevancy_row``, the four capture methods, and the MMF
+the streamed ``relevancy_row``, the four capture methods, the two LRP-cam
+generators and the runner's three LRP methods end to end, and the MMF
 checkpoint loader, at the tiny VisualBERT of ``cli perturbation``'s
 synthetic run.
 
@@ -10,7 +11,9 @@ Weights are numpy draws in the JAX package's tree (the structure of its
 tokens and boxes. Stated tolerances, those of the LXMERT slice: rtol 1e-4
 / atol 1e-5 for scores, embeddings, attention and its gradients (fp32 on
 both sides, in other summation orders); atol 1e-5 for every relevancy row;
-the loaders' parameters exactly.
+1e-4 · max|row| for the LRP methods' rows, each example against the JAX
+runner run on that example alone (the port's LRP sums are per example,
+``ops/lrp``; measured ≤ 7.3e-5); the loaders' parameters exactly.
 """
 
 import dataclasses
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from transformer_mm_explainability_tpu.explain import visual_bert as jexplain
+from transformer_mm_explainability_tpu.harness import pert_runner as jrunner
 from transformer_mm_explainability_tpu.models import bert as jbert
 from transformer_mm_explainability_tpu.models import visual_bert as jvb
 from transformer_mm_explainability_tpu.utils import mmf_loader as jmmf
@@ -254,11 +258,52 @@ def test_masking_a_box_equals_removing_it(tparams):
 
 
 @pytest.mark.parametrize("fn,args", [
-    ("generate_transformer_att", (None, None, None)),
-    ("generate_partial_lrp", (None, None))])
-def test_lrp_methods_raise(fn, args):
-    with pytest.raises(NotImplementedError, match="LRP engine"):
-        getattr(texplain, fn)(*args)
+    ("generate_transformer_att", ("cams", "grads", "cls")),
+    ("generate_partial_lrp", ("cams", "cls"))])
+def test_lrp_methods_raise(captures, fn, args):
+    """The LRP-cam generators (which raised before the LRP engine was
+    ported) equal JAX's on the same cams: random signed ones, with the
+    captured gradients."""
+    (_, ja, jg), _ = captures
+    rng = np.random.RandomState(8)
+    cams = rng.randn(*ja.shape).astype(np.float32)
+    cls = np.asarray([10, 6, 3], np.int32)
+    vals = {"cams": cams, "grads": jg, "cls": cls}
+    want = getattr(jexplain, fn)(*(jnp.asarray(vals[a]) for a in args))
+    got = getattr(texplain, fn)(*(torch.from_numpy(np.array(vals[a]))
+                                  for a in args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MAP_TOL)
+    assert np.abs(np.asarray(want)).max() > 0
+
+
+LRP_METHODS = ("transformer_attribution", "partial_lrp", "ours_with_lrp")
+
+
+@pytest.fixture(scope="module")
+def lrp_rows(jparams):
+    """The JAX runner's explain of each LRP method, one example at a
+    time."""
+    b = vb_batch()
+    out = {}
+    for method in LRP_METHODS:
+        runner = jrunner.VisualBertPerturbationRunner(jparams, JCFG, method)
+        out[method] = [runner.explain_batched(
+            {k: v[i:i + 1] for k, v in b.items()}) for i in range(B)]
+    return out
+
+
+@pytest.mark.parametrize("method", LRP_METHODS)
+def test_runner_lrp_methods_equal_jax_per_example(tparams, lrp_rows,
+                                                  method):
+    """The port's runner at B=3 against JAX's at B=1 per example."""
+    runner = pert_runner.VisualBertPerturbationRunner(tparams, TCFG, method,
+                                                      device="cpu")
+    scores, cam = runner.explain_batched(vb_batch())
+    for i, (js, jc) in enumerate(lrp_rows[method]):
+        np.testing.assert_allclose(scores[i], js[0], **TOL)
+        top = np.abs(jc[0]).max()
+        assert top > 0 and np.isfinite(cam[i]).all()
+        np.testing.assert_allclose(cam[i], jc[0], rtol=0, atol=1e-4 * top)
 
 
 # ---------------------------------------------------------------------------

@@ -339,7 +339,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0 []"
     assert len(mods) >= 10
-    # the FRCNN → LXMERT, VisualBERT, CLIP and DETR slices are among them
+    # the FRCNN → LXMERT, VisualBERT, CLIP, DETR and LRP slices are among
+    # them
     for name in ("models.frcnn", "models.resnet", "models.bert",
                  "models.lxmert", "explain.lxmert", "ops.roi_pool_pallas",
                  "harness.perturbation", "harness.pert_runner",
@@ -352,7 +353,8 @@ def test_port_imports_no_jax():
                  "harness.detr_eval", "harness.coco_eval",
                  "harness.panoptic", "data.coco", "ops.otsu",
                  "models.matcher", "models.detr_segm_heads",
-                 "utils.box_ops"):
+                 "utils.box_ops", "ops.lrp", "ops.rap", "models.bert_lrp",
+                 "models.lxmert_lrp", "models.detr_lrp"):
         assert f"transformer_mm_explainability_tpu_torch.{name}" in mods
 
 

@@ -30,15 +30,15 @@ PNG per text (``PREFIX_i.png``) and prints the softmax over the texts.
 ``--device``): the VisualBERT (default) or LXMERT positive / negative
 perturbation benchmark through ``harness/pert_runner``. Without the data
 flags it runs the pipeline on synthetic samples and a tiny random model.
-The methods that need LRP relevance exit with 2 and a message naming the
-LRP engine, which is not ported yet.
+Every method of the model's table runs, the LRP ones included; an unknown
+method exits with 2.
 
 ``detr-eval`` is the JAX package's subcommand (the same flags, plus
 ``--device``): DETR explanation-segmentation on a COCO split through
 ``harness/detr_eval.evaluate`` (DETR-R50; random weights from ``--seed``
 without ``--checkpoint``), printing the 12 COCO segm stats as one JSON
-line. Without ``--coco-path`` it prints a hint and exits 0; a method that
-needs LRP relevance exits with 2.
+line. Without ``--coco-path`` it prints a hint and exits 0. Every DETR
+method runs, the LRP ones included.
 """
 
 from __future__ import annotations
@@ -225,9 +225,6 @@ def cmd_perturbation(args) -> int:
     resolve_device(args.device)
     try:
         return pert_runner.run_from_args(args)
-    except NotImplementedError as e:
-        print(f"perturbation: {e}")
-        return 2
     except ValueError as e:
         if "perturbation method" in str(e):
             print(f"perturbation: {e}")
@@ -255,10 +252,6 @@ def cmd_detr_eval(args) -> int:
     if args.method not in expl.DETR_METHODS:
         print(f"detr-eval: {args.method!r} is not a DETR method; valid: "
               f"{sorted(expl.DETR_METHODS)}")
-        return 2
-    if args.method in expl.LRP_METHODS:
-        print(f"detr-eval: {args.method!r} needs the LRP relprop, which is "
-              "not ported yet (ROADMAP A4)")
         return 2
     device = resolve_device(args.device)
     ann = args.annotations or os.path.join(

@@ -15,8 +15,13 @@ K with tensors (the functions of ``ops/relevancy`` take leading batch
 axes), where the JAX package ``vmap``s a per-example chain.
 
 The LRP methods (``ours_with_lrp``, ``transformer_att``, ``partial_lrp``)
-need the LRP engine (``models/detr_lrp.relprop``), which is not ported
-(ROADMAP A4): they raise ``NotImplementedError``.
+read relprop cams (``models/detr_lrp``): the K relprops share the tape of
+the one forward (``capture_multi(..., return_tape=True)``, or a forward
+without gradients for ``partial_lrp``) and run batched over K. They take
+the forward's key-padding bias, where the JAX package's ``_relprop_cams``
+recomputes unmasked probabilities (it calls ``detr_lrp.relprop`` without
+``mask=``): the reference's relprop reads the recorded inputs of the
+masked forward (ROADMAP §C, intended departures).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from transformer_mm_explainability_tpu_torch.models import detr as detr_model
+from transformer_mm_explainability_tpu_torch.models import detr_lrp
 from transformer_mm_explainability_tpu_torch.models.detr import DETRTaps
 from transformer_mm_explainability_tpu_torch.ops import relevancy as rl
 
@@ -124,17 +130,40 @@ def _rows(R_qi: torch.Tensor, target_queries: torch.Tensor) -> torch.Tensor:
                 target_queries]
 
 
-def _capture(params, image, target_queries, target_classes, cfg,
-             pad_valid):
-    """``capture_multi`` of the K targets → ``(queries, attn, grads,
-    token_valid)``; the targets may be numpy arrays or tensors."""
+def _targets(image, target_queries, target_classes, cfg):
+    """``(queries [K], one-hots [K, Q, C+1])`` on the image's device; the
+    targets may be numpy arrays or tensors."""
     tq = torch.as_tensor(target_queries, dtype=torch.long,
                          device=image.device)
     tc = torch.as_tensor(target_classes, dtype=torch.long,
                          device=image.device)
-    _, attn, grads = detr_model.capture_multi(
-        params, image, _one_hots(tq, tc, cfg), pad_valid, cfg)
-    return tq, attn, grads, _token_valid(image, pad_valid, cfg)
+    return tq, _one_hots(tq, tc, cfg).to(image.dtype)
+
+
+def _capture(params, image, target_queries, target_classes, cfg,
+             pad_valid, return_tape: bool = False):
+    """``capture_multi`` of the K targets → ``(queries, attn, grads,
+    token_valid)``, and the forward's tape and the one-hots with
+    ``return_tape``."""
+    tq, oh = _targets(image, target_queries, target_classes, cfg)
+    out, attn, grads = detr_model.capture_multi(params, image, oh, pad_valid,
+                                                cfg, return_tape)
+    got = (tq, attn, grads, _token_valid(image, pad_valid, cfg))
+    return got + (out["tape"], oh) if return_tape else got
+
+
+def _relprop_cams(params, tape, one_hots, cfg, last_cross_only=False):
+    """The K relprops of one image's tape (``models/detr.forward(...,
+    return_tape=True)``, B=1), batched over the K one-hot seeds, with the
+    forward's key-padding bias: ``DETRTaps`` of ``[L, K, H, ...]`` cams.
+    ``last_cross_only`` computes only ``dec_cross[-1]`` (the other
+    families None), all that ``transformer_att`` and ``partial_lrp``
+    read."""
+    args = (params, tape, tape["hs"], one_hots, cfg,
+            tape["key_padding_bias"])
+    if last_cross_only:
+        return DETRTaps(None, None, detr_lrp.last_cross_cam(*args)[None])
+    return detr_lrp.relprop(*args)[1]
 
 
 # the "ours" family: relevancy_from_capture's options per method name
@@ -198,23 +227,79 @@ def generate_ours_no_agg(params, image, target_queries, target_classes,
                          aggregate=False)
 
 
+def generate_ours_lrp(params, image, target_queries, target_classes,
+                      cfg=detr_model.DETR_R50, pad_valid=None,
+                      normalize_self_attention: bool = True,
+                      apply_self_in_rule_10: bool = True) -> torch.Tensor:
+    """'ours_with_lrp' (ExplanationGenerator.py:142-195 use_lrp=True): the
+    propagation chain on relprop cams in place of the probabilities. One
+    forward and one K-batched backward give the gradients and the tape;
+    the K relprops run batched on that tape."""
+    tq, _, grads, tv, tape, oh = _capture(params, image, target_queries,
+                                          target_classes, cfg, pad_valid,
+                                          return_tape=True)
+    cams = _relprop_cams(params, tape, oh, cfg)
+    return _rows(relevancy_from_capture(
+        cams, grads, normalize_self_attention, apply_self_in_rule_10,
+        token_valid=tv), tq)
+
+
+def _lrp_rows(method, params, image, target_queries, target_classes, cfg,
+              pad_valid) -> torch.Tensor:
+    if method == "ours_with_lrp":
+        return generate_ours_lrp(params, image, target_queries,
+                                 target_classes, cfg, pad_valid)
+    if method == "transformer_att":
+        tq, _, grads, _, tape, oh = _capture(
+            params, image, target_queries, target_classes, cfg, pad_valid,
+            return_tape=True)
+        cams = _relprop_cams(params, tape, oh, cfg, last_cross_only=True)
+        return generate_transformer_att(cams, grads, tq)
+    # partial_lrp reads relprop cams only: a forward without gradients
+    tq, oh = _targets(image, target_queries, target_classes, cfg)
+    with torch.no_grad():
+        tape = detr_model.forward(
+            params, image[None], None if pad_valid is None else pad_valid[None],
+            cfg, return_tape=True)["tape"]
+        cams = _relprop_cams(params, tape, oh, cfg, last_cross_only=True)
+    return generate_partial_lrp(cams, tq)
+
+
 def generate(method: str, params, image, target_queries, target_classes,
              cfg=detr_model.DETR_R50, pad_valid=None) -> torch.Tensor:
     """Dispatch a reference method name → ``[K, S]`` relevancy rows
-    (mask_generator.py:95-115): one ``capture_multi``, then
-    ``rows_from_capture``. ``target_queries`` / ``target_classes`` may be
-    numpy arrays or tensors."""
+    (mask_generator.py:95-115): one ``capture_multi`` (the forward's tape
+    too for the LRP methods but ``partial_lrp``, which needs no
+    gradients), then the method's rows. ``target_queries`` /
+    ``target_classes`` may be numpy arrays or tensors."""
     if method not in DETR_METHODS:
         raise ValueError(
             f"unknown DETR explanation method {method!r}; valid: "
             f"{sorted(DETR_METHODS)}")
     if method in LRP_METHODS:
-        raise NotImplementedError(
-            f"DETR method {method!r} needs the LRP relprop "
-            "(models/detr_lrp), which is not ported yet (ROADMAP A4)")
+        return _lrp_rows(method, params, image, target_queries,
+                         target_classes, cfg, pad_valid)
     tq, attn, grads, tv = _capture(params, image, target_queries,
                                    target_classes, cfg, pad_valid)
     return rows_from_capture(method, attn, grads, tq, tv)
+
+
+def generate_transformer_att(cams: DETRTaps, grads: DETRTaps,
+                             target_queries: torch.Tensor) -> torch.Tensor:
+    """transformer_att baseline (:64-108): the head mean of the LAST
+    decoder cross-attention's relu(LRP cam ⊙ grad)."""
+    return _rows(_avg(cams.dec_cross[-1], grads.dec_cross[-1]),
+                 target_queries)
+
+
+def generate_partial_lrp(cams: DETRTaps, target_queries: torch.Tensor
+                         ) -> torch.Tensor:
+    """partial_lrp (:197-224): head mean of the last decoder cross cam,
+    min-max normalised per query."""
+    cam = cams.dec_cross[-1].mean(dim=1)                 # [K, Q, S]
+    lo = cam.amin(dim=(1, 2), keepdim=True)
+    hi = cam.amax(dim=(1, 2), keepdim=True)
+    return _rows((cam - lo) / (hi - lo), target_queries)
 
 
 # --- capture-only baselines ------------------------------------------------

@@ -8,11 +8,12 @@ Counterpart of ``transformer_mm_explainability_tpu/explain/visual_bert.py``
   raw_attn        — head mean of the last layer's attention
   rollout         — un-normalised rollout of the head means
   attn_gradcam    — gradient-weighted last-layer head mean, min-max
-  transformer_att — LRP-cam rollout      (needs the LRP engine)
-  partial_lrp     — last-layer LRP cam   (needs the LRP engine)
+  transformer_att — grad-weighted LRP-cam rollout
+  partial_lrp     — last-layer LRP cam, min-max
 
 Every method takes the ``[L, B, H, S, S]`` capture of
-``models.visual_bert.capture`` as it comes (the JAX functions run one
+``models.visual_bert.capture`` (and the LRP ones the cams of
+``models.visual_bert.relprop``) as it comes (the JAX functions run one
 example under ``jax.vmap``; the rules of ``ops/relevancy`` take the batch
 axis here), and returns the ``[B, S]`` row of the "CLS" token, the ``?``
 at ``input_mask.sum(1) - 2``, with that position zeroed.
@@ -23,10 +24,6 @@ from __future__ import annotations
 import torch
 
 from transformer_mm_explainability_tpu_torch.ops import relevancy as rl
-
-_NEEDS_LRP = ("needs LRP relevance: the LRP engine (visual_bert.relprop, "
-              "models/bert_lrp.py) is not ported yet (ROADMAP A4)")
-
 
 def _cls_row(R: torch.Tensor, cls_index: torch.Tensor) -> torch.Tensor:
     """Row ``cls_index`` of each example's ``[S, S]`` matrix, with the CLS
@@ -54,12 +51,24 @@ def generate_ours(attn: torch.Tensor, grads: torch.Tensor,
     return _cls_row(R, cls_index)
 
 
-def generate_transformer_att(cams_lrp, grads, cls_index, start_layer=0):
-    raise NotImplementedError(f"transformer_att {_NEEDS_LRP}")
+def generate_transformer_att(cams_lrp: torch.Tensor, grads: torch.Tensor,
+                             cls_index: torch.Tensor,
+                             start_layer: int = 0) -> torch.Tensor:
+    """Grad-weighted LRP-cam rollout; ``cams_lrp`` ``[L, B, H, S, S]``
+    relprop cams. The VisualBERT copy of ``compute_rollout_attention``
+    has its row normalisation commented out (ExplanationGenerator.py:
+    11-13), so this is the bare ∏(I+Ê) chain."""
+    e = rl.avg_heads(cams_lrp, grads).movedim(1, 0)      # [B, L, S, S]
+    R = rl.compute_rollout_attention(e, start_layer=start_layer,
+                                     normalize=False)
+    return _cls_row(R, cls_index)
 
 
-def generate_partial_lrp(cams_lrp, cls_index):
-    raise NotImplementedError(f"partial_lrp {_NEEDS_LRP}")
+def generate_partial_lrp(cams_lrp: torch.Tensor,
+                         cls_index: torch.Tensor) -> torch.Tensor:
+    """Head mean of the LAST layer's LRP cam, min-max normalised
+    (ExplanationGenerator.py:109-131)."""
+    return _cls_row(_min_max(cams_lrp[-1].mean(dim=1)), cls_index)
 
 
 def generate_raw_attn(attn: torch.Tensor,

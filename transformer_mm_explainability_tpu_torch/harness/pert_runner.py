@@ -8,8 +8,11 @@ per-step accuracies as the reference does.
 Method tables have the reference's names: VisualBERT's 6 (plus the
 ``transformer_att`` alias and the JAX package's ``ours_with_lrp``
 extension) and LXMERT's 11. The methods that need LRP relevance
-(``_VB_NEEDS_LRP``, ``_LX_NEEDS_LRP``) raise ``NotImplementedError`` until
-the LRP engine (ROADMAP A4) is ported; every other method runs.
+(``_VB_NEEDS_LRP``, ``_LX_NEEDS_LRP``) take the tape of the capture's
+forward and run the relprop (``models/visual_bert.relprop``,
+``models/lxmert_lrp.relprop``) for the predicted answers; its sums are
+per example, so each sample's map is the reference's one-sample map
+whatever the batch.
 
 N samples × n_steps ride one batch axis through one explain + perturb
 call; ``run_loop`` collates to a fixed batch and keeps one batch in flight
@@ -34,6 +37,7 @@ from transformer_mm_explainability_tpu_torch.explain import visual_bert as evb
 from transformer_mm_explainability_tpu_torch.harness import perturbation as pert
 from transformer_mm_explainability_tpu_torch.models import bert
 from transformer_mm_explainability_tpu_torch.models import lxmert as lx
+from transformer_mm_explainability_tpu_torch.models import lxmert_lrp
 from transformer_mm_explainability_tpu_torch.models import visual_bert as vb
 
 # LXMERT method names (reference: perturbation.py:217-240)
@@ -59,12 +63,6 @@ _VISUALBERT_ALIASES = {
     "transformer_att": "transformer_attribution",
 }
 _VB_NEEDS_LRP = {"transformer_attribution", "partial_lrp", "ours_with_lrp"}
-_NOT_PORTED_LRP = ("needs LRP relevance: the LRP engine "
-                   "(models/lxmert_lrp.py) is not ported yet (ROADMAP "
-                   "slice 6)")
-_NOT_PORTED_VB_LRP = ("needs LRP relevance: the LRP engine "
-                      "(visual_bert.relprop, models/bert_lrp.py) is not "
-                      "ported yet (ROADMAP A4)")
 
 
 def _resolve(method: str, table, aliases, model: str) -> str:
@@ -113,9 +111,6 @@ class VisualBertPerturbationRunner(_Runner):
         # reference's 6-name table
         method = _resolve(method, VISUALBERT_METHODS + ("ours_with_lrp",),
                           _VISUALBERT_ALIASES, "visual_bert")
-        if method in _VB_NEEDS_LRP:
-            raise NotImplementedError(f"visual_bert method {method!r} "
-                                      + _NOT_PORTED_VB_LRP)
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.cfg = cfg
@@ -127,13 +122,37 @@ class VisualBertPerturbationRunner(_Runner):
 
     def _explain(self, batch):
         """(scores, cam [N, S]) for the predicted answer."""
-        if self.method == "ours_no_lrp":
+        method, cfg = self.method, self.cfg
+        if method == "ours_no_lrp":
             # the streamed row fold: no [L, N, H, S, S] stacks
-            return vb.relevancy_row(self.params, batch, None, self.cfg)
-        scores, attn, grads = vb.capture(self.params, batch, None, self.cfg)
-        cam = evb.METHODS_FROM_CAPTURE[self.method](
-            attn, grads, vb.cls_index(batch["input_mask"]))
-        return scores, cam
+            return vb.relevancy_row(self.params, batch, None, cfg)
+        cls_index = vb.cls_index(batch["input_mask"])
+        if method not in _VB_NEEDS_LRP:
+            scores, attn, grads = vb.capture(self.params, batch, None, cfg)
+            return scores, evb.METHODS_FROM_CAPTURE[method](attn, grads,
+                                                            cls_index)
+        if method == "partial_lrp":
+            # the relprop cams alone: a forward without gradients
+            with torch.no_grad():
+                out = vb.forward(
+                    self.params, batch["input_ids"], batch["input_mask"],
+                    batch.get("visual_embeddings"),
+                    visual_mask=batch.get("visual_mask"), cfg=cfg,
+                    return_tape=True)
+            scores, tape = out["scores"], out["tape"]
+        else:
+            # one forward gives the gradients and the relprop's tape
+            scores, _, grads, tape = vb.capture(self.params, batch, None,
+                                                cfg, return_tape=True)
+        one_hot = torch.nn.functional.one_hot(scores.argmax(-1),
+                                              cfg.num_labels)
+        _, cams = vb.relprop(self.params, tape, one_hot, cfg)
+        if method == "partial_lrp":
+            return scores, evb.generate_partial_lrp(cams, cls_index)
+        if method == "transformer_attribution":
+            return scores, evb.generate_transformer_att(cams, grads,
+                                                        cls_index)
+        return scores, evb.generate_ours(cams, grads, cls_index)
 
     def _forward_scores(self, b):
         with torch.no_grad():
@@ -179,9 +198,6 @@ class LxmertPerturbationRunner(_Runner):
                  positive: bool = False, text_pert: bool = False,
                  device="cuda"):
         method = _resolve(method, LXMERT_METHODS, _LXMERT_ALIASES, "lxmert")
-        if method in _LX_NEEDS_LRP:
-            raise NotImplementedError(f"lxmert method {method!r} "
-                                      + _NOT_PORTED_LRP)
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.cfg = cfg
@@ -193,13 +209,40 @@ class LxmertPerturbationRunner(_Runner):
     def _explain(self, batch):
         """(scores, cam_text [N, St], cam_image [N, Sv]) for the predicted
         answer."""
-        method = self.method
-        scores, attn, grads = lx.capture(self.params, batch, None, self.cfg)
+        method, cfg = self.method, self.cfg
+        if method == "partial_lrp":
+            # the relprop cams alone: a forward without gradients
+            with torch.no_grad():
+                out = self._forward(batch, return_tape=True)
+            scores, tape = out["qa_scores"], out["tape"]
+        elif method in _LX_NEEDS_LRP:
+            # one forward gives the gradients and the relprop's tape
+            scores, attn, grads, tape = lx.capture(
+                self.params, batch, None, cfg, return_tape=True)
+        else:
+            scores, attn, grads = lx.capture(self.params, batch, None, cfg)
+        if method in _LX_NEEDS_LRP:
+            one_hot = torch.nn.functional.one_hot(scores.argmax(-1),
+                                                  cfg.num_qa_labels)
+            _, _, cams = lxmert_lrp.relprop(
+                self.params, tape, one_hot, tape["lang_mask"],
+                tape["visn_mask"], cfg)
         # padding masks: without them one padded token / box NaN-poisons
         # the normalised bi-modal chain
         tv = batch["attention_mask"]
         vv = batch.get("visual_mask")
-        if method == "ours_no_lrp":
+        if method == "ours_with_lrp":
+            tt, ti = elx.generate_ours_lrp(cams, grads, text_valid=tv,
+                                           visual_valid=vv)
+        elif method == "ours_with_lrp_no_normalization":
+            tt, ti = elx.generate_ours_lrp(cams, grads,
+                                           normalize_self_attention=False,
+                                           text_valid=tv, visual_valid=vv)
+        elif method == "transformer_att":
+            tt, ti = elx.generate_transformer_att(cams, grads)
+        elif method == "partial_lrp":
+            tt, ti = elx.generate_partial_lrp(cams)
+        elif method == "ours_no_lrp":
             tt, ti = elx.generate_ours(attn, grads, text_valid=tv,
                                        visual_valid=vv)
         elif method == "ours_no_lrp_no_norm":
@@ -223,13 +266,15 @@ class LxmertPerturbationRunner(_Runner):
         # text relevancy: the CLS row; image: the CLS row of R_t_i
         return scores, tt[:, 0], ti[:, 0]
 
+    def _forward(self, b, return_tape: bool = False):
+        return lx.forward(self.params, b["input_ids"], b["attention_mask"],
+                          b["visual_feats"], b["visual_pos"],
+                          visual_mask=b.get("visual_mask"), cfg=self.cfg,
+                          return_tape=return_tape)
+
     def _forward_scores(self, b):
         with torch.no_grad():
-            return lx.forward(self.params, b["input_ids"],
-                              b["attention_mask"], b["visual_feats"],
-                              b["visual_pos"],
-                              visual_mask=b.get("visual_mask"),
-                              cfg=self.cfg)["qa_scores"]
+            return self._forward(b)["qa_scores"]
 
     def explain_batched(self, batch):
         """``(scores, cam_text, cam_image)`` as numpy arrays."""

@@ -136,6 +136,16 @@ def encoder(params: Dict[str, Any], hidden: torch.Tensor, cfg: BertConfig,
     return hidden, torch.stack(probs)
 
 
+def detach_tape(tape):
+    """A tape (dicts and tuples of tensors, None) cut from the graph: what
+    a capture's forward hands to an LRP relprop."""
+    if isinstance(tape, dict):
+        return {k: detach_tape(v) for k, v in tape.items()}
+    if isinstance(tape, tuple):
+        return tuple(detach_tape(v) for v in tape)
+    return tape.detach() if torch.is_tensor(tape) else tape
+
+
 def text_embeddings(params: Dict[str, Any], input_ids: torch.Tensor,
                     token_type_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:

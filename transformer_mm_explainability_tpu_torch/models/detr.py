@@ -206,15 +206,21 @@ def transformer_forward(
     key_padding_bias: Optional[torch.Tensor],  # [B, 1, 1, S] additive
     cfg: DETRConfig,
     taps: Optional[DETRTaps] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, DETRTaps]:
+    return_tape: bool = False,
+):
     """Returns ``(hs [B, Q, D], memory [B, S, D], attn)``, ``attn`` the
-    stacked probabilities of the three families."""
+    stacked probabilities of the three families, and with ``return_tape``
+    the tape ``models/detr_lrp.relprop`` reads fourth: ``{"enc" [Le, B, S,
+    D], "dec" [Ld, B, Q, D]`` (each layer's input), ``"memory", "pos",
+    "query_pos"}``."""
     B = src.shape[0]
     H = cfg.nheads
     enc_probs, dec_self_probs, dec_cross_probs = [], [], []
+    enc_tape, dec_tape = [], []
     x = src
     for i in range(cfg.num_encoder_layers):
         p = _layer(params["encoder"], i)
+        enc_tape.append(x)
         qk = x + pos
         attn_out, probs = multi_head_cross_attention(
             p["self_attn"], qk, qk, H, mask=key_padding_bias,
@@ -230,6 +236,7 @@ def transformer_forward(
     k = memory + pos
     for i in range(cfg.num_decoder_layers):
         p = _layer(params["decoder"], i)
+        dec_tape.append(tgt)
         qk = tgt + query_pos
         attn_out, self_probs = multi_head_cross_attention(
             p["self_attn"], qk, qk, H,
@@ -246,6 +253,10 @@ def transformer_forward(
     attn = DETRTaps(enc_self=torch.stack(enc_probs),
                     dec_self=torch.stack(dec_self_probs),
                     dec_cross=torch.stack(dec_cross_probs))
+    if return_tape:
+        tape = {"enc": torch.stack(enc_tape), "dec": torch.stack(dec_tape),
+                "memory": memory, "pos": pos, "query_pos": query_pos}
+        return hs, memory, attn, tape
     return hs, memory, attn
 
 
@@ -266,10 +277,14 @@ def forward(
     pad_mask: Optional[torch.Tensor] = None,  # [B, H, W] 1 = valid pixel
     cfg: DETRConfig = DETR_R50,
     taps: Optional[DETRTaps] = None,
+    return_tape: bool = False,
 ) -> Dict[str, Any]:
     """Full DETR. Returns ``{"pred_logits" [B, Q, C+1], "pred_boxes"
     [B, Q, 4]`` (cxcywh, sigmoid-normalised), ``"attn"`` (stacked
-    probabilities), ``"feat_hw"}``."""
+    probabilities), ``"feat_hw"}``; with ``return_tape`` also ``"tape"``,
+    ``transformer_forward``'s tape with the decoder output ``"hs"`` and
+    the ``"key_padding_bias"`` (None without a pad mask) that the relprop
+    of ``models/detr_lrp`` takes."""
     B, Him, Wim, _ = images.shape
     feats = resnet.forward(params["backbone"], images,
                            dilation_last=cfg.dilation)
@@ -285,7 +300,8 @@ def forward(
     src = feats.reshape(B, S, C) @ params["input_proj"]["w"] \
         + params["input_proj"]["b"]
     pos = pos.reshape(B, S, cfg.d_model)
-    hs, _, attn = transformer_forward(params, src, pos, bias, cfg, taps)
+    hs, _, attn, *tape = transformer_forward(params, src, pos, bias, cfg,
+                                             taps, return_tape)
 
     logits = hs @ params["class_embed"]["w"] + params["class_embed"]["b"]
     x = hs
@@ -293,8 +309,11 @@ def forward(
         x = x @ lp["w"] + lp["b"]
         if i < len(params["bbox_embed"]) - 1:
             x = torch.relu(x)
-    return {"pred_logits": logits, "pred_boxes": torch.sigmoid(x),
-            "attn": attn, "feat_hw": (Hf, Wf)}
+    out = {"pred_logits": logits, "pred_boxes": torch.sigmoid(x),
+           "attn": attn, "feat_hw": (Hf, Wf)}
+    if return_tape:
+        out["tape"] = dict(tape[0], hs=hs, key_padding_bias=bias)
+    return out
 
 
 def _tokens(cfg: DETRConfig, Him: int, Wim: int) -> int:
@@ -302,7 +321,8 @@ def _tokens(cfg: DETRConfig, Him: int, Wim: int) -> int:
 
 
 def _detached(out: Dict[str, Any]) -> Dict[str, Any]:
-    return {k: (v.detach() if torch.is_tensor(v) else v)
+    cut = lambda v: v.detach() if torch.is_tensor(v) else v
+    return {k: ({n: cut(t) for n, t in v.items()} if k == "tape" else cut(v))
             for k, v in out.items() if k != "attn"}
 
 
@@ -324,8 +344,8 @@ def capture(
     Summing one-hots of several queries of one image mixes their
     gradients; per-query explanations batch through ``capture_multi``."""
     B, Him, Wim, _ = images.shape
-    taps = zero_taps(cfg, B, _tokens(cfg, Him, Wim), device=images.device,
-                     requires_grad=True)
+    taps = zero_taps(cfg, B, _tokens(cfg, Him, Wim), dtype=images.dtype,
+                     device=images.device, requires_grad=True)
     with torch.enable_grad():
         out = forward(params, images, pad_mask, cfg, taps)
         score = (out["pred_logits"] * one_hot).sum()
@@ -344,6 +364,7 @@ def capture_multi(
     one_hots: torch.Tensor,              # [K, Q, C+1] per-query targets
     pad_valid: Optional[torch.Tensor] = None,   # [H, W] 1 = valid
     cfg: DETRConfig = DETR_R50,
+    return_tape: bool = False,
 ) -> Tuple[Dict[str, Any], DETRTaps, DETRTaps]:
     """Shared-forward capture for K per-query explanations of ONE image.
 
@@ -357,14 +378,16 @@ def capture_multi(
 
     Returns ``(out, attn, grads)`` shaped like a K-batched ``capture``
     (leaves ``[L, K, H, ...]``; ``attn`` a broadcast view of the one
-    forward's probabilities, not K copies); ``out`` keeps B=1."""
+    forward's probabilities, not K copies); ``out`` keeps B=1, and with
+    ``return_tape`` holds the forward's tape (``forward``), which the K
+    relprops of the LRP methods share."""
     Him, Wim, _ = image.shape
     K = one_hots.shape[0]
-    taps = zero_taps(cfg, 1, _tokens(cfg, Him, Wim), device=image.device,
-                     requires_grad=True)
+    taps = zero_taps(cfg, 1, _tokens(cfg, Him, Wim), dtype=image.dtype,
+                     device=image.device, requires_grad=True)
     masks = None if pad_valid is None else pad_valid[None]
     with torch.enable_grad():
-        out = forward(params, image[None], masks, cfg, taps)
+        out = forward(params, image[None], masks, cfg, taps, return_tape)
         flat = torch.autograd.grad(out["pred_logits"][0], _flat(taps),
                                    grad_outputs=one_hots.to(image.dtype),
                                    is_grads_batched=True)

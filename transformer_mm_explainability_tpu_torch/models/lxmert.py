@@ -265,21 +265,23 @@ def forward(params: Dict[str, Any], input_ids: torch.Tensor,
 
 
 def capture(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-            targets: Optional[torch.Tensor], cfg: LxmertConfig = LXMERT_VQA
-            ) -> Tuple[torch.Tensor, LxmertTaps, LxmertTaps]:
+            targets: Optional[torch.Tensor], cfg: LxmertConfig = LXMERT_VQA,
+            return_tape: bool = False) -> Tuple[Any, ...]:
     """One forward and one backward: ``(qa_scores, attn probs, attn
     gradients)``. ``targets=None`` explains the PREDICTED answer (the
     reference default, ``index=None → argmax(output)``), the argmax taken
-    from the same forward, outside the graph."""
+    from the same forward, outside the graph. With ``return_tape`` the
+    same forward's tape (``forward``'s, detached) comes fourth, for
+    ``models/lxmert_lrp.relprop``."""
     B, St = batch["input_ids"].shape
     Sv = batch["visual_feats"].shape[1]
     taps = zero_taps(cfg, B, St, Sv, device=batch["visual_feats"].device,
-                     requires_grad=True)
+                     dtype=batch["visual_feats"].dtype, requires_grad=True)
     with torch.enable_grad():
         out = forward(params, batch["input_ids"], batch["attention_mask"],
                       batch["visual_feats"], batch["visual_pos"],
                       batch.get("token_type_ids"), batch.get("visual_mask"),
-                      cfg, taps)
+                      cfg, taps, return_tape)
         scores = out["qa_scores"]
         t = scores.detach().argmax(-1) if targets is None else targets
         s = scores.gather(1, t[:, None].long()).sum()
@@ -289,4 +291,7 @@ def capture(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(taps, grads)]
     attn = LxmertTaps(*(a.detach() for a in out["attn"]))
-    return scores.detach(), attn, LxmertTaps(*grads)
+    got = (scores.detach(), attn, LxmertTaps(*grads))
+    if return_tape:
+        return got + (bert.detach_tape(out["tape"]),)
+    return got

@@ -15,8 +15,10 @@ from one forward and one backward through zero taps on the probabilities;
 ``relevancy_row`` is the streamed explain step of ``ours_no_lrp``, which
 never holds the ``[L, B, H, S, S]`` stacks.
 
-The LRP pass (``relprop``) waits for the LRP engine (ROADMAP A4); the
-pretraining, NLVR2 and bypass heads wait for ROADMAP A5.
+``relprop`` is the LRP pass from the answer one-hot back through the head,
+the ``?`` token and the encoder (``models/bert_lrp``), on the tape that
+``forward(..., return_tape=True)`` or ``capture(..., return_tape=True)``
+returns. The pretraining, NLVR2 and bypass heads wait for ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from transformer_mm_explainability_tpu_torch.models import bert
+from transformer_mm_explainability_tpu_torch.models import bert_lrp
+from transformer_mm_explainability_tpu_torch.ops import lrp
 from transformer_mm_explainability_tpu_torch.ops import relevancy as rl
 from transformer_mm_explainability_tpu_torch.ops.attention import (
     gelu,
@@ -191,27 +195,65 @@ def _picked_score(scores: torch.Tensor,
 
 def capture(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             targets: Optional[torch.Tensor],
-            cfg: VisualBERTConfig = VISUAL_BERT_VQA2
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            cfg: VisualBERTConfig = VISUAL_BERT_VQA2,
+            return_tape: bool = False) -> Tuple[torch.Tensor, ...]:
     """One forward and one backward: ``(scores, A, ∇A)``, A and ∇A
     ``[L, B, H, S, S]``. ``targets``: ``[B]`` answer indices, or ``None``
-    to explain the PREDICTED answer, resolved inside the same pass."""
+    to explain the PREDICTED answer, resolved inside the same pass. With
+    ``return_tape`` the same forward's tape (``forward``'s, detached)
+    comes fourth, for ``relprop``."""
     ve = batch.get("visual_embeddings")
     B, S_t = batch["input_ids"].shape
     S = S_t + (0 if ve is None else ve.shape[1])
     bc = cfg.bert
     taps = torch.zeros((bc.num_hidden_layers, B, bc.num_attention_heads, S,
                         S), device=batch["input_ids"].device,
+                       dtype=params["embeddings"]["word"].dtype,
                        requires_grad=True)
     with torch.enable_grad():
         out = forward(params, batch["input_ids"], batch["input_mask"], ve,
                       batch.get("token_type_ids"),
                       batch.get("visual_embeddings_type"),
                       batch.get("visual_mask"),
-                      batch.get("image_text_alignment"), cfg, taps)
+                      batch.get("image_text_alignment"), cfg, taps,
+                      return_tape)
         (grads,) = torch.autograd.grad(
             _picked_score(out["scores"], targets), [taps])
-    return out["scores"].detach(), out["attn"].detach(), grads
+    got = (out["scores"].detach(), out["attn"].detach(), grads)
+    if return_tape:
+        return got + (bert.detach_tape(out["tape"]),)
+    return got
+
+
+def relprop(params: Dict[str, Any], tape: Dict[str, Any],
+            one_hot: torch.Tensor,
+            cfg: VisualBERTConfig = VISUAL_BERT_VQA2, alpha: float = 1.0,
+            uniform: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LRP from the answer one-hot ``[B, num_labels]`` back through the
+    classifier, the vqa pooler and the encoder
+    (VisualBERTForClassification.relprop, visual_bert.py:398-403). Returns
+    ``(R at the embeddings [B, S, D], attn cams [L, B, H, S, S])``.
+    ``uniform=False`` is the BERT_orig_lrp (layers_lrp) variant: per-branch
+    S1 = R/Z1, S2 = R/Z2 in every α-β rule. Each example's relevance is
+    its own (``ops/lrp``: per-example sums)."""
+    if tape["cls_index"] is None:
+        raise ValueError("relprop follows the vqa pooler (the '?' token); "
+                         "this config pools with the default pooler")
+    t = params["head"]["transform"]
+    c = params["head"]["classifier"]
+    pooled = tape["pooled"]
+    g1 = layer_norm(gelu(pooled @ t["w"] + t["b"]), t["ln"]["scale"],
+                    t["ln"]["bias"], cfg.bert.layer_norm_eps)
+    cam = lrp.linear_alpha_beta(one_hot.to(g1.dtype), g1, c["w"], alpha,
+                                uniform)
+    cam = lrp.linear_alpha_beta(cam, pooled, t["w"], alpha, uniform)
+    # the vqa pooler: scatter back to the '?' token
+    enc = tape["encoder"]
+    R = torch.zeros(enc.shape[1:], dtype=cam.dtype, device=cam.device)
+    R[torch.arange(R.shape[0], device=R.device), tape["cls_index"]] = cam
+    return bert_lrp.bert_encoder_relprop(params["encoder"], enc,
+                                         tape["mask"], R, cfg.bert, alpha,
+                                         uniform)
 
 
 def relevancy_row(params: Dict[str, Any], batch: Dict[str, torch.Tensor],

@@ -59,7 +59,7 @@ def attention_core(
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     tap: Optional[torch.Tensor] = None,
-    probs_dtype: torch.dtype = torch.float32,
+    probs_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scaled dot-product attention on ``[B, H, S, Dh]`` tensors.
 
@@ -69,8 +69,12 @@ def attention_core(
     with ``probs`` the un-tapped probabilities (in the tap's dtype when a
     tap is given). A query whose keys are all masked (bias ≤ -5000) gets a
     zero output row while its returned probabilities stay uniform, as in
-    the JAX package (``ops/attention.py:106-116``).
+    the JAX package (``ops/attention.py:106-116``). The scores and the
+    products run in ``probs_dtype``, by default fp32 at least (float64
+    inputs stay float64).
     """
+    if probs_dtype is None:
+        probs_dtype = torch.promote_types(q.dtype, torch.float32)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.to(probs_dtype),
                           k.to(probs_dtype)) * (1.0 / math.sqrt(q.shape[-1]))
     if mask is not None:
@@ -125,8 +129,9 @@ def multi_head_cross_attention(
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with fp32 statistics and population variance."""
-    xf = x.float()
+    """LayerNorm with fp32 statistics at least (float64 inputs keep
+    float64) and population variance."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mean) * torch.rsqrt(var + eps)

@@ -119,8 +119,10 @@ def compute_rollout_attention(
 
 
 def _e_hats(cams: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
-    """``[..., L, H, S, S]`` captures → fp32 ``[..., L, S, S]`` Ê stack."""
-    return avg_heads(cams.float(), grads.float())
+    """``[..., L, H, S, S]`` captures → ``[..., L, S, S]`` Ê stack, fp32 at
+    least (float64 captures keep float64)."""
+    dt = torch.promote_types(cams.dtype, torch.float32)
+    return avg_heads(cams.to(dt), grads.to(dt))
 
 
 def self_attention_relevancy(
@@ -148,8 +150,8 @@ def self_attention_relevancy_update(
     """Rules 6+7 over a ``[..., L, H, S, S]`` stack of self-attention
     layers. ``aggregate=False`` overwrites instead of adding (the
     no-aggregation ablation)."""
-    R_ss, R_sq = R_ss.float(), R_sq.float()
     e_hats = _e_hats(cams, grads)
+    R_ss, R_sq = R_ss.to(e_hats.dtype), R_sq.to(e_hats.dtype)
     for i in range(e_hats.shape[-3]):
         add_ss, add_sq = apply_self_attention_rules(R_ss, R_sq,
                                                     e_hats[..., i, :, :])

@@ -656,3 +656,67 @@ def detr_from_state_dict(sd: Mapping[str, Any], cfg,
         "bbox_embed": bbox,
     }
     return detr_from_jax_numpy(tree, cfg, device)
+
+
+def detr_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``models/detr`` tree → the facebook release layout that
+    ``detr_from_state_dict`` reads (``{"model": ...}`` of a ``.pth``), as
+    contiguous CPU tensors: the inverse of that converter."""
+    sd: Dict[str, torch.Tensor] = {}
+    t = lambda x: x.detach().cpu().contiguous()
+
+    def bn(prefix, p):
+        for ours, theirs in (("weight", "weight"), ("bias", "bias"),
+                             ("mean", "running_mean"), ("var", "running_var")):
+            sd[f"{prefix}.{theirs}"] = t(p[ours])
+
+    bb, pre = params["backbone"], "backbone.0.body."
+    sd[f"{pre}conv1.weight"] = t(bb["conv1"]["w"])        # OIHW already
+    bn(f"{pre}bn1", bb["bn1"])
+    for si, blocks in enumerate(bb["layers"]):
+        for bi, blk in enumerate(blocks):
+            p = f"{pre}layer{si + 1}.{bi}"
+            for c in ("1", "2", "3"):
+                sd[f"{p}.conv{c}.weight"] = t(blk[f"conv{c}"]["w"])
+                bn(f"{p}.bn{c}", blk[f"bn{c}"])
+            if "downsample" in blk:
+                sd[f"{p}.downsample.0.weight"] = t(blk["downsample"]["w"])
+                bn(f"{p}.downsample.1", blk["downsample_bn"])
+    sd["input_proj.weight"] = t(params["input_proj"]["w"].T[:, :, None, None])
+    sd["input_proj.bias"] = t(params["input_proj"]["b"])
+    sd["query_embed.weight"] = t(params["query_embed"])
+
+    def mha(prefix, a, i):
+        sd[f"{prefix}.in_proj_weight"] = t(torch.cat(
+            [a.w_q[i].T, a.w_k[i].T, a.w_v[i].T]))
+        sd[f"{prefix}.in_proj_bias"] = t(torch.cat(
+            [a.b_q[i], a.b_k[i], a.b_v[i]]))
+        sd[f"{prefix}.out_proj.weight"] = t(a.w_out[i].T)
+        sd[f"{prefix}.out_proj.bias"] = t(a.b_out[i])
+
+    def common(prefix, layers, i, norms):
+        for n in ("1", "2"):
+            sd[f"{prefix}.linear{n}.weight"] = t(layers["ffn"][f"w{n}"][i].T)
+            sd[f"{prefix}.linear{n}.bias"] = t(layers["ffn"][f"b{n}"][i])
+        for n in norms:
+            sd[f"{prefix}.{n}.weight"] = t(layers[n]["scale"][i])
+            sd[f"{prefix}.{n}.bias"] = t(layers[n]["bias"][i])
+
+    enc, dec = params["encoder"], params["decoder"]
+    for i in range(len(enc["norm1"]["scale"])):
+        p = f"transformer.encoder.layers.{i}"
+        mha(f"{p}.self_attn", enc["self_attn"], i)
+        common(p, enc, i, ("norm1", "norm2"))
+    for i in range(len(dec["norm1"]["scale"])):
+        p = f"transformer.decoder.layers.{i}"
+        mha(f"{p}.self_attn", dec["self_attn"], i)
+        mha(f"{p}.multihead_attn", dec["cross_attn"], i)
+        common(p, dec, i, ("norm1", "norm2", "norm3"))
+    sd["transformer.decoder.norm.weight"] = t(params["decoder_norm"]["scale"])
+    sd["transformer.decoder.norm.bias"] = t(params["decoder_norm"]["bias"])
+    sd["class_embed.weight"] = t(params["class_embed"]["w"].T)
+    sd["class_embed.bias"] = t(params["class_embed"]["b"])
+    for i, lp in enumerate(params["bbox_embed"]):
+        sd[f"bbox_embed.layers.{i}.weight"] = t(lp["w"].T)
+        sd[f"bbox_embed.layers.{i}.bias"] = t(lp["b"])
+    return sd
