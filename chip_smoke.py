@@ -130,7 +130,9 @@
    score. The K = 4 rows of ``ours_no_lrp``, ``attn_gradcam`` and
    ``rollout`` through ``explain/detr.generate`` on the card within 1e-4
    of the CPU's rows from its ``capture_multi`` (a family whose max|row|
-   is under 1e-3 held within 1e-2 of it); ``ablation_no_aggregation``,
+   is under 1e-3, where that bar says nothing, is held on a float64
+   capture made on both sides: the card's rows within 1e-4 · max|row| of
+   the CPU's, with the fp32 distance printed); ``ablation_no_aggregation``,
    whose float64 rows lie below fp32's range (exactly 0 in fp32 on both
    sides), held on that capture with its gradients scaled by a power of
    two, the CPU's rows within 1e-4 of max|row| of float64 and the card's
@@ -174,6 +176,32 @@
    DETR call at K = 32 (the tapped forward, the batched relprop, the rows)
    and a profile. The cli phases also run an LRP method: ``cli
    perturbation`` (both models) and the LXMERT example.
+17. parity phase: ``cli verify-parity --family all --device cuda`` (the
+   port against the maps the original PyTorch reference computed, the
+   five fixtures of ``data/assets/parity``: ViT-B/16, CLIP ViT-B/32,
+   VisualBERT, LXMERT and the DETR-R50 transformer at full width) must
+   exit 0, and every map must lie within the relative bar
+   ``tools/verify_parity.REL_TOL`` (1e-3 of max|ref|; exactly 0 where the
+   reference is 0) besides the tool's own rule, one line per map; then the
+   ViT fixture through ``relevancy_fused_block2`` (kernels #1-4, with #7
+   and #8 inside #1 and #4; 12 launches each) and, on its captured A and
+   ∇A, through ``self_attention_relevancy_pallas`` (kernel #9, 1 launch),
+   both maps within both bars of the reference's;
+18. semantic phase: ``tools/semantic_validation.run_family`` for
+   VisualBERT and LXMERT at the tool's defaults (trained from the JAX
+   tool's initial weights on the causal task, 256 samples, six methods
+   and the random control); the hard checks must hold and the held-out
+   accuracy reach 0.9; the training steps and seconds, the sweep seconds
+   and every check's AUCs are printed beside ``SEMANTIC_r05.json`` (the
+   JAX tool on a CPU), the record written to
+   ``build/smoke/semantic_torch.json``;
+19. entry-points phase: the port's four new examples (ViT, CLIP and DETR
+   explainability, LXMERT perturbation) in their checkpoint-free mode and
+   ``tools/extract_features`` on two generated images (FRCNN_VG, 800 px)
+   with ``--device cuda``: each exits 0 and writes its files, the ViT
+   example launches the four block kernels 12 times each,
+   ``extract_features`` RoIPool once per image (its TSV read back), the
+   others no kernel.
 
 Each phase prints its seconds.
 
@@ -1548,22 +1576,41 @@ def clip_cli_phase(mods, cli) -> None:
           f"launches {got}", flush=True)
 
 
-def _held(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
-    """DETR rows on the card within MAP_BAR of the CPU's. A family whose
-    rows stay under 10 · MAP_BAR, where that bar says nothing, is held
-    within 1e-2 of its max|row|: GradCAM's head weights are means over
-    Q·S = 85,000 gradients of both signs, and fp32 cancellation there
-    leaves its rows 1.3e-3 of max|row| apart between an H100 and the CPU,
-    where a wrong row is off by the order of max|row|."""
+def _held(name: str, got: torch.Tensor, want: torch.Tensor,
+          rows64) -> None:
+    """DETR rows on the card against the CPU's, both through
+    ``explain/detr.generate``. A family whose rows reach 10 · MAP_BAR is
+    held within MAP_BAR in fp32. Below that the absolute bar says nothing,
+    and fp32 rounding is not small against max|row| (GradCAM's head
+    weights are means over Q·S = 85,000 gradients of both signs, which
+    cancel), so the family is held twice: in fp32 within 1e-3 · max|row|
+    (a wrong row is off by the order of max|row|), and through ``generate``
+    on float64 weights and image (``rows64(device)``), the card's rows
+    within 1e-4 · max|row| of the CPU's."""
     got = got.cpu()
     err = float((got - want).abs().max())
     top = float(want.abs().max())
-    bar = MAP_BAR if top >= 10 * MAP_BAR else 1e-2 * top
-    kind = "" if top >= 10 * MAP_BAR else " (relative: max|row| < 1e-3)"
-    print(f"path detr {name} K=4: vs the CPU max|Δ| {err:.3e} (bar "
-          f"{bar:.3e}{kind}; max|row| {top:.3e})", flush=True)
     assert torch.isfinite(got).all(), f"detr {name}: non-finite rows"
-    assert err <= bar, f"detr {name}: rows differ from the CPU by {err}"
+    if top >= 10 * MAP_BAR:
+        print(f"path detr {name} K=4: vs the CPU max|Δ| {err:.3e} (bar "
+              f"{MAP_BAR:g}; max|row| {top:.3e})", flush=True)
+        assert err <= MAP_BAR, f"detr {name}: rows differ from the CPU by {err}"
+        return
+    t0 = time.perf_counter()
+    want64, got64 = rows64("cpu"), rows64("cuda").cpu()
+    err64 = float((got64 - want64).abs().max())
+    top64 = float(want64.abs().max())
+    print(f"path detr {name} K=4: max|row| {top:.3e} < 10 · {MAP_BAR:g}: "
+          f"fp32 card vs CPU max|Δ| {err:.3e} = {err / top:.3e} of max|row| "
+          f"(bar 1e-3); generate in float64 on the CPU and the card "
+          f"({time.perf_counter() - t0:.1f} s): card vs CPU max|Δ| "
+          f"{err64:.3e} (bar 1e-4 · max|row| = {1e-4 * top64:.3e}; max|row| "
+          f"{top64:.3e})", flush=True)
+    assert err <= 1e-3 * top, (
+        f"detr {name}: fp32 rows differ from the CPU by {err}")
+    assert top64 > 0.0 and torch.isfinite(got64).all(), name
+    assert err64 <= 1e-4 * top64, (
+        f"detr {name}: float64 rows differ from the CPU by {err64}")
 
 
 def _random_biases(tree, gen: torch.Generator) -> None:
@@ -1583,7 +1630,8 @@ def _random_biases(tree, gen: torch.Generator) -> None:
                 leaf.device))
 
 
-def _no_aggregation(detr, edetr, cfg, attn, grads, tq, tv, got, want):
+def _no_aggregation(detr, edetr, cfg, attn, grads, tq, tv, got, want,
+                    rows64):
     """The ``ablation_no_aggregation`` family on the card. Its rows are a
     product of every layer's Ê with no identity (6 encoder, 6 decoder
     self-attention and the last cross-attention: 13 factors of
@@ -1594,7 +1642,8 @@ def _no_aggregation(detr, edetr, cfg, attn, grads, tq, tv, got, want):
     rows by 2^(13p) exactly (powers of two, all terms ≥ 0): the CPU's fp32
     rows there within 1e-4 · max of the float64 rows times 2^(13p), and
     the card's within 1e-4 · max of the CPU's. ``got``: the card's rows of
-    the family through ``generate``; ``want``: the CPU's."""
+    the family through ``generate``; ``want``: the CPU's; ``rows64``: as
+    ``_held``'s."""
     import math
 
     n = cfg.num_encoder_layers + cfg.num_decoder_layers + 1
@@ -1609,7 +1658,7 @@ def _no_aggregation(detr, edetr, cfg, attn, grads, tq, tv, got, want):
               f"scale: float64 max|row| {m64:.3e} < 2^-149, so the fp32 "
               f"rows are 0 on the card and the CPU", flush=True)
     else:
-        _held("ablation_no_aggregation", got, want)
+        _held("ablation_no_aggregation", got, want, rows64)
     p = math.floor(-math.log2(m64) / n)
     scaled = detr.DETRTaps(*(g * 2.0 ** p for g in grads))
     ref = edetr.rows_from_capture("ablation_no_aggregation", attn, scaled,
@@ -1664,6 +1713,11 @@ def detr_phase(mods, detr, edetr, dsegm, deval, card: str) -> None:
                         "attn_gradcam", "rollout")}
     print(f"path detr DETR_R50 800x1088 (S={S}) CPU capture K=4 and rows: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # float64 weights and image, on the CPU and on the card, for the
+    # families whose rows are too small for the absolute bar (_held)
+    wide = {dev: (params_to(params_to(params, dev), torch.float64),
+                  image.to(dev, torch.float64), valid.to(dev))
+            for dev in ("cpu", "cuda")}
     del cpu
     for name, want in (("pred_logits", c_out["pred_logits"]),
                        ("pred_boxes", c_out["pred_boxes"])):
@@ -1673,12 +1727,17 @@ def detr_phase(mods, detr, edetr, dsegm, deval, card: str) -> None:
         assert torch.allclose(out[name].cpu(), want, **SCORE_TOL), name
     for m, want in c_rows.items():
         got = edetr.generate(m, params, image, tq, tc, cfg, valid)
+
+        def rows64(dev, m=m):
+            p64, i64, v64 = wide[dev]
+            return edetr.generate(m, p64, i64, tq, tc, cfg, v64)
+
         if m == "ablation_no_aggregation":
             _no_aggregation(detr, edetr, cfg, c_attn, c_grads, c_tq, c_tv,
-                            got, want)
+                            got, want, rows64)
         else:
-            _held(m, got, want)
-    del c_attn, c_grads
+            _held(m, got, want, rows64)
+    del c_attn, c_grads, wide
 
     # capture_multi: one forward + one batched backward == K forwards, one
     # per query. Each at B=1: a batch of 4 copies takes other cuDNN
@@ -1823,18 +1882,21 @@ def detr_phase(mods, detr, edetr, dsegm, deval, card: str) -> None:
 
 
 def _detr_checkpoint(detr, deval, dsegm, path: pathlib.Path, raw,
-                     n_kept: int = 8) -> float:
+                     n_kept: int = 8, shortest: int = 800,
+                     longest: int = 1333) -> float:
     """A release-format DETR_R50 checkpoint (``utils/convert.
     detr_to_state_dict``) of ``_detr_setup``'s seeded weights whose
     class-1 bias is raised midway between the raises that let ``n_kept``
-    and ``n_kept + 1`` queries of ``raw`` (an RGB image as ``detr-eval``
-    prepares it) clear the 0.5 threshold; returns the raise. The random
-    model's queries have near-equal logits, so the CLI's own forward may
-    keep a few more or fewer."""
+    and ``n_kept + 1`` queries of ``raw`` (an RGB image prepared at
+    ``shortest`` / ``longest`` as the caller's entry point prepares it)
+    clear the 0.5 threshold; returns the raise. The random model's queries
+    have near-equal logits, so the entry point's own forward may keep a
+    few more or fewer."""
     from transformer_mm_explainability_tpu_torch.utils import convert
 
     cfg, params, *_ = _detr_setup(detr, deval, dsegm)
-    image, valid = deval.prepare_image(raw, 800, device="cuda")
+    image, valid = deval.prepare_image(raw, shortest, longest,
+                                       device="cuda")
     with torch.no_grad():
         z = detr.forward(params, image[None], valid[None],
                          cfg)["pred_logits"][0].double()
@@ -2291,6 +2353,217 @@ def detr_lrp_phase(mods, detr, edetr, dsegm, deval, card: str) -> None:
     print(f"path detr lrp launches: {got}", flush=True)
 
 
+# --- the original reference's maps, semantic validation, the entry points --
+
+BLOCKS = ("attn_block_fwd", "mlp_block_fwd", "mlp_block_bwd",
+          "attn_block_bwd")
+
+
+def parity_phase(mods, cli, vp, vit, rp, card: str) -> None:
+    """``cli verify-parity --family all --device cuda``: the port against
+    the maps the original reference computed (the five fixtures); exit 0
+    and every map within the tool's rule and within ``vp.REL_TOL`` of its
+    max|ref| (exactly 0 where the reference is 0), one line per map. Then
+    the ViT fixture's weights and image through ``relevancy_fused_block2``
+    (the four block kernels, 12 launches each; kernels #7 and #8 run inside
+    #1 and #4) and, on ``vit.capture``'s A and ∇A, through
+    ``self_attention_relevancy_pallas`` (1 launch): both maps within both
+    bars of the reference's."""
+    out = ROOT / "build" / "smoke" / "parity.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    rc = cli.main(["verify-parity", "--family", "all", "--device", "cuda",
+                   "--out", str(out)])
+    torch.cuda.synchronize()
+    print(f"cli verify-parity --family all --device cuda: rc {rc} in "
+          f"{time.perf_counter() - t0:.1f} s; launches {counts(mods)}",
+          flush=True)
+    assert rc == 0
+    reports = json.loads(out.read_text())
+    assert set(reports) == set(vp.FAMILIES), set(reports)
+    print(f"parity against the reference's maps on {card}, fp32 (rel = "
+          f"max|Δ|/max|ref|, bar {vp.REL_TOL:g}; the tool's rule max|Δ|/"
+          f"max(1, max|ref|) < {vp.TOL:g}, absolute for scores):",
+          flush=True)
+    for fam, rep in reports.items():
+        assert rep.pop("ok") is True, fam
+        for name, r in rep.items():
+            print(f"  parity {fam} {name}: max|Δ| {r['max_abs']:.3e}, "
+                  f"max|ref| {r['max_ref']:.3e}, rel {r['rel']:.3e}"
+                  + (" (uninformative: max|ref| < the tool's bar)"
+                     if r["uninformative"] else ""), flush=True)
+            assert r["ok"] and r["rel"] <= vp.REL_TOL, (fam, name, r)
+
+    sd, ref = vp.fixture_state_dict("vit")
+    model, images, targets = vp.vit_model(sd, "cuda")
+    reset_counts(mods)
+    fused = vit.relevancy_fused_block2(model, images, targets)
+    torch.cuda.synchronize()
+    got = counts(mods)
+    assert got == {k: 12 * (k in BLOCKS) for k in got}, got
+    _, attn, grads = vit.capture(model, images, targets)
+    reset_counts(mods)
+    R = rp.self_attention_relevancy_pallas(attn.movedim(1, 0),
+                                           grads.movedim(1, 0))
+    torch.cuda.synchronize()
+    got_chain = counts(mods)
+    chain = "self_attention_relevancy_pallas"
+    assert got_chain == {k: int(k == chain) for k in got_chain}, got_chain
+    for label, maps, launched in (
+            ("relevancy_fused_block2 (kernels #1-4; #7, #8 inside #1, #4)",
+             fused, {k: got[k] for k in BLOCKS}),
+            ("capture + self_attention_relevancy_pallas (kernel #9)",
+             R[:, 0, 1:], {chain: 1})):
+        r = vp.map_report(maps.cpu().numpy(), ref["relevancy"], "relevancy")
+        print(f"parity vit relevancy through {label} on {card}: max|Δ| "
+              f"{r['max_abs']:.3e}, max|ref| {r['max_ref']:.3e}, rel "
+              f"{r['rel']:.3e} (bars: the tool's {vp.TOL:g}, rel "
+              f"{vp.REL_TOL:g}); launches {launched}", flush=True)
+        assert r["ok"] and r["rel"] <= vp.REL_TOL, (label, r)
+
+
+def semantic_phase(sv, card: str) -> None:
+    """``tools/semantic_validation.run_family`` for VisualBERT and LXMERT
+    at the tool's defaults (the JAX tool's initial weights, 256 samples,
+    six methods each and the random control) on the card: the hard checks
+    must hold (``semantics["ok"]``) and the held-out accuracy reach 0.9.
+    Prints the training steps and seconds, the eval accuracy, the sweep
+    seconds and every check's AUCs beside ``SEMANTIC_r05.json`` (the JAX
+    tool on a CPU) and writes ``build/smoke/semantic_torch.json``."""
+    jax_run = json.loads((ROOT / "SEMANTIC_r05.json").read_text())
+    results = {"artifact": "semantic_validation", "backend": "cuda",
+               "devices": [torch.cuda.get_device_name(0)], "card": card}
+    keys = ("neg_auc", "pos_auc", "gap", "control_auc", "ours", "baseline")
+    for model in ("visual_bert", "lxmert"):
+        fam = sv.run_family(model, device="cuda", printer=lambda *a: None)
+        results[model] = fam
+        tr, jtr = fam["train"], jax_run[model]["train"]
+        print(f"semantic {model} on {card}: {tr['train_steps']} training "
+              f"steps in {tr['train_wall_s']} s, eval accuracy "
+              f"{tr['eval_acc']}, sweeps {fam['sweep_wall_s']} s (JAX on a "
+              f"CPU, SEMANTIC_r05.json: {jtr['train_steps']} steps in "
+              f"{jtr['train_wall_s']} s, eval {jtr['eval_acc']}, sweeps "
+              f"{jax_run[model]['sweep_wall_s']} s)", flush=True)
+        for c, jc in zip(fam["semantics"]["checks"],
+                         jax_run[model]["semantics"]["checks"]):
+            assert c["check"] == jc["check"], (c, jc)
+            show = lambda d: ", ".join(f"{k} {d[k]}" for k in keys if k in d)
+            print(f"  {model} {'hard' if c['hard'] else 'soft'} "
+                  f"{c['check']}: {show(c)}, ok {c['ok']} (JAX: {show(jc)}, "
+                  f"ok {jc['ok']})", flush=True)
+        assert fam["semantics"]["ok"], f"semantic {model}: a hard check"
+        assert tr["eval_acc"] >= 0.9, f"semantic {model}: eval {tr}"
+    results["ok"] = True
+    out = ROOT / "build" / "smoke" / "semantic_torch.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=1) + "\n")
+
+
+def entry_points_phase(mods, card: str) -> None:
+    """The four examples (``examples/{vit,clip,detr}_explainability``,
+    ``examples/lxmert_perturbation``) in their checkpoint-free mode,
+    the DETR example again on a full-width DETR_R50 checkpoint whose
+    raised class bias keeps queries of the image, and
+    ``tools/extract_features`` (full-width FRCNN_VG at 800 px on a folder
+    of two generated images) with ``--device cuda``, each with every
+    counter at 0 before it: the ViT example launches the four block
+    kernels 12 times each, ``extract_features`` RoIPool once per image,
+    the others none. Each must exit 0 and write what it advertises; the
+    DETR example at full width must keep a detection and make a non-empty
+    mask of each; the TSV reads back through ``data/vqa.load_obj_tsv``."""
+    import numpy as np
+    from PIL import Image
+
+    from transformer_mm_explainability_tpu_torch.data import vqa
+    from transformer_mm_explainability_tpu_torch.examples import (
+        clip_explainability, detr_explainability, lxmert_perturbation,
+        vit_explainability)
+    from transformer_mm_explainability_tpu_torch.harness import (
+        detr_eval, detr_segm)
+    from transformer_mm_explainability_tpu_torch.models import detr
+    from transformer_mm_explainability_tpu_torch.tools import extract_features
+
+    work = ROOT / "build" / "smoke" / "entry_points"
+    (work / "images").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(5)
+    image = str(work / "input.png")
+    Image.fromarray((rng.rand(240, 320, 3) * 255).astype(np.uint8)).save(
+        image)
+    shapes = ((480, 640), (600, 800))
+    for i, hw in enumerate(shapes):
+        Image.fromarray((rng.rand(*hw, 3) * 255).astype(np.uint8)).save(
+            work / "images" / f"img{i}.png")
+    tsv = work / "features.tsv"
+    tsv.unlink(missing_ok=True)
+
+    def run(label, main, argv, launched):
+        reset_counts(mods)
+        t0 = time.perf_counter()
+        rc = main([*map(str, argv), "--device", "cuda"])
+        torch.cuda.synchronize()
+        got = counts(mods)
+        print(f"{label} --device cuda: rc {rc} in "
+              f"{time.perf_counter() - t0:.1f} s; launches {got}", flush=True)
+        assert rc == 0, label
+        assert got == {k: launched.get(k, 0) for k in got}, (label, got)
+
+    run("example vit_explainability", vit_explainability.main,
+        [image, "--output", work / "vit.png"], {k: 12 for k in BLOCKS})
+    assert np.asarray(Image.open(work / "vit.png")).shape == (224, 224, 3)
+    run("example clip_explainability", clip_explainability.main,
+        [image, "a photo of a dog", "a photo of a cat", "--output-prefix",
+         work / "clip"], {})
+    assert (work / "clip_1.png").exists()
+    assert "<span" in (work / "clip_text.html").read_text()
+    run("example detr_explainability", detr_explainability.main,
+        [image, "--output-prefix", work / "detr"], {})
+    assert np.asarray(Image.open(work / "detr_masks.png")).ndim == 3
+    # at full width: the example prepares the image at 512 / 800 px
+    ckpt = work / "detr_raised.pth"
+    delta = _detr_checkpoint(detr, detr_eval, detr_segm, ckpt,
+                             np.asarray(Image.open(image).convert("RGB")),
+                             n_kept=4, shortest=512, longest=800)
+    made = []
+    explain_image = detr_segm.explain_image
+
+    def counted(*args, **kw):
+        out = explain_image(*args, **kw)
+        made.append([int(m.sum()) for m in out["masks"]])
+        return out
+
+    detr_segm.explain_image = counted
+    try:
+        run("example detr_explainability --checkpoint (DETR_R50)",
+            detr_explainability.main,
+            [image, "--checkpoint", ckpt, "--output-prefix",
+             work / "detr_r50"], {})
+    finally:
+        detr_segm.explain_image = explain_image
+    ckpt.unlink()
+    print(f"  DETR_R50 class-1 bias + {delta:.3f}: {len(made[0])} "
+          f"detections kept, pixels set per mask {made[0]}", flush=True)
+    assert len(made) == 1 and len(made[0]) > 0, made
+    assert all(px > 0 for px in made[0]), made
+    assert np.asarray(Image.open(work / "detr_r50_masks.png")).ndim == 3
+    run("example lxmert_perturbation", lxmert_perturbation.main,
+        ["--num-samples", "3"], {})
+    run("tools/extract_features (FRCNN_VG, 800 px)", extract_features.main,
+        ["--img-root", work / "images", "--out", tsv],
+        {"roi_pool_pallas": len(shapes)})
+    rows = vqa.load_obj_tsv(str(tsv))
+    assert [r["img_id"] for r in rows] == ["img0", "img1"], rows
+    for row, (h, w) in zip(rows, shapes):
+        n = row["num_boxes"]
+        assert (row["img_h"], row["img_w"]) == (h, w)
+        assert 0 < n <= 36 and row["features"].shape == (n, 2048)
+        assert np.isfinite(row["features"]).all()
+        assert float(row["boxes"][:, 2].max()) <= w + 1
+    print(f"extract_features TSV: {[r['num_boxes'] for r in rows]} boxes "
+          f"of 2048-d features, read back by data/vqa.load_obj_tsv; on "
+          f"{card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2320,6 +2593,10 @@ def main() -> int:
     from transformer_mm_explainability_tpu_torch.ops import flash_attention as fa
     from transformer_mm_explainability_tpu_torch.ops import relevancy_pallas as rp
     from transformer_mm_explainability_tpu_torch.ops import roi_pool_pallas as rpool
+    from transformer_mm_explainability_tpu_torch.tools import (
+        semantic_validation as sv)
+    from transformer_mm_explainability_tpu_torch.tools import (
+        verify_parity as vp)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2406,6 +2683,11 @@ def main() -> int:
                 detr_eval, card)
     timed_phase("detr cli", detr_cli_phase, mods, cli, detr, detr_eval,
                 detr_segm)
+    torch.cuda.empty_cache()
+    timed_phase("parity", parity_phase, mods, cli, vp, vit, rp, card)
+    torch.cuda.empty_cache()
+    timed_phase("semantic", semantic_phase, sv, card)
+    timed_phase("entry points", entry_points_phase, mods, card)
     print(f"phases: {sum(phase_s.values()):.1f} s in all", flush=True)
     for name, n in launches.items():
         rows[name]["launches"] = n

@@ -16,6 +16,9 @@
         --coco-path DIR [--annotations JSON] [--max-images N] \
         [--shortest 800] [--method ours_no_lrp] [--checkpoint DETR.pth] \
         [--seed S] [--device cuda|cpu]
+    python -m transformer_mm_explainability_tpu_torch.cli verify-parity \
+        --family vit|clip|visual_bert|lxmert|detr|all [--weights CKPT] \
+        [--generate] [--reference DIR] [--out JSON] [--device cuda|cpu]
 
 ``explain-vit`` computes the ViT-B/16 relevancy map through
 ``models/vit.relevancy_fused_block2`` (the block kernels on CUDA, their
@@ -39,6 +42,12 @@ method exits with 2.
 without ``--checkpoint``), printing the 12 COCO segm stats as one JSON
 line. Without ``--coco-path`` it prints a hint and exits 0. Every DETR
 method runs, the LRP ones included.
+
+``verify-parity`` is the JAX package's subcommand (the same flags, plus
+``--device`` and ``--out``): the port against the maps the original
+reference computed (``tools/verify_parity``; the fixtures in
+``data/assets/parity``). It exits 1 when a map misses the tool's rule and
+2 when ``--generate`` finds no reference checkout.
 """
 
 from __future__ import annotations
@@ -129,6 +138,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="DETR release checkpoint (detr-r50-e632da11.pth)")
     sp.add_argument("--seed", type=int, default=1234)
     sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    from transformer_mm_explainability_tpu_torch.tools import verify_parity
+    verify_parity.build_parser(sub.add_parser(
+        "verify-parity", help="the port against the reference's own maps "
+                              "(fixtures, or --weights)"))
     return p
 
 
@@ -175,7 +189,10 @@ def cmd_explain_vit(args) -> int:
     return 0
 
 
-def cmd_explain_clip(args) -> int:
+def explain_clip(args) -> dict:
+    """``explain-clip``'s work: ``{"probs", "outputs"}`` (what the command
+    prints) and the text side, ``R_text`` ``[B, S, S]`` and ``tokens``, for
+    callers that render it (``examples/clip_explainability``)."""
     from PIL import Image
 
     from transformer_mm_explainability_tpu_torch._device import resolve_device
@@ -202,7 +219,7 @@ def cmd_explain_clip(args) -> int:
                                   cfg.image_resolution)
     tokens = torch.as_tensor(bpe.tokenize(args.texts, cfg.context_length),
                              device=device)
-    _, R_img, logits = expl.interpret(
+    R_txt, R_img, logits = expl.interpret(
         params, img, tokens, cfg, start_layer=args.start_layer,
         start_layer_text=args.start_layer_text)
     grid = cfg.image_resolution // cfg.vision_patch_size
@@ -214,7 +231,13 @@ def cmd_explain_clip(args) -> int:
         Image.fromarray(viz.relevancy_figure(img_np, R_img[i],
                                              (grid, grid))).save(out)
         outputs.append(out)
-    print(json.dumps({"probs": probs.tolist(), "outputs": outputs}))
+    return {"probs": probs.tolist(), "outputs": outputs, "R_text": R_txt,
+            "tokens": tokens}
+
+
+def cmd_explain_clip(args) -> int:
+    res = explain_clip(args)
+    print(json.dumps({"probs": res["probs"], "outputs": res["outputs"]}))
     return 0
 
 
@@ -273,12 +296,19 @@ def cmd_detr_eval(args) -> int:
     return 0
 
 
+def cmd_verify_parity(args) -> int:
+    from transformer_mm_explainability_tpu_torch.tools import verify_parity
+
+    return verify_parity.run(args)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"explain-vit": cmd_explain_vit,
             "explain-clip": cmd_explain_clip,
             "perturbation": cmd_perturbation,
-            "detr-eval": cmd_detr_eval}[args.command](args)
+            "detr-eval": cmd_detr_eval,
+            "verify-parity": cmd_verify_parity}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Relevancy figures: the heatmap overlay (the notebooks'
-``generate_visualization``), a per-token text heatmap and a box overlay.
+``generate_visualization``), a per-token text heatmap, a box overlay and
+an instance-mask overlay.
 
-Counterpart of ``relevancy_figure``, ``text_heatmap_html`` and
-``draw_boxes`` and what they need from
+Counterpart of ``relevancy_figure``, ``text_heatmap_html``, ``draw_boxes``
+and ``mask_overlay`` and what they need from
 ``transformer_mm_explainability_tpu/utils/visualization.py`` and
 ``ops/image.py``; numpy in, numpy out.
 """
@@ -100,3 +101,17 @@ def draw_boxes(image: np.ndarray, boxes_xyxy: np.ndarray,
             draw.text((float(box[0]) + 2, float(box[1]) + 2), text,
                       fill=color)
     return np.asarray(img)
+
+
+def mask_overlay(image: np.ndarray, masks: np.ndarray,
+                 alpha: float = 0.5) -> np.ndarray:
+    """Instance-mask overlay: ``[K, H, W]`` binary masks tinted one colour
+    per instance over an ``[H, W, 3]`` image. Returns uint8."""
+    out = image.astype(np.float32).copy()
+    palette = np.asarray([(255, 64, 64), (64, 160, 255), (64, 220, 64),
+                          (255, 180, 40), (200, 90, 255)], np.float32)
+    for i, m in enumerate(np.asarray(masks)):
+        color = palette[i % len(palette)]
+        out = np.where(m[..., None] > 0.5,
+                       (1 - alpha) * out + alpha * color, out)
+    return np.clip(out, 0, 255).astype(np.uint8)
