@@ -223,6 +223,11 @@ import time
 
 import torch
 
+# the port's one timing definition: mean device ms of back-to-back calls by
+# CUDA events, and items/s as the median of 3 synchronised trials
+from transformer_mm_explainability_tpu_torch.utils.profiling import (
+    cuda_ms, rate as _rate)
+
 ROOT = pathlib.Path(__file__).resolve().parent
 B, S, D, H, I = 8, 197, 768, 12, 3072
 DH = D // H
@@ -321,21 +326,6 @@ def ptxas_report(log: str) -> list:
             rows.append((name, int(m.group(1)), *spill))
             name = None
     return rows
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` in ms over ``iters`` back-to-back runs."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def work(name: str, layers: int = 12, bin_pixels: int = 0) -> tuple:
@@ -1197,19 +1187,6 @@ def frcnn_phase(mods, frcnn, rpool, card: str):
             return [frcnn.forward(params, p, cfg) for p in pre]
 
     return got["roi_pool_pallas"], outs, detect
-
-
-def _rate(call, size) -> float:
-    """Items per second of ``call()``: the median of 3 timed trials, each
-    between two ``torch.cuda.synchronize()``."""
-    trials = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        trials.append(size / (time.perf_counter() - t0))
-    return statistics.median(trials)
 
 
 def _lx_batch(cfg, dets, gen: torch.Generator) -> dict:
@@ -2564,6 +2541,302 @@ def entry_points_phase(mods, card: str) -> None:
           f"{card}", flush=True)
 
 
+def bench_phase(mods, cli, card: str) -> dict:
+    """``cli bench --device cuda``: one JSON line with maps/s > 0 at B = 32,
+    the four block kernels 12 times per call of ``relevancy_fused_block2``
+    (``bench.TRIALS`` trials of one warm call and ``bench.ITERS`` timed
+    ones), every other counter 0. Returns the block kernels' counts."""
+    import contextlib
+    import io
+
+    from transformer_mm_explainability_tpu_torch import bench
+
+    reset_counts(mods)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = counts(mods)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    calls = bench.TRIALS * (bench.ITERS + 1)
+    print(f"cli bench --device cuda: {lines[-1]}; launches {got} ({calls} "
+          f"calls); on {card}", flush=True)
+    assert rc == 0 and len(lines) == 1, lines
+    rec = json.loads(lines[0])
+    assert rec["value"] > 0 and rec["batch"] == 32, rec
+    assert got == {k: 12 * calls if k in BLOCKS else 0 for k in got}, got
+    return {k: got[k] for k in BLOCKS}
+
+
+def bench_families_phase(mods, card: str) -> int:
+    """``tools/bench_families`` for the five families at their full shapes,
+    2 timed calls (and one warm call) each, every counter at 0 before each:
+    one JSON line per family; RoIPool launches once per FRCNN image, every
+    other counter 0. Returns the FRCNN family's RoIPool launches."""
+    from transformer_mm_explainability_tpu_torch.tools import (
+        bench_families as bf)
+
+    iters, roi = 2, 0
+    for fam in bf.ALL_FAMILIES:
+        reset_counts(mods)
+        (rec,) = bf.run([fam], tiny=False, iters=iters, device="cuda")
+        torch.cuda.synchronize()
+        got = counts(mods)
+        n = iters + 1 if fam == "frcnn" else 0
+        print(f"  bench_families {fam}: {rec['ms_per_unit']} ms per "
+              f"{rec['unit']}; launches {got}; on {card}", flush=True)
+        assert rec["ms_per_call"] > 0, rec
+        assert got == {k: n if k == "roi_pool_pallas" else 0 for k in got}
+        roi += n
+    return roi
+
+
+class _Cut(Exception):
+    """Stops the LXMERT rehearsal loop after a sample, as a time limit
+    would."""
+
+
+def rehearsal_phase(mods, cli, card: str) -> int:
+    """``cli protocol-rehearsal --device cuda`` at full width with reduced
+    counts, one protocol per invocation into one ``--out`` artifact (each
+    merged into the earlier ones): VisualBERT 64 samples × 4 sweeps at
+    B = 16, LXMERT 2 samples (FRCNN re-run in each of the 9 steps: RoIPool
+    exactly 20 launches, every other counter 0), DETR 2 images. Every curve
+    has 9 steps in [0, 1] and a finite AUC; every protocol's memory record
+    is measured. Then the LXMERT loop, cut after its first sample with a
+    sidecar written every sample, resumes from the sidecar in a second
+    invocation: the resumed sample must be the uninterrupted run's second
+    one (the same drawn image, question and answer, the same 9
+    accuracies), and the curve the CLI's. (With random weights and 3,129
+    answers the accuracies are 0, so the drawn inputs are what tells a
+    replay from another stream.) Returns RoIPool's launches in the LXMERT
+    protocol."""
+    import contextlib
+    import io
+
+    from transformer_mm_explainability_tpu_torch.models import frcnn
+    from transformer_mm_explainability_tpu_torch.models import lxmert as lx
+    from transformer_mm_explainability_tpu_torch.tools import (
+        protocol_rehearsal as pr)
+
+    work = ROOT / "build" / "smoke" / "rehearsal"
+    work.mkdir(parents=True, exist_ok=True)
+    out = work / "protocol.json"
+    out.unlink(missing_ok=True)
+    # each LXMERT sample's inputs and accuracies; a _Cut after `stop`
+    real, seen, stop = pr.lxmert_sample, [], [None]
+
+    def recorded(*args, **kw):
+        if len(seen) == stop[0]:
+            raise _Cut
+        accs = real(*args, **kw)
+        image, ids, soft = args[4], args[5], args[7]
+        seen.append((float(image.double().sum()), ids.tolist(),
+                     int(soft.argmax()), accs.tolist()))
+        return accs
+
+    pr.lxmert_sample = recorded
+    try:
+        roi = {}
+        for proto, extra in (("visualbert", ["--vb-samples", "64"]),
+                             ("lxmert", ["--lx-samples", "2"]),
+                             ("detr", ["--detr-images", "2"])):
+            reset_counts(mods)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["protocol-rehearsal", "--protocol", proto,
+                               *extra, "--out", str(out), "--device",
+                               "cuda"])
+            torch.cuda.synchronize()
+            got = counts(mods)
+            n = 20 if proto == "lxmert" else 0
+            print(f"cli protocol-rehearsal --protocol {proto} "
+                  f"{' '.join(extra)}: rc {rc} in "
+                  f"{time.perf_counter() - t0:.1f} s; launches {got}",
+                  flush=True)
+            assert rc == 0, proto
+            assert got == {k: n if k == "roi_pool_pallas" else 0
+                           for k in got}
+            roi[proto] = got["roi_pool_pallas"]
+        uninterrupted, seen[:] = list(seen), []
+        art = json.loads(out.read_text())
+        vb, lxr, dr = art["visualbert"], art["lxmert"], art["detr"]
+        curves = [(f"visualbert positive={s['positive']} "
+                   f"text={s['text_pert']}", s) for s in vb["sweeps"]]
+        curves.append(("lxmert", lxr))
+        assert len(curves) == 5 and len(uninterrupted) == 2
+        for name, rec in curves:
+            acc = rec["step_accuracies"]
+            print(f"  rehearsal {name}: {rec['num_samples']} samples, "
+                  f"{rec['ms_per_sample_steady']} ms/sample steady, AUC "
+                  f"{rec['auc']}, steps {acc}", flush=True)
+            assert len(acc) == 9 and all(0.0 <= a <= 1.0 for a in acc), acc
+            assert math.isfinite(rec["auc"]), rec
+        for proto in ("visualbert", "lxmert", "detr"):
+            mem = art[proto]["memory"]
+            print(f"  rehearsal {proto} memory: {mem}", flush=True)
+            assert mem is not None and mem["peak_bytes_in_use"] > 0, proto
+        print(f"  rehearsal detr: {dr['num_images']} images, "
+              f"{dr['ms_per_image_first']} ms the first; stats "
+              f"{dr['stats']}; on {card}", flush=True)
+        assert all(math.isfinite(v) for v in dr["stats"].values())
+
+        dev = torch.device("cuda")
+        fcfg, lcfg = frcnn.FRCNN_VG, lx.LXMERT_VQA
+        fparams = frcnn.init_params(1, fcfg, dev)
+        lparams = lx.init_params(2, lcfg, dev)
+        side = work / "resume.json"
+        side.unlink(missing_ok=True)
+        loop = lambda: pr.lxmert_loop(fparams, lparams, fcfg, lcfg, 2,
+                                      resume_path=str(side), save_every=1,
+                                      printer=lambda *a: None, device=dev)
+        stop[0] = 1
+        with contextlib.suppress(_Cut):
+            loop()
+        assert seen == uninterrupted[:1], (seen, uninterrupted)
+        assert json.loads(side.read_text())["i"] == 1
+        stop[0], seen[:] = None, []
+        resumed = loop()
+    finally:
+        pr.lxmert_sample = real
+    print(f"  rehearsal lxmert resumed at sample {resumed['resumed_at']}: "
+          f"sample 2 drawn again (image sum {seen[0][0]:.6e}, answer "
+          f"{seen[0][2]}), steps {resumed['step_accuracies']} "
+          f"(uninterrupted {lxr['step_accuracies']})", flush=True)
+    assert resumed["resumed_at"] == 1 and not side.exists()
+    assert seen == uninterrupted[1:], (seen, uninterrupted)
+    assert resumed["step_accuracies"] == lxr["step_accuracies"]
+    return roi["lxmert"]
+
+
+SP_K = 8       # DETR queries explained in the sp phase
+
+
+def _sp_rows(mesh) -> dict:
+    """DETR_R50 of ``_detr_setup`` (S = 850), its top ``SP_K`` queries
+    captured on this rank's card, then ``parallel/sp.sp_detr_relevancy``
+    (the ``ours_no_lrp`` rows) and ``sp_self_attention_relevancy`` of the
+    first query's encoder taps over ``mesh``'s tp axis."""
+    from transformer_mm_explainability_tpu_torch.explain import detr as edetr
+    from transformer_mm_explainability_tpu_torch.harness import (
+        detr_eval, detr_segm)
+    from transformer_mm_explainability_tpu_torch.models import detr
+    from transformer_mm_explainability_tpu_torch.parallel import sp
+
+    cfg, params, image, valid, q, c = _detr_setup(detr, detr_eval, detr_segm)
+    tq = torch.as_tensor(q[:SP_K], device=image.device).long()
+    oh = edetr._one_hots(tq, torch.as_tensor(c[:SP_K], device=image.device)
+                         .long(), cfg)
+    _, attn, grads = detr.capture_multi(params, image, oh, valid, cfg)
+    k_first = [t.movedim(1, 0) for fam in ("enc_self", "dec_self",
+                                           "dec_cross")
+               for t in (getattr(attn, fam), getattr(grads, fam))]
+    R_qi = sp.sp_detr_relevancy(
+        *k_first, mesh, token_valid=edetr._token_valid(image, valid, cfg))
+    R = sp.sp_self_attention_relevancy(attn.enc_self[:, 0],
+                                       grads.enc_self[:, 0], mesh)
+    return {"rows": R_qi[torch.arange(SP_K, device=tq.device), tq], "R": R}
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    top = float(want.abs().max())
+    assert top > 0, "the reference is zero"
+    return float((got.to(want) - want).abs().max()) / top
+
+
+def sp_phase(mesh, card: str) -> None:
+    """Sequence-parallel relevancy on the card. One rank over NCCL
+    (``mesh``, made by ``main``): ``explain/detr.generate`` with ``mesh``
+    for ``ours_no_lrp`` and ``ours_with_lrp`` on DETR_R50 at S = 850,
+    K = 8, equal to the call without it within 1e-4 of max|row| in fp32 and
+    1e-10 in float64. Then two spawned ranks of a gloo group on this one
+    card (gloo stages the CUDA tensors through the host; NCCL refuses two
+    ranks on one device): ``sp_detr_relevancy`` and
+    ``sp_self_attention_relevancy`` at that size, each rank's result
+    within 1e-5 of max of the one-rank result."""
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.explain import detr as edetr
+    from transformer_mm_explainability_tpu_torch.harness import (
+        detr_eval, detr_segm)
+    from transformer_mm_explainability_tpu_torch.models import detr
+    from transformer_mm_explainability_tpu_torch.parallel.launch import (
+        MeshArg, RankPool)
+
+    cfg, params, image, valid, q, c = _detr_setup(detr, detr_eval, detr_segm)
+    tq, tc = q[:SP_K], c[:SP_K]
+    wide = (params_to(params, torch.float64), image.double(), valid)
+    for method in ("ours_no_lrp", "ours_with_lrp"):
+        for label, (p, im, v), bar in (("fp32", (params, image, valid), 1e-4),
+                                       ("float64", wide, 1e-10)):
+            want = edetr.generate(method, p, im, tq, tc, cfg, v)
+            t0 = time.perf_counter()
+            got = edetr.generate(method, p, im, tq, tc, cfg, v, mesh=mesh)
+            torch.cuda.synchronize()
+            rel = _rel(got, want)
+            print(f"sp detr {method} {label} K={SP_K} S=850, 1 NCCL rank: "
+                  f"max|Δ| / max|row| {rel:.3e} (bar {bar:g}; max|row| "
+                  f"{float(want.abs().max()):.3e}) in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            assert rel <= bar, (method, label, rel)
+    del wide
+    one = _sp_rows(mesh)
+    t0 = time.perf_counter()
+    with RankPool(2, "gloo", "cuda", timeout_s=300) as pool:
+        two = pool.run(_sp_rows, MeshArg(dp=1, tp=2))
+        t1 = time.perf_counter()
+        pool.run(_sp_rows, MeshArg(dp=1, tp=2))
+        t2 = time.perf_counter()
+    print(f"sp 2 gloo ranks on cuda:0: spawn, group and the first call "
+          f"(DETR_R50 drawn, capture, both chains) {t1 - t0:.1f} s, a "
+          f"second call {t2 - t1:.1f} s; on {card}", flush=True)
+    for rank, out in enumerate(two):
+        for key in ("rows", "R"):
+            rel = _rel(out[key], one[key])
+            print(f"  rank {rank} {key} {tuple(out[key].shape)} vs 1 NCCL "
+                  f"rank: max|Δ| / max {rel:.3e} (bar 1e-5)", flush=True)
+            assert rel <= 1e-5, (rank, key, rel)
+
+
+def sharded_example_phase(mods, vit, mesh, card: str) -> dict:
+    """``examples/sharded_relevancy``: ``sharded_maps(..., "relevancy_fused")``
+    on ``mesh`` (one NCCL rank) with every counter at 0 before it launches
+    the attention kernels #7 and #8 12 times each and no other, and gives
+    the maps of ``relevancy_fused`` unsharded, bit for bit; then the
+    example's ``main(["--fused"])`` (one spawned rank per card over NCCL)
+    exits 0. Returns #7's and #8's counts."""
+    import contextlib
+    import io
+
+    from transformer_mm_explainability_tpu_torch.examples import (
+        sharded_relevancy as sr)
+
+    dev = torch.device("cuda")
+    model = vit.init_params(0, vit.VIT_B_16, dev)
+    gen = torch.Generator().manual_seed(11)
+    images = torch.randn((B, 224, 224, 3), generator=gen).to(dev)
+    targets = torch.randint(0, 1000, (B,), generator=gen).to(dev)
+    want = vit.relevancy_fused(model, images, targets)
+    reset_counts(mods)
+    got = sr.sharded_maps(model, images, targets, mesh, "relevancy_fused")
+    torch.cuda.synchronize()
+    launched = counts(mods)
+    attn = ("flash_fwd_qkv", "flash_bwd_ehat_qkv")
+    print(f"sharded example relevancy_fused on 1 NCCL rank: launches "
+          f"{launched}; max|Δ| from unsharded "
+          f"{float((got - want).abs().max()):.3e}", flush=True)
+    assert launched == {k: 12 if k in attn else 0 for k in launched}
+    assert torch.equal(got, want)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = sr.main(["--fused", "--batch", str(B)])
+    print(f"example sharded_relevancy --fused: rc {rc} in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{' | '.join(buf.getvalue().splitlines())}; on {card}", flush=True)
+    assert rc == 0 and buf.getvalue().strip().endswith("OK")
+    return {k: launched[k] for k in attn}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2597,6 +2870,12 @@ def main() -> int:
         semantic_validation as sv)
     from transformer_mm_explainability_tpu_torch.tools import (
         verify_parity as vp)
+    import torch.distributed as dist
+
+    from transformer_mm_explainability_tpu_torch.parallel.launch import (
+        free_port)
+    from transformer_mm_explainability_tpu_torch.parallel.mesh import (
+        make_mesh)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2688,9 +2967,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed_phase("semantic", semantic_phase, sv, card)
     timed_phase("entry points", entry_points_phase, mods, card)
+    torch.cuda.empty_cache()
+    # launches on the paths outside the main one, by kernel
+    other = {name: {} for name in KERNELS}
+    for name, n in timed_phase("bench", bench_phase, mods, cli,
+                               card).items():
+        other[name]["cli bench"] = n
+    other["roi_pool_pallas"]["bench_families frcnn"] = timed_phase(
+        "bench families", bench_families_phase, mods, card)
+    torch.cuda.empty_cache()
+    other["roi_pool_pallas"]["protocol-rehearsal lxmert"] = timed_phase(
+        "protocol rehearsal", rehearsal_phase, mods, cli, card)
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        timed_phase("sp", sp_phase, mesh, card)
+        torch.cuda.empty_cache()
+        for name, n in timed_phase("sharded example", sharded_example_phase,
+                                   mods, vit, mesh, card).items():
+            other[name]["sharded_relevancy --fused"] = n
+    finally:
+        dist.destroy_process_group()
     print(f"phases: {sum(phase_s.values()):.1f} s in all", flush=True)
     for name, n in launches.items():
         rows[name]["launches"] = n
+        rows[name]["launches_other_paths"] = other[name]
 
     assert set(rows) == set(KERNELS) and all("launches" in r
                                              for r in rows.values())

@@ -19,6 +19,12 @@
     python -m transformer_mm_explainability_tpu_torch.cli verify-parity \
         --family vit|clip|visual_bert|lxmert|detr|all [--weights CKPT] \
         [--generate] [--reference DIR] [--out JSON] [--device cuda|cpu]
+    python -m transformer_mm_explainability_tpu_torch.cli bench \
+        [--device cuda|cpu]
+    python -m transformer_mm_explainability_tpu_torch.cli protocol-rehearsal \
+        [--protocol all|visualbert|lxmert|detr] [--out JSON] \
+        [--vb-samples N] [--vb-batch N] [--lx-samples N] [--detr-images N] \
+        [--method M] [--device cuda|cpu]
 
 ``explain-vit`` computes the ViT-B/16 relevancy map through
 ``models/vit.relevancy_fused_block2`` (the block kernels on CUDA, their
@@ -48,6 +54,14 @@ method runs, the LRP ones included.
 reference computed (``tools/verify_parity``; the fixtures in
 ``data/assets/parity``). It exits 1 when a map misses the tool's rule and
 2 when ``--generate`` finds no reference checkout.
+
+``bench`` prints the ViT-B/16 maps/s line of ``bench.py`` (kernels #1-#4
+through ``relevancy_fused_block2`` at B = 32 on ``cuda``).
+
+``protocol-rehearsal`` is the JAX package's subcommand (the same flags,
+plus the sample counts and ``--device``): the three quantitative
+protocols at full width on synthetic weights and data
+(``tools/protocol_rehearsal``), one JSON artifact.
 """
 
 from __future__ import annotations
@@ -143,6 +157,15 @@ def build_parser() -> argparse.ArgumentParser:
     verify_parity.build_parser(sub.add_parser(
         "verify-parity", help="the port against the reference's own maps "
                               "(fixtures, or --weights)"))
+
+    sp = sub.add_parser("bench", help="ViT-B/16 relevancy maps/s")
+    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    from transformer_mm_explainability_tpu_torch.tools import (
+        protocol_rehearsal)
+    protocol_rehearsal.build_parser(sub.add_parser(
+        "protocol-rehearsal",
+        help="protocol-scale rehearsal of the quantitative harnesses"))
     return p
 
 
@@ -302,13 +325,28 @@ def cmd_verify_parity(args) -> int:
     return verify_parity.run(args)
 
 
+def cmd_bench(args) -> int:
+    from transformer_mm_explainability_tpu_torch import bench
+
+    return bench.main(["--device", args.device])
+
+
+def cmd_protocol_rehearsal(args) -> int:
+    from transformer_mm_explainability_tpu_torch.tools import (
+        protocol_rehearsal)
+
+    return protocol_rehearsal.run(args)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"explain-vit": cmd_explain_vit,
             "explain-clip": cmd_explain_clip,
             "perturbation": cmd_perturbation,
             "detr-eval": cmd_detr_eval,
-            "verify-parity": cmd_verify_parity}[args.command](args)
+            "verify-parity": cmd_verify_parity,
+            "bench": cmd_bench,
+            "protocol-rehearsal": cmd_protocol_rehearsal}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,14 @@ the forward's key-padding bias, where the JAX package's ``_relprop_cams``
 recomputes unmasked probabilities (it calls ``detr_lrp.relprop`` without
 ``mask=``): the reference's relprop reads the recorded inputs of the
 masked forward (ROADMAP §C, intended departures).
+
+With ``mesh`` (a ``parallel/mesh.make_mesh`` DeviceMesh), the "ours"
+family's propagation runs sequence-parallel over ``mesh[sp_axis]``
+(``parallel/sp.detr_chain``): right after the capture each rank keeps only
+its row block of every encoder tap (and its key block of every
+cross-attention tap) and drops the whole taps; the rows come back whole on
+every rank. The other methods read one layer and ignore ``mesh``, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from transformer_mm_explainability_tpu_torch.models import detr as detr_model
 from transformer_mm_explainability_tpu_torch.models import detr_lrp
 from transformer_mm_explainability_tpu_torch.models.detr import DETRTaps
 from transformer_mm_explainability_tpu_torch.ops import relevancy as rl
+from transformer_mm_explainability_tpu_torch.parallel import sp as psp
 
 # the reference mask generator's --method family
 # (DETR/mask_generator.py:95-115)
@@ -198,6 +207,16 @@ def rows_from_capture(method: str, attn: DETRTaps, grads: DETRTaps,
     raise ValueError(f"{method!r} is not a non-LRP DETR method")
 
 
+def _sp_blocks(attn: DETRTaps, grads: DETRTaps, mesh, sp_axis: str):
+    """This rank's ``parallel/sp.DetrBlocks`` of a K-batched capture
+    (leaves ``[L, K, H, ...]``, moved K first as views)."""
+    k_first = lambda t: t.movedim(1, 0)
+    return psp.detr_blocks(
+        k_first(attn.enc_self), k_first(grads.enc_self),
+        k_first(attn.dec_self), k_first(grads.dec_self),
+        k_first(attn.dec_cross), k_first(grads.dec_cross), mesh, sp_axis)
+
+
 def generate_ours(
     params: Dict[str, Any],
     image: torch.Tensor,                 # [H, W, 3]
@@ -208,40 +227,61 @@ def generate_ours(
     normalize_self_attention: bool = True,
     apply_self_in_rule_10: bool = True,
     aggregate: bool = True,
+    mesh=None,
+    sp_axis: str = "tp",
 ) -> torch.Tensor:
     """K relevancy rows ``[K, S]``: one shared forward, one K-batched
-    backward, the chains batched over K."""
+    backward, the chains batched over K. With ``mesh`` the chain runs
+    sequence-parallel over ``mesh[sp_axis]``: the same rows, split taps
+    and carry."""
     tq, attn, grads, tv = _capture(params, image, target_queries,
                                    target_classes, cfg, pad_valid)
-    return _rows(relevancy_from_capture(
-        attn, grads, normalize_self_attention, apply_self_in_rule_10,
-        aggregate, token_valid=tv), tq)
+    ours = dict(normalize_self_attention=normalize_self_attention,
+                apply_self_in_rule_10=apply_self_in_rule_10,
+                aggregate=aggregate)
+    if mesh is None:
+        return _rows(relevancy_from_capture(attn, grads, token_valid=tv,
+                                            **ours), tq)
+    blocks = _sp_blocks(attn, grads, mesh, sp_axis)
+    del attn, grads   # each rank keeps only its share of the taps
+    return _rows(psp.detr_chain(blocks, mesh, sp_axis, token_valid=tv,
+                                **ours), tq)
 
 
 def generate_ours_no_agg(params, image, target_queries, target_classes,
                          cfg=detr_model.DETR_R50, pad_valid=None,
-                         normalize_self_attention: bool = False):
+                         normalize_self_attention: bool = False,
+                         mesh=None, sp_axis: str = "tp"):
     """Ablation: overwrite instead of aggregate."""
     return generate_ours(params, image, target_queries, target_classes, cfg,
                          pad_valid, normalize_self_attention, True,
-                         aggregate=False)
+                         aggregate=False, mesh=mesh, sp_axis=sp_axis)
 
 
 def generate_ours_lrp(params, image, target_queries, target_classes,
                       cfg=detr_model.DETR_R50, pad_valid=None,
                       normalize_self_attention: bool = True,
-                      apply_self_in_rule_10: bool = True) -> torch.Tensor:
+                      apply_self_in_rule_10: bool = True,
+                      mesh=None, sp_axis: str = "tp") -> torch.Tensor:
     """'ours_with_lrp' (ExplanationGenerator.py:142-195 use_lrp=True): the
     propagation chain on relprop cams in place of the probabilities. One
     forward and one K-batched backward give the gradients and the tape;
-    the K relprops run batched on that tape."""
+    the K relprops run batched on that tape. ``mesh``: as
+    ``generate_ours``."""
     tq, _, grads, tv, tape, oh = _capture(params, image, target_queries,
                                           target_classes, cfg, pad_valid,
                                           return_tape=True)
     cams = _relprop_cams(params, tape, oh, cfg)
-    return _rows(relevancy_from_capture(
-        cams, grads, normalize_self_attention, apply_self_in_rule_10,
-        token_valid=tv), tq)
+    del tape
+    ours = dict(normalize_self_attention=normalize_self_attention,
+                apply_self_in_rule_10=apply_self_in_rule_10)
+    if mesh is None:
+        return _rows(relevancy_from_capture(cams, grads, token_valid=tv,
+                                            **ours), tq)
+    blocks = _sp_blocks(cams, grads, mesh, sp_axis)
+    del cams, grads   # each rank keeps only its share of the taps
+    return _rows(psp.detr_chain(blocks, mesh, sp_axis, token_valid=tv,
+                                **ours), tq)
 
 
 def _lrp_rows(method, params, image, target_queries, target_classes, cfg,
@@ -266,16 +306,27 @@ def _lrp_rows(method, params, image, target_queries, target_classes, cfg,
 
 
 def generate(method: str, params, image, target_queries, target_classes,
-             cfg=detr_model.DETR_R50, pad_valid=None) -> torch.Tensor:
+             cfg=detr_model.DETR_R50, pad_valid=None, mesh=None,
+             sp_axis: str = "tp") -> torch.Tensor:
     """Dispatch a reference method name → ``[K, S]`` relevancy rows
     (mask_generator.py:95-115): one ``capture_multi`` (the forward's tape
     too for the LRP methods but ``partial_lrp``, which needs no
     gradients), then the method's rows. ``target_queries`` /
-    ``target_classes`` may be numpy arrays or tensors."""
+    ``target_classes`` may be numpy arrays or tensors. With ``mesh``, the
+    "ours" family's propagation (``OURS`` and ``ours_with_lrp``) runs
+    sequence-parallel over ``mesh[sp_axis]``."""
     if method not in DETR_METHODS:
         raise ValueError(
             f"unknown DETR explanation method {method!r}; valid: "
             f"{sorted(DETR_METHODS)}")
+    if mesh is not None and method in OURS:
+        return generate_ours(params, image, target_queries, target_classes,
+                             cfg, pad_valid, **OURS[method], mesh=mesh,
+                             sp_axis=sp_axis)
+    if mesh is not None and method == "ours_with_lrp":
+        return generate_ours_lrp(params, image, target_queries,
+                                 target_classes, cfg, pad_valid, mesh=mesh,
+                                 sp_axis=sp_axis)
     if method in LRP_METHODS:
         return _lrp_rows(method, params, image, target_queries,
                          target_classes, cfg, pad_valid)

@@ -109,6 +109,8 @@ def explain_image(
     cfg: detr_model.DETRConfig = detr_model.DETR_R50,
     segm_cfg: SegmConfig = SegmConfig(),
     pad_valid: Optional[torch.Tensor] = None,
+    mesh=None,
+    sp_axis: str = "tp",
     pack_masks: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Full per-image pipeline → dict with the kept detections
@@ -117,7 +119,12 @@ def explain_image(
 
     ``pack_masks=True`` returns ``masks_packed`` (``[K, H, ceil(W/8)]``
     uint8 bit-planes, see ``pack_mask_bits``) and ``mask_hw`` in place of
-    dense ``masks``: what crosses to the host is 32 times smaller."""
+    dense ``masks``: what crosses to the host is 32 times smaller.
+
+    ``mesh`` routes the "ours" relevancy chains sequence-parallel over
+    ``mesh[sp_axis]`` (``explain/detr.generate``, ``parallel/sp``): at the
+    protocol's 800 px the encoder taps are [6, K, 8, S, S] with S = 850 to
+    1,050, and each rank keeps only its row block of them."""
     batch_valid = None if pad_valid is None else pad_valid[None]
     with torch.no_grad():
         out = detr_model.forward(params, image[None], batch_valid, cfg)
@@ -130,7 +137,7 @@ def explain_image(
     chunk = max(1, segm_cfg.max_queries_per_pass)
     rel = [expl_detr.generate(segm_cfg.method, params, image,
                               q[s:s + chunk], c[s:s + chunk], cfg,
-                              pad_valid)
+                              pad_valid, mesh=mesh, sp_axis=sp_axis)
            for s in range(0, n_kept, chunk)]
 
     H, W = image.shape[:2]

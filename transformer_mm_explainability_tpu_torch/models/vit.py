@@ -97,22 +97,42 @@ class Block(nn.Module):
     def attn(self) -> AttentionParams:
         return AttentionParams(self.w_qkv, self.b_qkv, self.w_out, self.b_out)
 
+    # on a tensor-parallel copy (``parallel/mesh.shard_params``): the
+    # ``TensorParallel`` of each residual branch whose weights are split
+    # over the ranks of its group, whose outputs it sums
+    tp_attn = None
+    tp_mlp = None
+
     def forward(self, x: torch.Tensor, tap: Optional[torch.Tensor],
                 num_heads: int, eps: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (x_out, attention probabilities [B, H, S, S])."""
         h = layer_norm(x, self.ln1_scale, self.ln1_bias, eps)
-        attn_out, probs = multi_head_self_attention(self.attn, h, num_heads,
-                                                    tap=tap)
-        x = x + attn_out
-        h = layer_norm(x, self.ln2_scale, self.ln2_bias, eps)
+        attn_out, probs = multi_head_self_attention(
+            self.attn, _tp_enter(self.tp_attn, h), num_heads, tap=tap)
+        x = x + _tp_exit(self.tp_attn, attn_out)
+        h = _tp_enter(self.tp_mlp,
+                      layer_norm(x, self.ln2_scale, self.ln2_bias, eps))
         h = gelu(h @ self.w1 + self.b1) @ self.w2 + self.b2
-        return x + h, probs
+        return x + _tp_exit(self.tp_mlp, h), probs
+
+
+def _tp_enter(tp, x: torch.Tensor) -> torch.Tensor:
+    return x if tp is None else tp.enter(x)
+
+
+def _tp_exit(tp, x: torch.Tensor) -> torch.Tensor:
+    return x if tp is None else tp.exit(x)
 
 
 class ViT(nn.Module):
     """ViT parameters in the JAX package's layout. Parameters do not
     require grad: explanations only need input cotangents."""
+
+    # on a tensor-parallel copy whose heads are split over the ranks of a
+    # group (``parallel/mesh.shard_params``; ``cfg.num_heads`` is then the
+    # local count): the ``TensorParallel`` that averages Ê over the ranks
+    tp_heads = None
 
     def __init__(self, cfg: ViTConfig = VIT_B_16, device="cuda"):
         super().__init__()
@@ -217,9 +237,15 @@ def relevancy(model: ViT, images: torch.Tensor, targets: torch.Tensor,
     """The ViT notebook's ``generate_relevance``: R = I; per block
     R += avg_heads(A, ∇A) @ R; returns R[:, 0, 1:] ([B, S-1])."""
     _, attn, grads = capture(model, images, targets)
-    R = rl.self_attention_relevancy(attn.movedim(1, 0), grads.movedim(1, 0),
-                                    start_layer=start_layer)
-    return R[:, 0, 1:]
+    e = _head_mean(model, rl.e_hats(attn.movedim(1, 0), grads.movedim(1, 0)))
+    return rl.rule6_chain(e[:, start_layer:])[:, 0, 1:]
+
+
+def _head_mean(model: ViT, e: torch.Tensor) -> torch.Tensor:
+    """Ê averaged over every head: on a model whose heads are split over
+    the ranks of a group, each rank's mean over its heads averaged over
+    the group (the ranks hold equal shares)."""
+    return e if model.tp_heads is None else model.tp_heads.mean(e)
 
 
 def _head_cotangent(model: ViT, x_final: torch.Tensor,
@@ -268,8 +294,8 @@ def _streamed(model: ViT, images: torch.Tensor, targets: torch.Tensor,
         with torch.enable_grad():
             x_out, probs = blk(xi, tap, H, eps)
             cot_x, grad_a = torch.autograd.grad(x_out, (xi, tap), cot_x)
-        state = fold(state, rl.avg_heads(probs.detach().float(),
-                                         grad_a.float()))
+        state = fold(state, _head_mean(model, rl.avg_heads(
+            probs.detach().float(), grad_a.float())))
     return state
 
 

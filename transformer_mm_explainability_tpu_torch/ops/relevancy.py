@@ -118,11 +118,21 @@ def compute_rollout_attention(
     return joint
 
 
-def _e_hats(cams: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
+def e_hats(cams: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
     """``[..., L, H, S, S]`` captures → ``[..., L, S, S]`` Ê stack, fp32 at
     least (float64 captures keep float64)."""
     dt = torch.promote_types(cams.dtype, torch.float32)
     return avg_heads(cams.to(dt), grads.to(dt))
+
+
+def rule6_chain(e_hat_stack: torch.Tensor) -> torch.Tensor:
+    """R = I; per layer of the ``[..., L, S, S]`` Ê stack R += Ê @ R.
+    Returns ``[..., S, S]``."""
+    R = _eye(e_hat_stack.shape[-1], e_hat_stack).expand(
+        e_hat_stack.shape[:-3] + e_hat_stack.shape[-2:])
+    for i in range(e_hat_stack.shape[-3]):
+        R = R + e_hat_stack[..., i, :, :] @ R
+    return R
 
 
 def self_attention_relevancy(
@@ -132,12 +142,7 @@ def self_attention_relevancy(
 ) -> torch.Tensor:
     """The "ours" chain over ``[..., L, H, S, S]``: R = I; per layer
     R += Ê @ R. Returns ``[..., S, S]``."""
-    e_hats = _e_hats(cams, grads)[..., start_layer:, :, :]
-    R = _eye(cams.shape[-1], e_hats).expand(
-        e_hats.shape[:-3] + e_hats.shape[-2:])
-    for i in range(e_hats.shape[-3]):
-        R = R + e_hats[..., i, :, :] @ R
-    return R
+    return rule6_chain(e_hats(cams, grads)[..., start_layer:, :, :])
 
 
 def self_attention_relevancy_update(
@@ -150,11 +155,11 @@ def self_attention_relevancy_update(
     """Rules 6+7 over a ``[..., L, H, S, S]`` stack of self-attention
     layers. ``aggregate=False`` overwrites instead of adding (the
     no-aggregation ablation)."""
-    e_hats = _e_hats(cams, grads)
-    R_ss, R_sq = R_ss.to(e_hats.dtype), R_sq.to(e_hats.dtype)
-    for i in range(e_hats.shape[-3]):
+    e = e_hats(cams, grads)
+    R_ss, R_sq = R_ss.to(e.dtype), R_sq.to(e.dtype)
+    for i in range(e.shape[-3]):
         add_ss, add_sq = apply_self_attention_rules(R_ss, R_sq,
-                                                    e_hats[..., i, :, :])
+                                                    e[..., i, :, :])
         if aggregate:
             R_ss, R_sq = R_ss + add_ss, R_sq + add_sq
         else:
