@@ -202,6 +202,20 @@
    example launches the four block kernels 12 times each,
    ``extract_features`` RoIPool once per image (its TSV read back), the
    others no kernel.
+20. the training phases (after the sp and sharded-example phases, every
+   kernel counter at 0 before them and 0 after: training runs the plain
+   forwards): ``cli lxmert-finetune --device cuda`` on generated files at
+   full width (LXMERT_VQA 9/5/5, 3129 answers, B = 32, St = 20, Sv = 36,
+   BertAdam; 2 epochs of 4 batches, validated), with updates/s (median
+   of the steady updates), peak memory and a profile of one update, and
+   the same 3 updates at B = 4 on the card and the CPU (losses and
+   parameters within ``TRAIN_BAR``); DETR_R50 ``train_batch`` at B = 2,
+   800×1066, 5 targets an image (finite losses with the JAX step's keys,
+   valid assignments, updates/s, peak memory, a profile) and a reduced
+   DETR on the card and the CPU (the same assignments, losses within rtol
+   1e-4); the ViT-B/16 train step at B = 32 (images/s, peak memory, a
+   profile), the dp×tp step on one NCCL rank bit-equal to it and on two
+   gloo ranks on cuda:0 (tp = 2) within the JAX test's bars.
 
 Each phase prints its seconds.
 
@@ -387,9 +401,12 @@ def device_ms(fn, iters: int = 20) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    # a user annotation (``Optimizer.step#...``) spans kernels counted on
+    # their own: leave it out
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation]
+    for ev in kernels:
         us = getattr(ev, "device_time_total", None)
         us = ev.cuda_time_total if us is None else us
         ms, n = out.get(ev.key, (0.0, 0.0))
@@ -1000,7 +1017,7 @@ KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
                  ("e_row", "e_row_kernel"),
                  ("relevancy Ê", "ehat_kernel"),
                  ("convolution (cuDNN)",
-                  r"(?i)conv|fprop|implicit|winograd|cudnn"),
+                  r"(?i)conv|fprop|implicit|winograd|cudnn|wgrad|dgrad"),
                  ("matrix products (cuBLAS, xmma)",
                   r"(?i)gemm|cutlass|cublas|xmma"))
 
@@ -1020,9 +1037,12 @@ def profile(label: str, call, call_ms: float, show_other: int = 0) -> None:
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other (torch)"] = 0.0
     other = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    # a user annotation (``Optimizer.step#...``) spans kernels counted on
+    # their own: leave it out
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation]
+    for ev in kernels:
         us = getattr(ev, "device_time_total", None)
         us = ev.cuda_time_total if us is None else us
         name = next((g for g, pat in KERNEL_GROUPS if re.search(pat, ev.key)),
@@ -1031,13 +1051,15 @@ def profile(label: str, call, call_ms: float, show_other: int = 0) -> None:
         if name == "other (torch)":
             other.append((us / 1e3, ev.count, ev.key))
     busy = sum(groups.values())
+    launches = sum(ev.count for ev in kernels)
     if busy == 0.0:
         print("profile: device time not measured (the profiler recorded no "
               "CUDA kernels)", flush=True)
         return
     print(f"profile {label}: device busy "
-          f"{busy:.2f} ms of {call_ms:.2f} ms per call (idle share "
-          f"{max(0.0, 1 - busy / call_ms):.3f})", flush=True)
+          f"{busy:.2f} ms of {call_ms:.2f} ms per call in {launches} kernel "
+          f"launches (idle share {max(0.0, 1 - busy / call_ms):.3f})",
+          flush=True)
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         if ms > 0.0:
             print(f"  {name}: {ms:.3f} ms ({ms / busy:.1%})", flush=True)
@@ -2837,6 +2859,395 @@ def sharded_example_phase(mods, vit, mesh, card: str) -> dict:
     return {k: launched[k] for k in attn}
 
 
+# ---------------------------------------------------------------------------
+# The training path (train/): plain PyTorch, no kernel of the port
+# ---------------------------------------------------------------------------
+
+TRAIN_BAR = 1e-5    # card vs CPU: each loss (relative), the parameters
+                    # (max|Δ| over the tree's max|p|)
+DETR_LOSS_KEYS = {"loss_ce", "loss_bbox", "loss_giou", "cardinality_error",
+                  "loss"}
+
+
+def _tree_rel(got, want) -> float:
+    """max|Δ| over the leaves of two parameter trees (or modules) over the
+    largest |p| of ``want``."""
+    from transformer_mm_explainability_tpu_torch.train import steps
+
+    g, w = steps.tree_leaves(got), steps.tree_leaves(want)
+    top = max(float(t.detach().abs().max()) for t in w)
+    return max(float((a.detach().to(b.device) - b.detach()).abs().max())
+               for a, b in zip(g, w)) / top
+
+
+def _lxmert_files(root: pathlib.Path, n_train: int, n_valid: int) -> dict:
+    """The ``run/vqa_finetune.bash`` inputs at the VQA widths, from a seed:
+    questions over 8 images of a 36-box 2048-d TSV, a 3129-answer
+    ``ans2label`` / ``label2ans``, a WordPiece vocabulary."""
+    import numpy as np
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(14)
+    words = ["what", "color", "is", "the", "dog", "how", "many", "cats",
+             "are", "there", "on", "table", "?"]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    answers = [f"answer{k}" for k in range(3129)]
+    (root / "ans2label.json").write_text(json.dumps(
+        {a: k for k, a in enumerate(answers)}))
+    (root / "label2ans.json").write_text(json.dumps(answers))
+
+    def questions(n, offset):
+        out = []
+        for i in range(n):
+            sent = " ".join(rng.choice(words[:-1], rng.randint(3, 12)))
+            picks = rng.choice(3129, 2, replace=False)
+            out.append({"question_id": offset + i, "img_id": f"img{i % 8}",
+                        "sent": sent + " ?",
+                        "label": {answers[picks[0]]: 1.0,
+                                  answers[picks[1]]: 0.3}})
+        return out
+
+    (root / "train.json").write_text(json.dumps(questions(n_train, 0)))
+    (root / "valid.json").write_text(json.dumps(questions(n_valid, n_train)))
+    _feature_tsv(root / "feats.tsv", 8, 36)
+    return {name: str(root / f) for name, f in (
+        ("train", "train.json"), ("valid", "valid.json"),
+        ("features", "feats.tsv"), ("ans2label", "ans2label.json"),
+        ("label2ans", "label2ans.json"), ("vocab", "vocab.txt"))}
+
+
+def _lx_train_batches(cfg, n: int, B: int, gen: torch.Generator) -> list:
+    """``n`` batches of B questions of St = 20 (lengths 6-20, padded) on
+    36 boxes (28-36 real) with soft targets over the 3129 answers."""
+    out = []
+    for _ in range(n):
+        lengths = torch.randint(6, 21, (B,), generator=gen)
+        ar = torch.arange(20)[None]
+        mask = (ar < lengths[:, None]).int()
+        ids = torch.randint(1000, cfg.vocab_size, (B, 20), generator=gen)
+        nv = torch.randint(28, 37, (B,), generator=gen)
+        target = torch.zeros(B, cfg.num_qa_labels)
+        target[torch.arange(B), torch.randint(0, cfg.num_qa_labels, (B,),
+                                              generator=gen)] = 1.0
+        out.append({"input_ids": ids * mask, "attention_mask": mask,
+                    "visual_feats": torch.rand((B, 36, 2048), generator=gen),
+                    "visual_pos": torch.rand((B, 36, 4), generator=gen),
+                    "visual_mask": (torch.arange(36)[None]
+                                    < nv[:, None]).int(),
+                    "target": target})
+    return out
+
+
+def lxmert_train_phase(cli, card: str) -> None:
+    """LXMERT_VQA finetune, the slice's main path: ``cli lxmert-finetune
+    --device cuda`` on generated files (9/5/5, D = 768, 3129 answers,
+    B = 32, St = 20, Sv = 36, BertAdam; 2 epochs of 4 batches, validated
+    on 2), one finite loss per epoch; updates/s (median of the steady
+    updates, each timed between synchronisations) and peak memory. Then
+    the same 3 updates (B = 4, seeded weights, BertAdam over 3 steps) on
+    the card and on the CPU: each loss within ``TRAIN_BAR`` (relative),
+    the parameters within ``TRAIN_BAR`` of the tree's max|p|."""
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.models import lxmert as lx
+    from transformer_mm_explainability_tpu_torch.train import lxmert_tasks
+
+    B = 32
+    files = _lxmert_files(ROOT / "build" / "smoke" / "lxmert_train", 4 * B,
+                          2 * B)
+    real = lxmert_tasks._TaskTrainer.train_step
+    times = []
+
+    last = {}
+
+    def timed_step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        last.update(trainer=self, batch=batch)
+        return out
+
+    lxmert_tasks._TaskTrainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        got = _cli_json(cli, [
+            "lxmert-finetune", "--train-questions", files["train"],
+            "--valid-questions", files["valid"],
+            "--features", files["features"], "--ans2label",
+            files["ans2label"], "--label2ans", files["label2ans"],
+            "--bert-vocab", files["vocab"], "--batch-size", str(B),
+            "--epochs", "2", "--device", "cuda"])
+    finally:
+        lxmert_tasks._TaskTrainer.train_step = real
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert len(got["loss"]) == 2 and all(math.isfinite(x)
+                                         for x in got["loss"]), got
+    assert len(times) == 8, len(times)
+    steady = statistics.median(times[1:])
+    print(f"train lxmert cli lxmert-finetune LXMERT_VQA B={B} St=20 Sv=36 "
+          f"BertAdam: 8 updates + 2 validations in {wall:.1f} s; first "
+          f"update {times[0] * 1e3:.1f} ms, steady {steady * 1e3:.2f} ms "
+          f"(median of 7; {min(times[1:]) * 1e3:.2f}-"
+          f"{max(times[1:]) * 1e3:.2f}) = {1 / steady:.2f} updates/s, "
+          f"{B / steady:.1f} samples/s; peak {peak:.2f} GiB; losses "
+          f"{got['loss']}; on {card}", flush=True)
+    profile("train lxmert update B=32 (one more, after the cli)",
+            lambda: last["trainer"].train_step(last["batch"]),
+            steady * 1e3, show_other=6)
+    del last
+
+    cfg = lx.LXMERT_VQA
+    params = lx.init_params(5, cfg, "cpu")
+    batches = _lx_train_batches(cfg, 3, 4, torch.Generator().manual_seed(6))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = params_to(params, dev) if dev == "cuda" else params
+        tr = lxmert_tasks.LxmertTaskTrainer(
+            cfg.num_qa_labels, lxmert_tasks.FinetuneConfig(batch_size=4,
+                                                           epochs=1),
+            model_cfg=cfg, batches_per_epoch=3, params=p, device=dev)
+        t0 = time.perf_counter()
+        losses = [tr.train_step({k: v.to(dev) for k, v in b.items()})[0]
+                  for b in batches]
+        runs[dev] = (losses, tr.state.params, time.perf_counter() - t0)
+    (gl, gp, gs), (cl, cp, cs) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    p_rel = _tree_rel(gp, cp)
+    print(f"train lxmert card vs CPU, LXMERT_VQA B=4, 3 BertAdam updates: "
+          f"losses {gl} vs {cl}, max relative {loss_rel:.3e}; parameters "
+          f"max|Δ| / max|p| {p_rel:.3e} (bar {TRAIN_BAR:g}); card "
+          f"{gs:.1f} s, CPU {cs:.1f} s", flush=True)
+    assert loss_rel <= TRAIN_BAR and p_rel <= TRAIN_BAR, (loss_rel, p_rel)
+
+
+def _detr_targets(B: int, M: int, num_classes: int, gen: torch.Generator):
+    labels = torch.randint(1, num_classes, (B, M), generator=gen)
+    cxcy = 0.2 + 0.6 * torch.rand((B, M, 2), generator=gen)
+    wh = 0.05 + 0.25 * torch.rand((B, M, 2), generator=gen)
+    return labels, torch.cat([cxcy, wh], dim=-1)
+
+
+def _detr_updates(dtrain, matcher, steps, cfg, params, images, labels,
+                  boxes, n: int):
+    """``n`` updates of ``train_batch`` (AdamW 1e-4, decay 1e-4, clip
+    0.1): ([(losses as floats, the assignment the update made, seconds)],
+    a call that makes one more update). The assignment is ``predict`` +
+    ``matcher.match`` before the update, untimed (the step matches the
+    same outputs of its own forward)."""
+    tx = steps.make_adamw(1e-4, weight_decay=1e-4, grad_clip=0.1)
+    state = steps.init_state(params, tx)
+    predict, step = dtrain.make_detr_train_step(cfg, tx)
+    n_valid = [labels.shape[1]] * labels.shape[0]
+    out = []
+    for _ in range(n):
+        assignment = matcher.match(*predict(state.params, images), labels,
+                                   boxes, n_valid)
+        if images.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = dtrain.train_batch(state, images, labels, boxes,
+                                           n_valid, predict, step)
+        losses = {k: float(v) for k, v in losses.items()}
+        out.append((losses, assignment, time.perf_counter() - t0))
+    return out, lambda: dtrain.train_batch(state, images, labels, boxes,
+                                           n_valid, predict, step)
+
+
+def detr_train_phase(card: str) -> None:
+    """DETR_R50 training: B = 2 at 800×1066 (the reference's
+    ``--batch_size 2``), 5 targets an image, 3 updates of ``train_batch``:
+    finite losses with the JAX step's keys, valid assignments (5 distinct
+    queries an image), updates/s (median of the last two) and peak memory.
+    Then a reduced DETR (2 + 2 layers, 320×320) from the same seeded weights
+    on the card and on the CPU, 2 updates: the same assignment and each
+    loss within rtol 1e-4."""
+    import dataclasses
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.models import detr, matcher
+    from transformer_mm_explainability_tpu_torch.train import detr_train
+    from transformer_mm_explainability_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    cfg = detr.DETR_R50
+    gen = torch.Generator().manual_seed(21)
+    images = torch.randn((2, 800, 1066, 3), generator=gen).to(dev)
+    labels, boxes = _detr_targets(2, 5, cfg.num_classes, gen)
+    params = detr.init_params(0, cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    runs, again = _detr_updates(detr_train, matcher, steps, cfg, params,
+                                images, labels.to(dev), boxes.to(dev), 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for losses, assignment, _ in runs:
+        assert set(losses) == DETR_LOSS_KEYS, losses
+        assert all(math.isfinite(v) for v in losses.values()), losses
+        for row in assignment:
+            assert len(set(row.tolist())) == 5 and row.min() >= 0 \
+                and row.max() < cfg.num_queries, assignment
+    steady = statistics.median(t for *_, t in runs[1:])
+    print(f"train detr DETR_R50 B=2 800x1066, 5 targets an image, AdamW: "
+          f"updates {[round(t * 1e3, 1) for *_, t in runs]} ms, steady "
+          f"{steady * 1e3:.1f} ms = {1 / steady:.2f} updates/s, "
+          f"{2 / steady:.2f} images/s; peak {peak:.2f} GiB; losses "
+          f"{[round(r[0]['loss'], 5) for r in runs]}; on {card}", flush=True)
+    profile("train detr update B=2 800x1066", again, steady * 1e3,
+            show_other=6)
+    del params, images, again
+
+    small = dataclasses.replace(cfg, num_encoder_layers=2,
+                                num_decoder_layers=2)
+    params = detr.init_params(3, small, "cpu")
+    images = torch.randn((2, 320, 320, 3), generator=gen)
+    labels, boxes = _detr_targets(2, 5, small.num_classes, gen)
+    card_runs, _ = _detr_updates(detr_train, matcher, steps, small,
+                              params_to(params, dev), images.to(dev),
+                              labels.to(dev), boxes.to(dev), 2)
+    cpu_runs, _ = _detr_updates(detr_train, matcher, steps, small, params,
+                                images, labels, boxes, 2)
+    for k, ((gl, ga, _), (cl, ca, _)) in enumerate(zip(card_runs,
+                                                       cpu_runs)):
+        rel = max(abs(gl[n] - cl[n]) / max(abs(cl[n]), 1e-30)
+                  for n in ("loss_ce", "loss_bbox", "loss_giou", "loss"))
+        print(f"train detr card vs CPU, 2 + 2 layers 320x320, update {k}: "
+              f"assignments equal {bool((ga == ca).all())}, losses max "
+              f"relative {rel:.3e} (bar 1e-4)", flush=True)
+        assert (ga == ca).all() and rel <= 1e-4, (ga, ca, rel)
+
+
+def _vit_loss(model, batch):
+    from transformer_mm_explainability_tpu_torch.models import vit
+    from transformer_mm_explainability_tpu_torch.train import steps
+
+    logits, _ = vit.forward(model, batch["images"])
+    return steps.softmax_xent(logits, batch["labels"])
+
+
+def _vit_sharded_update(model, images, labels, mesh):
+    """One dp×tp update (``parallel/mesh.make_train_step``, AdamW 1e-3) of
+    this rank's shard of ``model``: (loss, the whole model's w_qkv of every
+    block, gathered back)."""
+    from transformer_mm_explainability_tpu_torch.parallel import mesh as pm
+    from transformer_mm_explainability_tpu_torch.train import steps
+
+    tx = steps.make_adamw(1e-3)
+    state = steps.init_state(pm.shard_params(model, mesh), tx)
+    step = pm.make_train_step(_vit_loss, tx, mesh)
+    state, loss = step(state, pm.shard_batch(
+        {"images": images, "labels": labels}, mesh))
+    whole = pm.unshard_params(state.params, mesh)
+    return loss, torch.stack([blk.w_qkv.detach() for blk in whole.blocks])
+
+
+def vit_train_phase(mesh, card: str) -> None:
+    """ViT-B/16 train step, B = 32, AdamW 1e-3: images/s (median of 4
+    steady updates) and peak memory of the unsharded step; one update of
+    the dp×tp step on one NCCL rank (``mesh``, dp = tp = 1) equal to the
+    unsharded update bit for bit (loss and every parameter); one on two
+    gloo ranks sharing cuda:0 (tp = 2) within loss rtol 1e-5 and ``w_qkv``
+    atol 1e-5 (``tests/test_parallel.py``'s bars) wherever |g| ≥ 1e-6
+    (100 times AdamW's eps), and within 2 lr where it is not."""
+    import copy
+
+    from transformer_mm_explainability_tpu_torch.models import vit
+    from transformer_mm_explainability_tpu_torch.parallel import mesh as pm
+    from transformer_mm_explainability_tpu_torch.parallel.launch import (
+        MeshArg, RankPool)
+    from transformer_mm_explainability_tpu_torch.train import steps
+
+    dev = torch.device("cuda")
+    model = vit.init_params(0, vit.VIT_B_16, dev)
+    gen = torch.Generator().manual_seed(31)
+    images = torch.randn((32, 224, 224, 3), generator=gen).to(dev)
+    labels = torch.randint(0, 1000, (32,), generator=gen).to(dev)
+    batch = {"images": images, "labels": labels}
+
+    tx = steps.make_adamw(1e-3)
+    state = steps.init_state(copy.deepcopy(model), tx)
+    step = steps.make_train_step(_vit_loss, tx)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        float(loss)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = statistics.median(times[1:])
+    print(f"train vit ViT-B/16 B=32 AdamW: first update "
+          f"{times[0] * 1e3:.1f} ms, steady {steady * 1e3:.2f} ms (median of "
+          f"4; {min(times[1:]) * 1e3:.2f}-{max(times[1:]) * 1e3:.2f}) = "
+          f"{32 / steady:.1f} images/s; peak {peak:.2f} GiB; on {card}",
+          flush=True)
+    profile("train vit update B=32", lambda: step(state, batch),
+            steady * 1e3, show_other=6)
+    del state
+
+    ref = steps.init_state(copy.deepcopy(model), tx)
+    ref, ref_loss = step(ref, batch)
+    one = steps.init_state(pm.shard_params(model, mesh), tx)
+    one, one_loss = pm.make_train_step(_vit_loss, tx, mesh)(
+        one, pm.shard_batch(batch, mesh))
+    same = torch.equal(one_loss, ref_loss) and all(
+        torch.equal(a, b) for a, b in zip(one.params.parameters(),
+                                          ref.params.parameters()))
+    print(f"train vit dp x tp step on 1 NCCL rank (dp = tp = 1): loss "
+          f"{float(one_loss):.6f}, bit-equal to the unsharded update: "
+          f"{same}", flush=True)
+    assert same
+
+    # AdamW's first step is lr · g / (|g| + eps), eps = 1e-8: it does not
+    # move with g's rounding only where |g| >> eps. Below 100 eps (the key
+    # bias's structural zeros, cancelling sums) the two layouts' summation
+    # orders move the step by up to 2 lr
+    _, grads = steps.value_and_grad(_vit_loss, copy.deepcopy(model), batch)
+    names = [n for n, _ in model.named_parameters()]
+    g_qkv = torch.stack([g for n, g in zip(names, grads)
+                         if n.endswith(".w_qkv")]).abs().cpu()
+    noise = g_qkv < 1e-6
+    del grads
+    t0 = time.perf_counter()
+    with RankPool(2, "gloo", "cuda", timeout_s=300) as pool:
+        outs = pool.run(_vit_sharded_update, copy.deepcopy(model).cpu(),
+                        images.cpu(), labels.cpu(), MeshArg(dp=1, tp=2))
+    want_w = torch.stack([b.w_qkv.detach() for b in ref.params.blocks]).cpu()
+    for rank, (loss, w_qkv) in enumerate(outs):
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        diff = (w_qkv - want_w).abs()
+        w_err = float(diff[~noise].max())
+        w_noise = float(diff[noise].max()) if noise.any() else 0.0
+        print(f"train vit dp x tp step on 2 gloo ranks on cuda:0 (tp = 2), "
+              f"rank {rank}: loss relative {loss_rel:.3e} (bar 1e-5), w_qkv "
+              f"max|Δ| {w_err:.3e} (bar 1e-5) over the {int((~noise).sum())} "
+              f"elements whose gradient is at least 1e-6 (max|g| "
+              f"{float(g_qkv.max()):.3e}); the other {int(noise.sum())}: "
+              f"max|Δ| {w_noise:.3e} (bar 2 lr = 2e-3); spawn, group and "
+              f"the update "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        assert loss_rel <= 1e-5 and w_err <= 1e-5 and w_noise <= 2e-3, (
+            rank, loss_rel, w_err, w_noise)
+
+
+def train_phases(mods, cli, mesh, card: str, timed_phase) -> None:
+    """The training phases with every kernel counter at 0 before them;
+    they must read 0 after: training runs the plain forwards (the kernels
+    compute relevancy cotangents and no weight gradient)."""
+    reset_counts(mods)
+    timed_phase("train lxmert", lxmert_train_phase, cli, card)
+    torch.cuda.empty_cache()
+    timed_phase("train detr", detr_train_phase, card)
+    torch.cuda.empty_cache()
+    timed_phase("train vit", vit_train_phase, mesh, card)
+    torch.cuda.empty_cache()
+    launched = counts(mods)
+    print(f"train phases: kernel launches {launched}", flush=True)
+    assert not any(launched.values()), launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2988,6 +3399,9 @@ def main() -> int:
         for name, n in timed_phase("sharded example", sharded_example_phase,
                                    mods, vit, mesh, card).items():
             other[name]["sharded_relevancy --fused"] = n
+        train_phases(mods, cli, mesh, card, timed_phase)
+        for name in KERNELS:
+            other[name]["train (lxmert cli, detr, vit)"] = 0
     finally:
         dist.destroy_process_group()
     print(f"phases: {sum(phase_s.values()):.1f} s in all", flush=True)

@@ -12,6 +12,12 @@
         [--num-samples N] [--is-positive-pert BOOL] [--is-text-pert BOOL] \
         [--questions JSON --features TSV --ans2label JSON --label2ans JSON \
         --bert-vocab TXT] [--checkpoint CKPT] [--seed S] [--device cuda|cpu]
+    python -m transformer_mm_explainability_tpu_torch.cli lxmert-finetune \
+        [--task vqa|gqa|nlvr2] [--train-questions JSON --features TSV \
+        --ans2label JSON --label2ans JSON --bert-vocab TXT] \
+        [--valid-questions JSON] [--llayers 9 --xlayers 5 --rlayers 5] \
+        [--batch-size 32] [--lr 5e-5] [--epochs 4] [--checkpoint CKPT] \
+        [--seed S] [--device cuda|cpu]
     python -m transformer_mm_explainability_tpu_torch.cli detr-eval \
         --coco-path DIR [--annotations JSON] [--max-images N] \
         [--shortest 800] [--method ours_no_lrp] [--checkpoint DETR.pth] \
@@ -41,6 +47,13 @@ perturbation benchmark through ``harness/pert_runner``. Without the data
 flags it runs the pipeline on synthetic samples and a tiny random model.
 Every method of the model's table runs, the LRP ones included; an unknown
 method exits with 2.
+
+``lxmert-finetune`` is the JAX package's subcommand (the same flags, plus
+``--device``): the LXMERT VQA / GQA / NLVR2 finetune loop of
+``train/lxmert_tasks`` (BertAdam, the per-epoch train and valid accuracy),
+printing one JSON line (``loss``, ``train_acc``, ``valid_acc``,
+``best_valid``). Without the data flags it trains a tiny random LXMERT on
+synthetic batches and exits 1 unless its loss falls.
 
 ``detr-eval`` is the JAX package's subcommand (the same flags, plus
 ``--device``): DETR explanation-segmentation on a COCO split through
@@ -134,6 +147,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="MMF VisualBERT checkpoint (.ckpt/.pth or a "
                          "tarball) or LXMERT torch state dict")
     sp.add_argument("--seed", type=int, default=1234)
+    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    sp = sub.add_parser("lxmert-finetune",
+                        help="LXMERT task finetune loop "
+                             "(lxmert/src/tasks/vqa.py + "
+                             "run/vqa_finetune.bash surface)")
+    sp.add_argument("--task", choices=["vqa", "gqa", "nlvr2"],
+                    default="vqa")
+    sp.add_argument("--train-questions", default=None)
+    sp.add_argument("--valid-questions", default=None)
+    sp.add_argument("--features", default=None, help="object TSV")
+    sp.add_argument("--ans2label", default=None)
+    sp.add_argument("--label2ans", default=None)
+    sp.add_argument("--bert-vocab", default=None)
+    sp.add_argument("--llayers", type=int, default=9)
+    sp.add_argument("--xlayers", type=int, default=5)
+    sp.add_argument("--rlayers", type=int, default=5)
+    sp.add_argument("--batch-size", type=int, default=32)
+    sp.add_argument("--lr", type=float, default=5e-5)
+    sp.add_argument("--epochs", type=int, default=4)
+    sp.add_argument("--checkpoint", default=None)
+    sp.add_argument("--seed", type=int, default=9595)
     sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
     sp = sub.add_parser("detr-eval",
@@ -319,6 +354,12 @@ def cmd_detr_eval(args) -> int:
     return 0
 
 
+def cmd_lxmert_finetune(args) -> int:
+    from transformer_mm_explainability_tpu_torch.train import lxmert_tasks
+
+    return lxmert_tasks.run_from_args(args)
+
+
 def cmd_verify_parity(args) -> int:
     from transformer_mm_explainability_tpu_torch.tools import verify_parity
 
@@ -343,6 +384,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     return {"explain-vit": cmd_explain_vit,
             "explain-clip": cmd_explain_clip,
             "perturbation": cmd_perturbation,
+            "lxmert-finetune": cmd_lxmert_finetune,
             "detr-eval": cmd_detr_eval,
             "verify-parity": cmd_verify_parity,
             "bench": cmd_bench,

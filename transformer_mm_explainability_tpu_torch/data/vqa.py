@@ -1,17 +1,18 @@
-"""VQA v2 data for the LXMERT perturbation runner (numpy only).
+"""VQA v2, GQA and NLVR2 data for the LXMERT runner and finetune loops
+(numpy only).
 
-A private copy of what the runner and the LXMERT example use from
-``transformer_mm_explainability_tpu/data/vqa.py`` (importing that module
-would load the JAX package):
+A private copy of ``transformer_mm_explainability_tpu/data/vqa.py``
+(importing that module would load the JAX package):
 
   * question json records: {question_id, img_id, sent, label
-    ({answer: soft score})};
+    ({answer: soft score})}, the same for GQA; NLVR2 records {uid, img0,
+    img1, sent, label};
   * the answer vocabulary (``trainval_ans2label.json`` /
     ``trainval_label2ans.json``);
   * the base64 TSV object-feature reader (the bottom-up-attention format:
     img_id/img_h/img_w/objects_id/objects_conf/attrs_id/attrs_conf/
-    num_boxes/boxes/features), in Python's csv (the JAX package also has a
-    C++ reader; the port does not);
+    num_boxes/boxes/features), in Python's csv (the JAX package reads with
+    its C++ reader where it can; the port has none);
   * ``FeatureStore``, which pads every image to ``max_boxes``.
 """
 
@@ -49,9 +50,11 @@ def _decode_field(name: str, value: str, num_boxes: int) -> Any:
     return value
 
 
-def load_obj_tsv(path: str, topk: Optional[int] = None
-                 ) -> List[Dict[str, Any]]:
-    """Load FRCNN object features from a base64 TSV."""
+def load_obj_tsv(path: str, topk: Optional[int] = None,
+                 use_native: bool = True) -> List[Dict[str, Any]]:
+    """Load FRCNN object features from a base64 TSV (utils.py:16-29
+    format). ``use_native`` is the JAX reader's switch for its C++ parser;
+    the port parses in Python either way, with the same result."""
     out = []
     with open(path) as f:
         reader = csv.DictReader(f, TSV_FIELDNAMES, delimiter="\t")
@@ -123,6 +126,29 @@ class VQADataset:
         items = list(self.data)
         random.Random(seed).shuffle(items)
         return items[:num_samples]
+
+
+class GQADataset(VQADataset):
+    """GQA question records (lxmert/src/tasks/gqa_data.py layout —
+    same json schema as VQA: question_id/img_id/sent/label)."""
+
+
+class NLVR2Dataset:
+    """NLVR2 records (lxmert/src/tasks/nlvr2_data.py): two images per
+    sentence, binary label. Records: {uid, img0, img1, sent, label}."""
+
+    def __init__(self, question_paths: List[str]):
+        self.data: List[Dict[str, Any]] = []
+        for p in question_paths:
+            with open(p) as f:
+                self.data.extend(json.load(f))
+        self.by_uid = {d["uid"]: d for d in self.data}
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        return self.data[i]
 
 
 class FeatureStore:

@@ -127,7 +127,8 @@ def _tp_exit(tp, x: torch.Tensor) -> torch.Tensor:
 
 class ViT(nn.Module):
     """ViT parameters in the JAX package's layout. Parameters do not
-    require grad: explanations only need input cotangents."""
+    require grad: explanations only need input cotangents, and a train
+    step (``train/steps``) turns grad on for its own forward only."""
 
     # on a tensor-parallel copy whose heads are split over the ranks of a
     # group (``parallel/mesh.shard_params``; ``cfg.num_heads`` is then the
@@ -154,6 +155,30 @@ class ViT(nn.Module):
                 taps: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         return forward(self, images, taps)
+
+    @staticmethod
+    def tree_keys(name: str) -> Tuple[str, ...]:
+        """The dict keys of parameter ``name``'s path in the JAX package's
+        ViT tree (``blocks.3.ln1_scale`` → ``blocks/ln1/scale``; the four
+        attention tensors sit in an ``AttentionParams`` NamedTuple, whose
+        fields are no dict keys), for rules keyed on that tree's names
+        (``train/steps.bert_no_decay_mask``)."""
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            leaf = parts[-1]
+            if leaf in _ATTN_FIELDS:
+                return ("blocks", "attn")
+            if leaf in ("w1", "b1", "w2", "b2"):
+                return ("blocks", "mlp", leaf)
+            return ("blocks",) + tuple(leaf.split("_"))
+        return _TOP_KEYS[parts[0]]
+
+
+_ATTN_FIELDS = ("w_qkv", "b_qkv", "w_out", "b_out")
+_TOP_KEYS = {"patch_w": ("patch_embed", "w"), "patch_b": ("patch_embed", "b"),
+             "cls_token": ("cls_token",), "pos_embed": ("pos_embed",),
+             "norm_scale": ("norm", "scale"), "norm_bias": ("norm", "bias"),
+             "head_w": ("head", "w"), "head_b": ("head", "b")}
 
 
 def init_params(seed: Union[int, torch.Generator] = 0,

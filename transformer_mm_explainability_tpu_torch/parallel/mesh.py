@@ -17,6 +17,10 @@ and the collectives are explicit:
     ``models/vit.relevancy`` and ``relevancy_streamed_row`` run
     tensor-parallel: heads split over tp, one all-reduce per residual
     branch, Ê's head mean averaged over tp (``TensorParallel``);
+  * ``make_train_step`` — the dp×tp train step on such a copy: this rank's
+    batch slice, gradients averaged over dp in one all-reduce, the
+    row-parallel biases held on the tp group's first rank only;
+    ``unshard_params`` gathers the copy back into a whole ViT;
   * ``shard_batch`` / ``replicated`` / ``dp_shard_map`` — the data-parallel
     layout: each dp rank takes its slice of the batch and the results are
     gathered whole on every rank. ``dp_shard_map`` is how the kernel paths
@@ -39,6 +43,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from transformer_mm_explainability_tpu_torch.train import steps
 
 AXES = ("dp", "tp")
 
@@ -197,15 +203,21 @@ def shard_params(model, mesh: DeviceMesh, axis: str = "tp"):
     branch whose split axis does not divide by tp (heads for attention,
     the MLP width for the MLP) stays replicated, as the JAX layout
     replicates such a leaf. ``cfg.num_heads`` of the copy is the local
-    head count."""
+    head count; ``row_biases`` names the row-parallel biases, which a train
+    step keeps at 0 off the group's first rank (``make_train_step``)."""
     k, r = axis_size(mesh, axis), axis_rank(mesh, axis)
     tp = TensorParallel(mesh.get_group(axis), k)
     cfg = model.cfg
     out = copy.deepcopy(model)
+    out.row_biases = frozenset()
     if k == 1:
         return out
     split_attn = cfg.num_heads % k == 0
     split_mlp = (cfg.mlp_ratio * cfg.width) % k == 0
+    out.row_biases = frozenset(
+        f"blocks.{i}.{name}" for i in range(cfg.depth)
+        for name, split in (("b_out", split_attn), ("b2", split_mlp))
+        if split)
     with torch.no_grad():
         for blk in out.blocks:
             if split_attn:
@@ -228,6 +240,79 @@ def shard_params(model, mesh: DeviceMesh, axis: str = "tp"):
 
 def _param(t: torch.Tensor) -> torch.nn.Parameter:
     return torch.nn.Parameter(t, requires_grad=False)
+
+
+def _merge(parts, dim: int, groups: int = 1) -> torch.Tensor:
+    """The inverse of ``_split``: the ranks' blocks joined along ``dim``
+    (within each of ``groups`` equal parts)."""
+    parts = [p.unflatten(dim, (groups, p.shape[dim] // groups))
+             for p in parts]
+    return torch.cat(parts, dim=dim + 1).flatten(dim, dim + 1)
+
+
+def unshard_params(model, mesh: DeviceMesh, axis: str = "tp"):
+    """The whole ViT from this rank's tp copy (``shard_params``' inverse),
+    equal on every rank of the group: split tensors gathered and joined,
+    the row-parallel biases summed."""
+    from transformer_mm_explainability_tpu_torch.models.vit import ViT
+
+    k = axis_size(mesh, axis)
+    heads = model.cfg.num_heads * (k if model.tp_heads is not None else 1)
+    out = ViT(dataclasses.replace(model.cfg, num_heads=heads),
+              model.patch_w.device)
+
+    def whole(t, dim, groups=1):
+        parts = [torch.empty_like(t) for _ in range(k)]
+        dist.all_gather(parts, t.detach().contiguous(),
+                        group=mesh.get_group(axis))
+        return _merge(parts, dim, groups)
+
+    with torch.no_grad():
+        for (name, dst), src in zip(out.named_parameters(),
+                                    model.parameters()):
+            blk = model.blocks[int(name.split(".")[1])] \
+                if name.startswith("blocks.") else None
+            leaf = name.split(".")[-1]
+            attn = blk is not None and blk.tp_attn is not None
+            mlp = blk is not None and blk.tp_mlp is not None
+            if attn and leaf in ("w_qkv", "b_qkv"):
+                src = whole(src, src.dim() - 1, groups=3)
+            elif (attn and leaf == "w_out") or (mlp and leaf == "w2"):
+                src = whole(src, 0)
+            elif mlp and leaf in ("w1", "b1"):
+                src = whole(src, src.dim() - 1)
+            elif (attn and leaf == "b_out") or (mlp and leaf == "b2"):
+                src = all_reduce(src, mesh, axis)
+            dst.copy_(src)
+    return out
+
+
+def make_train_step(loss_fn: Callable, tx, mesh: DeviceMesh):
+    """``train/steps.make_train_step`` on a ``shard_params`` copy and a
+    ``shard_batch`` slice: ``loss_fn`` gives this rank's mean loss over
+    its slice; the gradients are averaged over dp in one all-reduce (the
+    tp collectives of ``_Enter``/``_Exit`` already made the replicated
+    leaves' gradients equal within a tp group), the gradient of a
+    row-parallel bias is dropped off the tp group's first rank (it reaches
+    that bias on every rank; counted k times otherwise), and the returned
+    loss is the mean over dp — the whole batch's."""
+    dp = axis_size(mesh, "dp")
+    first = axis_rank(mesh, "tp") == 0
+
+    def reduce(model, loss, grads):
+        flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+        if dp > 1:
+            dist.all_reduce(flat, group=mesh.get_group("dp"))
+            flat = flat / dp
+        out, off = [], 1
+        for (name, _), g in zip(model.named_parameters(), grads):
+            g = flat[off:off + g.numel()].view_as(g)
+            off += g.numel()
+            out.append(torch.zeros_like(g) if not first
+                       and name in getattr(model, "row_biases", ()) else g)
+        return flat[0], out
+
+    return steps.make_train_step(loss_fn, tx, reduce)
 
 
 # ---------------------------------------------------------------------------

@@ -400,6 +400,39 @@ def lxmert_from_state_dict(sd: Mapping[str, Any], cfg,
     return lxmert_from_jax_numpy(tree, cfg, device)
 
 
+def _heads_from_jax_numpy(tree: Mapping[str, Any], want: Dict[str, tuple],
+                          device) -> Dict[str, Any]:
+    for key, shape in want.items():
+        got = tuple(np.shape(tree[key]["w"] if isinstance(tree[key], Mapping)
+                             else tree[key]))
+        if got != shape:
+            raise ValueError(f"{key}: shape {got}, the config wants {shape}")
+    return _to_torch(tree, device)
+
+
+def lxmert_pretrain_heads_from_jax_numpy(tree: Mapping[str, Any], cfg,
+                                         device="cuda") -> Dict[str, Any]:
+    """The JAX ``models/lxmert_pretrain.init_head_params`` tree (numpy
+    leaves) → the port's heads on ``device``; ``cfg`` (a
+    ``models.lxmert.LxmertConfig``) must fit the LM bias and the feature
+    decoder."""
+    D = cfg.hidden_size
+    return _heads_from_jax_numpy(
+        tree, {"lm_transform": (D, D), "lm_bias": (cfg.vocab_size,),
+               "feat_decoder": (D, cfg.visual_feat_dim),
+               "matching": (D, 2)}, device)
+
+
+def nlvr2_head_from_jax_numpy(tree: Mapping[str, Any], hidden: int,
+                              device="cuda") -> Dict[str, Any]:
+    """The JAX ``train/lxmert_tasks.init_nlvr2_head`` tree (numpy leaves)
+    → the port's NLVR2 head on ``device`` for an encoder of width
+    ``hidden``."""
+    return _heads_from_jax_numpy(
+        tree, {"fc1": (2 * hidden, 2 * hidden), "fc2": (2 * hidden, 2)},
+        device)
+
+
 # ---------------------------------------------------------------------------
 # VisualBERT (the MMF state dict is read by utils/mmf_loader)
 # ---------------------------------------------------------------------------
