@@ -216,6 +216,26 @@
    1e-4); the ViT-B/16 train step at B = 32 (images/s, peak memory, a
    profile), the dp×tp step on one NCCL rank bit-equal to it and on two
    gloo ranks on cuda:0 (tp = 2) within the JAX test's bars.
+21. the mmf phases (the MMF core and data; every kernel counter at 0 before
+   them and 0 after), on files written to ``build/smoke/mmf`` from a seed
+   (a 30,522-entry BERT vocabulary, a VQA2 imdb of 256 questions, 64
+   100×2048 feature ``.npy`` files, 3,129 answers): ``cli predict --device
+   cuda`` at full width (VISUAL_BERT_VQA2, B = 32, St = 128, Nv = 100)
+   through the ``vqa2`` builder, ``bert_tokenizer``, ``collate``,
+   ``prediction.argmax`` and ``TestReporter`` (256 rows with the imdb's
+   question ids), predictions/s (median of 3, host included), peak memory,
+   the host's share of a batch and a profile, the first 8 scores within
+   ``SCORE_TOL`` of the CPU and the report's answers equal to the CPU's
+   argmax where its top-two gap exceeds 1e-4; every registered loss on
+   cuda within ``LOSS_REL`` of the CPU (B = 32 × 3,129; captions at
+   [32, 20, 30,522]) and the tensor metrics equal to the CPU's, on cuda;
+   VisualBERT pretraining on a collated ``masked_vqa2`` batch (B = 4),
+   three AdamW updates at 12 layers on the card and at 2 layers card
+   against CPU (``PRETRAIN_REL``), ``forward_nlvr2`` and
+   ``forward_bypass`` at 12 layers against the CPU at ``SCORE_TOL``; two
+   updates of ``train/lxmert_pretrain_loop`` over ``LXMERTPretrainData``
+   and ``AnswerTable`` at 9/5/5 layers on the card and at 2/2/2 layers
+   card against CPU.
 
 Each phase prints its seconds.
 
@@ -3248,6 +3268,477 @@ def train_phases(mods, cli, mesh, card: str, timed_phase) -> None:
     assert not any(launched.values()), launched
 
 
+# ---------------------------------------------------------------------------
+# the MMF core and data (ROADMAP A5b): cli predict, losses and metrics,
+# VisualBERT and LXMERT pretraining on the card
+# ---------------------------------------------------------------------------
+
+MMF_WORDS = ["what", "color", "is", "the", "dog", "cat", "how", "many",
+             "are", "there", "on", "table", "a", "man", "sky", "red",
+             "blue", "sitting", "two", "of", "in", "picture", "?"]
+LOSS_REL = 1e-6       # losses, card vs CPU (relative)
+PRETRAIN_REL = 1e-5   # pretraining losses after the updates, card vs CPU
+
+
+def _rel_f(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def _mmf_files(root: pathlib.Path, n_q: int, n_img: int) -> dict:
+    """From a seed: a BERT ``vocab.txt`` of 30,522 entries (the
+    bert-base-uncased special ids, the question words, made-up tokens), a
+    VQA2 imdb of ``n_q`` questions (``question_tokens``/``question_str``,
+    6-20 words) over ``n_img`` images, one 100×2048 feature ``.npy`` per
+    image, and a 3,129-answer vocabulary."""
+    import numpy as np
+
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "feats").mkdir(exist_ok=True)
+    vocab = [f"[unused{i}]" for i in range(30522)]
+    vocab[0], vocab[100], vocab[101], vocab[102], vocab[103] = (
+        "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+    for i, w in enumerate(MMF_WORDS):
+        vocab[1000 + i] = w
+    for i in range(1000 + len(MMF_WORDS), 30522):
+        vocab[i] = f"tok{i}"
+    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    (root / "answers.txt").write_text("\n".join(
+        f"answer{k}" for k in range(3129)) + "\n")
+    rng = np.random.RandomState(15)
+    rows = [{"dataset_name": "vqa2"}]
+    for i in range(n_q):
+        toks = list(rng.choice(MMF_WORDS[:-1], rng.randint(5, 20))) + ["?"]
+        answers = [f"answer{k}" for k in rng.randint(0, 3129, 10)]
+        rows.append({"image_id": i % n_img, "question_id": 90000 + i,
+                     "question_tokens": toks, "question_str": " ".join(toks),
+                     "answers": answers, "all_answers": answers,
+                     "feature_path": f"{i % n_img}.npy"})
+    np.save(root / "imdb.npy", np.array(rows, dtype=object))
+    for k in range(n_img):
+        np.save(root / "feats" / f"{k}.npy",
+                rng.rand(100, 2048).astype(np.float32))
+    return {name: str(root / f) for name, f in (
+        ("imdb", "imdb.npy"), ("feats", "feats"), ("vocab", "vocab.txt"),
+        ("answers", "answers.txt"))}
+
+
+def mmf_predict_phase(cli, files: dict, card: str) -> None:
+    """``cli predict --device cuda`` at full width (VISUAL_BERT_VQA2, random
+    weights from ``--seed``; B = 32, St = 128, Nv = 100, 256 questions)
+    through the registered ``vqa2`` builder, ``bert_tokenizer``, ``collate``,
+    the forward, ``prediction.argmax`` and ``TestReporter``: the report has
+    256 rows with the imdb's question ids. Then ``predict_visual_bert`` on
+    the same weights: predictions/s (median of 3, host included), peak
+    memory, the host's share of one batch and a profile; the first 8
+    samples' scores on the card within ``SCORE_TOL`` of the CPU's, and the
+    report's answers equal to the CPU's argmax wherever the CPU's top-two
+    gap exceeds 1e-4."""
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.core.registry import registry
+    from transformer_mm_explainability_tpu_torch.harness import predict
+    from transformer_mm_explainability_tpu_torch.models import (
+        visual_bert as vb)
+
+    out = ROOT / "build" / "smoke" / "mmf" / "reports"
+    argv = ["predict", "--annotations", files["imdb"], "--features",
+            files["feats"], "--bert-vocab", files["vocab"],
+            "--label2ans", files["answers"], "--report-folder", str(out),
+            "--batch-size", "32", "--max-seq-length", "128",
+            "--max-features", "100", "--seed", "15", "--device", "cuda"]
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    paths = buf.getvalue().split()
+    assert rc == 0 and len(paths) == 1, (rc, paths)
+    rows = json.loads(pathlib.Path(paths[0]).read_text())
+    want_ids = [90000 + i for i in range(256)]
+    assert [r["question_id"] for r in rows] == want_ids, rows[:3]
+    print(f"mmf cli predict --device cuda VISUAL_BERT_VQA2 B=32 St=128 "
+          f"Nv=100: rc 0, {len(rows)} rows with the imdb's question ids in "
+          f"{wall:.1f} s (weights drawn, data read), "
+          f"{pathlib.Path(paths[0]).name}", flush=True)
+
+    cfg = vb.VISUAL_BERT_VQA2
+    dev = torch.device("cuda")
+    params = vb.init_params(15, cfg, dev)   # the cli's weights (--seed 15)
+    dataset = registry.get("builder", "vqa2")().load({
+        "annotations": files["imdb"], "features": files["feats"],
+        "max_features": 100, "processors": {"text_processor": {
+            "type": "bert_tokenizer", "params": {
+                "tokenizer_config": {"vocab_path": files["vocab"]},
+                "max_seq_length": 128}}}}, "test")
+    report = str(out / "timed")
+    run = lambda: predict.predict_visual_bert(params, cfg, dataset, report,
+                                              batch_size=32)
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    per_s = _rate(run, len(dataset))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host, total = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        samples = [dataset[i] for i in range(32)]
+        t1 = time.perf_counter()
+        predict.batch_scores(params, cfg, samples, dev).cpu()
+        t2 = time.perf_counter()
+        host.append(t1 - t0)
+        total.append(t2 - t0)
+    h, t = statistics.median(host), statistics.median(total)
+    print(f"mmf predict_visual_bert (cuda, 256 questions, B=32): "
+          f"{per_s:.1f} predictions/s (median of 3, host included); peak "
+          f"{peak:.2f} GiB; one batch {t * 1e3:.1f} ms, of which reading and "
+          f"processing 32 samples on the host {h * 1e3:.1f} ms (host share "
+          f"{h / t:.3f}; median of 3); on {card}", flush=True)
+    samples = [dataset[i] for i in range(32)]
+    fwd_ms = cuda_ms(lambda: predict.batch_scores(params, cfg, samples, dev),
+                     iters=5, warmup=1)
+    profile("mmf predict batch_scores B=32 (collate, to_device, forward)",
+            lambda: predict.batch_scores(params, cfg, samples, dev), fwd_ms,
+            show_other=4)
+
+    got = predict.batch_scores(params, cfg, samples[:8], dev).cpu()
+    want = predict.batch_scores(params_to(params, "cpu"), cfg, samples[:8],
+                                "cpu")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **SCORE_TOL)
+    card_rows = json.loads(pathlib.Path(paths[0]).read_text())[:8]
+    answers = [ln for ln in pathlib.Path(files["answers"]).read_text()
+               .splitlines()]
+    top2 = torch.topk(want, 2, dim=1).values
+    gap = (top2[:, 0] - top2[:, 1]).numpy()
+    cpu_ans = want.argmax(1).numpy()
+    held = [i for i in range(8) if gap[i] > 1e-4]
+    for i in held:
+        assert card_rows[i]["answer"] == answers[int(cpu_ans[i])], (
+            i, card_rows[i], cpu_ans[i])
+    print(f"mmf predict card vs CPU, first 8 samples: scores max|Δ| "
+          f"{err:.3e} (rtol {SCORE_TOL['rtol']:g} / atol "
+          f"{SCORE_TOL['atol']:g}); report answers equal to the CPU's "
+          f"argmax on {len(held)} of 8 (top-two gap > 1e-4; gaps "
+          f"{np.round(gap, 6).tolist()})", flush=True)
+
+
+def _loss_inputs(gen: torch.Generator) -> dict:
+    """name → (sample_list, model_output, params) at B = 32 × 3,129 answers
+    (``caption_cross_entropy`` at [32, 20, 30,522]), on the CPU."""
+    B, A = 32, 3129
+    r = lambda *s: torch.randn(s, generator=gen) * 2.0
+    soft = (torch.rand((B, A), generator=gen)
+            * (torch.rand((B, A), generator=gen) > 0.995))
+    scores = r(B, A)
+    probs = torch.sigmoid(r(B, A))
+    ce_t = torch.randint(0, A, (B,), generator=gen)
+    ce_t[3] = -100
+    T, V = 20, 30522
+    attn = torch.sigmoid(r(B, 12, 36))
+    sup = (torch.rand((B, 12, 36), generator=gen) > 0.5).long()
+    m4c_t = (torch.rand((B, 12, 64), generator=gen) > 0.9).float()
+    return {
+        "logit_bce": ({"targets": soft}, {"scores": scores}, {}),
+        "triple_logit_bce": ({"targets": soft}, {"scores": r(B, 3, A)}, {}),
+        "bce": ({"targets": soft}, {"scores": probs}, {}),
+        "nll_loss": ({"targets": soft},
+                     {"scores": torch.log_softmax(scores, 1)}, {}),
+        "weighted_softmax": ({"targets": soft}, {"scores": scores}, {}),
+        "softmax_kldiv": ({"targets": soft}, {"scores": scores}, {}),
+        "wrong": ({"targets": soft}, {"scores": scores}, {}),
+        "bce_kl_combined": ({"targets": soft}, {"scores": scores},
+                            {"weight_softmax": 0.3}),
+        "cross_entropy": ({"targets": ce_t}, {"scores": scores},
+                          {"label_smoothing": 0.1}),
+        "caption_cross_entropy": (
+            {"targets": torch.randint(0, V, (B, T), generator=gen),
+             "caption_len": torch.randint(5, T + 1, (B,), generator=gen)},
+            {"scores": r(B, T, V)}, {}),
+        "attention_supervision": ({"info": {"attention_supervision": sup}},
+                                  {"attentions": [attn]}, {}),
+        "m4c_decoding_bce_with_mask": (
+            {"targets": m4c_t,
+             "train_loss_mask": (torch.rand((B, 12), generator=gen)
+                                 > 0.3).float()},
+            {"scores": r(B, 12, 64)}, {}),
+    }
+
+
+def mmf_losses_phase(card: str) -> None:
+    """Every registered loss on cuda tensors (B = 32 × 3,129 answers;
+    ``caption_cross_entropy`` at [32, 20, 30,522]) within ``LOSS_REL``
+    (relative) of the same call on the CPU, each result on cuda; the tensor
+    metrics (``accuracy``, ``vqa_accuracy``, ``top_k_accuracy``,
+    ``r@1/5/10``, ``mean_r``, ``mean_rr``) on cuda: the answers they pick
+    and the ranks they read equal to the CPU's, every value equal but
+    ``vqa_accuracy`` and ``mean_rr``, sums of 32 fp32 terms that the card
+    adds in another order (within ``LOSS_REL``). The sklearn and nltk
+    metrics run on host numpy and are not run here."""
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.core import metrics
+    from transformer_mm_explainability_tpu_torch.core.registry import registry
+
+    gen = torch.Generator().manual_seed(21)
+    inputs = _loss_inputs(gen)
+    assert set(inputs) == set(registry.list("loss")), registry.list("loss")
+    worst = ("", 0.0)
+    for name, (sl, mo, kw) in inputs.items():
+        fn = registry.get("loss", name)
+        got = fn(params_to(sl, "cuda"), params_to(mo, "cuda"), **kw)
+        want = fn(sl, mo, **kw)
+        assert got.device.type == "cuda" and torch.isfinite(got), name
+        rel = _rel_f(float(got), float(want))
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+        assert rel <= LOSS_REL, (name, float(got), float(want), rel)
+    print(f"mmf losses: {len(inputs)} registered losses on cuda within "
+          f"{LOSS_REL:g} of the CPU (worst {worst[0]} {worst[1]:.2e})",
+          flush=True)
+
+    B, A = 32, 3129
+    scores = torch.randn((B, A), generator=gen)
+    # half the rows labelled with their top answer (or one of their top
+    # 5), so that no metric reads 0 by construction
+    labels = torch.randint(0, A, (B,), generator=gen)
+    top5 = torch.topk(scores, 5, dim=1).indices
+    labels[:16] = top5[torch.arange(16), torch.arange(16) % 5]
+    soft = torch.rand((B, A), generator=gen) * (
+        torch.rand((B, A), generator=gen) > 0.99)
+    soft[torch.arange(16), top5[:16, 0]] = 0.6
+    cand = torch.round(torch.randn((B, 100), generator=gen) * 4) / 4
+    gt = torch.randint(0, 100, (B,), generator=gen)
+    gt[:16] = torch.topk(cand[:16], 8, dim=1).indices[torch.arange(16),
+                                                     torch.arange(16) % 8]
+    onehot = torch.nn.functional.one_hot(gt, 100).float()
+    cases = [("accuracy", labels, scores, {}),
+             ("vqa_accuracy", soft, scores, {}),
+             ("top_k_accuracy", labels, scores, {"k": 5}),
+             ("r@1", onehot, cand, {}), ("r@5", onehot, cand, {}),
+             ("r@10", onehot, cand, {}), ("mean_r", onehot, cand, {}),
+             ("mean_rr", onehot, cand, {})]
+    vals = []
+    for name, t, sc, kw in cases:
+        fn = registry.get("metric", name)
+        got = fn({"targets": t.cuda()}, {"scores": sc.cuda()}, **kw)
+        want = fn({"targets": t}, {"scores": sc}, **kw)
+        assert got.device.type == "cuda", name
+        if name in ("vqa_accuracy", "mean_rr"):
+            rel = _rel_f(float(got), float(want))
+            assert rel <= LOSS_REL, (name, float(got), float(want))
+        else:
+            assert float(got) == float(want), (name, float(got),
+                                               float(want))
+        vals.append(f"{name} {float(got):.6f} (CPU {float(want):.6f})")
+    picks = metrics._masked_unk_softmax(scores.cuda(), 0).argmax(1)
+    assert torch.equal(picks.cpu(),
+                       metrics._masked_unk_softmax(scores, 0).argmax(1))
+    ranks = metrics._ranks(cand.cuda(), onehot.cuda())
+    assert torch.equal(ranks.cpu(), metrics._ranks(cand, onehot))
+    print(f"mmf tensor metrics on cuda, the picked answers and the ranks "
+          f"equal to the CPU's: {', '.join(vals)}; on {card}", flush=True)
+
+
+def _pretrain_updates(vb, steps_lib, cfg, params, head, batch, dev,
+                      n: int = 3) -> list:
+    """``n`` AdamW updates (``train/steps.make_adamw``, lr 1e-4) of the
+    VisualBERT model and its pretraining head on ``batch``: the losses."""
+    tree = steps_lib.tree_map(lambda x: x.detach().clone().to(dev),
+                              {"p": params, "h": head})
+    b = {k: v.to(dev) for k, v in batch.items()}
+    tx = steps_lib.make_adamw(1e-4)
+    state = steps_lib.init_state(tree, tx)
+    step = steps_lib.make_train_step(
+        lambda t, kw: vb.pretrain_forward(t["p"], t["h"], **kw,
+                                          cfg=cfg)["loss"], tx)
+    return [float(step(state, b)[1]) for _ in range(n)]
+
+
+def mmf_pretrain_phase(files: dict, card: str) -> None:
+    """VisualBERT pretraining on ``masked_vqa2`` samples of the generated
+    files (masked_token over the 30,522 vocabulary, St = 128, seeded mask
+    RNG; 100 boxes), collated at B = 4: three AdamW updates of
+    ``pretrain_forward`` at full width (12 layers) on the card, then the
+    same three updates at 2 layers of the same widths on the card and on
+    the CPU, each loss within ``PRETRAIN_REL`` (12 layers on the CPU take
+    minutes); ``forward_nlvr2`` (2 pairs) and ``forward_bypass`` (B = 2)
+    at 12 layers, card against the CPU at ``SCORE_TOL``."""
+    import dataclasses
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.core.registry import registry
+    from transformer_mm_explainability_tpu_torch.core.sample import collate
+    from transformer_mm_explainability_tpu_torch.models import (
+        visual_bert as vb)
+    from transformer_mm_explainability_tpu_torch.train import (
+        steps as steps_lib)
+
+    tok = {"tokenizer_config": {"vocab_path": files["vocab"]},
+           "max_seq_length": 128}
+    ds = registry.get("builder", "masked_vqa2")().load({
+        "annotations": files["imdb"], "features": files["feats"],
+        "max_features": 100, "processors": {
+            "masked_token_processor": {"type": "masked_token", "params": {
+                **tok, "mask_probability": 0.15, "seed": 3}},
+            "text_processor": {"type": "bert_tokenizer", "params": tok}}},
+        "train")
+    sl = collate([ds[i] for i in range(4)]).to_device("cpu")
+    batch = {"input_ids": sl["input_ids"], "input_mask": sl["input_mask"],
+             "token_type_ids": sl["segment_ids"],
+             "masked_lm_labels": sl["lm_label_ids"],
+             "visual_embeddings": sl["image_feature_0"]}
+    n_masked = int((sl["lm_label_ids"] >= 0).sum())
+    cfg = vb.VISUAL_BERT_VQA2
+    params = vb.init_params(16, cfg, "cpu")
+    head = vb.init_pretrain_params(17, cfg, "cpu")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = _pretrain_updates(vb, steps_lib, cfg, params, head, batch, "cuda")
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(math.isfinite(x) for x in full), full
+    cfg2 = dataclasses.replace(cfg, bert=dataclasses.replace(
+        cfg.bert, num_hidden_layers=2))
+    p2 = dict(params, encoder=steps_lib.tree_map(lambda x: x[:2],
+                                                 params["encoder"]))
+    runs = {dev: _pretrain_updates(vb, steps_lib, cfg2, p2, head, batch, dev)
+            for dev in ("cuda", "cpu")}
+    rel = max(_rel_f(a, b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    print(f"mmf visual_bert pretraining, masked_vqa2 B=4 St=128 Nv=100 "
+          f"({n_masked} masked tokens), 3 AdamW updates: 12 layers on the "
+          f"card losses {full} in {full_s:.1f} s, peak {peak:.2f} GiB; 2 "
+          f"layers card {runs['cuda']} vs CPU {runs['cpu']}, max relative "
+          f"{rel:.2e} (bar {PRETRAIN_REL:g}); on {card}", flush=True)
+    assert rel <= PRETRAIN_REL, runs
+
+    dev = torch.device("cuda")
+    pc = params_to(params, dev)
+    nlvr2 = vb.init_nlvr2_head(18, cfg, device="cpu")
+    bypass = vb.init_bypass_layer(19, cfg, "cpu")
+    pair = {k: batch[k] for k in ("input_ids", "input_mask",
+                                  "visual_embeddings")}
+    errs = []
+    for name, fn, h, key in (("nlvr2", vb.forward_nlvr2, nlvr2, "scores"),
+                             ("bypass", vb.forward_bypass, bypass,
+                              "pooled_output")):
+        with torch.no_grad():
+            got = fn(pc, params_to(h, dev), **{k: v.to(dev)
+                                               for k, v in pair.items()},
+                     cfg=cfg)[key].cpu()
+            want = fn(params, h, **pair, cfg=cfg)[key]
+        torch.testing.assert_close(got, want, **SCORE_TOL)
+        errs.append(f"{name} {key} {tuple(got.shape)} max|Δ| "
+                    f"{float((got - want).abs().max()):.2e}")
+    print(f"mmf visual_bert heads at 12 layers, card vs CPU: "
+          f"{'; '.join(errs)} (rtol {SCORE_TOL['rtol']:g} / atol "
+          f"{SCORE_TOL['atol']:g})", flush=True)
+
+
+def mmf_lxmert_pretrain_phase(files: dict, card: str) -> None:
+    """LXMERT pretraining over the real data module: ``LXMERTDataset`` and
+    ``AnswerTable`` (3,129 answers) over generated JSON, 16 sentences on 8
+    images of 36 2048-d boxes, ``LXMERTPretrainData`` with the matched-task
+    swap; two updates of ``train/lxmert_pretrain_loop.train`` (B = 8,
+    St = 20, BertAdam) at full width (9/5/5 layers) on the card, then the
+    same two at 2/2/2 layers on the card and the CPU, each loss's mean
+    within ``PRETRAIN_REL``."""
+    import dataclasses
+
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch.data import (
+        lxmert_pretrain_data as lpd)
+    from transformer_mm_explainability_tpu_torch.data import qa_answer_table
+    from transformer_mm_explainability_tpu_torch.data.tokenization import (
+        BertTokenizer)
+    from transformer_mm_explainability_tpu_torch.models import lxmert as lx
+    from transformer_mm_explainability_tpu_torch.train import (
+        lxmert_pretrain_loop as loop)
+
+    root = ROOT / "build" / "smoke" / "mmf" / "lxmert"
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(22)
+    answers = [f"answer{k}" for k in range(3129)]
+    (root / "all_ans.json").write_text(json.dumps(
+        [{"ans": a, "dsets": ["vqa", "gqa"]} for a in answers]))
+    data = []
+    for i in range(8):
+        sents = [" ".join(rng.choice(MMF_WORDS[:-1], rng.randint(4, 12)))
+                 for _ in range(2)]
+        data.append({"img_id": f"img{i}",
+                     "sentf": {"mscoco": sents[:1], "vqa": sents[1:]},
+                     "labelf": {"vqa": [{answers[rng.randint(3129)]: 1.0,
+                                         answers[rng.randint(3129)]: 0.3}]}})
+    (root / "train.json").write_text(json.dumps(data))
+    table = qa_answer_table.AnswerTable(
+        all_ans_path=str(root / "all_ans.json"))
+    dataset = lpd.LXMERTDataset("train", data_root=str(root),
+                                answer_table=table)
+    img_data = [{"img_id": f"img{i}", "img_h": 480, "img_w": 640,
+                 "num_boxes": 36,
+                 "features": rng.rand(36, 2048).astype(np.float32),
+                 "boxes": (rng.rand(36, 4) * [640, 480, 640, 480]).astype(
+                     np.float32),
+                 "objects_id": rng.randint(0, 1600, 36),
+                 "objects_conf": rng.rand(36).astype(np.float32),
+                 "attrs_id": rng.randint(0, 400, 36),
+                 "attrs_conf": rng.rand(36).astype(np.float32)}
+                for i in range(8)]
+    tokenizer = BertTokenizer(files["vocab"])
+    pt = loop.PretrainConfig(epochs=1, batch_size=8, max_seq_length=20)
+
+    def run(cfg, dev):
+        data = lpd.LXMERTPretrainData(dataset, img_data, task_matched=True,
+                                      seed=5)
+        assert len(data) == 16
+        out = loop.train(data, tokenizer, cfg, pt, seed=23,
+                         printer=lambda *_: None, device=dev)
+        return out["history"][0]
+
+    t0 = time.perf_counter()
+    full = run(lx.LXMERT_VQA, "cuda")
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    assert all(math.isfinite(v) for v in full.values()), full
+    small = dataclasses.replace(lx.LXMERT_VQA, l_layers=2, x_layers=2,
+                                r_layers=2)
+    got, want = run(small, "cuda"), run(small, "cpu")
+    rel = max(_rel_f(got[k], want[k]) for k in want)
+    fmt = lambda d: ", ".join(f"{k} {v:.5f}" for k, v in sorted(d.items()))
+    print(f"mmf lxmert pretraining over LXMERTPretrainData + AnswerTable "
+          f"(16 sentences, 8 images × 36 boxes, matched-task swap), 2 "
+          f"BertAdam updates B=8 St=20: 9/5/5 layers on the card ({fmt(full)}) "
+          f"in {full_s:.1f} s; 2/2/2 layers card ({fmt(got)}) vs CPU "
+          f"({fmt(want)}), max relative {rel:.2e} (bar {PRETRAIN_REL:g}); on "
+          f"{card}", flush=True)
+    assert rel <= PRETRAIN_REL, (got, want)
+
+
+def mmf_phases(mods, cli, card: str, timed_phase) -> None:
+    """The MMF phase group, every kernel counter at 0 before it; they must
+    read 0 after: VisualBERT and LXMERT run their plain forwards here."""
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    files = _mmf_files(ROOT / "build" / "smoke" / "mmf", 256, 64)
+    print(f"mmf files: vocab 30,522, imdb 256 questions, 64 × 100×2048 "
+          f"features in {time.perf_counter() - t0:.1f} s", flush=True)
+    timed_phase("mmf predict", mmf_predict_phase, cli, files, card)
+    torch.cuda.empty_cache()
+    timed_phase("mmf losses + metrics", mmf_losses_phase, card)
+    timed_phase("mmf visual_bert pretrain", mmf_pretrain_phase, files, card)
+    torch.cuda.empty_cache()
+    timed_phase("mmf lxmert pretrain", mmf_lxmert_pretrain_phase, files,
+                card)
+    torch.cuda.empty_cache()
+    launched = counts(mods)
+    print(f"mmf phases (predict, losses, pretrain): "
+          f"{time.perf_counter() - t0:.1f} s; kernel launches {launched}",
+          flush=True)
+    assert not any(launched.values()), launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3404,6 +3895,9 @@ def main() -> int:
             other[name]["train (lxmert cli, detr, vit)"] = 0
     finally:
         dist.destroy_process_group()
+    mmf_phases(mods, cli, card, timed_phase)
+    for name in KERNELS:
+        other[name]["mmf (predict, losses, pretrain)"] = 0
     print(f"phases: {sum(phase_s.values()):.1f} s in all", flush=True)
     for name, n in launches.items():
         rows[name]["launches"] = n

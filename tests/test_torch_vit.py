@@ -339,8 +339,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0 []"
     assert len(mods) >= 10
-    # the FRCNN → LXMERT, VisualBERT, CLIP, DETR and LRP slices are among
-    # them
+    # the FRCNN → LXMERT, VisualBERT, CLIP, DETR, LRP and MMF core/data
+    # slices are among them
     for name in ("models.frcnn", "models.resnet", "models.bert",
                  "models.lxmert", "explain.lxmert", "ops.roi_pool_pallas",
                  "harness.perturbation", "harness.pert_runner",
@@ -354,7 +354,11 @@ def test_port_imports_no_jax():
                  "harness.panoptic", "data.coco", "ops.otsu",
                  "models.matcher", "models.detr_segm_heads",
                  "utils.box_ops", "ops.lrp", "ops.rap", "models.bert_lrp",
-                 "models.lxmert_lrp", "models.detr_lrp"):
+                 "models.lxmert_lrp", "models.detr_lrp", "core.losses",
+                 "core.metrics", "core.env", "core.build",
+                 "data.processors", "data.builders",
+                 "data.lxmert_pretrain_data", "harness.predict",
+                 "utils.m4c_evaluators"):
         assert f"transformer_mm_explainability_tpu_torch.{name}" in mods
 
 

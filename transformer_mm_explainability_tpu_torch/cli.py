@@ -31,6 +31,12 @@
         [--protocol all|visualbert|lxmert|detr] [--out JSON] \
         [--vb-samples N] [--vb-batch N] [--lx-samples N] [--detr-images N] \
         [--method M] [--device cuda|cpu]
+    python -m transformer_mm_explainability_tpu_torch.cli predict \
+        --annotations IMDB --features DIR --bert-vocab TXT \
+        [--dataset vqa2] [--label2ans TXT] [--report-folder DIR] \
+        [--file-format json|csv] [--batch-size 32] [--max-samples N] \
+        [--max-seq-length 128] [--max-features 100] [--checkpoint CKPT] \
+        [--seed S] [--device cuda|cpu]
 
 ``explain-vit`` computes the ViT-B/16 relevancy map through
 ``models/vit.relevancy_fused_block2`` (the block kernels on CUDA, their
@@ -75,6 +81,12 @@ through ``relevancy_fused_block2`` at B = 32 on ``cuda``).
 plus the sample counts and ``--device``): the three quantitative
 protocols at full width on synthetic weights and data
 (``tools/protocol_rehearsal``), one JSON artifact.
+
+``predict`` is the JAX package's subcommand (the same flags, plus
+``--device``): VisualBERT (``VISUAL_BERT_VQA2``; random weights from
+``--seed`` without ``--checkpoint``) over a registered MMF dataset through
+``harness/predict.predict_visual_bert``, printing the paths of the
+report files it writes. Without ``--bert-vocab`` it exits 2.
 """
 
 from __future__ import annotations
@@ -187,6 +199,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="DETR release checkpoint (detr-r50-e632da11.pth)")
     sp.add_argument("--seed", type=int, default=1234)
     sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+    sp = sub.add_parser("predict",
+                        help="prediction run -> EvalAI-style report "
+                             "files (mmf_cli/predict.py flow)")
+    sp.add_argument("--dataset", default="vqa2",
+                    help="registered builder name")
+    sp.add_argument("--annotations", required=True,
+                    help="imdb .npy/.json annotation db")
+    sp.add_argument("--features", required=True,
+                    help="feature dir or .lmdb store")
+    sp.add_argument("--bert-vocab", default=None,
+                    help="vocab.txt (bert-base-uncased layout)")
+    sp.add_argument("--label2ans", default=None,
+                    help="answer-vocab txt (one answer per line) to "
+                         "map class indices to strings")
+    sp.add_argument("--report-folder", default="./reports")
+    sp.add_argument("--file-format", choices=["json", "csv"],
+                    default="json")
+    sp.add_argument("--batch-size", type=int, default=32)
+    sp.add_argument("--max-samples", type=int, default=None)
+    sp.add_argument("--max-seq-length", type=int, default=128)
+    sp.add_argument("--max-features", type=int, default=100)
+    sp.add_argument("--method", default="ours_no_lrp", choices=METHODS,
+                    help="accepted for the JAX command's surface; unused")
+    sp.add_argument("--checkpoint", default=None,
+                    help="MMF VisualBERT checkpoint (.ckpt/.pth or a "
+                         "tarball)")
+    sp.add_argument("--seed", type=int, default=1234)
+    sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    sp.add_argument("opts", nargs="*", default=[],
+                    help="config dotlist overrides key=value (accepted "
+                         "for the JAX command's surface; unused)")
 
     from transformer_mm_explainability_tpu_torch.tools import verify_parity
     verify_parity.build_parser(sub.add_parser(
@@ -379,6 +423,61 @@ def cmd_protocol_rehearsal(args) -> int:
     return protocol_rehearsal.run(args)
 
 
+def cmd_predict(args) -> int:
+    from transformer_mm_explainability_tpu_torch._device import resolve_device
+    from transformer_mm_explainability_tpu_torch.core.env import setup_imports
+    from transformer_mm_explainability_tpu_torch.core.registry import registry
+    from transformer_mm_explainability_tpu_torch.harness import predict
+    from transformer_mm_explainability_tpu_torch.models import (
+        visual_bert as vb)
+
+    setup_imports()  # register the builders and processors
+
+    if not args.bert_vocab:
+        print("predict: pass --bert-vocab vocab.txt "
+              "(bert-base-uncased layout)")
+        return 2
+    device = resolve_device(args.device)
+
+    dcfg = {
+        "annotations": args.annotations,
+        "features": args.features,
+        "max_features": args.max_features,
+        "processors": {
+            "text_processor": {
+                "type": "bert_tokenizer",
+                "params": {
+                    "tokenizer_config": {"vocab_path": args.bert_vocab},
+                    "max_seq_length": args.max_seq_length}},
+        },
+    }
+    builder = registry.get("builder", args.dataset)()
+    dataset = builder.load(dcfg, "test")
+
+    cfg = vb.VISUAL_BERT_VQA2
+    if args.checkpoint:
+        from transformer_mm_explainability_tpu_torch.utils.mmf_loader import (
+            load_visual_bert)
+
+        params, cfg = load_visual_bert(args.checkpoint, cfg, device=device)
+    else:
+        params = vb.init_params(args.seed, cfg, device)
+
+    label2ans = None
+    if args.label2ans:
+        with open(args.label2ans, encoding="utf-8") as f:
+            label2ans = [ln.rstrip("\n") for ln in f if ln.strip()]
+
+    written = predict.predict_visual_bert(
+        params, cfg, dataset, args.report_folder,
+        dataset_name=args.dataset, batch_size=args.batch_size,
+        label2ans=label2ans, max_samples=args.max_samples,
+        file_format=args.file_format)
+    for path in written:
+        print(path)
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"explain-vit": cmd_explain_vit,
@@ -388,7 +487,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             "detr-eval": cmd_detr_eval,
             "verify-parity": cmd_verify_parity,
             "bench": cmd_bench,
-            "protocol-rehearsal": cmd_protocol_rehearsal}[args.command](args)
+            "protocol-rehearsal": cmd_protocol_rehearsal,
+            "predict": cmd_predict}[args.command](args)
 
 
 if __name__ == "__main__":

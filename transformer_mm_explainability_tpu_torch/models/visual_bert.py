@@ -18,7 +18,11 @@ never holds the ``[L, B, H, S, S]`` stacks.
 ``relprop`` is the LRP pass from the answer one-hot back through the head,
 the ``?`` token and the encoder (``models/bert_lrp``), on the tape that
 ``forward(..., return_tape=True)`` or ``capture(..., return_tape=True)``
-returns. The pretraining, NLVR2 and bypass heads wait for ROADMAP A5.
+returns. ``pretrain_forward`` (masked LM on the decoder tied to the word
+embeddings + ``seq_relationship``), ``forward_nlvr2`` (the paired-image
+classifier on the concatenated poolers) and ``forward_bypass`` (text-only
+encoder, then one extra layer over text and boxes) are the model's other
+heads, each with its ``init_*``.
 """
 
 from __future__ import annotations
@@ -135,6 +139,19 @@ def cls_index(input_mask: torch.Tensor) -> torch.Tensor:
     return input_mask.long().sum(dim=1) - 2
 
 
+def _pooler(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
+    """BertPooler: tanh of the first token's dense projection."""
+    return torch.tanh(hidden[:, 0] @ params["pooler"]["w"]
+                      + params["pooler"]["b"])
+
+
+def _transform(t: Dict[str, Any], x: torch.Tensor, eps: float
+               ) -> torch.Tensor:
+    """BertPredictionHeadTransform: dense + GELU + LayerNorm."""
+    return layer_norm(gelu(x @ t["w"] + t["b"]), t["ln"]["scale"],
+                      t["ln"]["bias"], eps)
+
+
 def _head(params: Dict[str, Any], hidden: torch.Tensor,
           input_mask: torch.Tensor, cfg: VisualBERTConfig):
     """Pooler + answer head: ``(scores, pooled)``."""
@@ -143,11 +160,8 @@ def _head(params: Dict[str, Any], hidden: torch.Tensor,
         pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device),
                         idx]
     else:
-        pooled = torch.tanh(hidden[:, 0] @ params["pooler"]["w"]
-                            + params["pooler"]["b"])
-    t = params["head"]["transform"]
-    h = gelu(pooled @ t["w"] + t["b"])
-    h = layer_norm(h, t["ln"]["scale"], t["ln"]["bias"],
+        pooled = _pooler(params, hidden)
+    h = _transform(params["head"]["transform"], pooled,
                    cfg.bert.layer_norm_eps)
     c = params["head"]["classifier"]
     return h @ c["w"] + c["b"], pooled
@@ -242,8 +256,7 @@ def relprop(params: Dict[str, Any], tape: Dict[str, Any],
     t = params["head"]["transform"]
     c = params["head"]["classifier"]
     pooled = tape["pooled"]
-    g1 = layer_norm(gelu(pooled @ t["w"] + t["b"]), t["ln"]["scale"],
-                    t["ln"]["bias"], cfg.bert.layer_norm_eps)
+    g1 = _transform(t, pooled, cfg.bert.layer_norm_eps)
     cam = lrp.linear_alpha_beta(one_hot.to(g1.dtype), g1, c["w"], alpha,
                                 uniform)
     cam = lrp.linear_alpha_beta(cam, pooled, t["w"], alpha, uniform)
@@ -303,3 +316,162 @@ def relevancy_row(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
             r = r + torch.einsum("bj,bjk->bk", r, e_hat)
     keep = torch.arange(S, device=r.device)[None, :] != ci[:, None]
     return scores.detach(), torch.where(keep, r, torch.zeros_like(r))
+
+
+# ---------------------------------------------------------------------------
+# pretraining head (VisualBERTForPretraining, visual_bert.py:156-280)
+# ---------------------------------------------------------------------------
+
+def init_pretrain_params(seed: Union[int, torch.Generator] = 0,
+                         cfg: VisualBERTConfig = VISUAL_BERT_VQA2,
+                         device="cuda") -> Dict[str, Any]:
+    """BertPreTrainingHeads: masked-LM predictions (transform
+    dense+gelu+LN, decoder TIED to the word embeddings + free bias)
+    and the 2-way seq_relationship head (tie_weights, :223-230); normal
+    std 0.02, zero biases, drawn on the CPU from ``seed``."""
+    gen = bert._generator(seed)
+    D = cfg.bert.hidden_size
+    nrm = lambda *shape: bert._normal(gen, device, *shape)
+    zeros = lambda *shape: torch.zeros(shape, device=device)
+    return {
+        "transform": {"w": nrm(D, D), "b": zeros(D),
+                      "ln": {"scale": torch.ones(D, device=device),
+                             "bias": zeros(D)}},
+        "decoder_bias": zeros(cfg.bert.vocab_size),
+        "seq_relationship": {"w": nrm(D, 2), "b": zeros(2)},
+    }
+
+
+def pretrain_forward(params: Dict[str, Any], head: Dict[str, Any],
+                     input_ids: torch.Tensor, input_mask: torch.Tensor,
+                     visual_embeddings: Optional[torch.Tensor] = None,
+                     token_type_ids: Optional[torch.Tensor] = None,
+                     visual_embeddings_type: Optional[torch.Tensor] = None,
+                     visual_mask: Optional[torch.Tensor] = None,
+                     masked_lm_labels: Optional[torch.Tensor] = None,
+                     image_text_alignment: Optional[torch.Tensor] = None,
+                     cfg: VisualBERTConfig = VISUAL_BERT_VQA2
+                     ) -> Dict[str, torch.Tensor]:
+    """VisualBERTForPretraining.forward (visual_bert.py:233-280).
+
+    ``masked_lm_labels``: [B, S_text] text-side LM labels (-1 = ignore);
+    they are extended with -1 over the visual span exactly like
+    ``add_post_flatten_params`` (:455-465). Returns {"logits" [B, S,
+    vocab], "seq_relationship" [B, 2], "attn", "masked_lm_loss", "loss"}
+    — the loss is the mean CE over non-ignored positions (torch
+    ``CrossEntropyLoss(ignore_index=-1)``, :211), 0 when none is."""
+    x = embed(params, input_ids, token_type_ids, visual_embeddings,
+              visual_embeddings_type, cfg, image_text_alignment)
+    mask = _full_mask(input_mask, visual_embeddings, visual_mask, x.dtype)
+    hidden, attn = bert.encoder(params["encoder"], x, cfg.bert, mask)
+    # the default pooler, not the VQA '?'-token one
+    pooled = _pooler(params, hidden)
+    h = _transform(head["transform"], hidden, cfg.bert.layer_norm_eps)
+    logits = h @ params["embeddings"]["word"].T + head["decoder_bias"]
+    sr = head["seq_relationship"]
+    out = {"logits": logits, "seq_relationship": pooled @ sr["w"] + sr["b"],
+           "attn": attn}
+    if masked_lm_labels is not None:
+        B, S = hidden.shape[:2]
+        labels = torch.full((B, S), -1, dtype=torch.long,
+                            device=hidden.device)
+        labels[:, :masked_lm_labels.shape[1]] = masked_lm_labels.long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        valid = labels >= 0
+        picked = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+        loss = -(picked * valid).sum() / valid.sum().clamp(min=1)
+        out["masked_lm_loss"] = out["loss"] = loss
+    return out
+
+
+# ---------------------------------------------------------------------------
+# NLVR2 paired-image classification (visual_bert.py:321-365)
+# ---------------------------------------------------------------------------
+
+def init_nlvr2_head(seed: Union[int, torch.Generator] = 0,
+                    cfg: VisualBERTConfig = VISUAL_BERT_VQA2,
+                    num_labels: int = 2, device="cuda") -> Dict[str, Any]:
+    """training_head_type == "nlvr2": the classifier operates on the
+    CONCATENATED pooled pair, so its transform/classifier are sized
+    2·hidden (``self.bert.config.hidden_size *= 2``, :321-326)."""
+    gen = bert._generator(seed)
+    D2 = 2 * cfg.bert.hidden_size
+    nrm = lambda *shape: bert._normal(gen, device, *shape)
+    zeros = lambda *shape: torch.zeros(shape, device=device)
+    return {
+        "transform": {"w": nrm(D2, D2), "b": zeros(D2),
+                      "ln": {"scale": torch.ones(D2, device=device),
+                             "bias": zeros(D2)}},
+        "classifier": {"w": nrm(D2, num_labels), "b": zeros(num_labels)},
+    }
+
+
+def forward_nlvr2(params: Dict[str, Any], head: Dict[str, Any],
+                  input_ids: torch.Tensor, input_mask: torch.Tensor,
+                  visual_embeddings: torch.Tensor,
+                  token_type_ids: Optional[torch.Tensor] = None,
+                  visual_embeddings_type: Optional[torch.Tensor] = None,
+                  visual_mask: Optional[torch.Tensor] = None,
+                  image_text_alignment: Optional[torch.Tensor] = None,
+                  cfg: VisualBERTConfig = VISUAL_BERT_VQA2
+                  ) -> Dict[str, torch.Tensor]:
+    """VisualBERTForClassification.forward, nlvr2 path (:360-365): the
+    two images of a pair ride the batch axis (``input_ids`` [2B, S], rows
+    [:B] = img0, [B:] = img1 — the reference's ``2B·H → B·2H`` concat),
+    pooled with the default BertPooler, concatenated, then
+    transform+classifier. Returns {"scores": [B, num_labels], "attn"}."""
+    x = embed(params, input_ids, token_type_ids, visual_embeddings,
+              visual_embeddings_type, cfg, image_text_alignment)
+    mask = _full_mask(input_mask, visual_embeddings, visual_mask, x.dtype)
+    hidden, attn = bert.encoder(params["encoder"], x, cfg.bert, mask)
+    pooled = _pooler(params, hidden)
+    b = pooled.shape[0]
+    pooled = torch.cat([pooled[:b // 2], pooled[b // 2:]], dim=1)
+    h = _transform(head["transform"], pooled, cfg.bert.layer_norm_eps)
+    c = head["classifier"]
+    return {"scores": h @ c["w"] + c["b"], "attn": attn}
+
+
+# ---------------------------------------------------------------------------
+# bypass_transformer mode (VisualBERTBase.forward, visual_bert.py:107-131)
+# ---------------------------------------------------------------------------
+
+def init_bypass_layer(seed: Union[int, torch.Generator] = 0,
+                      cfg: VisualBERTConfig = VISUAL_BERT_VQA2,
+                      device="cuda") -> Dict[str, Any]:
+    """The ``additional_layer`` (one BertLayer) the bypass mode appends
+    (:58-60), stacked as a one-layer encoder."""
+    one = dataclasses.replace(cfg.bert, num_hidden_layers=1)
+    return bert.init_encoder_params(seed, one, device)
+
+
+def forward_bypass(params: Dict[str, Any],
+                   additional_layer: Dict[str, Any],
+                   input_ids: torch.Tensor, input_mask: torch.Tensor,
+                   visual_embeddings: torch.Tensor,
+                   token_type_ids: Optional[torch.Tensor] = None,
+                   visual_embeddings_type: Optional[torch.Tensor] = None,
+                   visual_mask: Optional[torch.Tensor] = None,
+                   image_text_alignment: Optional[torch.Tensor] = None,
+                   cfg: VisualBERTConfig = VISUAL_BERT_VQA2
+                   ) -> Dict[str, torch.Tensor]:
+    """``bypass_transformer=True`` (dormant in every shipped config, but
+    part of the model surface): the encoder sees ONLY the text span under
+    a text-only mask (:114-124), then one additional BertLayer runs over
+    [encoded_text ; visual_embedding_part] with the full mask (:125-130);
+    pooled = BertPooler on token 0. Returns {"sequence_output",
+    "pooled_output", "text_attn", "joint_attn"}."""
+    x = embed(params, input_ids, token_type_ids, visual_embeddings,
+              visual_embeddings_type, cfg, image_text_alignment)
+    text_length = input_ids.shape[1]
+    text_mask = bert.extended_attention_mask(input_mask, x.dtype)
+    hidden_t, text_attn = bert.encoder(params["encoder"], x[:, :text_length],
+                                       cfg.bert, text_mask)
+    full_mask = _full_mask(input_mask, visual_embeddings, visual_mask,
+                           x.dtype)
+    new_input = torch.cat([hidden_t, x[:, text_length:]], dim=1)
+    one = dataclasses.replace(cfg.bert, num_hidden_layers=1)
+    final, joint_attn = bert.encoder(additional_layer, new_input, one,
+                                     full_mask)
+    return {"sequence_output": final, "pooled_output": _pooler(params, final),
+            "text_attn": text_attn, "joint_attn": joint_attn}

@@ -13,7 +13,8 @@ Host-side masking draws from an explicit ``np.random.RandomState`` in the
 JAX package's order, so one seed gives the same masks there and here; the
 step is ``models/lxmert_pretrain.pretrain_loss`` + BertAdam over the model
 and the heads together. The dataset is duck-typed: ``len``, indexing to an
-example dict, and ``random_feat()``.
+example dict, and ``random_feat()``, as
+``data/lxmert_pretrain_data.LXMERTPretrainData`` gives.
 """
 
 from __future__ import annotations

@@ -454,6 +454,41 @@ def visual_bert_from_jax_numpy(tree: Mapping[str, Any], cfg,
     return _to_torch(tree, device)
 
 
+def visual_bert_pretrain_head_from_jax_numpy(tree: Mapping[str, Any], cfg,
+                                            device="cuda") -> Dict[str, Any]:
+    """The JAX ``models/visual_bert.init_pretrain_params`` tree (numpy
+    leaves) → the port's pretraining head on ``device``; ``cfg`` (a
+    ``models.visual_bert.VisualBERTConfig``) must fit the transform, the
+    LM bias and ``seq_relationship``."""
+    D = cfg.bert.hidden_size
+    return _heads_from_jax_numpy(
+        tree, {"transform": (D, D), "decoder_bias": (cfg.bert.vocab_size,),
+               "seq_relationship": (D, 2)}, device)
+
+
+def visual_bert_nlvr2_head_from_jax_numpy(tree: Mapping[str, Any], cfg,
+                                          device="cuda") -> Dict[str, Any]:
+    """The JAX ``models/visual_bert.init_nlvr2_head`` tree (numpy leaves)
+    → the port's NLVR2 head on ``device`` (sized 2·hidden, as ``cfg``
+    says)."""
+    D2 = 2 * cfg.bert.hidden_size
+    labels = np.shape(tree["classifier"]["w"])[-1]
+    return _heads_from_jax_numpy(
+        tree, {"transform": (D2, D2), "classifier": (D2, labels)}, device)
+
+
+def visual_bert_bypass_layer_from_jax_numpy(tree: Mapping[str, Any], cfg,
+                                            device="cuda") -> Dict[str, Any]:
+    """The JAX ``models/visual_bert.init_bypass_layer`` tree (a one-layer
+    stacked BERT encoder, numpy leaves) → the port's on ``device``."""
+    got = (len(tree["attn"][0]), tuple(np.shape(tree["mlp"]["w1"])[1:]))
+    want = (1, (cfg.bert.hidden_size, cfg.bert.intermediate_size))
+    if got != want:
+        raise ValueError(f"(layers, mlp w1) {got} do not fit the config's "
+                         f"{want}")
+    return _to_torch(tree, device)
+
+
 # ---------------------------------------------------------------------------
 # CLIP (the OpenAI CLIP state dict; hyperparameters sniffed from shapes as
 # the reference's build_model does)
