@@ -236,6 +236,23 @@
    updates of ``train/lxmert_pretrain_loop`` over ``LXMERTPretrainData``
    and ``AnswerTable`` at 9/5/5 layers on the card and at 2/2/2 layers
    card against CPU.
+22. the mmf models group (every kernel counter at 0 before it and 0
+   after): each family of the MMF models (``mmf_model_families``: Pythia
+   and its question-only, image-only and multi-head variants, LoRRA, BAN,
+   TopDownBottomUp, BUTD, CNN-LSTM, M4C and m4c_captioner, MMBT and
+   MMF-Transformer with ResNet-152 on 224×224 images pooled to one
+   feature (``num_output_features: 1`` in both configs), ViLBERT,
+   MoVie+MCAN, lxmert-old and its pretraining losses, the five fusions,
+   MMFBert) at its published widths with seeded random weights, B = 32:
+   forwards/s (decoded sequences/s for BUTD's 20 greedy steps and M4C's
+   12), the FLOPs of one call (``torch.utils.flop_counter``) and the rate
+   they make, peak memory and a profile line; each at a reduced depth
+   (1-2 layers, or its full widths where it has no depth) at B = 2, card
+   against CPU within ``SCORE_TOL``, decoded indices equal; then
+   ``MMBTGridHMInterface.classify`` at full width on the card and the CPU
+   (the same label, confidence within 1e-4), ``butd_decode`` with 5 beams
+   on both (the same tokens), and ``setup_imports`` (29 model and 5
+   explainer names).
 
 Each phase prints its seconds.
 
@@ -246,6 +263,7 @@ a CUDA device it exits with 2 before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -254,6 +272,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Any, Optional
 
 import torch
 
@@ -3716,7 +3735,7 @@ def mmf_lxmert_pretrain_phase(files: dict, card: str) -> None:
     assert rel <= PRETRAIN_REL, (got, want)
 
 
-def mmf_phases(mods, cli, card: str, timed_phase) -> None:
+def mmf_phases(mods, cli, card: str, timed_phase) -> dict:
     """The MMF phase group, every kernel counter at 0 before it; they must
     read 0 after: VisualBERT and LXMERT run their plain forwards here."""
     reset_counts(mods)
@@ -3736,6 +3755,481 @@ def mmf_phases(mods, cli, card: str, timed_phase) -> None:
     print(f"mmf phases (predict, losses, pretrain): "
           f"{time.perf_counter() - t0:.1f} s; kernel launches {launched}",
           flush=True)
+    assert not any(launched.values()), launched
+    return files
+
+
+# ---------------------------------------------------------------------------
+# the MMF models: every family of models/{mmf_zoo, fusions,
+# mmf_bert, mmbt, mmf_transformer, vilbert, m4c, movie_mcan, lxmert_mmf} at
+# its published widths; plain PyTorch (cuBLAS, cuDNN), no kernel of the port
+# ---------------------------------------------------------------------------
+
+MMF_B = 32            # the batch of every family's rate
+# The vocabulary files are not in the repo, so word tables take these row
+# counts, from the files' names where a name gives one (a table's size
+# moves memory, not the rate): vqa2 / textvqa "vocabulary_100k.txt", coco
+# "vocabulary_captioning_thresh5.txt" (no size in its name: 10,000 stands
+# in), bert-base-uncased, "answers_vqa.txt" (3,129 answers) and
+# "answers_textvqa_8k.txt".
+V_WORDS, V_CAPTION, V_BERT = 100_000, 10_000, 30_522
+N_VQA, N_TEXTVQA = 3_129, 8_000
+
+
+@dataclasses.dataclass
+class MmfFamily:
+    """One row of the mmf models group: ``init(seed, cfg, device)``,
+    ``inputs(B, gen)`` (CPU tensors), ``run(params, cfg, inputs)`` (a tensor
+    or a dict of them). ``small`` is the config of the card-vs-CPU check
+    (a reduced depth; the same config where the family has no depth), and
+    ``shares`` names a family whose parameters this one runs."""
+    name: str
+    init: Any
+    cfg: Any
+    small: Any
+    inputs: Any
+    run: Any
+    shapes: str
+    decoded: bool = False
+    shares: Optional[str] = None
+
+
+def mmf_model_families() -> list:
+    """The families at their published widths (``configs/<family>/*.yaml``,
+    ``configs/models/<family>/`` and the config dataclasses' defaults)."""
+    from transformer_mm_explainability_tpu_torch.models import encoders as E
+    from transformer_mm_explainability_tpu_torch.models import fusions as F
+    from transformer_mm_explainability_tpu_torch.models import interfaces as I
+    from transformer_mm_explainability_tpu_torch.models import lxmert as lx
+    from transformer_mm_explainability_tpu_torch.models import lxmert_mmf as LO
+    from transformer_mm_explainability_tpu_torch.models import m4c as M4C
+    from transformer_mm_explainability_tpu_torch.models import mmbt as MB
+    from transformer_mm_explainability_tpu_torch.models import mmf_bert as MFB
+    from transformer_mm_explainability_tpu_torch.models import (
+        mmf_transformer as MT)
+    from transformer_mm_explainability_tpu_torch.models import mmf_zoo as Z
+    from transformer_mm_explainability_tpu_torch.models import movie_mcan as MM
+    from transformer_mm_explainability_tpu_torch.models import resnet
+    from transformer_mm_explainability_tpu_torch.models import vilbert as V
+
+    rep = dataclasses.replace
+    rnd = lambda gen, *s: torch.rand(s, generator=gen)
+    nrm = lambda gen, *s: torch.randn(s, generator=gen)
+    ids = lambda gen, B, T, n, lo=1: torch.randint(lo, n, (B, T),
+                                                   generator=gen)
+
+    def bert_text(gen, B, T):
+        """[CLS] words [SEP] and pads: lengths from T/2 to T."""
+        lens = torch.randint(T // 2, T + 1, (B,), generator=gen)
+        x = ids(gen, B, T, V_BERT, lo=1000)
+        x[:, 0] = 101
+        x[torch.arange(B), lens - 1] = 102
+        mask = (torch.arange(T)[None] < lens[:, None]).long()
+        return x * mask, mask
+
+    def vqa(B, gen):
+        return {"tokens": ids(gen, B, 14, V_WORDS),
+                "feats": [rnd(gen, B, 100, 2048) for _ in range(2)],
+                "locs": torch.randint(10, 101, (B,), generator=gen)}
+
+    def lorra(B, gen):
+        x = vqa(B, gen)
+        x.update(context=nrm(gen, B, 50, 300),
+                 order=torch.eye(50).expand(B, 50, 50).contiguous(),
+                 context_locs=torch.randint(1, 51, (B,), generator=gen))
+        return x
+
+    def m4c(B, gen):
+        return {"txt_inds": ids(gen, B, 20, V_BERT, lo=1000),
+                "txt_len": torch.randint(5, 21, (B,), generator=gen),
+                "obj_fc6": rnd(gen, B, 100, 2048),
+                "obj_bbox": rnd(gen, B, 100, 4),
+                "obj_nums": torch.randint(10, 101, (B,), generator=gen),
+                "ocr_fasttext": nrm(gen, B, 50, 300),
+                "ocr_phoc": rnd(gen, B, 50, 604),
+                "ocr_fc6": rnd(gen, B, 50, 2048),
+                "ocr_order": torch.eye(50).expand(B, 50, 50).contiguous(),
+                "ocr_bbox": rnd(gen, B, 50, 4),
+                "ocr_nums": torch.randint(1, 51, (B,), generator=gen)}
+
+    def memes(B, gen):
+        x, mask = bert_text(gen, B, 128)
+        return {"images": rnd(gen, B, 3, 224, 224), "input_ids": x,
+                "input_mask": mask,
+                "segment_ids": torch.zeros_like(x)}
+
+    def with_resnet(init):
+        def go(seed, cfg, device):
+            model_cfg, stages = cfg
+            return {"enc": resnet.init_params(seed, stages=stages,
+                                              device=device),
+                    "model": init(seed + 1, model_cfg, device)}
+        return go
+
+    def mmbt_run(p, c, x):
+        iface = I.MMBTGridHMInterface(
+            {"mmbt": p["model"], "image_encoder": p["enc"]}, c[0], None,
+            image_encoder=E.ResNet152ImageEncoder(
+                {"num_output_features": 1}), device=x["images"].device)
+        return iface.probabilities(x["images"], x["input_ids"],
+                                   x["input_mask"], x["segment_ids"])
+
+    def mmft_run(p, c, x):
+        grid = E.ResNet152ImageEncoder({"num_output_features": 1}).apply(
+            p["enc"], x["images"])
+        return MT.mmf_transformer_forward(p["model"], c[0],
+                                          [x["input_ids"], grid],
+                                          [x["input_mask"], None])
+
+    def vilbert(B, gen):
+        x, mask = bert_text(gen, B, 20)
+        return {"input_txt": x, "attention_mask": mask,
+                "image_feature": rnd(gen, B, 101, 2048),
+                "image_location": rnd(gen, B, 101, 5)}
+
+    def lxmert(B, gen, pretraining=False):
+        x, mask = bert_text(gen, B, 20)
+        batch = {"input_ids": x, "input_mask": mask,
+                 "segment_ids": torch.zeros_like(x),
+                 "image_feature_0": rnd(gen, B, 36, 2048),
+                 "bbox": rnd(gen, B, 36, 4)}
+        if pretraining:
+            lm = ids(gen, B, 20, V_BERT, lo=1000)
+            lm[rnd(gen, B, 20) > 0.15] = -1
+            batch.update(masked_lm_labels=lm,
+                         matched_label=torch.randint(0, 2, (B,),
+                                                     generator=gen),
+                         obj_labels=rnd(gen, B, 36, 1600),
+                         masked_image_labels=(rnd(gen, B, 36) < 0.15).long(),
+                         ans=rnd(gen, B, N_VQA))
+        return batch
+
+    def hm_text(B, gen):
+        x, mask = bert_text(gen, B, 128)
+        return {"text": x, "input_mask": mask, "modal": rnd(gen, B, 1, 2048)}
+
+    fus = F.FusionConfig()
+    bow = F.FusionConfig(text_encoder="embedding")
+    fus1 = rep(fus, num_hidden_layers=1)
+    R152 = E.RESNET152_STAGES
+    lxo = LO.LxmertOldConfig(lxmert=lx.LXMERT_VQA, training_head_type="vqa2",
+                             num_labels=N_VQA)
+    lx2 = rep(lx.LXMERT_VQA, l_layers=2, x_layers=2, r_layers=2)
+    lxp = rep(lxo, training_head_type="pretraining")
+    vil = V.ViLBERTConfig()
+    vil2 = rep(vil, num_hidden_layers=2, v_num_hidden_layers=2,
+               v_biattention_id=(0, 1), t_biattention_id=(1, 2))
+    pythia = Z.PythiaConfig(vocab_size=V_WORDS, num_answers=N_VQA)
+    mh = Z.PythiaMultiHeadConfig(vocab_size=V_WORDS, num_answers=N_VQA)
+    lor = Z.LorraConfig(vocab_size=V_WORDS, num_answers=N_VQA)
+    ban = Z.BanConfig(vocab_size=V_WORDS, num_answers=N_VQA)
+    tdbu = Z.TdbuConfig(vocab_size=V_WORDS, num_answers=N_VQA)
+    butd = Z.ButdConfig(vocab_size=V_CAPTION)
+    cnn = Z.CnnLstmConfig()
+    m4 = M4C.M4CConfig(vocab_size=V_BERT, num_fixed_answers=N_TEXTVQA)
+    mmbt = (MB.MMBTConfig(), R152)
+    mmft = (MT.MMFTransformerConfig(modalities=(   # defaults.yaml:11-30
+        MT.Modality("text", "text", 0),
+        MT.Modality("image", "image", 1, embedding_dim=2048,
+                    position_dim=1))), R152)
+    mcan = MM.MovieMcanConfig(vocab_size=V_WORDS, num_answers=N_VQA)
+    mfb = MFB.MMFBertConfig()
+    pyt = "14 words, two 100×2048 box streams, 3,129 answers"
+    return [
+        MmfFamily("pythia", Z.init_pythia, pythia, pythia, vqa,
+                  lambda p, c, x: Z.pythia_forward(
+                      p, c, x["tokens"], x["feats"], [x["locs"]] * 2),
+                  f"text 1024×2 glimpses, combine 5,000; {pyt}"),
+        MmfFamily("pythia_question_only", Z.init_pythia, pythia, pythia, vqa,
+                  lambda p, c, x: Z.pythia_question_only_forward(
+                      p, c, x["tokens"]), pyt, shares="pythia"),
+        MmfFamily("pythia_image_only", Z.init_pythia, pythia, pythia, vqa,
+                  lambda p, c, x: Z.pythia_image_only_forward(
+                      p, c, x["tokens"], x["feats"], [x["locs"]] * 2),
+                  pyt, shares="pythia"),
+        MmfFamily("multihead", Z.init_pythia_multihead, mh, mh, vqa,
+                  lambda p, c, x: Z.pythia_multihead_forward(
+                      p, c, x["tokens"], x["feats"]),
+                  f"projection 1,024, 4 heads; {pyt}"),
+        MmfFamily("lorra", Z.init_lorra, lor, lor, lorra,
+                  lambda p, c, x: Z.lorra_forward(
+                      p, c, x["tokens"], x["feats"], x["context"],
+                      x["order"], [x["locs"]] * 2, x["context_locs"]),
+                  f"{pyt}; 50 OCR tokens × (300 + 50)"),
+        MmfFamily("ban", Z.init_ban, ban, ban, vqa,
+                  lambda p, c, x: Z.ban_forward(p, c, x["tokens"],
+                                                x["feats"][0]),
+                  "GRU 1,280, 4 glimpses; 14 words, 100×2048 boxes, "
+                  "3,129 answers"),
+        MmfFamily("top_down_bottom_up", Z.init_tdbu, tdbu, tdbu, vqa,
+                  lambda p, c, x: Z.tdbu_forward(p, c, x["tokens"],
+                                                 x["feats"][0]),
+                  "14 words, 100×2048 boxes, 3,129 answers"),
+        MmfFamily("butd", Z.init_butd, butd, butd,
+                  lambda B, gen: {"feat": rnd(gen, B, 100, 2048)},
+                  lambda p, c, x: Z.butd_forward(p, c, x["feat"]),
+                  "hidden 1,024, attention 1,024; 100×2048 boxes, greedy "
+                  "20 steps over 10,000 words", decoded=True),
+        MmfFamily("cnn_lstm", Z.init_cnn_lstm, cnn, cnn,
+                  lambda B, gen: {"tokens": ids(gen, B, 14, 100),
+                                  "image": rnd(gen, B, 3, 320, 448)},
+                  lambda p, c, x: Z.cnn_lstm_forward(p, c, x["tokens"],
+                                                     x["image"]),
+                  "six convs 7/5/5/5/5/1 to 10×5×7, BiLSTM 50; 3×320×448 "
+                  "images"),
+        MmfFamily("m4c", M4C.init_m4c, m4,
+                  rep(m4, text_bert_layers=1, mmt_layers=1), m4c,
+                  lambda p, c, x: M4C.m4c_forward(p, c, **x, dec_steps=12),
+                  "hidden 768, text-BERT 3, MMT 4; 20 words, 100 objects, "
+                  "50 OCR tokens, 8,000 answers, greedy 12 steps",
+                  decoded=True),
+        MmfFamily("m4c_captioner", M4C.init_m4c, m4,
+                  rep(m4, text_bert_layers=1, mmt_layers=1), m4c,
+                  lambda p, c, x: M4C.m4c_forward(p, c, **x, dec_steps=12,
+                                                  remove_unk_idx=1),
+                  "as m4c, <unk> (1) removed", decoded=True, shares="m4c"),
+        MmfFamily("mmbt", with_resnet(MB.init_mmbt), mmbt,
+                  (rep(mmbt[0], num_hidden_layers=1), (1, 1, 1, 1)), memes,
+                  mmbt_run, "BERT-base, ResNet-152 on 3×224×224, 128 "
+                  "tokens, 2 labels (probabilities)"),
+        MmfFamily("mmf_transformer", with_resnet(MT.init_mmf_transformer),
+                  mmft, (rep(mmft[0], num_hidden_layers=1), (1, 1, 1, 1)),
+                  memes, mmft_run, "BERT-base over 128 tokens + the pooled "
+                  "ResNet-152 feature of 3×224×224, 2 labels"),
+        MmfFamily("vilbert", V.init_vilbert, vil, vil2, vilbert,
+                  lambda p, c, x: V.vilbert_for_classification(
+                      p, c, x["input_txt"], x["image_feature"],
+                      x["image_location"],
+                      attention_mask=x["attention_mask"]),
+                  "12 text / 6 visual layers, bi-attention 1,024; 20 "
+                  "words, 101×2048 regions, 3,129 answers"),
+        MmfFamily("movie_mcan", MM.init_movie_mcan, mcan,
+                  rep(mcan, num_layers=1, cbn_num_layers=1),
+                  lambda B, gen: {"tokens": ids(gen, B, 14, V_WORDS),
+                                  "grid": rnd(gen, B, 2048, 14, 14)},
+                  lambda p, c, x: MM.movie_mcan_forward(p, c, x["tokens"],
+                                                        x["grid"]),
+                  "hidden 1,024, 6 MCAN layers, 4 MoVie bottlenecks; 14 "
+                  "words, a 2048×14×14 grid, 3,129 answers"),
+        MmfFamily("lxmert-old", LO.init_params, lxo,
+                  rep(lxo, lxmert=lx2), lxmert,
+                  lambda p, c, x: LO.forward(p, x, c)["scores"],
+                  "9/5/5 layers, hidden 768; 20 words, 36×2048 boxes, "
+                  "3,129 answers"),
+        MmfFamily("lxmert-old pretraining", LO.init_params, lxp,
+                  rep(lxp, lxmert=lx2),
+                  lambda B, gen: lxmert(B, gen, pretraining=True),
+                  lambda p, c, x: LO.forward(p, x, c),
+                  "9/5/5 layers; masked LM, matching, object, feature and "
+                  "answer losses"),
+        MmfFamily("concat_bert", F.init_concat, fus, fus1, hm_text,
+                  lambda p, c, x: F.concat_forward(
+                      p, c, x["text"], x["modal"], x["input_mask"]),
+                  "BERT-base over 128 tokens + 1×2048, 2 labels"),
+        MmfFamily("concat_bow", F.init_concat, bow, bow, hm_text,
+                  lambda p, c, x: F.concat_forward(p, c, x["text"],
+                                                   x["modal"]),
+                  "bag of 128 words (768) + 1×2048, 2 labels"),
+        MmfFamily("late_fusion", F.init_late_fusion, fus, fus1, hm_text,
+                  lambda p, c, x: F.late_fusion_forward(
+                      p, c, x["text"], x["modal"], x["input_mask"]),
+                  "BERT-base over 128 tokens; 1×2048, 2 labels"),
+        MmfFamily("unimodal_text", F.init_unimodal_text, fus, fus1, hm_text,
+                  lambda p, c, x: F.unimodal_text_forward(
+                      p, c, x["text"], x["input_mask"]),
+                  "BERT-base over 128 tokens, 2 labels"),
+        MmfFamily("unimodal_image", F.init_unimodal_image, fus, fus,
+                  hm_text,
+                  lambda p, c, x: F.unimodal_image_forward(p, c, x["modal"]),
+                  "1×2048, 2 labels"),
+        MmfFamily("mmf_bert", MFB.init_mmf_bert, mfb, mfb,
+                  lambda B, gen: dict(zip(
+                      ("input_ids", "input_mask"), bert_text(gen, B, 20)),
+                      feats=[rnd(gen, B, 100, 2048)]),
+                  lambda p, c, x: MFB.mmf_bert_forward(
+                      p, c, x["input_ids"], x["input_mask"],
+                      torch.zeros_like(x["input_ids"]), x["feats"]),
+                  "hidden 768; 20 words, 100×2048 boxes, 3,129 answers"),
+    ]
+
+
+def _mmf_check(name: str, got, want, decoded: bool) -> str:
+    """Card against CPU at ``SCORE_TOL`` (decoded sequences: the argmax
+    indices equal) → a max|Δ| summary."""
+    if isinstance(want, dict):
+        return "; ".join(f"{k} {_mmf_check(name, got[k], want[k], decoded)}"
+                         for k in sorted(want))
+    assert got.is_cuda and not want.is_cuda, name
+    got = got.cpu()
+    assert torch.isfinite(want).all(), name
+    if decoded:
+        assert torch.equal(got.argmax(-1), want.argmax(-1)), name
+    torch.testing.assert_close(got, want, **SCORE_TOL)
+    return f"max|Δ| {float((got - want).abs().max()):.2e}"
+
+
+def mmf_models_phase(card: str) -> None:
+    """Each MMF model family's forward at its published widths on the card
+    (seeded random weights, nothing cut): items/s at B = 32 (forwards, or
+    decoded sequences for BUTD and M4C), the FLOPs of one call
+    (``torch.utils.flop_counter``) and the rate they make, peak memory and
+    a profile; then the family at a reduced depth (1-2 layers, or its full
+    widths where it has no depth) at B = 2, card against CPU within
+    ``SCORE_TOL``, BUTD's and M4C's decoded indices equal."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from transformer_mm_explainability_tpu_torch._device import (
+        params_to, resolve_device)
+
+    dev = resolve_device("cuda")    # TF32 off in cuDNN's RNNs too
+    params = {}
+    for i, fam in enumerate(mmf_model_families()):
+        t0 = time.perf_counter()
+        if fam.shares is None:     # a family's sharers follow it
+            params.clear()
+            torch.cuda.empty_cache()
+            params[fam.name] = fam.init(100 + i, fam.cfg, dev)
+        p = params[fam.shares or fam.name]
+        x = params_to(fam.inputs(MMF_B, torch.Generator().manual_seed(i)),
+                      dev)
+
+        def call():
+            with torch.no_grad():
+                return fam.run(p, fam.cfg, x)
+
+        out, peak = _peak_gib(call)
+        lead = out if torch.is_tensor(out) else next(iter(out.values()))
+        assert all(torch.isfinite(v).all() for v in (
+            out.values() if isinstance(out, dict) else [out])), fam.name
+        with FlopCounterMode(display=False) as fc:
+            call()
+        flops = fc.get_total_flops()
+        call_ms = cuda_ms(call, iters=5, warmup=1)
+        rate = _rate(call, MMF_B)
+        unit = "decoded sequences/s" if fam.decoded else "forwards/s"
+        print(f"mmf models {fam.name}: {fam.shapes}; B={MMF_B} → "
+              f"{tuple(lead.shape)}: {rate:.1f} {unit}, {call_ms:.3f} ms a "
+              f"call, {flops / 1e9:.1f} GFLOP ({flops / call_ms / 1e9:.1f} "
+              f"TFLOP/s), peak {peak:.2f} GiB; on {card}", flush=True)
+        profile(f"mmf models {fam.name} B={MMF_B}", call, call_ms)
+        # the reduced depth, card against CPU
+        gen = torch.Generator().manual_seed(1000 + i)
+        if fam.shares is None:
+            small = fam.init(200 + i, fam.small, "cpu")
+        xs = fam.inputs(2, gen)
+        with torch.no_grad():
+            want = fam.run(small, fam.small, xs)
+            got = fam.run(params_to(small, dev), fam.small,
+                          params_to(xs, dev))
+        print(f"mmf models {fam.name} card vs CPU at the reduced depth, "
+              f"B=2: {_mmf_check(fam.name, got, want, fam.decoded)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del out, lead, x
+    params.clear()
+    torch.cuda.empty_cache()
+
+
+def butd_beams(devices) -> dict:
+    """``butd_decode`` with 5 beams and 20 steps at BUTD's full width on
+    each device; EOS is the token that greedy decoding of these weights
+    gives first, so that a beam completes at once and the result is a
+    real sequence, not the empty one (random weights rarely end a beam)."""
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.data import text_utils as T
+    from transformer_mm_explainability_tpu_torch.models import mmf_zoo as Z
+
+    cfg = Z.ButdConfig(vocab_size=V_CAPTION)
+    butd = Z.init_butd(34, cfg, "cpu")
+    feats = np.random.RandomState(35).rand(1, 100, 2048).astype(np.float32)
+    with torch.no_grad():
+        greedy = Z.butd_forward(butd, cfg, torch.as_tensor(feats)
+                                ).argmax(-1)[0]
+    vocab = T.VocabFromText([], only_unk_extra=False)
+    vocab.itos = [f"w{i}" for i in range(V_CAPTION)]
+    vocab.stoi = {w: i for i, w in enumerate(vocab.itos)}
+    vocab.PAD_INDEX, vocab.SOS_INDEX = 0, cfg.sos_index
+    vocab.EOS_INDEX = int(greedy[0])
+    vocab.UNK_INDEX = next(i for i in range(2, 5) if i != vocab.EOS_INDEX)
+    toks = {}
+    for device in devices:
+        t0 = time.perf_counter()
+        toks[device] = T.butd_decode(params_to(butd, device), cfg, feats,
+                                     T.BeamSearch(vocab, 5), max_steps=20)
+        print(f"mmf models butd_decode beam 5 on {device} (greedy "
+              f"{greedy.tolist()}, EOS {vocab.EOS_INDEX}): "
+              f"{toks[device].astype(int).tolist()} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        assert toks[device][0, -1] == vocab.EOS_INDEX, toks[device]
+    return toks
+
+
+def mmf_interface_phase(files: dict, card: str) -> None:
+    """``MMBTGridHMInterface.classify`` at full width (BERT-base, the 7×7
+    ResNet-152 grid) for one generated 224×224 image and a question of the
+    generated vocabulary, on the card and on the CPU: the same label, the
+    confidence within 1e-4; then ``data/text_utils.butd_decode`` with beam
+    search (5 beams, 20 steps) at BUTD's full width on the card and on the
+    CPU: the same tokens; then ``setup_imports`` on the card: the port's
+    registry resolves JAX ``zoo``'s 29 model and 5 explainer names."""
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch.core import env
+    from transformer_mm_explainability_tpu_torch.core.registry import registry
+    from transformer_mm_explainability_tpu_torch.data.processors import (
+        BertTokenizerProcessor)
+    from transformer_mm_explainability_tpu_torch.models import encoders as E
+    from transformer_mm_explainability_tpu_torch.models import interfaces as I
+    from transformer_mm_explainability_tpu_torch.models import mmbt as MB
+    from transformer_mm_explainability_tpu_torch.models import resnet
+
+    cfg = MB.MMBTConfig()
+    weights = {"mmbt": MB.init_mmbt(31, cfg, "cpu"),
+               "image_encoder": resnet.init_params(
+                   32, stages=E.RESNET152_STAGES, device="cpu")}
+    proc = BertTokenizerProcessor({"tokenizer_config": {
+        "vocab_path": files["vocab"]}, "max_seq_length": 128})
+    img = (np.random.RandomState(33).rand(224, 224, 3) * 255).astype(
+        np.uint8)
+    text = "what color is the dog on the table ?"
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        iface = I.MMBTGridHMInterface(weights, cfg, proc, device=device)
+        out[device] = iface.classify(img, text)
+        print(f"mmf models MMBTGridHMInterface.classify on {device}: "
+              f"{out[device]} in {time.perf_counter() - t0:.2f} s (weights "
+              f"moved in)", flush=True)
+    assert out["cuda"]["label"] == out["cpu"]["label"], out
+    assert abs(out["cuda"]["confidence"] - out["cpu"]["confidence"]) <= 1e-4
+
+    toks = butd_beams(("cuda", "cpu"))
+    np.testing.assert_array_equal(toks["cuda"], toks["cpu"])
+
+    env.setup_imports()
+    models, explainers = registry.list("model"), registry.list("explainer")
+    assert len(models) == 29 and len(explainers) == 5, (models, explainers)
+    assert registry.get("model", "lxmert-old").__name__.endswith(
+        "lxmert_mmf")
+    print(f"mmf models registry: {len(models)} model names, "
+          f"{len(explainers)} explainers ({', '.join(explainers)})",
+          flush=True)
+
+
+def mmf_models_phases(mods, files: dict, card: str, timed_phase) -> None:
+    """The mmf models group, every kernel counter at 0 before it; they must
+    read 0 after: the MMF models run plain PyTorch."""
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    timed_phase("mmf models", mmf_models_phase, card)
+    torch.cuda.empty_cache()
+    timed_phase("mmf models interface + registry", mmf_interface_phase,
+                files, card)
+    torch.cuda.empty_cache()
+    launched = counts(mods)
+    print(f"mmf models phases: {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches {launched}", flush=True)
     assert not any(launched.values()), launched
 
 
@@ -3895,9 +4389,12 @@ def main() -> int:
             other[name]["train (lxmert cli, detr, vit)"] = 0
     finally:
         dist.destroy_process_group()
-    mmf_phases(mods, cli, card, timed_phase)
+    files = mmf_phases(mods, cli, card, timed_phase)
     for name in KERNELS:
         other[name]["mmf (predict, losses, pretrain)"] = 0
+    mmf_models_phases(mods, files, card, timed_phase)
+    for name in KERNELS:
+        other[name]["mmf models"] = 0
     print(f"phases: {sum(phase_s.values()):.1f} s in all", flush=True)
     for name, n in launches.items():
         rows[name]["launches"] = n

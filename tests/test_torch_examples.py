@@ -5,8 +5,10 @@ Each also fails, rather than moving to the CPU, when asked for a card that
 is not there."""
 
 import importlib
+import importlib.util
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -89,6 +91,8 @@ def test_lxmert_perturbation_example(tmp_path):
     ("clip_explainability", ["IMG", "a cat"]),
     ("detr_explainability", ["IMG"]),
     ("lxmert_perturbation", ["--num-samples", "1"]),
+    ("mmf_zoo_vqa", []),
+    ("visual_bert_pretraining", ["--steps", "1"]),
 ])
 def test_examples_need_a_card_when_asked(name, args, demo_image):
     if torch.cuda.is_available():
@@ -97,3 +101,119 @@ def test_examples_need_a_card_when_asked(name, args, demo_image):
     main = importlib.import_module(f"{PKG}.{name}").main
     with pytest.raises(RuntimeError, match="CUDA"):
         main([*args, "--device", "cuda"])
+
+
+# --- the MMF examples against the JAX package's own scripts ----------------
+
+NUMBER = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?")
+
+
+def _jax_example(name):
+    """The repo's JAX example script ``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_example_{name}", REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _port_cfg(cfg, tmod):
+    """A JAX config dataclass → the port module's class of that name (a
+    nested BERT config too)."""
+    import dataclasses
+
+    from transformer_mm_explainability_tpu_torch.models import bert
+
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        kw[f.name] = (bert.BertConfig(**dataclasses.asdict(v))
+                      if dataclasses.is_dataclass(v) else v)
+    return getattr(tmod, type(cfg).__name__)(**kw)
+
+
+def _shared_init(monkeypatch, jmod, tmod, name, into):
+    """Replace the JAX example's ``jmod.name(key, cfg)`` by the port's
+    seeded draw of the same tree (``tmod.name(0, cfg)``, numpy leaves in
+    the JAX tree's classes), kept in ``into[name]`` for the port's run: a
+    compiled JAX random init costs more than the whole example."""
+    import jax
+    import jax.numpy as jnp
+    from _mmf_parity import to_jax_np
+
+    def drawn(key, cfg):
+        into[name] = to_jax_np(getattr(tmod, name)(0, _port_cfg(cfg, tmod),
+                                                   device="cpu"))
+        return jax.tree_util.tree_map(jnp.asarray, into[name])
+
+    monkeypatch.setattr(jmod, name, drawn)
+
+
+def same_printout(got: str, want: str, rel: float = 1e-4) -> None:
+    """The same lines with the numbers taken out, and each number within
+    ``rel`` (the printed losses carry four decimals)."""
+    keep = lambda text: [ln for ln in text.splitlines()
+                         if not ln.startswith("[synthetic")]
+    got, want = keep(got), keep(want)
+    assert [NUMBER.sub("#", ln) for ln in got] == \
+        [NUMBER.sub("#", ln).replace("Array(#, dtype=float32)", "#")
+         for ln in want]
+    for g_ln, w_ln in zip(got, want):
+        for g, w in zip(NUMBER.findall(g_ln), NUMBER.findall(w_ln)):
+            assert abs(float(g) - float(w)) <= rel * max(1.0,
+                                                         abs(float(w))), \
+                (g_ln, w_ln)
+
+
+def test_mmf_zoo_vqa_example_matches_jax(monkeypatch, capsys):
+    """The port's zoo tour prints the JAX tour's shapes, loss, accuracy and
+    model names from the same weights and inputs."""
+    from transformer_mm_explainability_tpu.models import mmf_zoo as JZ
+    from transformer_mm_explainability_tpu.models import movie_mcan as JMM
+
+    from transformer_mm_explainability_tpu_torch.examples import mmf_zoo_vqa
+
+    import jax
+
+    from transformer_mm_explainability_tpu_torch.models import mmf_zoo as TZ
+    from transformer_mm_explainability_tpu_torch.models import (
+        movie_mcan as TMM)
+
+    weights = {}
+    _shared_init(monkeypatch, JZ, TZ, "init_pythia", weights)
+    _shared_init(monkeypatch, JMM, TMM, "init_movie_mcan", weights)
+    # the script calls the MoVie forward op by op; one program is faster
+    monkeypatch.setattr(JMM, "movie_mcan_forward", jax.jit(
+        JMM.movie_mcan_forward, static_argnums=1,
+        static_argnames="training"))
+    _jax_example("mmf_zoo_vqa").main()
+    want = capsys.readouterr().out
+    assert mmf_zoo_vqa.main(["--device", "cpu"], weights={
+        "pythia": weights["init_pythia"],
+        "movie_mcan": weights["init_movie_mcan"]}) == 0
+    same_printout(capsys.readouterr().out, want)
+
+
+def test_visual_bert_pretraining_example_matches_jax(monkeypatch, capsys):
+    """Three AdamW steps of the port's pretraining example print the JAX
+    example's dataset size and masked-LM losses from the same weights."""
+    from transformer_mm_explainability_tpu.models import visual_bert as JVB
+
+    from transformer_mm_explainability_tpu_torch.examples import (
+        visual_bert_pretraining)
+
+    from transformer_mm_explainability_tpu_torch.models import (
+        visual_bert as TVB)
+
+    weights = {}
+    _shared_init(monkeypatch, JVB, TVB, "init_params", weights)
+    _shared_init(monkeypatch, JVB, TVB, "init_pretrain_params", weights)
+    monkeypatch.setattr(sys, "argv", ["visual_bert_pretraining",
+                                      "--steps", "3"])
+    _jax_example("visual_bert_pretraining").main()
+    want = capsys.readouterr().out
+    assert visual_bert_pretraining.main(
+        ["--steps", "3", "--device", "cpu"],
+        weights={"p": weights["init_params"],
+                 "h": weights["init_pretrain_params"]}) == 0
+    same_printout(capsys.readouterr().out, want)

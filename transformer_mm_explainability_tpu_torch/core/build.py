@@ -5,11 +5,10 @@ Counterpart of ``transformer_mm_explainability_tpu/core/build.py``
 (``VisualBERT/mmf/utils/build.py``): build_config(:22),
 build_trainer(:43), build_model(:61), build_dataset(:85),
 build_dataloader_and_sampler(:126), build_optimizer(:203),
-build_scheduler(:250), build_processors(:320) — every constructor
-resolved through ``core.registry`` namespaces instead of MMF's
-omegaconf plumbing. The classifier and encoder builders
-(build_classifier_layer, build_text_encoder, build_image_encoder,
-build_encoder) build MMF model layers and come with them (ROADMAP A5c).
+build_scheduler(:250), build_classifier_layer(:269),
+build_text_encoder(:276), build_image_encoder(:286), build_encoder(:296),
+build_processors(:320) — every constructor resolved through
+``core.registry`` namespaces instead of MMF's omegaconf plumbing.
 
 The "dataloader" is a host-side batch iterator producing collated numpy
 batches (``SampleList.to_device`` moves one to the card); sharding over
@@ -135,6 +134,84 @@ def build_scheduler(config: Dict[str, Any]):
             "defaulting to {}.")
     params = scheduler_config.get("params", {})
     return registry.get("scheduler", sched_type)(**params)
+
+
+def build_classifier_layer(config: Dict[str, Any], in_dim: int,
+                           out_dim: int, seed=0, device="cuda"):
+    """build.py:269-273 over ClassifierLayer (layers.py:99-123): ``(params,
+    fwd)`` of the requested classifier type, on ``device`` (cuda unless
+    the caller asks for the CPU)."""
+    import torch
+
+    from transformer_mm_explainability_tpu_torch._device import (
+        resolve_device)
+    from transformer_mm_explainability_tpu_torch.models import (
+        mmf_layers as L)
+
+    device = resolve_device(device)
+    ctype = config["type"]
+    kw = config.get("params", {})
+    if ctype == "weight_norm":
+        return (L.init_weight_norm_classifier(seed, in_dim, out_dim,
+                                              kw["hidden_dim"], device),
+                L.weight_norm_classifier_fwd)
+    if ctype == "logit":
+        return (L.init_logit_classifier(seed, in_dim, out_dim, **kw,
+                                        device=device),
+                L.logit_classifier_fwd)
+    if ctype == "mlp":
+        return (L.init_mlp_classifier(seed, in_dim, out_dim, **kw,
+                                      device=device),
+                L.mlp_classifier_fwd)
+    if ctype == "language_decoder":
+        return (L.init_language_decoder(seed, in_dim, out_dim, **kw,
+                                        device=device),
+                L.language_decoder_fwd)
+    if ctype == "triple_linear":
+        gen = L.generator(seed)
+        p = [L.init_linear(gen, in_dim, out_dim, device) for _ in range(3)]
+
+        def triple_fwd(p, x):
+            """TripleLinear (layers.py:674-691): a training input ``[B, 3,
+            D]`` gives each branch's head ``[B, 3, A]``, an eval input
+            ``[B, D]`` the first head's."""
+            if x.dim() == 3:
+                return torch.stack([L.linear_fwd(p[i], x[:, i])
+                                    for i in range(3)], dim=1)
+            return L.linear_fwd(p[0], x)
+
+        return p, triple_fwd
+    if ctype == "linear":
+        return L.init_linear(seed, in_dim, out_dim, device), L.linear_fwd
+    raise NotImplementedError("Unknown classifier type: %s" % ctype)
+
+
+def build_text_encoder(config: Dict[str, Any]):
+    """build.py:276-283."""
+    from transformer_mm_explainability_tpu_torch.models import encoders as E
+    return E.build_text_encoder(config["type"], config.get("params"))
+
+
+def build_image_encoder(config: Dict[str, Any],
+                        direct_features: bool = False):
+    """build.py:286-293."""
+    from transformer_mm_explainability_tpu_torch.models import encoders as E
+    if direct_features:
+        return E.build_image_feature_encoder(config["type"],
+                                             config.get("params", {}))
+    return E.build_image_encoder(config["type"], config.get("params"))
+
+
+def build_encoder(config: Dict[str, Any]):
+    """build.py:296-317: the registered encoder, from the {type, params}
+    or the structured {name, ...} config form."""
+    from transformer_mm_explainability_tpu_torch.models import (  # noqa: F401
+        encoders)  # registers the encoders
+    if "type" in config:
+        name, params = config["type"], config.get("params", {})
+    else:
+        name, params = config["name"], config
+    return registry.get("encoder", name)(params)
 
 
 def build_processors(processors_config: Dict[str, Any],

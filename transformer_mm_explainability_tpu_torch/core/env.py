@@ -16,11 +16,8 @@ Counterpart of ``transformer_mm_explainability_tpu/core/env.py``
 - ``import_files`` (:62-93): import every sibling .py of a file,
   optionally under a dotted package name.
 - ``setup_imports`` (:96-147): one-shot registration of every
-  built-in component the port has, guarded by the same ``imports_setup``
-  registry flag. The JAX package imports its ``zoo`` module, which needs
-  the MMF models (ROADMAP A5c); until they are ported this imports the
-  registering modules one by one and registers the three trainers as
-  ``zoo`` does.
+  built-in component, guarded by the same ``imports_setup`` registry
+  flag: one import of the port's ``zoo``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -88,35 +85,11 @@ def import_files(file_path: str,
                 importlib.import_module(import_name)
 
 
-# the modules whose imports register losses, metrics, processors,
-# builders, schedulers and optimizers; when the MMF models come (ROADMAP
-# A5c) this list gives way to one import of ``zoo``, as in the JAX package
-_REGISTERING = (
-    "core.losses", "core.metrics", "data.processors", "data.builders",
-    "data.extra_builders", "data.masked_datasets", "train.schedulers",
-    "train.trainer",
-)
-
-
 def setup_imports() -> None:
     """Register every built-in component, once (env.py:96-147)."""
     from transformer_mm_explainability_tpu_torch.core.registry import registry
 
     if registry.get_state("imports_setup"):
         return
-    for name in _REGISTERING:
-        importlib.import_module(
-            f"transformer_mm_explainability_tpu_torch.{name}")
-    from transformer_mm_explainability_tpu_torch.harness.pert_runner import (
-        LxmertPerturbationRunner,
-        VisualBertPerturbationRunner,
-    )
-    from transformer_mm_explainability_tpu_torch.train.trainer import Trainer
-
-    if "mmf" not in registry.list("trainer"):
-        registry.register_trainer("mmf")(Trainer)
-        # the reference's mmf_pert trainer == mmf trainer + the
-        # perturbation evaluation mixin; the runners play that role here
-        registry.register_trainer("mmf_pert")(VisualBertPerturbationRunner)
-        registry.register_trainer("lxmert_pert")(LxmertPerturbationRunner)
+    importlib.import_module("transformer_mm_explainability_tpu_torch.zoo")
     registry.set_state("imports_setup", True)

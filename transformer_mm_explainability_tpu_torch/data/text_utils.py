@@ -12,8 +12,7 @@ Re-design of ``VisualBERT/mmf/utils/text.py``: ``generate_ngrams``
 The decoders run on the host — beam bookkeeping is tiny numpy
 state; the model step runs once per decoding step on whatever beams
 remain. Randomness (nucleus) uses an explicit RandomState.
-``butd_decode``, which drives the BUTD model of ``models/mmf_zoo``, comes
-with the MMF models (ROADMAP A5c).
+``butd_decode`` drives the BUTD model of ``models/mmf_zoo`` with them.
 """
 
 from __future__ import annotations
@@ -265,3 +264,50 @@ class NucleusSampling(TextDecoder):
 def _logsumexp(x: np.ndarray) -> np.ndarray:
     m = x.max(axis=-1, keepdims=True)
     return m + np.log(np.exp(x - m).sum(axis=-1, keepdims=True))
+
+
+def butd_decode(params, cfg, image_feature_0: np.ndarray,
+                decoder: TextDecoder, max_steps: int = 20) -> np.ndarray:
+    """Drive a decoder over ``models/mmf_zoo``'s BUTD step (butd.py:105-116,
+    the 'beam_search' / 'nucleus_sampling' inference types) on the device
+    that holds ``params``; the decoder's bookkeeping stays on the host."""
+    import torch
+
+    from transformer_mm_explainability_tpu_torch.models.mmf_zoo import (
+        _butd_step, _image_encoder_fwd)
+
+    dev = params["word_embedding"].device
+    on_dev = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    host = lambda t: t.cpu().numpy()
+    with torch.no_grad():
+        feat_full = host(_image_encoder_fwd(
+            params["encoder"], on_dev(np.asarray(image_feature_0,
+                                                 np.float32)),
+            "finetune"))
+        feats = decoder.init_batch(feat_full)
+        k0, H = feats.shape[0], cfg.hidden_dim
+        zeros = lambda: np.zeros((k0, H), np.float32)
+        data = {"texts": np.full((k0, 1), cfg.sos_index, np.int64),
+                "state": {"td_hidden": (zeros(), zeros()),
+                          "lm_hidden": (zeros(), zeros())},
+                "feats": feats}
+        for t in range(max_steps):
+            h1, c1 = data["state"]["td_hidden"]
+            h2, c2 = data["state"]["lm_hidden"]
+            logits, h1, c1, h2, c2 = _butd_step(
+                params, on_dev(data["feats"]), on_dev(data["texts"][:, 0]),
+                on_dev(h1), on_dev(c1), on_dev(h2), on_dev(c2))
+            data["state"] = {"td_hidden": (host(h1), host(c1)),
+                             "lm_hidden": (host(h2), host(c2))}
+            prev_n = data["texts"].shape[0]
+            finished, data, next_n = decoder.decode(t, data, host(logits))
+            if finished:
+                break
+            # the beams shrank: drop the finished beams' feature rows, as
+            # the reference's image_feature_0[incomplete_inds]
+            # (text.py:361-362)
+            if next_n != prev_n:
+                keep = getattr(decoder, "last_incomplete",
+                               np.arange(next_n))
+                data["feats"] = data["feats"][keep]
+    return decoder.get_result()

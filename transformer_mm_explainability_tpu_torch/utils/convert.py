@@ -788,3 +788,29 @@ def detr_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         sd[f"bbox_embed.layers.{i}.weight"] = t(lp["w"].T)
         sd[f"bbox_embed.layers.{i}.bias"] = t(lp["b"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the MMF model families (mmf_layers, fusions, mmf_bert, mmbt,
+# mmf_transformer, vilbert, m4c, movie_mcan, lxmert_mmf, mmf_zoo and the
+# ResNet-152 grid encoder of models/encoders)
+# ---------------------------------------------------------------------------
+
+MMF_FAMILIES = ("mmf_layers", "fusions", "mmf_bert", "mmbt",
+                "mmf_transformer", "vilbert", "m4c", "movie_mcan",
+                "lxmert_mmf", "mmf_zoo", "resnet")
+
+
+def mmf_from_jax_numpy(tree: Mapping[str, Any], family: str,
+                       device="cuda") -> Dict[str, Any]:
+    """A JAX MMF-family params tree (numpy leaves) → the port's tree on
+    ``device``. The port keeps these families' JAX layout leaf for leaf:
+    linears ``[out, in]`` where the JAX module has them so, weight-norm
+    ``(v, g)``, and the OIHW kernels of ``movie_mcan`` and ``conv_net``
+    (torch's layout on both sides). Only ``family="resnet"`` (the
+    ResNet-152 trunk, HWIO in the JAX package) turns its kernels to OIHW,
+    channels_last."""
+    if family not in MMF_FAMILIES:
+        raise ValueError(f"unknown MMF family {family!r}; one of "
+                         f"{MMF_FAMILIES}")
+    return _to_torch(tree, device, hwio=family == "resnet")
