@@ -202,6 +202,23 @@
    example launches the four block kernels 12 times each,
    ``extract_features`` RoIPool once per image (its TSV read back), the
    others no kernel.
+19a. data-tools phase (every kernel counter at 0 before each tool, files
+   under ``build/smoke/data_tools``): ``tools/extract_ocr_features
+   --device cuda`` at full width (FRCNN_VG, 800 px) over an imdb of three
+   generated images with 50 OCR boxes (degenerate and edge boxes among
+   them), 100 and none: RoIPool once per image with boxes and no other
+   launch, ``[K, 2048]`` finite features; on each image's own res4 map and
+   scaled boxes the kernel equal to ``roi_pool_plain`` to the bit, timed
+   beside it with its bound, OCR features/s; the features at stages
+   1-1-1-1 card against CPU (``SCORE_TOL``); ``tools/extract_grid_feats``
+   (ResNet-152, 8 images at 448×448, one grey) and
+   ``tools/extract_bert_embeddings`` (BERT-base, 64 questions, a
+   vocabulary the phase writes) with ``--device cuda``, no launch, images/s,
+   card against CPU at a reduced depth; ``native/`` built with g++ on the
+   card's host, its TSV reader against the Python parser on 256 × 36 ×
+   2048 (the same records on every key, both parse times),
+   ``BatchLoader`` against manual padding, ``build_phoc_batch`` against
+   ``phoc_py``.
 20. the training phases (after the sp and sharded-example phases, every
    kernel counter at 0 before them and 0 after: training runs the plain
    forwards): ``cli lxmert-finetune --device cuda`` on generated files at
@@ -2602,6 +2619,359 @@ def entry_points_phase(mods, card: str) -> None:
           f"{card}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# data tools (the OCR, grid and BERT extraction tools, native/)
+# --------------------------------------------------------------------------
+
+# (height, width, OCR boxes) of the generated images extract_ocr_features
+# reads: 50 boxes with degenerate and edge boxes among them, 100, none
+DT_OCR_IMAGES = ((600, 800, 50), (480, 720, 100), (500, 500, 0))
+DT_GRID_IMAGES = 8        # ResNet-152 grid features, 448×448
+DT_QUESTIONS = 64         # BERT-base [CLS] embeddings
+DT_TSV = (256, 36, 2048)  # images × boxes × feature dim of the native TSV
+DT_REDUCED = (1, 1, 1, 1)  # the depth of the card-against-CPU checks
+
+
+def _ocr_boxes(n: int, rng) -> "np.ndarray":
+    """``n`` normalized xyxy OCR boxes, the first six degenerate or on the
+    edge: zero width, zero height, the whole image, the bottom-right
+    corner, a point at each corner."""
+    import numpy as np
+
+    fixed = [[0.3, 0.2, 0.3, 0.6], [0.1, 0.5, 0.7, 0.5],
+             [0.0, 0.0, 1.0, 1.0], [0.9, 0.9, 1.0, 1.0],
+             [0.0, 0.0, 0.0, 0.0], [1.0, 1.0, 1.0, 1.0]]
+    xy = rng.rand(n, 2) * 0.9
+    wh = rng.rand(n, 2) * 0.25
+    drawn = np.concatenate([xy, np.minimum(xy + wh, 1.0)], 1)
+    return np.concatenate([fixed, drawn])[:n].astype(np.float32)
+
+
+def _features_close(label: str, got, want) -> float:
+    """Hold card features to the CPU's: max|Δ| ≤ atol + rtol · max|CPU|
+    with ``SCORE_TOL``'s numbers. The features are means of ReLU maps (or
+    LayerNorm outputs) with many entries near 0, where an elementwise
+    relative bar reads fp32 sums in another order as a fault: the first
+    card run of the OCR check missed it on 13 of 102,400 entries (max|Δ|
+    4.2e-5, relative 1.4e-3 at an entry near 0). Returns max|Δ|."""
+    import numpy as np
+
+    err = float(np.abs(got - want).max())
+    top = float(np.abs(want).max())
+    assert got.shape == want.shape and np.isfinite(got).all(), label
+    assert err <= SCORE_TOL["atol"] + SCORE_TOL["rtol"] * top, \
+        f"{label}: card vs CPU max|Δ| {err:.3e}, max|CPU| {top:.3e}"
+    return err
+
+
+def _ocr_phase(mods, work: pathlib.Path, card: str) -> int:
+    """``tools/extract_ocr_features`` at full width; returns RoIPool's
+    launches in the tool's run."""
+    import numpy as np
+    from PIL import Image
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.models import frcnn
+    from transformer_mm_explainability_tpu_torch.ops import (
+        roi_pool_pallas as rpool)
+    from transformer_mm_explainability_tpu_torch.tools import (
+        extract_ocr_features as eo)
+
+    rng = np.random.RandomState(17)
+    (work / "images").mkdir(parents=True, exist_ok=True)
+    imdb, pixels = [{"version": 1}], {}
+    for i, (h, w, k) in enumerate(DT_OCR_IMAGES):
+        img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+        Image.fromarray(img).save(work / "images" / f"ocr{i}.png")
+        pixels[f"ocr{i}"] = img
+        imdb.append({"image_id": f"ocr{i}", "image_path": f"ocr{i}.png",
+                     "feature_path": f"feats/ocr{i}.npy", "image_width": w,
+                     "image_height": h,
+                     "ocr_normalized_boxes": _ocr_boxes(k, rng).tolist(),
+                     "ocr_tokens": [f"w{j}" for j in range(k)]})
+    np.save(work / "ocr_imdb.npy", np.array(imdb, dtype=object))
+    with_boxes = sum(1 for *_, k in DT_OCR_IMAGES if k)
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    rc = eo.main(["--imdb_file", str(work / "ocr_imdb.npy"), "--image_dir",
+                  str(work / "images"), "--save_dir", str(work / "ocr"),
+                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = counts(mods)
+    print(f"tools/extract_ocr_features --device cuda (FRCNN_VG, 800 px, "
+          f"{[k for *_, k in DT_OCR_IMAGES]} OCR boxes): rc {rc} in "
+          f"{time.perf_counter() - t0:.1f} s; launches {got}", flush=True)
+    assert rc == 0
+    assert got == {k: with_boxes if k == "roi_pool_pallas" else 0
+                   for k in got}, got
+    written = {}
+    for i, (_, _, k) in enumerate(DT_OCR_IMAGES):
+        f = np.load(work / "ocr" / "feats" / f"ocr{i}.npy")
+        assert f.shape == (k, 2048) and np.isfinite(f).all(), f.shape
+        written[f"ocr{i}"] = f
+
+    # the same weights (the tool's default seed) for the kernel checks
+    dev = torch.device("cuda")
+    cfg = frcnn.FRCNN_VG
+    params = frcnn.init_params(0, cfg, dev)
+    for i, (h, w, k) in enumerate(DT_OCR_IMAGES):
+        if not k:
+            continue
+        name = f"ocr{i}"
+        boxes = imdb[i + 1]["ocr_normalized_boxes"]
+        px = np.array(boxes, np.float32).reshape(-1, 4) * [w, h, w, h]
+        with torch.no_grad():
+            feats, scaled = eo.ocr_pool_inputs(params, pixels[name], px, cfg)
+        call = lambda: rpool.roi_pool_pallas(feats, scaled, 14, 1 / 16)
+        plain = lambda: rpool.roi_pool_plain(feats, scaled, 14, 1 / 16)
+        pooled, want = call(), plain()
+        assert pooled.shape == (k, 14, 14, 1024)
+        assert torch.equal(pooled, want), \
+            f"roi_pool on OCR boxes: max|Δ| {(pooled - want).abs().max()}"
+        again = eo.ocr_roi_features(params, pixels[name], px, cfg)
+        torch.testing.assert_close(torch.from_numpy(again),
+                                   torch.from_numpy(written[name]),
+                                   **SCORE_TOL)
+        Hf, Wf, C = feats.shape
+        hs, he, ws, we = rpool.roi_bin_bounds(scaled, 14, 1 / 16, Hf, Wf)
+        bin_pixels = int(((he - hs)[:, :, None] * (we - ws)[:, None, :]
+                          ).sum())
+        t_ops = bin_pixels * C / FP32_FLOPS * 1e3
+        t_bytes = 4 * (Hf * Wf * C + 4 * k + k * 14 * 14 * C) \
+            / HBM_BYTES_S * 1e3
+        kern_ms, plain_ms = cuda_ms(call), cuda_ms(plain, iters=5)
+        dev_ms = ms_of(device_ms(call), "roi_pool_kernel")
+        # late in the whole smoke torch.profiler can miss a call's kernels
+        dev_txt = (f"{dev_ms:.4f} ms device" if dev_ms else
+                   "no device time recorded by the profiler")
+        per_s = _rate(lambda: eo.ocr_roi_features(params, pixels[name], px,
+                                                  cfg), k)
+        print(f"  OCR K = {k} on {h}×{w} (res4 map {Hf}×{Wf}×{C}): "
+              f"{per_s:.1f} OCR features/s (median of 3, image to host "
+              f"features); roi_pool on these boxes: kernel {kern_ms:.4f} ms "
+              f"(events; {dev_txt}), plain {plain_ms:.4f} ms, "
+              f"bound {max(t_ops, t_bytes):.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+              f"equal to the plain version; on {card}", flush=True)
+
+    # card against CPU, full widths at a reduced depth
+    small = dataclasses.replace(cfg, stages=DT_REDUCED)
+    cpu_params = frcnn.init_params(1, small, "cpu")
+    name, (h, w, _) = "ocr0", DT_OCR_IMAGES[0]
+    px = np.array(imdb[1]["ocr_normalized_boxes"],
+                  np.float32).reshape(-1, 4) * [w, h, w, h]
+    on_card = eo.ocr_roi_features(params_to(cpu_params, dev), pixels[name],
+                                  px, small)
+    on_cpu = eo.ocr_roi_features(cpu_params, pixels[name], px, small)
+    err = _features_close("OCR features", on_card, on_cpu)
+    print(f"  OCR features at stages {DT_REDUCED}, K = {len(px)}: card vs "
+          f"CPU max|Δ| {err:.3e} (max|CPU| "
+          f"{float(np.abs(on_cpu).max()):.3e})", flush=True)
+    return got["roi_pool_pallas"]
+
+
+def _grid_phase(mods, work: pathlib.Path, card: str) -> None:
+    """``tools/extract_grid_feats`` (ResNet-152 at 448×448) on the card."""
+    import numpy as np
+    from PIL import Image
+
+    from transformer_mm_explainability_tpu_torch.tools import (
+        extract_grid_feats as eg)
+
+    import shutil
+
+    rng = np.random.RandomState(18)
+    src = work / "grid_images"
+    src.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(work / "grid", ignore_errors=True)   # no file is skipped
+    for i in range(DT_GRID_IMAGES):
+        shape = (300 + 20 * i, 400) + (() if i == 1 else (3,))  # one grey
+        Image.fromarray((rng.rand(*shape) * 255).astype(np.uint8)).save(
+            src / f"COCO_val_{i:012d}.jpg")
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    rc = eg.main(["--data_dir", str(src), "--out_dir", str(work / "grid"),
+                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = counts(mods)
+    print(f"tools/extract_grid_feats --device cuda (ResNet-152, "
+          f"{DT_GRID_IMAGES} images at 448×448): rc {rc} in "
+          f"{time.perf_counter() - t0:.1f} s; launches {got}", flush=True)
+    assert rc == 0 and not any(got.values()), got
+    for i in range(DT_GRID_IMAGES):
+        f = np.load(work / "grid" / f"COCO_val_{i:012d}.npy")
+        assert f.shape == (1, 14, 14, 2048) and np.isfinite(f).all()
+    batch = np.stack([eg.preprocess_image(np.asarray(Image.open(p).convert(
+        "RGB"))) for p in sorted(src.glob("*.jpg"))])
+    trunk = eg.make_trunk(device="cuda")
+    per_s = _rate(lambda: trunk(batch), len(batch))
+    prof = device_ms(lambda: trunk(batch), iters=3)
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:3]
+    print(f"  grid trunk, one call at B = {len(batch)}: {ms_of(prof):.2f} ms "
+          f"on the device in {launches_of(prof):g} launches, "
+          f"{1e3 * len(batch) / per_s:.2f} ms of wall time; top kernels "
+          + "; ".join(f"{k[:70]} {t:.2f} ms × {n:g}" for k, (t, n) in top),
+          flush=True)
+    small = (eg.make_trunk(DT_REDUCED, seed=1, device="cuda"),
+             eg.make_trunk(DT_REDUCED, seed=1, device="cpu"))
+    on_card, on_cpu = (t(batch[:2]) for t in small)
+    err = _features_close("grid features", on_card, on_cpu)
+    print(f"  grid features: {per_s:.1f} images/s at B = {len(batch)} "
+          f"(ResNet-152, host batch to host features, median of 3); at "
+          f"stages {DT_REDUCED} card vs CPU max|Δ| {err:.3e} (max|CPU| "
+          f"{float(np.abs(on_cpu).max()):.3e}); on {card}", flush=True)
+
+
+def _bert_phase(mods, work: pathlib.Path, card: str) -> None:
+    """``tools/extract_bert_embeddings`` (BERT-base) on the card."""
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch._device import params_to
+    from transformer_mm_explainability_tpu_torch.data.tokenization import (
+        BertTokenizer)
+    from transformer_mm_explainability_tpu_torch.models import bert
+    from transformer_mm_explainability_tpu_torch.tools import (
+        extract_bert_embeddings as ebe)
+
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + MMF_WORDS
+    (work / "vocab.txt").write_text("\n".join(words) + "\n")
+    rng = np.random.RandomState(19)
+    imdb = [{"question_id": 1000 + i, "question_str": " ".join(
+        rng.choice(MMF_WORDS, rng.randint(3, 14))) + "?"}
+        for i in range(DT_QUESTIONS)]
+    np.save(work / "bert_imdb.npy", np.array([{"version": 1}] + imdb,
+                                             dtype=object))
+    (work / "bert").mkdir(exist_ok=True)
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    rc = ebe.main(["--imdb_path", str(work / "bert_imdb.npy"), "--out_path",
+                   str(work / "bert") + "/q_", "--vocab_file",
+                   str(work / "vocab.txt"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts(mods)
+    print(f"tools/extract_bert_embeddings --device cuda (BERT-base, "
+          f"{DT_QUESTIONS} questions): rc {rc} in {seconds:.1f} s with the "
+          f"weights' draw; launches {got}", flush=True)
+    assert rc == 0 and not any(got.values()), got
+    for q in imdb:
+        e = np.load(work / "bert" / f"q_{q['question_id']}.npy")
+        assert e.shape == (768,) and np.isfinite(e).all()
+    cfg = dataclasses.replace(bert.BERT_BASE, num_hidden_layers=2)
+    gen = torch.Generator().manual_seed(2)
+    params = {"emb": bert.init_embedding_params(gen, cfg, "cpu"),
+              "enc": bert.init_encoder_params(gen, cfg, "cpu")}
+    tok = BertTokenizer(str(work / "vocab.txt"))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        paths = ebe.extract_bert(params_to(params, dev), cfg, tok, imdb[:16],
+                                 str(work / "bert") + f"/{dev}_")
+        outs.append(np.stack([np.load(x) for x in paths]))
+    err = _features_close("BERT [CLS]", *outs)
+    print(f"  BERT at 2 layers, 16 questions: card vs CPU max|Δ| {err:.3e} "
+          f"(max|CPU| {float(np.abs(outs[1]).max()):.3e}); on {card}",
+          flush=True)
+
+
+def _native_phase(work: pathlib.Path, card: str) -> None:
+    """``native/`` on the card's host: the TSV reader against the Python
+    parser, ``BatchLoader`` against manual padding, PHOC."""
+    import base64
+
+    import numpy as np
+
+    from transformer_mm_explainability_tpu_torch import native
+    from transformer_mm_explainability_tpu_torch.data import vqa
+
+    t0 = time.perf_counter()
+    native.lib()
+    print(f"native/: built and loaded with g++ in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n_img, n_box, dim = DT_TSV
+    path = work / "objects.tsv"
+    rng = np.random.RandomState(20)
+    enc = lambda a: base64.b64encode(a.tobytes()).decode()
+    with open(path, "w") as f:
+        for i in range(n_img):
+            f.write("\t".join([
+                f"img{i}", str(400 + i), str(600 + i),
+                enc(rng.randint(0, 1600, n_box).astype(np.int64)),
+                enc(rng.rand(n_box).astype(np.float32)),
+                enc(rng.randint(0, 400, n_box).astype(np.int64)),
+                enc(rng.rand(n_box).astype(np.float32)), str(n_box),
+                enc((rng.rand(n_box, 4) * 400).astype(np.float32)),
+                enc(rng.rand(n_box, dim).astype(np.float32))]) + "\n")
+    mb = path.stat().st_size / 1e6
+    times, recs = {True: [], False: []}, {}
+    for use_native in (True, False, True, False):   # native, then Python
+        t0 = time.perf_counter()
+        recs[use_native] = vqa.load_obj_tsv(str(path), use_native=use_native)
+        times[use_native].append(time.perf_counter() - t0)
+    nat, py = recs[True], recs[False]
+    assert len(nat) == len(py) == n_img
+    for a, b in zip(nat, py):
+        assert list(a) == list(b)
+        for k, v in b.items():
+            if isinstance(v, np.ndarray):
+                assert a[k].dtype == v.dtype and np.array_equal(a[k], v), k
+            else:
+                assert a[k] == v, k
+    print(f"native TSV reader: {n_img} images × {n_box} boxes × {dim} "
+          f"({mb:.1f} MB, warm page cache): native "
+          f"{', '.join(f'{t:.3f}' for t in times[True])} s, Python csv "
+          f"{', '.join(f'{t:.3f}' for t in times[False])} s; records equal "
+          f"on every key", flush=True)
+    store = native.TsvStore(str(path))
+    order = np.random.RandomState(21).permutation(n_img)
+    loader = native.BatchLoader(store, order, batch=32, max_boxes=40)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    load_s = time.perf_counter() - t0
+    flat = 0
+    for b in batches:
+        for s in range(b["k"]):
+            r = py[order[flat]]
+            want = np.zeros((40, dim), np.float32)
+            want[:n_box] = r["features"]
+            wb = np.zeros((40, 4), np.float32)
+            wb[:n_box] = r["boxes"] / np.float32(
+                [r["img_w"], r["img_h"], r["img_w"], r["img_h"]])
+            assert np.array_equal(b["features"][s], want)
+            np.testing.assert_allclose(b["boxes"][s], wb, rtol=1e-6)
+            assert b["num_boxes"][s] == n_box
+            flat += 1
+    assert flat == n_img
+    loader.close()
+    store.close()
+    letters = list("abcdefghijklmnopqrstuvwxyz0123456789")
+    words = ["".join(rng.choice(letters, rng.randint(1, 12)))
+             for _ in range(2000)]
+    t0 = time.perf_counter()
+    batch = native.build_phoc_batch(words)
+    phoc_s = time.perf_counter() - t0
+    assert np.array_equal(batch, np.stack([native.phoc_py(w)
+                                           for w in words]))
+    print(f"BatchLoader: {len(batches)} batches of 32 (max_boxes 40) in "
+          f"{load_s:.3f} s, equal to manual padding; PHOC: "
+          f"build_phoc_batch of {len(words)} words in {phoc_s * 1e3:.2f} ms, "
+          f"equal to phoc_py; on {card}", flush=True)
+
+
+def data_tools_phase(mods, card: str) -> int:
+    """The data tools with ``--device cuda`` and ``native/`` on the card's
+    host, every kernel counter at 0 before each tool: returns RoIPool's
+    launches in ``extract_ocr_features``'s run."""
+    work = ROOT / "build" / "smoke" / "data_tools"
+    work.mkdir(parents=True, exist_ok=True)
+    n = _ocr_phase(mods, work, card)
+    torch.cuda.empty_cache()
+    _grid_phase(mods, work, card)
+    torch.cuda.empty_cache()
+    _bert_phase(mods, work, card)
+    _native_phase(work, card)
+    return n
+
+
 def bench_phase(mods, cli, card: str) -> dict:
     """``cli bench --device cuda``: one JSON line with maps/s > 0 at B = 32,
     the four block kernels 12 times per call of ``relevancy_fused_block2``
@@ -4366,6 +4736,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # launches on the paths outside the main one, by kernel
     other = {name: {} for name in KERNELS}
+    ocr = timed_phase("data tools", data_tools_phase, mods, card)
+    for name in KERNELS:
+        other[name]["extract_ocr_features"] = \
+            ocr if name == "roi_pool_pallas" else 0
+        other[name]["extract_grid_feats, extract_bert_embeddings"] = 0
+    torch.cuda.empty_cache()
     for name, n in timed_phase("bench", bench_phase, mods, cli,
                                card).items():
         other[name]["cli bench"] = n

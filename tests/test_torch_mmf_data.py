@@ -1,6 +1,6 @@
 """The port's MMF data layer against the JAX package: every registered
-processor (``phoc`` waits for ``native/``), the databases and feature
-readers, every registered builder (the VQA family, NLVR2, COCO, the OCR
+processor (``phoc`` through each package's ``native/``), the databases and
+feature readers, every registered builder (the VQA family, NLVR2, COCO, the OCR
 family, the zoo tail and the masked pretraining datasets) through to
 collated batches, ``MultiDatasetLoader``, the text decoders, the LXMERT
 answer table and pretraining data.
@@ -19,6 +19,8 @@ import json
 import numpy as np
 import pytest
 import torch
+
+from _jax_native import private_jax_native
 
 from transformer_mm_explainability_tpu.core import sample as JS
 from transformer_mm_explainability_tpu.core.registry import (
@@ -374,13 +376,28 @@ def test_builder_items_and_batches(root, case):
     same(dict(JS.collate(jitems)), dict(TS.collate(titems)), "batch")
 
 
-def test_every_jax_builder_name_and_phoc(root):
+@pytest.fixture(scope="module")
+def jax_phoc(tmp_path_factory):
+    """The JAX ``phoc`` processor's library, built privately."""
+    with private_jax_native(tmp_path_factory.mktemp("jax_native")) as mod:
+        yield mod
+
+
+def test_every_jax_builder_name_and_phoc(root, jax_phoc):
+    """Every builder name, and a TextVQA config that asks for the ``phoc``
+    processor: the same items on both sides, PHOC vectors included."""
     assert set(registry.list("builder")) == set(jregistry.list("builder"))
     name, cfg, split = builder_case(root, "textvqa")
     cfg["processors"]["phoc_processor"] = {"type": "phoc",
                                            "params": {"max_length": 8}}
-    with pytest.raises(NotImplementedError, match="phoc"):
-        registry.get("builder", name)().load(cfg, split)
+    jds = jregistry.get("builder", name)().load(cfg, split)
+    tds = registry.get("builder", name)().load(cfg, split)
+    assert len(tds) == len(jds) > 0
+    for i in range(len(jds)):
+        same(jds[i], tds[i], f"item {i}")
+    phoc = tds[0]["context_feature_1"]
+    assert phoc.shape == (8, 604) and phoc[:2].sum() > 0 and \
+        not phoc[2:].any()
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +409,10 @@ def processor_case(root, name):
     on a fresh processor per side."""
     text = {"tokenizer_config": {"vocab": VOCAB_D}, "max_seq_length": 12}
     words = {"words": ["what", "color", "is", "the", "dog", "red"]}
+    if name == "phoc":
+        return {"max_length": 4}, [
+            {"tokens": ["stop", "sign", "heathen", "42", "the", "x"]},
+            {"tokens": ["a"]}, {"tokens": []}]
     if name == "simple_word":
         return {}, [{"text": "It's a Dog?"}]
     if name == "simple_sentence":
@@ -473,15 +494,17 @@ def processor_case(root, name):
             np.uint8)]
 
 
-PROCESSORS = sorted(set(jregistry.list("processor")) - {"phoc"})
+PROCESSORS = sorted(jregistry.list("processor"))
 
 
 @pytest.mark.parametrize("name", PROCESSORS)
-def test_processor_parity(root, name):
+def test_processor_parity(root, name, request):
     """Each registered processor on the same inputs, in the same order
     (the RNG-drawing ones advance their seeded RandomState alike): equal
     outputs, and equal inputs after the call (``masked_region`` zeroes
     rows in place)."""
+    if name == "phoc":
+        request.getfixturevalue("jax_phoc")
     cfg, inputs = processor_case(root, name)
     args = () if cfg is None else (cfg,)
     jp = jregistry.get("processor", name)(*args)

@@ -322,10 +322,11 @@ def test_cli_explain_vit_random_weights_on_cpu(tmp_path, capsys):
 def test_port_imports_no_jax():
     """Importing every module of the port leaves JAX and the JAX package
     out of sys.modules (fresh interpreter)."""
-    mods = sorted(
+    mods = sorted(   # every module, and every subpackage (``native``)
         "transformer_mm_explainability_tpu_torch."
-        + str(p.relative_to(PORT).with_suffix("")).replace(os.sep, ".")
-        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+        + str((p.parent if p.name == "__init__.py" else p.with_suffix(""))
+              .relative_to(PORT)).replace(os.sep, ".")
+        for p in PORT.rglob("*.py") if p != PORT / "__init__.py")
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -339,8 +340,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0 []"
     assert len(mods) >= 10
-    # the FRCNN → LXMERT, VisualBERT, CLIP, DETR, LRP and MMF core/data
-    # slices are among them
+    # the FRCNN → LXMERT, VisualBERT, CLIP, DETR, LRP, MMF core/data and
+    # data-tools slices are among them
     for name in ("models.frcnn", "models.resnet", "models.bert",
                  "models.lxmert", "explain.lxmert", "ops.roi_pool_pallas",
                  "harness.perturbation", "harness.pert_runner",
@@ -358,7 +359,8 @@ def test_port_imports_no_jax():
                  "core.metrics", "core.env", "core.build",
                  "data.processors", "data.builders",
                  "data.lxmert_pretrain_data", "harness.predict",
-                 "utils.m4c_evaluators"):
+                 "utils.m4c_evaluators", "native", "utils.caption_metrics",
+                 "tools.extract_ocr_features", "tools.lmdb_tools"):
         assert f"transformer_mm_explainability_tpu_torch.{name}" in mods
 
 

@@ -41,10 +41,6 @@ from .databases import AnnotationDatabase, FeaturesDatabase
 def _build_processor(spec: Optional[Dict[str, Any]]):
     if spec is None:
         return None
-    if spec["type"] == "phoc":
-        raise NotImplementedError(
-            "the 'phoc' processor needs the native cphoc op, which the "
-            "port does not have yet (ROADMAP A5d)")
     cls = registry.get("processor", spec["type"])
     return cls(spec.get("params", {}))
 

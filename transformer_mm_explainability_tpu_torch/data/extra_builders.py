@@ -33,8 +33,8 @@ Covers every reference registry name not already provided by
 Reference semantics pinned here, divergences documented inline: strings/lists are kept as Python objects in the ``Sample``
 (the reference round-trips them through ``object_to_byte_tensor`` only
 because DDP gathers need tensors; a host-side dataset does not).
-A config that asks for the ``phoc`` processor raises until the port of
-``native/`` brings it (ROADMAP A5d).
+The ``phoc`` processor builds its vectors through the port's ``native/``
+library.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ bert_processors.py), registered under the reference names via
 
 Processors take/return plain dicts of numpy arrays (no OmegaConf; torch
 only inside ``torchvision_transforms``' resize and crop); configs are plain
-dicts. Every processor of the JAX module is registered here but ``phoc``,
-which waits for the port of ``native/`` (ROADMAP A5d).
+dicts. Every processor of the JAX module is registered here; ``phoc``
+builds its vectors through the port's ``native/`` library.
 """
 
 from __future__ import annotations
@@ -660,8 +660,24 @@ from transformer_mm_explainability_tpu_torch.utils.m4c_evaluators import (  # no
 registry.register_processor("evalai_answer")(EvalAIAnswerProcessor)
 
 
-# ``phoc`` (processors.py:1156-1181, 604-dim PHOC vectors through the
-# native cphoc op) comes with the port of ``native/`` (ROADMAP A5d).
+@registry.register_processor("phoc")
+class PhocProcessor(VocabProcessor):
+    """processors.py:1156-1181: 604-dim PHOC vectors per token via the
+    native cphoc op (``native.build_phoc``)."""
+
+    PHOC_DIM = 604
+
+    def __init__(self, config: Dict[str, Any]):
+        from transformer_mm_explainability_tpu_torch import native
+        self._build_phoc = native.build_phoc
+        self._init_extras(config)
+
+    def _map_strings_to_indices(self, tokens: Sequence[str]) -> np.ndarray:
+        tokens = tokens[:self.max_length]
+        out = np.zeros((self.max_length, self.PHOC_DIM), np.float32)
+        for i, tok in enumerate(tokens):
+            out[i] = self._build_phoc(tok)
+        return out
 
 
 @registry.register_processor("copy")

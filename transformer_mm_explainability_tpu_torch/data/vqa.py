@@ -11,8 +11,8 @@ A private copy of ``transformer_mm_explainability_tpu/data/vqa.py``
     ``trainval_label2ans.json``);
   * the base64 TSV object-feature reader (the bottom-up-attention format:
     img_id/img_h/img_w/objects_id/objects_conf/attrs_id/attrs_conf/
-    num_boxes/boxes/features), in Python's csv (the JAX package reads with
-    its C++ reader where it can; the port has none);
+    num_boxes/boxes/features): the C++ reader of ``native/`` by default,
+    Python's csv with ``use_native=False``, the same records from both;
   * ``FeatureStore``, which pads every image to ``max_boxes``.
 """
 
@@ -53,8 +53,16 @@ def _decode_field(name: str, value: str, num_boxes: int) -> Any:
 def load_obj_tsv(path: str, topk: Optional[int] = None,
                  use_native: bool = True) -> List[Dict[str, Any]]:
     """Load FRCNN object features from a base64 TSV (utils.py:16-29
-    format). ``use_native`` is the JAX reader's switch for its C++ parser;
-    the port parses in Python either way, with the same result."""
+    format): with ``use_native`` the C++ reader of ``native/`` (built on
+    first use), else Python's csv; the same records either way.
+
+    Departure from the JAX reader, which falls back to Python on any error
+    of its C++ path: ``use_native=True`` raises where the library cannot be
+    built or loaded."""
+    if use_native:
+        from transformer_mm_explainability_tpu_torch.native import tsv
+
+        return tsv.load_obj_tsv(path, topk)
     out = []
     with open(path) as f:
         reader = csv.DictReader(f, TSV_FIELDNAMES, delimiter="\t")

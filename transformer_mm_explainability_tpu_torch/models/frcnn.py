@@ -237,6 +237,18 @@ def roi_pool(features: torch.Tensor, boxes: torch.Tensor, output_size: int,
     return roi_pool_plain(features, boxes, output_size, spatial_scale)
 
 
+def roi_pool_fn(cfg: FrcnnConfig) -> Callable[..., torch.Tensor]:
+    """The RoIPool that ``cfg.roi_pool_impl`` names: ``"pallas"``, the CUDA
+    kernel's wrapper (``ops/roi_pool_pallas.roi_pool_pallas``, its plain
+    version on a CPU tensor), or ``"xla"``, the plain version itself."""
+    if cfg.roi_pool_impl == "pallas":
+        return roi_pool_pallas.roi_pool_pallas
+    if cfg.roi_pool_impl == "xla":
+        return roi_pool
+    raise ValueError(f"unknown roi_pool_impl {cfg.roi_pool_impl!r} "
+                     "(expected 'xla' or 'pallas')")
+
+
 # ---------------------------------------------------------------------------
 # model
 # ---------------------------------------------------------------------------
@@ -343,13 +355,7 @@ def forward(params: Dict[str, Any], image: torch.Tensor,
     else:
         raise ValueError(f"unknown nms_impl {cfg.nms_impl!r} "
                          "(expected 'argmax' or 'blocked')")
-    if cfg.roi_pool_impl == "pallas":
-        pool_fn = roi_pool_pallas.roi_pool_pallas
-    elif cfg.roi_pool_impl == "xla":
-        pool_fn = roi_pool
-    else:
-        raise ValueError(f"unknown roi_pool_impl {cfg.roi_pool_impl!r} "
-                         "(expected 'xla' or 'pallas')")
+    pool_fn = roi_pool_fn(cfg)
     H, W, _ = image.shape
     dev = image.device
     feats = _res4_features(params, image[None], cfg)[0]    # [Hf, Wf, 1024]
