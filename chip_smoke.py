@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds ``csrc/attn_block.cu``, ``csrc/relevancy_chain.cu`` and
-   ``csrc/roi_pool.cu`` with ``nvcc`` for ``sm_90a`` (one compiler process
-   each, started together) and prints the build time and ptxas's register /
-   spill report, one line per kernel (the GEMM and the attention backward
-   must not spill);
+2. builds ``csrc/attn_block.cu``, ``csrc/attn_block_bf16.cu``,
+   ``csrc/relevancy_chain.cu`` and ``csrc/roi_pool.cu`` with ``nvcc`` for
+   ``sm_90a`` (one compiler process each, started together) and prints the
+   build time and ptxas's register / spill report, one line per kernel (the
+   GEMMs and the attention backward passes must not spill);
 3. GEMM phase: each product of the block kernels (g1-g9) and the chain's
    product unpadded (gc, on no path since the chain pads its rows) at the
    shapes of the main path (B=8), through
@@ -59,6 +59,21 @@
      beside the wrapper's, and what ``roi_bin_bounds``'s torch operations
      (the earlier kernel's bins, now the plain version's) take on the
      device;
+4a. bf16 mode (rows 1-8 with ``fast_dots``: every product operand rounded
+   to bf16, fp32 sums; the kernels of ``csrc/attn_block_bf16.cu`` and
+   ``csrc/common.cuh``'s ``gemm_bf16_kernel``): the products g1-g9 through
+   ``_gemm_bf16`` on bf16 operands within 1e-5 · max|C64| of the float64
+   product of the same bf16 values, each timed beside ``torch.matmul`` in
+   bf16 and its bound at the dense bf16 rate; then each of the eight
+   wrappers at ViT-B/16 widths (B=8) on float32 and on bfloat16 tensors (r
+   float32) against its plain version with ``fast_dots`` on the card: the
+   median over the elements of |Δ| within a tenth of the same median
+   between ``fast_dots`` and fp32 on the same values (printed beside it),
+   max|Δ| within 2⁻⁸ of max|plain| (2⁻⁶ for a bf16 output), bfloat16
+   tensors without ``fast_dots`` refused; each bf16-tensor row timed (its
+   kernels on float32 tensors too) with its plain version, its bound (bf16
+   bytes, operations at 989 TFLOP/s) and, for the forward attentions, SDPA
+   on the same bf16 tensors: the ``*_bf16`` rows of the kernels line;
 5. ViT path phase, full-width ViT-B/16 (12 layers, seeded random weights,
    B=8): ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
    ``relevancy_fused_block``. For each, every launch counter is set to 0
@@ -74,6 +89,16 @@
    splits the device time of ``relevancy_fused_block2``,
    ``relevancy_fused`` and the chain by kernel and gives the device's idle
    share;
+5a. bf16 paths: the three fused paths with ``fast_dots=True`` (B=8), every
+   counter 0 before and exactly the path's bf16-product kernels 12 times
+   after, the maps within the JAX package's bar of its chip's fast mode
+   (max|Δ| ≤ 1e-4 or 0.5 % of max|ref|, ``CHIPCHECK_r05.json``) of the same
+   path's fp32 maps; a bfloat16 copy of the model with bfloat16 images
+   (the JAX bench's throughput mode) through the same kernels, its maps'
+   distance from the fp32 maps printed and gated only to be finite;
+   maps/s at B=32 of ``relevancy_fused_block2`` in fp32, with
+   ``fast_dots`` on float32 tensors and on bfloat16 tensors; a profile of
+   the bf16-tensor call at B=8;
 6. cli phase: ``cli explain-vit --device cuda`` on a generated PNG, again
    through the kernels;
 7. FRCNN path phase, full-width ``FRCNN_VG`` (ResNet-101 C4, 6000 → 1000
@@ -325,7 +350,12 @@ KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
                                         "relevancy_pallas.py:86"),
     "roi_pool_pallas": ("roi_pool.cu", "roi_pool_pallas.py:95"),
 }
-LIBRARIES = ("attn_block", "relevancy_chain", "roi_pool")
+# rows 1-8 again in the JAX package's chip mode, fast_dots (bf16 products):
+# the kernels of attn_block_bf16.cu and common.cuh's gemm_bf16_kernel
+BF16_ROWS = tuple(KERNELS)[:8]
+KERNELS.update({f"{n}_bf16": ("attn_block_bf16.cu", KERNELS[n][1])
+                for n in BF16_ROWS})
+LIBRARIES = ("attn_block", "attn_block_bf16", "relevancy_chain", "roi_pool")
 _GEMMS = "tensor cores, 3xTF32 (GEMMs"
 BLOCK_UNITS = {   # where the work of each row built on the GEMM runs
     "attn_block_fwd": f"{_GEMMS} and attention); LayerNorm on the CUDA "
@@ -398,40 +428,42 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def work(name: str, layers: int = 12, bin_pixels: int = 0) -> tuple:
+def work(name: str, layers: int = 12, bin_pixels: int = 0,
+         elem: int = 4) -> tuple:
     """(flops, bytes) that the function must do and move at the smoke
     shape: the FLOPs of its products (and of the chain's head reduction);
-    each input read once, each output written once (fp32). ``layers``: the
-    chain's layers from its start_layer on. ``bin_pixels``: RoIPool's
-    Σ over bins of the bin's area for this run's boxes; its operations are
-    one comparison per channel and pixel of a bin."""
+    each input read once, each output written once, ``elem`` bytes an
+    element (fp32, or 2 for the bf16-tensor rows; r and e_row fp32).
+    ``layers``: the chain's layers from its start_layer on. ``bin_pixels``:
+    RoIPool's Σ over bins of the bin's area for this run's boxes; its
+    operations are one comparison per channel and pixel of a bin."""
     M, attn = B * S, 2 * B * H * S * S * DH   # one S×S×dh product
-    f32 = 4
+    name = name.removesuffix("_bf16")
     if name == "roi_pool_pallas":   # map and boxes in, [K, P, P, C] out
         flops = bin_pixels * ROI_C
-        nbytes = f32 * (ROI_H * ROI_W * ROI_C + 4 * ROI_K
-                        + ROI_K * ROI_P * ROI_P * ROI_C)
+        nbytes = elem * (ROI_H * ROI_W * ROI_C + 4 * ROI_K
+                         + ROI_K * ROI_P * ROI_P * ROI_C)
     elif name == "attn_block_fwd":
         flops = 2 * M * D * 3 * D + 2 * attn + 2 * M * D * D
-        nbytes = f32 * (2 * M * D + 4 * D * D + 7 * D)
+        nbytes = elem * (2 * M * D + 4 * D * D + 7 * D)
     elif name == "mlp_block_fwd":
         flops = 2 * 2 * M * D * I
-        nbytes = f32 * (2 * M * D + 2 * D * I + I + 3 * D)
+        nbytes = elem * (2 * M * D + 2 * D * I + I + 3 * D)
     elif name == "mlp_block_bwd":
         flops = 3 * 2 * M * D * I
-        nbytes = f32 * (3 * M * D + 2 * D * I + I + 2 * D)
+        nbytes = elem * (3 * M * D + 2 * D * I + I + 2 * D)
     elif name == "attn_block_bwd":  # qkv, cot·W_outᵀ, 5 attention, ·W_qkvᵀ
         flops = 4 * M * D * 3 * D + 2 * M * D * D + 5 * attn
-        nbytes = f32 * (3 * M * D + 2 * B * S + 4 * D * D + 5 * D)
+        nbytes = elem * (3 * M * D + 4 * D * D + 5 * D) + 4 * 2 * B * S
     elif name in ("flash_fwd", "flash_fwd_qkv"):   # q·kᵀ, A·v
         flops = 2 * attn
-        nbytes = f32 * 4 * M * D                    # q, k, v in; out
+        nbytes = elem * 4 * M * D                    # q, k, v in; out
     elif name in ("flash_bwd_ehat", "flash_bwd_ehat_qkv"):
         flops = 5 * attn                # q·kᵀ, dout·vᵀ, ds·k, dsᵀ·q, Aᵀ·dout
-        nbytes = f32 * (7 * M * D + 2 * B * S)      # q,k,v,dout,r; dq,dk,dv,e
+        nbytes = elem * 7 * M * D + 4 * 2 * B * S    # q,k,v,dout,r; dq,dk,dv,e
     else:  # the chain: per layer Ê = mean_h relu(A∘G), then Ê·R
         flops = layers * B * (2 * S ** 3 + 3 * H * S * S)
-        nbytes = f32 * (2 * B * layers * H * S * S + B * S * S)
+        nbytes = elem * (2 * B * layers * H * S * S + B * S * S)
     return flops, nbytes
 
 
@@ -799,6 +831,287 @@ def bwd_f64_gate(fa, label: str, qkv, dmerged, r, nheads: int) -> dict:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# bf16 mode: rows 1-8 with fast_dots (bf16 products), fp32 and bf16 tensors
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12   # dense bf16 on the tensor cores (H100 SXM)
+# Bars of the bf16 mode, kernel against its plain version on the same
+# inputs, as shares of max|plain|. The two sides' fp32 values before a bf16
+# rounding differ by an ulp now and then (sum order; exp2f against torch's
+# exp; the LayerNorm statistics), which flips the rounding of an operand that
+# sits on a bf16 rounding edge and moves the outputs it feeds by up to one
+# such rounding of one term: in the attention block a flipped LayerNorm or
+# qkv value reaches every row of its image through the attention, so the
+# flips move the median of every output there. So the bar on the median
+# over the elements of |Δ| is a tenth of the same median between fast_dots
+# and fp32 on the same values (each bar at least 10 times tighter than that
+# distance, taken at equality; 5e-6 for the flash wrappers' e_row on bf16
+# values, which fast_dots cannot move: products of the inputs only); the
+# bar on max|Δ| is one rounding of a term, 2⁻⁸, and one more ulp of the
+# largest element for a bf16 output, 2⁻⁶.
+BF16_MAX_BARS = {"fp32": 2.0 ** -8, "bf16": 2.0 ** -6}
+UNMOVED_BAR = 5e-6
+FAST_MAP_BAR = (1e-4, 5e-3)   # the JAX package's own chip check of its
+                              # fast mode (CHIPCHECK_r05.json): max|Δ| ≤
+                              # 1e-4 or ≤ 0.5 % of max|ref|
+
+
+def _dist(got, want) -> tuple:
+    """(median |Δ|, max |Δ|) over max|want|, in float32."""
+    d = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    return float(d.median()) / top, float(d.max()) / top
+
+
+def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
+    """The eight wrappers of rows 1-8 with ``fast_dots=True`` at ViT-B/16
+    widths (B=8), on float32 tensors and on bfloat16 ones (r float32),
+    each output held to its plain version on the same inputs (median |Δ|
+    at a tenth of the output's distance between ``fast_dots`` and fp32 on
+    the same values, max|Δ| at ``BF16_MAX_BARS``), bfloat16 tensors
+    without ``fast_dots`` refused; then each bf16-tensor row timed (median
+    of 5 event means) beside its plain version, its bound (bytes of bf16
+    tensors, operations at the dense bf16 rate) and, for the two forward
+    attentions, SDPA on the same bf16 tensors; one row each of the kernels
+    line."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    dev = torch.device("cuda")
+    rnd = lambda *s, scale=0.3: (torch.randn(s, generator=gen) * scale).to(dev)
+    wt = lambda *s: (torch.randn(s, generator=gen) / math.sqrt(D)).to(dev)
+    t = dict(x=rnd(B, S, D), cot=rnd(B, S, D), wqkv=wt(D, 3 * D),
+             bqkv=rnd(3 * D, scale=0.03), wout=wt(D, D),
+             bout=rnd(D, scale=0.03), g1=1.0 + rnd(D, scale=0.03),
+             b1=rnd(D, scale=0.03), w1=wt(D, I), bi1=rnd(I, scale=0.03),
+             w2=wt(I, D), bi2=rnd(D, scale=0.03),
+             g2=1.0 + rnd(D, scale=0.03), b2=rnd(D, scale=0.03),
+             qkv=rnd(B, S, 3 * D, scale=0.5), dm=rnd(B, S, D, scale=0.5),
+             r=torch.rand((B, S), generator=gen).to(dev))
+    q, k, v = (h.contiguous() for h in fa.qkv_heads(t["qkv"], H))
+    t.update(q=q, k=k, v=v, dout=fa.heads(t["dm"], H).contiguous())
+    args = {
+        "attn_block_fwd": lambda a: (a["x"], a["wqkv"], a["bqkv"], a["wout"],
+                                     a["bout"], a["g1"], a["b1"], H, EPS),
+        "mlp_block_fwd": lambda a: (a["x"], a["w1"], a["bi1"], a["w2"],
+                                    a["bi2"], a["g2"], a["b2"], EPS),
+        "mlp_block_bwd": lambda a: (a["x"], a["cot"], a["w1"], a["bi1"],
+                                    a["w2"], a["g2"], a["b2"], EPS),
+        "attn_block_bwd": lambda a: (a["x"], a["cot"], a["r"], a["wqkv"],
+                                     a["bqkv"], a["wout"], a["g1"], a["b1"],
+                                     H, EPS),
+        "flash_fwd": lambda a: (a["q"], a["k"], a["v"]),
+        "flash_bwd_ehat": lambda a: (a["q"], a["k"], a["v"], a["dout"],
+                                     a["r"]),
+        "flash_fwd_qkv": lambda a: (a["qkv"], H),
+        "flash_bwd_ehat_qkv": lambda a: (a["qkv"], a["dm"], a["r"], H),
+    }
+    mod = lambda n: ab if n in BLOCKS else fa
+    call = lambda n, a, fast: getattr(mod(n), n)(*args[n](a), fast_dots=fast)
+    plain = lambda n, a, fast: getattr(mod(n), f"{n}_plain")(
+        *args[n](a), fast_dots=fast)
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    cast = lambda dt: {k: v if k == "r" else v.to(dt) for k, v in t.items()}
+    stores = {"fp32": cast(torch.float32), "bf16": cast(torch.bfloat16)}
+    rows = {}
+    for name in BF16_ROWS:
+        for store, a in stores.items():
+            got = as_tuple(call(name, a, True))
+            want = as_tuple(plain(name, a, True))
+            # fp32 arithmetic on the same values
+            ref = as_tuple(plain(name, {k: v.float() for k, v in a.items()},
+                                 False))
+            torch.cuda.synchronize()
+            texts, failed = [], []
+            for i, (g, w, f) in enumerate(zip(got, want, ref)):
+                assert g.dtype == w.dtype and torch.isfinite(g).all(), name
+                med, top = _dist(g, w)
+                fmed, ftop = _dist(w, f)
+                # with bf16 values the flash wrappers' e_row takes products
+                # of the inputs only, exact with or without fast_dots
+                unmoved = (store == "bf16" and name.startswith("flash_bwd")
+                           and i == len(got) - 1)
+                bar_med = UNMOVED_BAR if unmoved else fmed / 10
+                bar_top = BF16_MAX_BARS["bf16" if g.dtype == torch.bfloat16
+                                        else "fp32"]
+                texts.append(
+                    f"[{i}] {str(g.dtype)[6:]} median {med:.2e} max "
+                    f"{top:.2e} (bars {bar_med:.2e}, {bar_top:.3g}); fast "
+                    f"against fp32 median {fmed:.2e} max {ftop:.2e}")
+                if med > bar_med or top > bar_top or (unmoved and ftop):
+                    failed.append(i)
+            print(f"bf16 mode {name} on {store} tensors, kernel vs plain "
+                  f"(|Δ| over max|plain|): " + "; ".join(texts), flush=True)
+            assert not failed, (name, store, failed)
+        try:
+            call(name, stores["bf16"], False)
+        except RuntimeError as err:
+            assert "fast_dots=True" in str(err), err
+        else:
+            raise AssertionError(f"{name}: bf16 tensors without fast_dots "
+                                 "ran on CUDA")
+        library = None
+        if name == "flash_fwd":
+            library = lambda: sdpa(*(stores["bf16"][k] for k in "qkv"))
+        elif name == "flash_fwd_qkv":
+            library = lambda: sdpa(*fa.qkv_heads(stores["bf16"]["qkv"], H))
+        a16, a32 = stores["bf16"], stores["fp32"]
+        rows[f"{name}_bf16"] = bf16_row(
+            name, lambda: call(name, a16, True),
+            lambda: plain(name, a16, True), lambda: call(name, a32, True),
+            library, card)
+    print("bf16 mode: bfloat16 tensors without fast_dots=True refused by all "
+          "eight wrappers on CUDA", flush=True)
+    return rows
+
+
+def bf16_gemm_phase(ab, gen) -> None:
+    """Each product of the block kernels (g1-g9) through ``_gemm_bf16`` on
+    bf16 operands, as the bf16-tensor path runs it: its time (median of 5
+    event means) and TFLOP/s beside ``torch.matmul`` on the same bf16
+    operands (cuBLAS) and the bound at the dense bf16 rate, and its
+    distance from the float64 product of the same bf16 values, held to
+    GEMM_BAR · max|C64| (the fp32 output; one accumulator per 64-deep
+    slice)."""
+    dev = torch.device("cuda")
+    lib = ab.library(fast_dots=True)
+    st = torch.cuda.current_stream().cuda_stream
+    total = total_lib = 0.0
+    for name, (M, N, K, trans_b, epi, batch, per_call) in GEMMS.items():
+        if batch > 1:
+            continue
+        a = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
+        b = (torch.randn((N, K) if trans_b else (K, N), generator=gen)
+             / math.sqrt(K)).to(dev, torch.bfloat16)
+        run = lambda: ab._gemm_bf16(lib, a, b, st, trans_b=trans_b)
+        got = run()
+        want = ab.gemm_plain(a.double(), b.double(), trans_b)
+        torch.cuda.synchronize()
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        op_b = b.transpose(-1, -2) if trans_b else b
+        ms, lo, hi = timed(run, 5)
+        lib_ms = timed(lambda: torch.matmul(a, op_b), 5)[0]
+        flops = 2 * M * N * K
+        nbytes = 2 * (M * K + K * N) + 4 * M * N
+        bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_S) * 1e3
+        total += per_call * ms
+        total_lib += per_call * lib_ms
+        print(f"gemm bf16 {name}: {M}x{K}x{N} (MxKxN), B "
+              f"{'[N,K]' if trans_b else '[K,N]'}, bf16 operands, fp32 out: "
+              f"kernel {ms:.4f} ms ({lo:.4f}-{hi:.4f}) "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; library (torch.matmul bf16) "
+              f"{lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} TFLOP/s; bound "
+              f"{bound:.4f} ms; max|Δ|/max|C64| {err:.2e} (bar "
+              f"{GEMM_BAR:g}); {per_call} launches per call", flush=True)
+        assert err <= GEMM_BAR, f"gemm bf16 {name}: {err}"
+    print(f"gemm bf16 per relevancy_fused_block2 call (B={B}, g1-g9): kernel "
+          f"{total:.3f} ms, library {total_lib:.3f} ms (sum of launches x "
+          f"median event means)", flush=True)
+
+
+def bf16_row(name: str, kernel, plain, kernel_fp32, library,
+             card: str) -> dict:
+    """Time the bf16-tensor call (median of 5 event means), its plain
+    version, the fp32-tensor call of the same kernels and ``library``;
+    one row of the kernels line, with the bound of bf16 tensors at the
+    dense bf16 rate."""
+    flops, nbytes = work(name, elem=2)
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    ms, lo, hi = timed(kernel, 5)
+    plain_ms = timed(plain, 5)[0]
+    fp32_ms = timed(kernel_fp32, 5)[0]
+    library_ms = None if library is None else timed(library, 5)[0]
+    bound = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    src, replaces = KERNELS[f"{name}_bf16"]
+    got, want = kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    lib_txt = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"kernel {name}_bf16 (bf16 tensors, fast_dots): kernel {ms:.4f} ms "
+          f"({lo:.4f}-{hi:.4f}), plain {plain_ms:.4f} ms{lib_txt}, the same "
+          f"kernels on fp32 tensors {fp32_ms:.4f} ms; bound {bound:.4f} ms "
+          f"({bound_by}: {flops / 1e9:.3f} GFLOP at the bf16 rate, "
+          f"{nbytes / 1e6:.1f} MB); median of 5 means on {card}", flush=True)
+    return {"name": f"{name}_bf16", "route": "cuda",
+            "source": f"{CSRC}/{src}", "replaces": f"{JAX_OPS}/{replaces}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms, "ms_fp32_tensors": fp32_ms,
+            "unit": "tensor cores, bf16 products (fast_dots), bf16 tensors; "
+                    "softmax, LayerNorm, GELU and the fold fp32"}
+
+
+def bf16_path_phase(mods, vit, model, images, targets, card: str) -> dict:
+    """The three fused paths with ``fast_dots=True`` at full width (B=8):
+    every counter 0 before, the path's bf16-product kernels exactly 12
+    times after and every other counter 0; the maps against the same
+    path's fp32 maps within ``FAST_MAP_BAR``. Then a bfloat16 copy of the
+    model with bfloat16 images (the JAX bench's throughput mode), its maps'
+    distance from the fp32 maps printed and gated only to be finite; maps/s
+    at B=32 in the three modes. Returns each bf16 row's launches from the
+    path it belongs to."""
+    import copy
+
+    depth = vit.VIT_B_16.depth
+    paths = {"relevancy_fused_block2": BLOCKS,
+             "relevancy_fused": ("flash_fwd_qkv", "flash_bwd_ehat_qkv"),
+             "relevancy_fused_block": ("attn_block_fwd", "attn_block_bwd")}
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    images16 = images.to(torch.bfloat16)
+    launches = {}
+    for path, kernels in paths.items():
+        fn = getattr(vit, path)
+        ref = fn(model, images, targets)
+        fast_names = {f"{k}_bf16" for k in kernels}
+        for label, m, im in (("fp32 tensors", model, images),
+                             ("bf16 tensors", model16, images16)):
+            reset_counts(mods)
+            maps = fn(m, im, targets, fast_dots=True)
+            torch.cuda.synchronize()
+            got = counts(mods)
+            want = {k: depth if k in fast_names else 0 for k in got}
+            assert got == want, (path, label, got)
+            assert maps.dtype == torch.float32 and maps.shape == (B, S - 1)
+            assert torch.isfinite(maps).all(), (path, label)
+            err = float((maps - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            print(f"bf16 mode {path} fast_dots on {label}: maps vs the fp32 "
+                  f"maps max|Δ| {err:.3e}, {rel:.2%} of max|ref|; launches "
+                  f"{ {k: v for k, v in got.items() if v} }", flush=True)
+            if label == "fp32 tensors":
+                assert err <= FAST_MAP_BAR[0] or rel <= FAST_MAP_BAR[1], \
+                    (path, err, rel)
+                for k in fast_names:
+                    launches.setdefault(k, got[k])
+    # on no model path (the JAX package calls them only from its tests)
+    launches.setdefault("flash_fwd_bf16", 0)
+    launches.setdefault("flash_bwd_ehat_bf16", 0)
+
+    gen = torch.Generator().manual_seed(1)
+    big = torch.randn((32, 224, 224, 3), generator=gen).to(images.device)
+    big_t = torch.randint(0, 1000, (32,), generator=gen).to(images.device)
+    fn = vit.relevancy_fused_block2
+    modes = {"fp32": (model, big, False), "fast_dots on fp32 tensors":
+             (model, big, True), "bf16 tensors": (model16, big.bfloat16(),
+                                                  True)}
+    rates = {}
+    for label, (m, im, fast) in modes.items():
+        fn(m, im, big_t, fast_dots=fast)
+        rates[label] = _rate(lambda: fn(m, im, big_t, fast_dots=fast), 32)
+    print(f"maps/s ViT-B/16 relevancy_fused_block2 B=32: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; median of 3 on {card}", flush=True)
+    im16 = images.to(torch.bfloat16)
+    call = lambda: fn(model16, im16, targets, fast_dots=True)
+    call_ms = B / _rate(call, B) * 1e3
+    profile(f"relevancy_fused_block2 bf16 tensors B={B}", call, call_ms)
+    del model16
+    return launches
+
+
 def chain_captures() -> tuple:
     """Attention-scale captures [B, 12, H, S, S] as batch-first views of
     [12, B, H, S, S] stacks, as ``vit.capture`` gives them: rows of |randn|
@@ -948,7 +1261,14 @@ def reset_counts(mods) -> None:
 
 
 def counts(mods) -> dict:
-    return {name: n for m in mods for name, n in m.launch_counts().items()}
+    """Every wrapper's launches since the reset: its fp32 kernels under its
+    name, its bf16-product kernels (``fast_dots``) as ``<name>_bf16``."""
+    out = {}
+    for m in mods:
+        out.update(m.launch_counts())
+        if hasattr(m, "bf16_launch_counts"):
+            out.update(m.bf16_launch_counts())
+    return out
 
 
 def path_phase(mods, vit, rp, model, images, targets, cams, grads,
@@ -1065,6 +1385,12 @@ def check_maps(path: str, maps, refs: dict) -> None:
 # then cuDNN's convolutions and cuBLAS / cuDNN products
 KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
                  ("GEMM 64x64 (tensor cores)", "gemm_tc_kernel"),
+                 ("GEMM bf16 products", "gemm_bf16_kernel"),
+                 ("attn bf16 fwd", "attn_fwd_bf16_kernel"),
+                 ("attn bf16 bwd q pass", "attn_bwd_q_bf16_kernel"),
+                 ("attn bf16 bwd kv pass", "attn_bwd_kv_bf16_kernel"),
+                 ("layernorm bf16 out", "ln_fwd_bf16_kernel"),
+                 ("layernorm vjp (bf16 mode)", "ln_vjp_any_kernel"),
                  ("attn fwd", "attn_fwd_kernel"),
                  ("attn bwd q pass", "attn_bwd_q_kernel"),
                  ("attn bwd kv pass", "attn_bwd_kv_kernel"),
@@ -2976,7 +3302,10 @@ def bench_phase(mods, cli, card: str) -> dict:
     """``cli bench --device cuda``: one JSON line with maps/s > 0 at B = 32,
     the four block kernels 12 times per call of ``relevancy_fused_block2``
     (``bench.TRIALS`` trials of one warm call and ``bench.ITERS`` timed
-    ones), every other counter 0. Returns the block kernels' counts."""
+    ones), then as many calls of its bf16 mode (``bf16_maps_per_sec`` > 0,
+    with its spread), the four bf16-product block kernels 12 times each;
+    every other counter 0. Returns the block kernels' counts, fp32 and
+    bf16."""
     import contextlib
     import io
 
@@ -2991,12 +3320,15 @@ def bench_phase(mods, cli, card: str) -> dict:
     lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
     calls = bench.TRIALS * (bench.ITERS + 1)
     print(f"cli bench --device cuda: {lines[-1]}; launches {got} ({calls} "
-          f"calls); on {card}", flush=True)
+          f"calls a mode); on {card}", flush=True)
     assert rc == 0 and len(lines) == 1, lines
     rec = json.loads(lines[0])
     assert rec["value"] > 0 and rec["batch"] == 32, rec
-    assert got == {k: 12 * calls if k in BLOCKS else 0 for k in got}, got
-    return {k: got[k] for k in BLOCKS}
+    lo, hi = rec["spread"]["bf16"]
+    assert 0 < lo <= rec["bf16_maps_per_sec"] <= hi, rec
+    blocks = BLOCKS + tuple(f"{k}_bf16" for k in BLOCKS)
+    assert got == {k: 12 * calls if k in blocks else 0 for k in got}, got
+    return {k: got[k] for k in blocks}
 
 
 def bench_families_phase(mods, card: str) -> int:
@@ -4660,7 +4992,8 @@ def main() -> int:
                 path.with_suffix(".log").read_text()):
             print(f"  ptxas {lib}: {kernel}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads")
-            assert not kernel.startswith(("gemm_tc_kernel", "attn_bwd_")) \
+            assert not kernel.startswith(("gemm_tc_kernel", "gemm_bf16_kernel",
+                                          "attn_bwd_")) \
                 or st + ld == 0, f"{kernel} spills"
     mods = (ab, fa, rp, rpool)
     for mod in mods:
@@ -4685,6 +5018,10 @@ def main() -> int:
         return rows
 
     rows = timed_phase("kernels (block, flash)", kernel_rows)
+    timed_phase("gemm (bf16 products)", bf16_gemm_phase, ab,
+                torch.Generator().manual_seed(6))
+    rows.update(timed_phase("kernels (bf16 mode)", bf16_kernel_phase, ab, fa,
+                            torch.Generator().manual_seed(5), card))
 
     dev = torch.device("cuda")
     model = vit.init_params(0, vit.VIT_B_16, dev)
@@ -4699,6 +5036,8 @@ def main() -> int:
 
     launches = timed_phase("vit paths", path_phase, mods, vit, rp, model,
                            images, targets, cams, grads, card)
+    launches.update(timed_phase("bf16 paths", bf16_path_phase, mods, vit,
+                                model, images, targets, card))
     del attn, grads, cams, model
     timed_phase("cli explain-vit", cli_phase, ab, cli)
     torch.cuda.empty_cache()

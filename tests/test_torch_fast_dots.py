@@ -1,0 +1,428 @@
+"""The port's bf16-product mode (``fast_dots``) and bf16 tensors against the
+JAX package's ``fast=True`` kernel bodies, on the CPU.
+
+The JAX wrappers run ``fast = fast_dots and not interpret``, so the
+references are the same ``pallas_call``s rebuilt with ``fast=True`` in
+interpret mode (``tests/_jax_fast.py``). The inputs come from numpy with a
+seed (the builders of ``tests/test_torch_kernels_cuda.py``) at B=2, S=17,
+D=64, H=4 (dh = 16), I=256; the whole-path tests run a 2-layer width-64
+ViT carried from a JAX tree by ``utils/convert.vit_from_jax_numpy``. On
+the CPU each wrapper runs its plain version, which rounds every product
+operand to bf16 as the kernels of ``csrc/attn_block_bf16.cu`` do (those
+are held to the plain versions on the card by
+``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``).
+
+Bars, each against max|ref| of the output:
+  * float32 outputs (and maps): the median over the elements of |Δ| at
+    most 5e-6 · max|ref|, and max|Δ| at most 2⁻⁸ · max|ref|. The two
+    sides' fp32 values before a bf16 rounding differ by an ulp now and then
+    (XLA's CPU rsqrt and exp against torch's), which flips the rounding of
+    an operand that sits on a bf16 rounding edge; one flip moves the
+    outputs it feeds by up to a bf16 rounding of one term (seeds 0-7 of
+    these builders: max|Δ| up to 1.8e-3 · max|ref| on 4 of the 13
+    outputs, where it is ≤ 2e-7 without a flip), while the median stays
+    ≤ 4.6e-7 · max|ref|;
+  * bfloat16 outputs: max|Δ| ≤ 2⁻⁷ · max|ref| (one bf16 rounding at an
+    operand boundary, i.e. one ulp of the largest element);
+  * the switch: the same call with ``fast_dots=False`` must lie at least
+    10 × farther from the JAX fast reference than the median bar, at the
+    largest ratio over the test's float32 outputs, and beyond it on every
+    output that the switch can move (seeds 0-7: ≥ 8.6e-5 · max|ref|). A
+    path that ignores the switch fails. A bf16 output cannot show it: one
+    ulp is as large as the whole fast/fp32 difference. So a bf16-tensor
+    test runs the float32 call on the same bf16 values against JAX's
+    float32 fast body (the float32 bars and the switch), and holds the
+    bf16 call to that float32 call rounded to bf16, exactly, which it is
+    only if the bf16 storage takes the same arithmetic (and to JAX's bf16
+    call at the bf16 bar). With bf16 values the flash wrappers' e_row is
+    the same with and without ``fast_dots``: its products take the inputs
+    themselves, exact either way.
+The whole paths with a bf16 model, ``relevancy_fused`` and
+``relevancy_fused_block``, keep plain PyTorch MLPs in bf16, whose GELU and
+its VJP round elsewhere than XLA's (its erfc in bf16 steps, √½ rounded to
+bf16): their maps are held at the bf16 bar, and the switch is shown by the
+kernel wrappers each receiving ``fast_dots=True``.
+"""
+
+import contextlib
+import copy
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _jax_fast as jf
+from transformer_mm_explainability_tpu.models import vit as jvit
+from transformer_mm_explainability_tpu.ops import attn_block_pallas as jab
+from transformer_mm_explainability_tpu.ops import flash_attention as jfa
+from transformer_mm_explainability_tpu_torch.models import vit as tvit
+from transformer_mm_explainability_tpu_torch.ops import _build
+from transformer_mm_explainability_tpu_torch.ops import attn_block as tab
+from transformer_mm_explainability_tpu_torch.ops import flash_attention as tfa
+from _train_helpers import JVIT, TVIT, vit_weights
+from test_torch_kernels_cuda import (EPS, attn_inputs, flash_inputs,
+                                     mlp_inputs)
+
+B, S, D, H, I = 2, 17, 64, 4, 256
+MEDIAN_BAR = 5e-6
+FP32_MAX_BAR = 2.0 ** -8
+BF16_BAR = 2.0 ** -7
+SWITCH = 10.0
+
+CALLS = {
+    "attn_block_fwd": ("attn", lambda m, t, **kw: m.attn_block_fwd(
+        t["x"], t["wqkv"], t["bqkv"], t["wout"], t["bout"], t["g1"], t["b1"],
+        H, EPS, **kw)),
+    "attn_block_bwd": ("attn", lambda m, t, **kw: m.attn_block_bwd(
+        t["x"], t["cot"], t["r"], t["wqkv"], t["bqkv"], t["wout"], t["g1"],
+        t["b1"], H, EPS, **kw)),
+    "mlp_block_fwd": ("mlp", lambda m, t, **kw: m.mlp_block_fwd(
+        t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["g2"], t["bb2"], EPS,
+        chunks=4, **kw)),
+    "mlp_block_bwd": ("mlp", lambda m, t, **kw: m.mlp_block_bwd(
+        t["x"], t["cot"], t["w1"], t["b1"], t["w2"], t["g2"], t["bb2"], EPS,
+        chunks=4, **kw)),
+    "flash_fwd": ("flash", lambda m, t, **kw: m.flash_fwd(
+        t["q"], t["k"], t["v"], **kw)),
+    "flash_bwd_ehat": ("flash", lambda m, t, **kw: m.flash_bwd_ehat(
+        t["q"], t["k"], t["v"], t["dout"], t["r"], **kw)),
+    "flash_fwd_qkv": ("flash", lambda m, t, **kw: m.flash_fwd_qkv(
+        t["qkv"], H, **kw)),
+    "flash_bwd_ehat_qkv": ("flash", lambda m, t, **kw: m.flash_bwd_ehat_qkv(
+        t["qkv"], t["dmerged"], t["r"], H, **kw)),
+}
+INPUTS = {"attn": lambda seed: attn_inputs(B, S, D, seed),
+          "mlp": lambda seed: mlp_inputs(B, S, D, I, seed),
+          "flash": lambda seed: flash_inputs(B, H, S, D // H, seed)}
+# the seeds of the fp32 parity tests of the same wrappers
+# (tests/test_torch_attn_block.py, tests/test_torch_flash_attention.py)
+SEEDS = {"attn_block_bwd": 1, "mlp_block_bwd": 2, "flash_bwd_ehat": 1,
+         "flash_bwd_ehat_qkv": 1}
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _dist(got, want):
+    """(max|Δ|, median |Δ|) over max|ref|."""
+    g = got.float().numpy()
+    w = np.asarray(jnp.asarray(want, jnp.float32))
+    top = float(np.abs(w).max())
+    assert top > 0
+    d = np.abs(g - w)
+    return float(d.max()) / top, float(np.median(d)) / top
+
+
+def _hold(name, got, slow, want, unmoved=()):
+    """Every float32 output of ``got`` within the float32 bars of ``want``;
+    those of ``slow`` (fast_dots=False) beyond the median bar, by SWITCH at
+    the largest ratio."""
+    ratios = []
+    for i, (g, s, w) in enumerate(zip(got, slow, want)):
+        assert g.dtype == s.dtype == torch.float32
+        top, med = _dist(g, w)
+        assert top <= FP32_MAX_BAR and med <= MEDIAN_BAR, (name, i, top, med)
+        if i not in unmoved:
+            ratios.append(_dist(s, w)[1] / MEDIAN_BAR)
+    assert min(ratios) > 1.0 and max(ratios) >= SWITCH, (name, ratios)
+
+
+def _bf16_values(arrays):
+    """The inputs rounded to bf16 (r stays float32), as float32 arrays."""
+    return {k: v if k == "r" else np.asarray(
+        jnp.asarray(v, jnp.bfloat16).astype(jnp.float32))
+            for k, v in arrays.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(CALLS))
+def test_wrapper_fast_dots_matches_jax_fast_body(name, dtype):
+    """Each of the eight wrappers (the flash ones in both layouts) with
+    ``fast_dots=True`` against the JAX ``fast=True`` body on the same
+    values, on float32 tensors and on bfloat16 ones (r float32): bfloat16
+    outputs stay bfloat16, e_row float32 (module doc for the bars)."""
+    kind, call = CALLS[name]
+    arrays = INPUTS[kind](SEEDS.get(name, 0))
+    bf16 = dtype == "bfloat16"
+    if bf16:
+        arrays = _bf16_values(arrays)
+    mod = tab if kind in ("attn", "mlp") else tfa
+    want = _tuple(call(jf, {k: jnp.asarray(v) for k, v in arrays.items()}))
+    t = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    got = _tuple(call(mod, t, fast_dots=True))
+    slow = _tuple(call(mod, t, fast_dots=False))
+    unmoved = (len(got) - 1,) if bf16 and name.startswith("flash_bwd") else ()
+    _hold(name, got, slow, want, unmoved)
+    if not bf16:
+        return
+    want16 = _tuple(call(jf, {k: jnp.asarray(v, jnp.float32 if k == "r"
+                                              else jnp.bfloat16)
+                              for k, v in arrays.items()}))
+    t16 = {k: v if k == "r" else v.bfloat16() for k, v in t.items()}
+    got16 = _tuple(call(mod, t16, fast_dots=True))
+    slow16 = _tuple(call(mod, t16, fast_dots=False))
+    for i, (g16, g, s16, s, w16) in enumerate(zip(got16, got, slow16, slow,
+                                                  want16)):
+        out = torch.float32 if w16.dtype == jnp.float32 else torch.bfloat16
+        assert g16.dtype == s16.dtype == out
+        assert torch.equal(g16, g.to(out)) and torch.equal(s16, s.to(out))
+        bar = FP32_MAX_BAR if out == torch.float32 else BF16_BAR
+        assert _dist(g16, w16)[0] <= bar, (name, i, _dist(g16, w16))
+        if i not in unmoved:
+            assert not torch.equal(s16, g16)
+
+
+def test_gemm_plain_fast_dots_rounds_operands():
+    """``gemm_plain(fast_dots=True)``: the product of the bf16-rounded
+    operands in fp32, with the epilogue in fp32; bf16 operands are the
+    same values as their fp32 copies."""
+    rng = np.random.RandomState(0)
+    a = torch.from_numpy(rng.randn(5, 33).astype(np.float32))
+    b = torch.from_numpy(rng.randn(7, 33).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(7).astype(np.float32))
+    round_ = lambda t: t.to(torch.bfloat16).float()
+    want = round_(a) @ round_(b).T + bias
+    got = tab.gemm_plain(a, b, trans_b=True, bias=bias, fast_dots=True)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got16 = tab.gemm_plain(a.bfloat16(), b.bfloat16(), trans_b=True,
+                           bias=bias, fast_dots=True)
+    torch.testing.assert_close(got16, want, rtol=0, atol=0)
+    assert not torch.equal(tab.gemm_plain(a, b, trans_b=True, bias=bias),
+                           want)
+
+
+# ---------------------------------------------------------------------------
+# the whole slice: a 2-layer width-64 ViT
+# ---------------------------------------------------------------------------
+
+JCFG, TCFG = JVIT, TVIT
+PATHS = ["relevancy_fused_block2", "relevancy_fused"]
+JAX_FAST = {jab: ("attn_block_fwd", "attn_block_bwd", "mlp_block_fwd",
+                  "mlp_block_bwd"),
+            jfa: ("flash_fwd_qkv", "flash_bwd_ehat_qkv")}
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """The JAX tree (numpy draws over the JAX init's shapes: nothing
+    compiled) and the port's model with the same weights."""
+    return vit_weights(seed=0)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    rng = np.random.RandomState(0)
+    return (rng.randn(2, 32, 32, 3).astype(np.float32),
+            np.array([1, 13], np.int32))
+
+
+@pytest.fixture(scope="module")
+def jax_fast_maps(weights, batch):
+    """JAX's maps of each path with its kernel wrappers swapped for the
+    ``fast=True`` builds, on float32 and on bfloat16 params and images."""
+    mp = pytest.MonkeyPatch()
+    for mod, names in JAX_FAST.items():
+        for name in names:
+            mp.setattr(mod, name, getattr(jf, name))
+    try:
+        im, tg = batch
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(jnp, dtype)
+            p = jax.tree.map(lambda x: jnp.asarray(x, dt), weights[0])
+            for path in PATHS:
+                fn = jax.jit(functools.partial(getattr(jvit, path), cfg=JCFG,
+                                               interpret=True))
+                out[path, dtype] = np.asarray(fn(p, jnp.asarray(im, dt),
+                                                 jnp.asarray(tg)))
+    finally:
+        mp.undo()
+    return out
+
+
+@pytest.fixture(scope="module")
+def model(weights):
+    return weights[1]
+
+
+class _Spy:
+    """Records the ``fast_dots`` argument of each call of a wrapper."""
+
+    def __init__(self, fn):
+        self.fn, self.seen = fn, []
+
+    def __call__(self, *args, fast_dots=False, **kw):
+        self.seen.append(fast_dots)
+        return self.fn(*args, fast_dots=fast_dots, **kw)
+
+
+def _spy_kernels(monkeypatch) -> dict:
+    """Every kernel wrapper of ``ops/attn_block`` and ``ops/flash_attention``
+    replaced by a ``_Spy``; returns them by name."""
+    spies = {}
+    for mod in (tab, tfa):
+        for fn in mod.KERNELS:
+            spies[fn.__name__] = _Spy(fn)
+            monkeypatch.setattr(mod, fn.__name__, spies[fn.__name__])
+    return spies
+
+
+def _all_fast(spies) -> bool:
+    called = {n: s.seen for n, s in spies.items() if s.seen}
+    return bool(called) and all(all(seen) for seen in called.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", PATHS)
+def test_path_fast_dots_matches_jax(path, dtype, model, batch, jax_fast_maps,
+                                    monkeypatch):
+    """``relevancy_fused_block2`` and ``relevancy_fused`` with
+    ``fast_dots=True``, on the float32 model and on a bfloat16 copy with
+    bfloat16 images (the JAX bench's throughput mode), against JAX's same
+    path on its fast kernel bodies. The maps are float32 either way. Every
+    kernel wrapper on the path receives ``fast_dots=True``."""
+    im, tg = batch
+    bf16 = dtype == "bfloat16"
+    m = copy.deepcopy(model).to(torch.bfloat16) if bf16 else model
+    images = torch.from_numpy(im).to(getattr(torch, dtype))
+    targets = torch.from_numpy(tg)
+    spies = _spy_kernels(monkeypatch)
+    fn = getattr(tvit, path)
+    got = fn(m, images, targets, fast_dots=True)
+    assert _all_fast(spies)
+    slow = fn(m, images, targets, fast_dots=False)
+    want = jax_fast_maps[path, dtype]
+    assert got.dtype == slow.dtype == torch.float32
+    assert got.shape == want.shape == (2, TCFG.seq_len - 1)
+    if bf16 and path != "relevancy_fused_block2":
+        # plain bf16 MLPs on both sides round differently (module doc)
+        assert _dist(got, want)[0] <= BF16_BAR, _dist(got, want)
+        assert not torch.equal(got, slow)
+        return
+    _hold(path, (got,), (slow,), (want,))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fn", [
+    "relevancy_fused_block", "relevancy_fused_forward_probe",
+    "relevancy_fused_block_forward_probe",
+    "relevancy_fused_block2_forward_probe"])
+def test_other_entry_points_pass_fast_dots(fn, dtype, model, batch,
+                                           monkeypatch):
+    """``relevancy_fused_block`` (the attention kernels of the block path,
+    held to JAX through ``test_path_fast_dots_matches_jax``'s wrappers) and
+    the three forward probes hand ``fast_dots`` to every kernel they run,
+    on float32 and bfloat16 models; their outputs are finite and differ
+    from ``fast_dots=False``'s."""
+    im, tg = batch
+    m = copy.deepcopy(model).to(getattr(torch, dtype))
+    args = (m, torch.from_numpy(im).to(getattr(torch, dtype)))
+    if not fn.endswith("probe"):
+        args += (torch.from_numpy(tg),)
+    spies = _spy_kernels(monkeypatch)
+    got = getattr(tvit, fn)(*args, fast_dots=True)
+    assert _all_fast(spies)
+    assert torch.isfinite(got.float()).all()
+    assert not torch.equal(got, getattr(tvit, fn)(*args, fast_dots=False))
+
+
+def test_bf16_tensors_without_fast_dots_raise_before_cuda_launch():
+    """On CUDA, bfloat16 storage takes ``fast_dots=True``: the check runs
+    before anything is built (here on a meta tensor's dtype alone)."""
+    t = torch.zeros(2, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="fast_dots=True"):
+        tfa.storage_dtype(t, False)
+    assert tfa.storage_dtype(t, True) == torch.bfloat16
+    with pytest.raises(RuntimeError, match="float16"):
+        tfa.storage_dtype(t.half(), True)
+
+
+def test_cpu_fast_dots_launches_nothing():
+    """CPU tensors take the plain versions with ``fast_dots`` too: no
+    launch is counted, fp32 or bf16."""
+    tab.reset_launch_counts()
+    tfa.reset_launch_counts()
+    for name, (kind, call) in CALLS.items():
+        arrays = {k: torch.from_numpy(v) for k, v in INPUTS[kind](0).items()}
+        call(tab if kind in ("attn", "mlp") else tfa, arrays, fast_dots=True)
+    counts = {**tab.launch_counts(), **tab.bf16_launch_counts(),
+              **tfa.launch_counts(), **tfa.bf16_launch_counts()}
+    assert len(counts) == 16 and set(counts.values()) == {0}
+
+
+class _FakeLibrary:
+    """Stands in for a built library: records each C call, returns 0 (and
+    what the size queries need)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        answers = {"tmx_max_dh": 128, "tmx_smem_optin": 232448,
+                   "tmx_attn_smem": 1000, "tmx_attn_smem_bf16": 1000}
+
+        def call(*args):
+            self.calls.append((name, args))
+            return answers.get(name, 0)
+        return call
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_branch_marshals_the_bf16_mode(dtype, monkeypatch):
+    """The wrappers' CUDA branch run on CPU tensors with a stand-in library
+    (nothing is built): with fast_dots the block wrappers call the bf16
+    library's LayerNorm, GEMM and attention entry points, with the bits of
+    the GEMM's bfloat16 tensors (a 1, b 2, out 4, bias 8, res 16) that keep
+    every product-only intermediate in bf16 and the rest in the tensors'
+    dtype; outputs come back in that dtype, e_row float32; fp32 tensors
+    without fast_dots call the fp32 library only."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(_build, "on_cpu", lambda x: False)
+    monkeypatch.setattr(_build, "load", lambda name, signatures: fake)
+    monkeypatch.setattr(_build, "stream", lambda dev: 0)
+    monkeypatch.setattr(_build, "on_device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(tfa, "_libs", {})
+    monkeypatch.setattr(tfa, "_accepted", set())
+    tdt = getattr(torch, dtype)
+    a = {k: v if k == "r" else v.to(tdt) for k, v in
+         ((k, torch.from_numpy(v)) for k, v in
+          attn_inputs(2, 17, 64).items())}
+    m = {k: torch.from_numpy(v).to(tdt) for k, v in
+         mlp_inputs(2, 17, 64, 256).items()}
+    cot_x, e_row = CALLS["attn_block_bwd"][1](tab, a, fast_dots=True)
+    cot_mid = CALLS["mlp_block_bwd"][1](tab, m, fast_dots=True)
+    assert cot_x.dtype == cot_mid.dtype == tdt and e_row.dtype == torch.float32
+    bf = int(dtype == "bfloat16")
+    gemms = [(args[6], args[10], args[11]) for name, args in fake.calls
+             if name == "tmx_gemm_bf16"]   # (trans_b, act, dtypes)
+    # attn_block_bwd: qkv, cot·W_outᵀ, dqkv·W_qkvᵀ; mlp_block_bwd: a1,
+    # cot·W2ᵀ × GELU'(a1), da·W1ᵀ
+    assert gemms == [(0, 0, 1 | 4 | bf * (2 | 8)), (1, 0, 4 | bf * (1 | 2)),
+                     (1, 0, 1 | bf * 2), (0, 0, 1 | bf * (2 | 8)),
+                     (1, 2, 4 | bf * (1 | 2)), (1, 0, 1 | bf * 2)]
+    names = [name for name, _ in fake.calls]
+    assert names.count("tmx_attn_bwd_bf16") == 1
+    assert names.count("tmx_layer_norm_bf16") == 2
+    assert names.count("tmx_layer_norm_vjp_any") == 2
+    assert not {"tmx_gemm", "tmx_attn_bwd", "tmx_layer_norm"} & set(names)
+    attn = next(args for name, args in fake.calls
+                if name == "tmx_attn_bwd_bf16")
+    assert attn[-2] == 1   # qkv and dqkv stored in bf16 for the attention
+    if dtype == "bfloat16":
+        with pytest.raises(RuntimeError, match="fast_dots=True"):
+            CALLS["attn_block_fwd"][1](tab, a)
+        return
+    fake.calls.clear()
+    CALLS["attn_block_fwd"][1](tab, a)
+    assert {name for name, _ in fake.calls} >= {"tmx_gemm", "tmx_attn_fwd",
+                                                "tmx_layer_norm"}
+    assert not any(name.endswith(("_bf16", "_any"))
+                   for name, _ in fake.calls)

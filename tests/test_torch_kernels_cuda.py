@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (csrc/attn_block.cu, csrc/relevancy_chain.cu,
-csrc/roi_pool.cu) against their plain versions, on the card; their GEMM
-(csrc/common.cuh) also against float64. The DETR explanation path, which
-runs no kernel of the port, on the card against the CPU.
+"""The port's CUDA kernels (csrc/attn_block.cu, csrc/attn_block_bf16.cu,
+csrc/relevancy_chain.cu, csrc/roi_pool.cu) against their plain versions, on
+the card; their GEMMs (csrc/common.cuh) also against float64. The DETR
+explanation path, which runs no kernel of the port, on the card against the
+CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device. The file imports neither JAX nor the JAX package, so it runs on a
@@ -918,3 +919,284 @@ def test_detr_explain_image_cuda_equals_cpu(cuda):
     assert b["masks"].shape == (5, 64, 96)
     for mod in mods:
         assert all(n == 0 for n in mod.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# the bf16-product mode (fast_dots) and bf16 tensors: csrc/attn_block_bf16.cu
+# and common.cuh's gemm_bf16_kernel, against the plain versions with
+# fast_dots on the card
+# ---------------------------------------------------------------------------
+
+# kernel against plain, as shares of max|plain|. The fp32 values before a
+# bf16 rounding differ by an ulp now and then (sum order, exp2f against
+# torch's exp, the LayerNorm statistics), which flips the rounding of an
+# operand on a bf16 rounding edge and moves the outputs it feeds by up to
+# one rounding of one term; in the attention block a flip reaches every row
+# of its image. So the median |Δ| over the elements is held to a tenth of
+# the same median between fast_dots and fp32 on the same values (at least
+# MEDIAN_FLOOR), max|Δ| to one rounding of a term (2⁻⁸), and one more ulp
+# of the largest element for a bf16 output (2⁻⁶).
+FAST_MAX_BARS = {torch.float32: 2.0 ** -8, torch.bfloat16: 2.0 ** -6}
+MEDIAN_FLOOR = 5e-6
+FAST_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _fast_close(got, want, ref):
+    """Each output of ``got`` (the kernels) against ``want`` (the plain
+    version with fast_dots) at the bars above; ``ref``: the plain version
+    without fast_dots on the same values in float32."""
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    for g, w, f in zip(as_tuple(got), as_tuple(want), as_tuple(ref)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        top = float(w.float().abs().max())
+        med = lambda a, b: float((a.float() - b.float()).abs().median())
+        bar = max(MEDIAN_FLOOR * top, med(w, f) / 10)
+        assert med(g, w) <= bar, (med(g, w), bar, top)
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= FAST_MAX_BARS[g.dtype] * top, (err, top)
+
+
+def _f32(d):
+    return {k: v.float() for k, v in d.items()}
+
+
+def _stored(d, dtype):
+    """The inputs in ``dtype``, r float32."""
+    return {k: v if k == "r" else v.to(dtype) for k, v in d.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FAST_DTYPES)
+@pytest.mark.parametrize("B,H,S,D", CUDA_ATTN)
+def test_attn_block_kernels_fast_dots_match_plain(cuda, B, H, S, D, dtype):
+    """attn_block_fwd / attn_block_bwd with fast_dots on float32 and
+    bfloat16 tensors: the bf16-product kernels (counted apart from the fp32
+    ones), outputs in the inputs' dtype and e_row float32, within
+    FAST_BARS of the plain versions, the same bits on a second call."""
+    a = _stored(to_torch(attn_inputs(B, S, D), cuda), dtype)
+    tab.reset_launch_counts()
+    fwd = attn_fwd(tab, a, H, fast_dots=True)
+    bwd = attn_bwd(tab, a, H, fast_dots=True)
+    torch.cuda.synchronize()
+    assert tab.bf16_launch_counts() == {
+        "attn_block_fwd_bf16": 1, "mlp_block_fwd_bf16": 0,
+        "mlp_block_bwd_bf16": 0, "attn_block_bwd_bf16": 1}
+    assert set(tab.launch_counts().values()) == {0}
+    assert fwd.dtype == bwd[0].dtype == dtype
+    assert bwd[1].dtype == torch.float32
+    fwd_plain = lambda t, fast: tab.attn_block_fwd_plain(
+        t["x"], t["wqkv"], t["bqkv"], t["wout"], t["bout"], t["g1"], t["b1"],
+        H, EPS, fast_dots=fast)
+    bwd_plain = lambda t, fast: tab.attn_block_bwd_plain(
+        t["x"], t["cot"], t["r"], t["wqkv"], t["bqkv"], t["wout"], t["g1"],
+        t["b1"], H, EPS, fast_dots=fast)
+    _fast_close(fwd, fwd_plain(a, True), fwd_plain(_f32(a), False))
+    _fast_close(bwd, bwd_plain(a, True), bwd_plain(_f32(a), False))
+    assert torch.equal(attn_fwd(tab, a, H, fast_dots=True), fwd)
+    again = attn_bwd(tab, a, H, fast_dots=True)
+    assert all(torch.equal(x, y) for x, y in zip(again, bwd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FAST_DTYPES)
+@pytest.mark.parametrize("B,S,D,I,chunks", CUDA_MLP)
+def test_mlp_block_kernels_fast_dots_match_plain(cuda, B, S, D, I, chunks,
+                                                 dtype):
+    m = _stored(to_torch(mlp_inputs(B, S, D, I), cuda), dtype)
+    tab.reset_launch_counts()
+    fwd = mlp_fwd(tab, m, chunks, fast_dots=True)
+    bwd = mlp_bwd(tab, m, chunks, fast_dots=True)
+    torch.cuda.synchronize()
+    assert tab.bf16_launch_counts() == {
+        "attn_block_fwd_bf16": 0, "mlp_block_fwd_bf16": 1,
+        "mlp_block_bwd_bf16": 1, "attn_block_bwd_bf16": 0}
+    assert fwd.dtype == bwd.dtype == dtype
+    fwd_plain = lambda t, fast: tab.mlp_block_fwd_plain(
+        t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["g2"], t["bb2"], EPS,
+        chunks, fast_dots=fast)
+    bwd_plain = lambda t, fast: tab.mlp_block_bwd_plain(
+        t["x"], t["cot"], t["w1"], t["b1"], t["w2"], t["g2"], t["bb2"], EPS,
+        chunks, fast_dots=fast)
+    _fast_close(fwd, fwd_plain(m, True), fwd_plain(_f32(m), False))
+    _fast_close(bwd, bwd_plain(m, True), bwd_plain(_f32(m), False))
+    assert torch.equal(mlp_bwd(tab, m, chunks, fast_dots=True), bwd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FAST_DTYPES)
+@pytest.mark.parametrize("B,H,S,Dh", CUDA_FLASH)
+def test_flash_kernels_fast_dots_match_plain(cuda, B, H, S, Dh, dtype):
+    """The four flash wrappers with fast_dots (head dims 8 to 128, rounded
+    up to 16 in the kernels; S up to 300), and the per-head kernels on
+    split-head views of qkv write the qkv kernels' bits."""
+    f = _stored(to_torch(flash_inputs(B, H, S, Dh), cuda), dtype)
+    f32 = _f32(f)
+    plain = {
+        "fwd": lambda t, fast: tfa.flash_fwd_plain(t["q"], t["k"], t["v"],
+                                                   fast_dots=fast),
+        "bwd": lambda t, fast: tfa.flash_bwd_ehat_plain(
+            t["q"], t["k"], t["v"], t["dout"], t["r"], fast_dots=fast),
+        "fwd_qkv": lambda t, fast: tfa.flash_fwd_qkv_plain(t["qkv"], H,
+                                                           fast_dots=fast),
+        "bwd_qkv": lambda t, fast: tfa.flash_bwd_ehat_qkv_plain(
+            t["qkv"], t["dmerged"], t["r"], H, fast_dots=fast)}
+    tfa.reset_launch_counts()
+    got = {
+        "fwd": tfa.flash_fwd(f["q"], f["k"], f["v"], fast_dots=True),
+        "bwd": tfa.flash_bwd_ehat(f["q"], f["k"], f["v"], f["dout"], f["r"],
+                                  fast_dots=True),
+        "fwd_qkv": tfa.flash_fwd_qkv(f["qkv"], H, fast_dots=True),
+        "bwd_qkv": tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"], f["r"], H,
+                                          fast_dots=True)}
+    torch.cuda.synchronize()
+    assert set(tfa.bf16_launch_counts().values()) == {1}
+    assert set(tfa.launch_counts().values()) == {0}
+    for key, out in got.items():
+        _fast_close(out, plain[key](f, True), plain[key](f32, False))
+    views = tfa.qkv_heads(f["qkv"], H)
+    out = tfa.flash_fwd(*views, fast_dots=True)
+    assert torch.equal(out, tfa.heads(got["fwd_qkv"], H))
+    *grads, e_row = tfa.flash_bwd_ehat(*views, tfa.heads(f["dmerged"], H),
+                                       f["r"], fast_dots=True)
+    dqkv, e_qkv = got["bwd_qkv"]
+    assert all(torch.equal(g, w) for g, w in zip(grads, tfa.qkv_heads(dqkv,
+                                                                      H)))
+    assert torch.equal(e_row, e_qkv)
+
+
+@pytest.mark.cuda
+def test_bf16_tensors_need_fast_dots_on_cuda(cuda):
+    a = _stored(to_torch(attn_inputs(1, 5, 16), cuda), torch.bfloat16)
+    f = _stored(to_torch(flash_inputs(1, 2, 5, 8), cuda), torch.bfloat16)
+    tab.reset_launch_counts()
+    tfa.reset_launch_counts()
+    for call in (lambda: attn_fwd(tab, a, 2),
+                 lambda: tfa.flash_fwd(f["q"], f["k"], f["v"]),
+                 lambda: tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"],
+                                                f["r"], 2)):
+        with pytest.raises(RuntimeError, match="fast_dots=True"):
+            call()
+    with pytest.raises(RuntimeError, match="float32"):   # mixed dtypes
+        tfa.flash_fwd(f["q"].float(), f["k"], f["v"], fast_dots=True)
+    counts = {**tab.launch_counts(), **tab.bf16_launch_counts(),
+              **tfa.launch_counts(), **tfa.bf16_launch_counts()}
+    assert set(counts.values()) == {0}
+
+
+def gemm_bf16_cuda(a, b, **kw):
+    return tab._gemm_bf16(tab.library(fast_dots=True), a, b,
+                          _build.stream(a.device), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("M,N,K", [(1, 1, 1), (7, 33, 197), (33, 7, 5),
+                                   (197, 768, 768), (1576, 2304, 768),
+                                   (1576, 768, 3072), (130, 70, 33)])
+@pytest.mark.parametrize("dtypes", ["f32 f32 f32", "bf16 f32 bf16",
+                                    "bf16 bf16 f32", "f32 bf16 bf16"])
+def test_gemm_bf16_matches_rounded_operands_in_float64(cuda, M, N, K,
+                                                       trans_b, dtypes):
+    """The bf16-product GEMM (a, b and out each float32 or bfloat16) against
+    the float64 product of the operands rounded to bf16 (``gemm_plain`` with
+    fast_dots in float64): the rounding is the same (to nearest even), so
+    only the fp32 sum differs, within GEMM_BAR · max|C64| for a float32
+    output and one bf16 rounding for a bfloat16 one; the same bits twice."""
+    da, db, dout = ({"f32": torch.float32, "bf16": torch.bfloat16}[x]
+                    for x in dtypes.split())
+    a, b = (torch.from_numpy(t).to(cuda)
+            for t in gemm_operands(M, N, K, trans_b, seed=6))
+    a, b = a.to(da), b.to(db)
+    got = gemm_bf16_cuda(a, b, trans_b=trans_b, out_dtype=dout)
+    torch.cuda.synchronize()
+    assert got.dtype == dout and got.shape == (M, N)
+    want = tab.gemm_plain(a.double(), b.double(), trans_b, fast_dots=True)
+    if dout == torch.float32:
+        assert_near_f64(got, want)
+    else:
+        err = float((got.double() - want).abs().max())
+        assert err <= 2.0 ** -8 * float(want.abs().max()), err
+    assert torch.equal(gemm_bf16_cuda(a, b, trans_b=trans_b,
+                                      out_dtype=dout), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+@pytest.mark.parametrize("dtype", FAST_DTYPES)
+def test_gemm_bf16_epilogues(cuda, epilogue, trans_b, dtype):
+    """Each epilogue with bias and res in float32 or bfloat16 (aux
+    float32), in fp32 before the float32 output."""
+    M, N, K = 197, 769, 768
+    a, b = (torch.from_numpy(t).to(cuda)
+            for t in gemm_operands(M, N, K, trans_b, seed=7))
+    rng = np.random.RandomState(8)
+    bias, res, aux = (torch.from_numpy(t.astype(np.float32)).to(cuda)
+                      for t in (rng.randn(N), rng.randn(M, N),
+                                rng.randn(M, N)))
+    bias, res = bias.to(dtype), res.to(dtype)
+    kw = {"bias": dict(bias=bias),
+          "bias_res": dict(bias=bias, res=res),
+          "bias_gelu": dict(bias=bias, act=tab._ACT_GELU),
+          "gelu_grad_aux_is_out": dict(aux=aux, act=tab._ACT_MUL_GELU_GRAD),
+          "res": dict(res=res)}[epilogue]
+    got = gemm_bf16_cuda(a, b, trans_b=trans_b, **kw)
+    torch.cuda.synchronize()
+    want = tab.gemm_plain(a.double(), b.double(), trans_b, fast_dots=True,
+                          **{k: v.double() if torch.is_tensor(v) else v
+                             for k, v in kw.items()})
+    assert_near_f64(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,kernels", [
+    ("relevancy_fused_block2", ("attn_block_fwd", "mlp_block_fwd",
+                                "mlp_block_bwd", "attn_block_bwd")),
+    ("relevancy_fused", ("flash_fwd_qkv", "flash_bwd_ehat_qkv")),
+    ("relevancy_fused_block", ("attn_block_fwd", "attn_block_bwd"))])
+def test_fused_paths_fast_dots_on_kernels(cuda, path, kernels):
+    """The three paths with fast_dots: the bf16-product kernels depth times
+    each and nothing else; the maps within the JAX package's bar of its
+    chip's fast mode (max|Δ| ≤ 1e-4 or 0.5 % of max|ref|) of the fp32 maps,
+    on the CPU's plain fast_dots maps likewise; a bfloat16 model with
+    bfloat16 images runs the same kernels to finite float32 maps."""
+    cfg = tvit.ViTConfig(image_size=64, patch_size=16, width=64, depth=3,
+                         num_heads=4, num_classes=10)
+    cpu = tvit.init_params(0, cfg, "cpu")
+    model = tvit.init_params(0, cfg, cuda)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn((3, 64, 64, 3), generator=gen)
+    targets = torch.tensor([1, 2, 3])
+    fn = getattr(tvit, path)
+    mods = (tab, tfa)
+    for mod in mods:
+        mod.reset_launch_counts()
+    got = fn(model, images.to(cuda), targets.to(cuda), fast_dots=True)
+    torch.cuda.synchronize()
+    launched = {k: v for m in mods for k, v in {**m.launch_counts(),
+                                                **m.bf16_launch_counts()}
+                .items()}
+    fast = {f"{k}_bf16" for k in kernels}
+    assert launched == {k: cfg.depth if k in fast else 0 for k in launched}
+    for ref in (fn(model, images.to(cuda), targets.to(cuda)).cpu(),
+                fn(cpu, images, targets, fast_dots=True)):
+        err = float((got.cpu() - ref).abs().max())
+        assert err <= 1e-4 or err <= 5e-3 * float(ref.abs().max()), err
+    m16 = tvit.init_params(0, cfg, cuda).to(torch.bfloat16)
+    maps = fn(m16, images.to(cuda, torch.bfloat16), targets.to(cuda),
+              fast_dots=True)
+    assert maps.dtype == torch.float32 and torch.isfinite(maps).all()
+
+
+@pytest.mark.cuda
+def test_bench_bf16_maps_per_sec_on_cuda(cuda, monkeypatch):
+    """``cli bench``'s record on the card: bf16_maps_per_sec and its
+    spread, positive (fewer timed calls than the bench's own)."""
+    from transformer_mm_explainability_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "TRIALS", 2)
+    monkeypatch.setattr(bench, "ITERS", 2)
+    rec = bench.measure("cuda")
+    lo, hi = rec["spread"]["bf16"]
+    assert rec["value"] > 0 and 0 < lo <= rec["bf16_maps_per_sec"] <= hi

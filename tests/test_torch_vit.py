@@ -141,6 +141,30 @@ def test_generate_relevance_matches_jax(jparams, model, batch, start_layer):
     assert np.abs(got.numpy() - want).max() < BAR
 
 
+def test_remat_relevancy_matches_no_remat_and_jax(jparams, model, batch,
+                                                  monkeypatch):
+    """``remat=True`` runs each block under ``torch.utils.checkpoint``
+    (counted: once per block) and gives ``remat=False``'s captures and maps
+    exactly, and JAX's ``relevancy(..., remat=True)`` within 1e-5."""
+    im, tg = batch
+    want = np.asarray(jvit.relevancy(jparams, jnp.asarray(im),
+                                     jnp.asarray(tg), JCFG, remat=True))
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(kw.get("use_reentrant"))
+        return torch.utils.checkpoint.checkpoint(*args, **kw)
+
+    monkeypatch.setattr(tvit, "checkpoint", counted)
+    got = tvit.relevancy(model, *_torch(batch), remat=True)
+    assert calls == [False] * TCFG.depth
+    assert torch.equal(got, tvit.relevancy(model, *_torch(batch)))
+    for a, b in zip(tvit.capture(model, *_torch(batch), remat=True),
+                    tvit.capture(model, *_torch(batch))):
+        assert torch.equal(a, b)
+    assert np.abs(got.numpy() - want).max() < 1e-5
+
+
 @pytest.mark.parametrize("method,args", [
     ("generate_rollout", ("attn",)), ("generate_rollout", ("attn", 1)),
     ("generate_raw_attn", ("attn",)),

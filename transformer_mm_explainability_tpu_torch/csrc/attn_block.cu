@@ -114,24 +114,11 @@
 // [S, I/chunks] tiles in VMEM. The attention probabilities are never stored:
 // each pass recomputes them from q and k.
 
+#include "attn_common.cuh"
 #include "common.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
-
-constexpr int kWarp = 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // LayerNorm
@@ -197,18 +184,6 @@ ln_vjp_kernel(const float* __restrict__ dy, const float* __restrict__ x,
 // [B, S, 3D]: q at +0, k at +D, v at +2D, strides (S*3D, dh, 3D); merged
 // [B, S, D]: (S*D, dh, D); per-head [B, H, S, dh]: (H*S*dh, S*dh, dh).
 // ---------------------------------------------------------------------------
-
-// The row stride is 32-bit (the wrappers check that it fits), so a row
-// offset is one widening multiply; batch and head offsets are 64-bit.
-struct Strides {
-  long long b, h;
-  int s;
-};
-
-// Offset of the (b, h) head of an operand.
-__device__ __forceinline__ long long head_at(const Strides& t, int b, int h) {
-  return (long long)b * t.b + (long long)h * t.h;
-}
 
 constexpr int kMaxDh = 128;
 
@@ -760,16 +735,6 @@ attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (key_ok[0]) e_part[base + key] = fold[0];
     if (key_ok[1]) e_part[base + key + 8] = fold[1];
   }
-}
-
-__global__ void e_row_kernel(const float* __restrict__ e_part, float* __restrict__ e_row,
-                             int B, int S, int H) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * S) return;
-  const int b = idx / S, k = idx % S;
-  float s = 0.f;
-  for (int h = 0; h < H; ++h) s += e_part[((size_t)b * H + h) * S + k];
-  e_row[idx] = s * (1.0f / H);
 }
 
 // dh rounded up to the forward's 8-wide fragment steps.

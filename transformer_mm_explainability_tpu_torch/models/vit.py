@@ -33,6 +33,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from transformer_mm_explainability_tpu_torch._device import resolve_device
 from transformer_mm_explainability_tpu_torch.ops import attn_block as ab
@@ -222,17 +223,22 @@ def _head(model: ViT, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(model: ViT, images: torch.Tensor,
-            taps: Optional[torch.Tensor] = None
+            taps: Optional[torch.Tensor] = None, remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ViT forward. images: [B, H, W, 3] (normalised). ``taps``: optional
     [L, B, H, S, S] additive attention taps. Returns
-    ``(logits [B, C], attn_probs [L, B, H, S, S])``."""
+    ``(logits [B, C], attn_probs [L, B, H, S, S])``. ``remat`` checkpoints
+    each block (``torch.utils.checkpoint``, recomputed in the backward), as
+    the JAX package's ``jax.checkpoint``: the same values for about a third
+    more work, without the blocks' activations kept for autograd."""
     cfg = model.cfg
     x = _embed(model, images)
     probs = []
     for i, blk in enumerate(model.blocks):
-        x, p = blk(x, None if taps is None else taps[i], cfg.num_heads,
-                   cfg.ln_eps)
+        args = (x, None if taps is None else taps[i], cfg.num_heads,
+                cfg.ln_eps)
+        x, p = (checkpoint(blk, *args, use_reentrant=False) if remat
+                else blk(*args))
         probs.append(p)
     return _head(model, x), torch.stack(probs)
 
@@ -242,26 +248,29 @@ def _score(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return logits.gather(1, targets[:, None].long()).sum()
 
 
-def capture(model: ViT, images: torch.Tensor, targets: torch.Tensor
+def capture(model: ViT, images: torch.Tensor, targets: torch.Tensor,
+            remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward and one backward: returns (logits, A, ∇A), A and ∇A
-    each [L, B, H, S, S]. ``targets``: [B] class indices."""
+    each [L, B, H, S, S]. ``targets``: [B] class indices. ``remat``: as
+    ``forward``'s."""
     cfg = model.cfg
     B = images.shape[0]
     taps = torch.zeros((cfg.depth, B, cfg.num_heads, cfg.seq_len,
                         cfg.seq_len), device=images.device,
                        dtype=images.dtype, requires_grad=True)
     with torch.enable_grad():
-        logits, attn = forward(model, images, taps)
+        logits, attn = forward(model, images, taps, remat)
         (grads,) = torch.autograd.grad(_score(logits, targets), taps)
     return logits.detach(), attn.detach(), grads
 
 
 def relevancy(model: ViT, images: torch.Tensor, targets: torch.Tensor,
-              start_layer: int = 0) -> torch.Tensor:
+              start_layer: int = 0, remat: bool = False) -> torch.Tensor:
     """The ViT notebook's ``generate_relevance``: R = I; per block
-    R += avg_heads(A, ∇A) @ R; returns R[:, 0, 1:] ([B, S-1])."""
-    _, attn, grads = capture(model, images, targets)
+    R += avg_heads(A, ∇A) @ R; returns R[:, 0, 1:] ([B, S-1]). ``remat``:
+    as ``forward``'s."""
+    _, attn, grads = capture(model, images, targets, remat)
     e = _head_mean(model, rl.e_hats(attn.movedim(1, 0), grads.movedim(1, 0)))
     return rl.rule6_chain(e[:, start_layer:])[:, 0, 1:]
 
@@ -352,43 +361,63 @@ def relevancy_streamed_row(model: ViT, images: torch.Tensor,
 # The fused paths. Each block is an attention part x → x_mid and an MLP part
 # x_mid → x_out, each with a backward; every path tapes (x, x_mid, aux) per
 # block, aux being what its MLP backward needs (the pre-GELU a1, or None).
+# ``fast`` is the paths' ``fast_dots``: the kernels' bf16-product mode. The
+# plain parts run in the tensors' dtype, as the JAX package leaves them to
+# XLA; their LayerNorm VJPs take fp32 statistics whatever the dtype.
 # ---------------------------------------------------------------------------
 
-def _attn_flash(cfg: ViTConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
+def _attn_flash(cfg: ViTConfig, blk: Block, x: torch.Tensor,
+                fast: bool) -> torch.Tensor:
     """LN1 and the two products in plain torch, attention in
     ``flash_fwd_qkv``."""
     h1 = layer_norm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
     qkv = h1 @ blk.w_qkv + blk.b_qkv
-    return x + fa.flash_fwd_qkv(qkv, cfg.num_heads) @ blk.w_out + blk.b_out
+    out = fa.flash_fwd_qkv(qkv, cfg.num_heads, fast_dots=fast)
+    return x + out @ blk.w_out + blk.b_out
+
+
+def _ln_fwd32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float):
+    """``ab._ln_fwd`` with fp32 statistics for bf16 tensors (the JAX
+    ``layer_norm``): (y in x's dtype, x̂, 1/σ)."""
+    y, xh, inv = ab._ln_fwd(*map(fa.upcast, (x, scale, bias)), eps)
+    return y.to(x.dtype), xh, inv
+
+
+def _ln_vjp32(dy: torch.Tensor, scale: torch.Tensor, xh: torch.Tensor,
+              inv: torch.Tensor) -> torch.Tensor:
+    """``ab._ln_vjp`` in fp32 for bf16 cotangents, returned in dy's dtype."""
+    return ab._ln_vjp(fa.upcast(dy), fa.upcast(scale), xh, inv).to(dy.dtype)
 
 
 def _attn_flash_bwd(cfg: ViTConfig, blk: Block, x_in: torch.Tensor,
-                    cot_mid: torch.Tensor, r: torch.Tensor):
+                    cot_mid: torch.Tensor, r: torch.Tensor, fast: bool):
     """qkv recomputed (one product), attention backward and the Ê fold in
     ``flash_bwd_ehat_qkv``, the other products and the LN1 VJP in plain
     torch. Returns (cot_x, e_row)."""
-    h1, xh, inv = ab._ln_fwd(x_in, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+    h1, xh, inv = _ln_fwd32(x_in, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
     qkv = h1 @ blk.w_qkv + blk.b_qkv
     d_qkv, e_row = fa.flash_bwd_ehat_qkv(qkv, cot_mid @ blk.w_out.T, r,
-                                         cfg.num_heads)
-    d_x = ab._ln_vjp(d_qkv @ blk.w_qkv.T, blk.ln1_scale, xh, inv)
+                                         cfg.num_heads, fast_dots=fast)
+    d_x = _ln_vjp32(d_qkv @ blk.w_qkv.T, blk.ln1_scale, xh, inv)
     return cot_mid + d_x, e_row
 
 
-def _attn_block(cfg: ViTConfig, blk: Block, x: torch.Tensor) -> torch.Tensor:
+def _attn_block(cfg: ViTConfig, blk: Block, x: torch.Tensor,
+                fast: bool) -> torch.Tensor:
     return ab.attn_block_fwd(x, blk.w_qkv, blk.b_qkv, blk.w_out, blk.b_out,
                              blk.ln1_scale, blk.ln1_bias, cfg.num_heads,
-                             cfg.ln_eps)
+                             cfg.ln_eps, fast_dots=fast)
 
 
 def _attn_block_bwd(cfg: ViTConfig, blk: Block, x_in: torch.Tensor,
-                    cot_mid: torch.Tensor, r: torch.Tensor):
+                    cot_mid: torch.Tensor, r: torch.Tensor, fast: bool):
     return ab.attn_block_bwd(x_in, cot_mid, r, blk.w_qkv, blk.b_qkv,
                              blk.w_out, blk.ln1_scale, blk.ln1_bias,
-                             cfg.num_heads, cfg.ln_eps)
+                             cfg.num_heads, cfg.ln_eps, fast_dots=fast)
 
 
-def _mlp_taped(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor):
+def _mlp_taped(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor, fast: bool):
     """LN2 + MLP + residual in plain torch, taping the pre-GELU a1."""
     h2 = layer_norm(x_mid, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
     a1 = h2 @ blk.w1 + blk.b1
@@ -396,23 +425,26 @@ def _mlp_taped(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor):
 
 
 def _mlp_taped_bwd(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor,
-                   a1: torch.Tensor, cot_x: torch.Tensor) -> torch.Tensor:
+                   a1: torch.Tensor, cot_x: torch.Tensor,
+                   fast: bool) -> torch.Tensor:
     """cot_mid from the taped a1: two products and the GELU and LN2 VJPs,
     plain torch (no forward product recomputed)."""
     d_a1 = ab._gelu_grad(a1) * (cot_x @ blk.w2.T)
-    _, xh, inv = ab._ln_fwd(x_mid, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    return cot_x + ab._ln_vjp(d_a1 @ blk.w1.T, blk.ln2_scale, xh, inv)
+    _, xh, inv = _ln_fwd32(x_mid, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    return cot_x + _ln_vjp32(d_a1 @ blk.w1.T, blk.ln2_scale, xh, inv)
 
 
-def _mlp_block(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor):
+def _mlp_block(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor, fast: bool):
     return ab.mlp_block_fwd(x_mid, blk.w1, blk.b1, blk.w2, blk.b2,
-                            blk.ln2_scale, blk.ln2_bias, cfg.ln_eps), None
+                            blk.ln2_scale, blk.ln2_bias, cfg.ln_eps,
+                            fast_dots=fast), None
 
 
 def _mlp_block_bwd(cfg: ViTConfig, blk: Block, x_mid: torch.Tensor, _,
-                   cot_x: torch.Tensor) -> torch.Tensor:
+                   cot_x: torch.Tensor, fast: bool) -> torch.Tensor:
     return ab.mlp_block_bwd(x_mid, cot_x, blk.w1, blk.b1, blk.w2,
-                            blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+                            blk.ln2_scale, blk.ln2_bias, cfg.ln_eps,
+                            fast_dots=fast)
 
 
 # (attention fwd, attention bwd, MLP fwd, MLP bwd) of each fused path
@@ -421,90 +453,104 @@ _FUSED_BLOCK = (_attn_block, _attn_block_bwd, _mlp_taped, _mlp_taped_bwd)
 _FUSED_BLOCK2 = (_attn_block, _attn_block_bwd, _mlp_block, _mlp_block_bwd)
 
 
-def _fused_forward(model: ViT, images: torch.Tensor, parts):
+def _fused_forward(model: ViT, images: torch.Tensor, parts, fast: bool):
     cfg = model.cfg
     attn, _, mlp, _ = parts
 
     def layer(blk, x):
-        x_mid = attn(cfg, blk, x)
-        x_out, aux = mlp(cfg, blk, x_mid)
+        x_mid = attn(cfg, blk, x, fast)
+        x_out, aux = mlp(cfg, blk, x_mid, fast)
         return x_out, (x, x_mid, aux)
 
     return _taped_forward(model, images, layer)
 
 
 def _fused(model: ViT, images: torch.Tensor, targets: torch.Tensor,
-           row: int, parts) -> torch.Tensor:
+           row: int, parts, fast: bool) -> torch.Tensor:
     """Taped forward, head cotangent, then per block in reverse the MLP and
     attention backwards; the attention backward also returns the rule-6
-    increment e_row = r·Ê, so r ← r + e_row."""
+    increment e_row = r·Ê, so r ← r + e_row (r float32 whatever the
+    tensors' dtype)."""
     cfg = model.cfg
     _, attn_bwd, _, mlp_bwd = parts
     B, S = images.shape[0], cfg.seq_len
-    x, tape = _fused_forward(model, images, parts)
+    x, tape = _fused_forward(model, images, parts, fast)
     cot_x = _head_cotangent(model, x, targets)
     r = _row0(B, S, row, images.device)
     with torch.no_grad():
         for blk, (x_in, x_mid, aux) in zip(reversed(model.blocks),
                                            reversed(tape)):
-            cot_mid = mlp_bwd(cfg, blk, x_mid, aux, cot_x)
-            cot_x, e_row = attn_bwd(cfg, blk, x_in, cot_mid, r)
+            cot_mid = mlp_bwd(cfg, blk, x_mid, aux, cot_x, fast)
+            cot_x, e_row = attn_bwd(cfg, blk, x_in, cot_mid, r, fast)
             r = r + e_row
     return r[:, 1:]
 
 
-def _probe(model: ViT, images: torch.Tensor, parts) -> torch.Tensor:
-    x, _ = _fused_forward(model, images, parts)
+def _probe(model: ViT, images: torch.Tensor, parts, fast: bool
+           ) -> torch.Tensor:
+    x, _ = _fused_forward(model, images, parts, fast)
     with torch.no_grad():
         return _head(model, x)
 
 
 def relevancy_fused(model: ViT, images: torch.Tensor, targets: torch.Tensor,
-                    row: int = 0) -> torch.Tensor:
+                    row: int = 0, fast_dots: bool = False) -> torch.Tensor:
     """``relevancy_streamed_row`` with the fused attention kernels: per
     layer ``flash_fwd_qkv`` forward and ``flash_bwd_ehat_qkv`` backward (A
     never stored; the backward also folds e_row = r·Ê). LN, the qkv, out
     and MLP products and the GELU and LN VJPs stay in plain torch, as the
     JAX path leaves them to XLA. The forward tapes (x, x_mid, a1), so the
-    MLP backward recomputes no product."""
-    return _fused(model, images, targets, row, _FUSED)
+    MLP backward recomputes no product. ``fast_dots``: the kernels'
+    bf16-product mode (see ``relevancy_fused_block2``)."""
+    return _fused(model, images, targets, row, _FUSED, fast_dots)
 
 
 def relevancy_fused_block(model: ViT, images: torch.Tensor,
-                          targets: torch.Tensor, row: int = 0
-                          ) -> torch.Tensor:
+                          targets: torch.Tensor, row: int = 0,
+                          fast_dots: bool = False) -> torch.Tensor:
     """``relevancy_fused`` with the whole attention branch of each block in
     ``ops/attn_block`` (``attn_block_fwd`` / ``attn_block_bwd``); the MLP
-    stays in plain torch and tapes a1."""
-    return _fused(model, images, targets, row, _FUSED_BLOCK)
+    stays in plain torch and tapes a1. ``fast_dots``: as
+    ``relevancy_fused_block2``'s."""
+    return _fused(model, images, targets, row, _FUSED_BLOCK, fast_dots)
 
 
 def relevancy_fused_block2(model: ViT, images: torch.Tensor,
-                           targets: torch.Tensor, row: int = 0
-                           ) -> torch.Tensor:
+                           targets: torch.Tensor, row: int = 0,
+                           fast_dots: bool = False) -> torch.Tensor:
     """``relevancy_streamed_row`` through the block kernels of
     ``ops/attn_block``: per layer ``attn_block_fwd`` then ``mlp_block_fwd``
     forward, taping only (x, x_mid); in reverse ``mlp_block_bwd`` (a1
     recomputed) then ``attn_block_bwd``, which also returns the rule-6
     increment e_row = r·Ê. On CUDA tensors every block runs in the
-    hand-written kernels; on CPU tensors in their plain versions."""
-    return _fused(model, images, targets, row, _FUSED_BLOCK2)
+    hand-written kernels; on CPU tensors in their plain versions.
+
+    ``fast_dots`` (the JAX wrappers' switch; ``False`` by default here):
+    the kernels' bf16-product mode, every operand of their products
+    rounded to bf16 and summed in fp32. A model cast to bfloat16
+    (``model.to(torch.bfloat16)``) with bfloat16 images runs the JAX
+    bench's throughput mode, which takes ``fast_dots=True`` on CUDA; r
+    stays float32 and the maps are float32."""
+    return _fused(model, images, targets, row, _FUSED_BLOCK2, fast_dots)
 
 
-def relevancy_fused_forward_probe(model: ViT, images: torch.Tensor
-                                  ) -> torch.Tensor:
+def relevancy_fused_forward_probe(model: ViT, images: torch.Tensor,
+                                  fast_dots: bool = False) -> torch.Tensor:
     """The forward of ``relevancy_fused`` (embed, the taping blocks, the
     head), returning the logits: a forward/backward split probe."""
-    return _probe(model, images, _FUSED)
+    return _probe(model, images, _FUSED, fast_dots)
 
 
-def relevancy_fused_block_forward_probe(model: ViT, images: torch.Tensor
+def relevancy_fused_block_forward_probe(model: ViT, images: torch.Tensor,
+                                        fast_dots: bool = False
                                         ) -> torch.Tensor:
     """The forward of ``relevancy_fused_block``, returning the logits."""
-    return _probe(model, images, _FUSED_BLOCK)
+    return _probe(model, images, _FUSED_BLOCK, fast_dots)
 
 
-def relevancy_fused_block2_forward_probe(model: ViT, images: torch.Tensor
+def relevancy_fused_block2_forward_probe(model: ViT, images: torch.Tensor,
+                                         fast_dots: bool = False
                                          ) -> torch.Tensor:
     """The forward of ``relevancy_fused_block2``, returning the logits."""
-    return _probe(model, images, _FUSED_BLOCK2)
+    return _probe(model, images, _FUSED_BLOCK2, fast_dots)
+

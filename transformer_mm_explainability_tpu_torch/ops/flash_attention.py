@@ -1,8 +1,7 @@
 """Fused attention for the relevancy pipeline: CUDA kernels, plain versions.
 
 Counterpart of ``transformer_mm_explainability_tpu/ops/flash_attention.py``.
-Four wrappers keep the JAX signatures, without ``interpret`` and
-``fast_dots``: the port is fp32 throughout.
+Four wrappers keep the JAX signatures, without ``interpret``:
 
   * ``flash_fwd(q, k, v)``: softmax(q·kᵀ/√dh)·v, q/k/v ``[B, H, S, dh]``;
   * ``flash_bwd_ehat(q, k, v, dout, r)`` → (dq, dk, dv, e_row), with the
@@ -12,28 +11,45 @@ Four wrappers keep the JAX signatures, without ``interpret`` and
   * ``flash_bwd_ehat_qkv(qkv, dout, r, nheads)`` → (dqkv ``[B, S, 3D]``,
     e_row).
 
-A tensor on the CPU goes to the plain PyTorch version beside each wrapper
-(``*_plain``). A CUDA tensor goes to the attention kernels of
-``csrc/attn_block.cu``, or the wrapper raises: there is no fallback. This
-module launches those kernels for every caller: ``attn_fwd_launch`` /
-``attn_fwd_launch_qkv`` / ``attn_bwd_launch`` and ``ensure_attention``
-below also serve the block wrappers of ``ops/attn_block``. The kernels
-take every operand as a base pointer plus (batch, head, row) strides, so
-the per-head wrappers accept any ``[B, H, S, dh]`` view whose dh axis is
-contiguous (split-head views of a merged qkv tensor included, without a
-copy), and the qkv wrappers pass split-head views of their merged tensors.
-A is never stored. Both directions run on the tensor cores as 3xTF32
-``mma.sync`` products (fp32 accuracy: split operands, no TF32 switch
-anywhere) over tiles streamed by ``cp.async``. The forward keeps an online
-softmax over key tiles. The backward runs two passes that recompute A from
-q and k: a q pass (online row statistics, then dq) and a kv pass (dk, dv
-and the per-head fold), with no atomics, so e_row is the same on every
-run. Neither direction splits a sum across blocks or orders it by timing:
-the same inputs give the same bits, whatever their layout. Both keep
-shared memory fixed by dh, so they take any S. Each wrapper counts its CUDA
-launches in ``launches`` (see ``launch_counts``).
+Each takes ``fast_dots`` as the JAX wrappers do: with it, every operand of
+every product is rounded to bf16 (to nearest even) and the products are
+summed in fp32, while softmax, dsum and the fold stay fp32. The JAX
+default is ``True``, on its chip only (``fast_dots and not interpret``);
+the port's is ``False``, so that its default path holds the fp32 CPU run
+at fp32 accuracy. Tensors are float32, or bfloat16 with ``fast_dots``
+(the JAX bench's throughput mode): the kernels upcast them on load and
+write the outputs in their dtype, e_row in float32.
 
-Before launch a wrapper rejects anything but float32, a head dim above
+A tensor on the CPU goes to the plain PyTorch version beside each wrapper
+(``*_plain``, with the same ``fast_dots``). A CUDA tensor goes to the
+attention kernels of ``csrc/attn_block.cu`` (fp32 products) or, with
+``fast_dots``, of ``csrc/attn_block_bf16.cu`` (bf16 products), or the
+wrapper raises: there is no fallback, and bfloat16 tensors without
+``fast_dots`` raise on CUDA (no kernel computes fp32 products of bf16
+storage). This module launches those kernels for every caller:
+``attn_fwd_launch`` / ``attn_fwd_launch_qkv`` / ``attn_bwd_launch`` and
+``ensure_attention`` below also serve the block wrappers of
+``ops/attn_block``. The kernels take every operand as a base pointer plus
+(batch, head, row) strides, so the per-head wrappers accept any
+``[B, H, S, dh]`` view whose dh axis is contiguous (split-head views of a
+merged qkv tensor included, without a copy), and the qkv wrappers pass
+split-head views of their merged tensors. A is never stored. The fp32
+kernels run both directions on the tensor cores as 3xTF32 ``mma.sync``
+products (fp32 accuracy: split operands, no TF32 switch anywhere) over
+tiles streamed by ``cp.async``; the bf16 kernels as bf16 ``mma.sync``
+products over tiles staged through registers. The forward keeps an online
+softmax over key tiles (the bf16 forward takes the row statistics in a
+first sweep, so that A is rounded after its normalisation, as in the JAX
+body). The backward runs two passes that recompute A from q and k: a q
+pass (online row statistics, then dq) and a kv pass (dk, dv and the
+per-head fold), with no atomics, so e_row is the same on every run.
+Neither direction splits a sum across blocks or orders it by timing: the
+same inputs give the same bits, whatever their layout. Both keep shared
+memory fixed by dh, so they take any S. Each wrapper counts its CUDA
+launches in ``launches`` (the fp32 kernels) and ``launches_bf16`` (the
+bf16-product kernels); see ``launch_counts`` and ``bf16_launch_counts``.
+
+Before launch a wrapper rejects any other dtype, a head dim above
 ``tmx_max_dh()`` (128), and a block that needs more shared memory than
 one block may opt in to on the device.
 
@@ -60,18 +76,26 @@ _SIGNATURES = {  # the attention entry points of csrc/attn_block.cu
     "tmx_smem_optin": [],
     "tmx_max_dh": [],
 }
+_SIGNATURES_BF16 = {  # ... and of csrc/attn_block_bf16.cu
+    "tmx_attn_fwd_bf16": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
+    "tmx_attn_bwd_bf16": [_P] * 12 + [_I, _I, _I, _I, _F, _I, _P],
+    "tmx_attn_smem_bf16": [_I, _I, _I],
+    "tmx_smem_optin": [],
+    "tmx_max_dh": [],
+}
+_libs: Dict[bool, ctypes.CDLL] = {}
 
 
-_lib = None
-
-
-def library() -> ctypes.CDLL:
-    """The built and loaded ``csrc/attn_block.cu`` (built on first call),
-    with its attention entry points declared."""
-    global _lib
-    if _lib is None:
-        _lib = _build.load("attn_block", _SIGNATURES)
-    return _lib
+def library(fast_dots: bool = False) -> ctypes.CDLL:
+    """The built and loaded ``csrc/attn_block.cu`` or, with ``fast_dots``,
+    ``csrc/attn_block_bf16.cu`` (built on first call), with its attention
+    entry points declared."""
+    lib = _libs.get(fast_dots)
+    if lib is None:
+        lib = _libs[fast_dots] = (
+            _build.load("attn_block_bf16", _SIGNATURES_BF16) if fast_dots
+            else _build.load("attn_block", _SIGNATURES))
+    return lib
 
 
 def heads(x: torch.Tensor, nheads: int) -> torch.Tensor:
@@ -92,36 +116,61 @@ def qkv_heads(qkv: torch.Tensor, nheads: int):
 # plain PyTorch versions (the arithmetic of the Pallas bodies)
 # ---------------------------------------------------------------------------
 
-def _probs(q, k):
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """A stored tensor as the kernels read it: bfloat16 upcast to float32,
+    float32 (and the gates' float64) as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def operand(t: torch.Tensor, fast_dots: bool) -> torch.Tensor:
+    """A product operand: under ``fast_dots`` rounded to bfloat16 (to
+    nearest, ties to even, as XLA's ``astype`` and the kernels round) and
+    back, so that the product of two operands is exact and only the sum is
+    fp32; else as it is."""
+    return t.to(torch.bfloat16).to(t.dtype) if fast_dots else t
+
+
+def _probs(q, k, fast_dots: bool = False):
     scale = 1.0 / math.sqrt(q.shape[-1])
-    return torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    s = operand(q, fast_dots) @ operand(k, fast_dots).transpose(-1, -2)
+    return torch.softmax(s * scale, dim=-1)
 
 
-def flash_fwd_plain(q, k, v):
-    return _probs(q, k) @ v
+def flash_fwd_plain(q, k, v, fast_dots: bool = False):
+    dtype = q.dtype
+    q, k, v = map(upcast, (q, k, v))
+    out = operand(_probs(q, k, fast_dots), fast_dots) @ operand(v, fast_dots)
+    return out.to(dtype)
 
 
-def flash_bwd_ehat_plain(q, k, v, dout, r):
+def flash_bwd_ehat_plain(q, k, v, dout, r, fast_dots: bool = False):
+    dtype = q.dtype
+    q, k, v, dout, r = map(upcast, (q, k, v, dout, r))
+    op = lambda t: operand(t, fast_dots)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    a = _probs(q, k)                                    # [B, H, S, S]
-    da = dout @ v.transpose(-1, -2)                     # ∇A
+    a = _probs(q, k, fast_dots)                         # [B, H, S, S]
+    da = op(dout) @ op(v).transpose(-1, -2)             # ∇A
     p = a * da
     ds = a * (da - p.sum(dim=-1, keepdim=True)) * scale
     ead = torch.clamp(p, min=0.0).mean(dim=1)           # Ê = mean_h relu
     e_row = torch.einsum("bq,bqk->bk", r, ead)
-    return ds @ k, ds.transpose(-1, -2) @ q, a.transpose(-1, -2) @ dout, e_row
+    grads = (op(ds) @ op(k), op(ds).transpose(-1, -2) @ op(q),
+             op(a).transpose(-1, -2) @ op(dout))
+    return (*(g.to(dtype) for g in grads), e_row)
 
 
-def flash_fwd_qkv_plain(qkv, nheads: int):
+def flash_fwd_qkv_plain(qkv, nheads: int, fast_dots: bool = False):
     B, S, _ = qkv.shape
-    out = flash_fwd_plain(*qkv_heads(qkv, nheads))
+    out = flash_fwd_plain(*qkv_heads(qkv, nheads), fast_dots=fast_dots)
     return out.transpose(1, 2).reshape(B, S, -1)
 
 
-def flash_bwd_ehat_qkv_plain(qkv, dout, r, nheads: int):
+def flash_bwd_ehat_qkv_plain(qkv, dout, r, nheads: int,
+                             fast_dots: bool = False):
     B, S, _ = qkv.shape
     *grads, e_row = flash_bwd_ehat_plain(*qkv_heads(qkv, nheads),
-                                         heads(dout, nheads), r)
+                                         heads(dout, nheads), r,
+                                         fast_dots=fast_dots)
     merged = [g.transpose(1, 2).reshape(B, S, -1) for g in grads]
     return torch.cat(merged, dim=-1), e_row
 
@@ -130,14 +179,28 @@ def flash_bwd_ehat_qkv_plain(qkv, dout, r, nheads: int):
 # CUDA path
 # ---------------------------------------------------------------------------
 
-def _check(device, shape, **tensors) -> None:
+def storage_dtype(t: torch.Tensor, fast_dots: bool) -> torch.dtype:
+    """The storage dtype of a CUDA call: float32, or bfloat16 with
+    ``fast_dots`` (the kernels multiply bf16 storage only in bf16); raise on
+    anything else."""
+    if t.dtype == torch.float32 or (t.dtype == torch.bfloat16 and fast_dots):
+        return t.dtype
+    if t.dtype == torch.bfloat16:
+        raise RuntimeError("bfloat16 tensors take fast_dots=True on CUDA: "
+                           "the kernels have no fp32-product path for bf16 "
+                           "storage")
+    raise RuntimeError(f"the kernels take float32 or bfloat16 tensors, not "
+                       f"{t.dtype}")
+
+
+def _check(device, shape, dtype=torch.float32, **tensors) -> None:
     """Each keyword is a tensor the kernels read or write through strides:
-    it must have ``shape``, lie on ``device``, be float32 and have a
+    it must have ``shape``, lie on ``device``, be of ``dtype`` and have a
     contiguous last axis."""
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise RuntimeError(f"{name} is {t.dtype}; the attention kernels "
-                               "take float32")
+        if t.dtype != dtype:
+            raise RuntimeError(f"{name} is {t.dtype}; this call of the "
+                               f"attention kernels takes {dtype}")
         if tuple(t.shape) != tuple(shape):
             raise RuntimeError(f"{name} has shape {tuple(t.shape)}, "
                                f"expected {tuple(shape)}")
@@ -161,7 +224,8 @@ def _check_r(device, r, B: int, S: int) -> None:
         raise RuntimeError("r must be contiguous")
 
 
-def check_attention(lib, S: int, dh: int, backward: bool) -> None:
+def check_attention(lib, S: int, dh: int, backward: bool,
+                    fast_dots: bool = False) -> None:
     """Raise, before launch, on a head dim or sequence length the attention
     kernels cannot take: dh above ``tmx_max_dh``, or a block that needs
     more shared memory than one block may opt in to on this device (the
@@ -169,7 +233,8 @@ def check_attention(lib, S: int, dh: int, backward: bool) -> None:
     if dh > lib.tmx_max_dh():
         raise RuntimeError(f"head dim {dh} > {lib.tmx_max_dh()} is not "
                            "supported by the attention kernels")
-    need, limit = lib.tmx_attn_smem(S, dh, int(backward)), lib.tmx_smem_optin()
+    smem = lib.tmx_attn_smem_bf16 if fast_dots else lib.tmx_attn_smem
+    need, limit = smem(S, dh, int(backward)), lib.tmx_smem_optin()
     if need > limit:
         raise RuntimeError(
             f"sequence length {S} at head dim {dh} needs {need} bytes of "
@@ -178,20 +243,20 @@ def check_attention(lib, S: int, dh: int, backward: bool) -> None:
             f"{limit}")
 
 
-_accepted = set()   # (S, dh, backward, device) that passed check_attention
+_accepted = set()   # (S, dh, backward, fast_dots, device) that passed
 
 
-def ensure_attention(S: int, dh: int, backward: bool, device) -> None:
+def ensure_attention(S: int, dh: int, backward: bool, device,
+                     fast_dots: bool = False) -> None:
     """``check_attention`` on the built library for ``device``, asked once
-    per (S, dh, backward, device): its answer depends on nothing else."""
-    key = (S, dh, backward, device)
+    per (S, dh, backward, fast_dots, device): its answer depends on nothing
+    else."""
+    key = (S, dh, backward, fast_dots, device)
     if key in _accepted:
         return
     with _build.on_device(device):
-        check_attention(library(), S, dh, backward)
+        check_attention(library(fast_dots), S, dh, backward, fast_dots)
     _accepted.add(key)
-
-
 def _stride_array(flat) -> ctypes.Array:
     """(batch, head, row) element strides, operand after operand, for the
     kernels, which hold a row stride in 32 bits."""
@@ -233,44 +298,64 @@ def qkv_args(qkv, out, nheads: int):
             [bq, dh, sq] * 3 + [bo, dh, so])
 
 
-def _fwd(pointers, strides, B: int, S: int, H: int, dh: int, stream) -> None:
-    lib = library()
+def _fwd(pointers, strides, B: int, S: int, H: int, dh: int, stream,
+         fast_dots: bool, bf16: bool) -> None:
+    lib = library(fast_dots)
+    if fast_dots:
+        _build.check(lib, "tmx_attn_fwd_bf16", lib.tmx_attn_fwd_bf16(
+            *pointers, _stride_array(strides), B, S, H, dh,
+            1.0 / math.sqrt(dh), int(bf16), stream))
+        return
     _build.check(lib, "tmx_attn_fwd", lib.tmx_attn_fwd(
         *pointers, _stride_array(strides), B, S, H, dh, 1.0 / math.sqrt(dh),
         copy_width(dh, pointers[:3], strides[:9]), stream))
 
 
-def attn_fwd_launch(q, k, v, out, stream) -> None:
+def attn_fwd_launch(q, k, v, out, stream, fast_dots: bool = False) -> None:
     """softmax(q·kᵀ/√dh)·v into ``out`` on ``stream``; all four are
-    [B, H, S, dh] views with unit stride along dh, and S and dh passed
-    ``check_attention`` (both checked by the caller). The copy width is
-    picked from q, k and v (``copy_width``)."""
+    [B, H, S, dh] views of one dtype with unit stride along dh, and S and dh
+    passed ``check_attention`` (both checked by the caller). The fp32
+    kernel picks its copy width from q, k and v (``copy_width``); with
+    ``fast_dots`` the bf16-product kernel runs, on float32 or bfloat16
+    storage."""
     B, H, S, dh = q.shape
-    _fwd(*view_args(q, k, v, out), B, S, H, dh, stream)
+    _fwd(*view_args(q, k, v, out), B, S, H, dh, stream, fast_dots,
+         q.dtype == torch.bfloat16)
 
 
-def attn_fwd_launch_qkv(qkv, out, nheads: int, stream) -> None:
+def attn_fwd_launch_qkv(qkv, out, nheads: int, stream,
+                        fast_dots: bool = False) -> None:
     """``attn_fwd_launch`` on the split-head views of a merged qkv
     [B, S, 3D] and output [B, S, D] (``qkv_args``): the same launch,
     without making six views per call."""
     B, S, D = out.shape
-    _fwd(*qkv_args(qkv, out, nheads), B, S, nheads, D // nheads, stream)
+    _fwd(*qkv_args(qkv, out, nheads), B, S, nheads, D // nheads, stream,
+         fast_dots, qkv.dtype == torch.bfloat16)
 
 
-def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream) -> torch.Tensor:
+def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream,
+                    fast_dots: bool = False) -> torch.Tensor:
     """Attention backward into (dq, dk, dv) and the fold
-    e_row = r · mean_h relu(A∘dA), returned [B, S]; q … dv are
-    [B, H, S, dh] views with unit stride along dh, r is [B, S] contiguous
-    (checked by the caller, as for ``attn_fwd_launch``). The copy width is
-    picked from q, k, v and dout (``copy_width``)."""
+    e_row = r · mean_h relu(A∘dA), returned [B, S] float32; q … dv are
+    [B, H, S, dh] views of one dtype with unit stride along dh, r is
+    [B, S] float32 contiguous (checked by the caller, as for
+    ``attn_fwd_launch``). The fp32 kernels pick their copy width from q, k,
+    v and dout (``copy_width``); with ``fast_dots`` the bf16-product
+    kernels run, on float32 or bfloat16 storage."""
     B, H, S, dh = q.shape
     dev = q.device
     stats = torch.empty((3, B, H, S), device=dev)
     e_part = torch.empty((B, H, S), device=dev)
     e_row = torch.empty((B, S), device=dev)
     pointers, strides = view_args(q, k, v, dout, dq, dk, dv)
-    lib = library()
+    lib = library(fast_dots)
     p = _build.ptr
+    if fast_dots:
+        _build.check(lib, "tmx_attn_bwd_bf16", lib.tmx_attn_bwd_bf16(
+            *pointers[:4], p(r), *pointers[4:], p(stats), p(e_part),
+            p(e_row), _stride_array(strides), B, S, H, dh,
+            1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16), stream))
+        return e_row
     _build.check(lib, "tmx_attn_bwd", lib.tmx_attn_bwd(
         *pointers[:4], p(r), *pointers[4:], p(stats), p(e_part), p(e_row),
         _stride_array(strides), B, S, H, dh, 1.0 / math.sqrt(dh),
@@ -278,128 +363,148 @@ def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream) -> torch.Tensor:
     return e_row
 
 
-def _launch_fwd(q, k, v, out) -> None:
-    B, H, S, dh = q.shape
-    ensure_attention(S, dh, False, q.device)
-    with _build.on_device(q.device):
-        attn_fwd_launch(q, k, v, out, _build.stream(q.device))
+def _count(fn, fast_dots: bool) -> None:
+    if fast_dots:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
-def _launch_bwd(q, k, v, dout, r, dq, dk, dv) -> torch.Tensor:
-    B, H, S, dh = q.shape
-    ensure_attention(S, dh, True, q.device)
-    with _build.on_device(q.device):
-        return attn_bwd_launch(q, k, v, dout, r, dq, dk, dv,
-                               _build.stream(q.device))
-
-
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-              ) -> torch.Tensor:
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              fast_dots: bool = False) -> torch.Tensor:
     """softmax(q·kᵀ/√dh)·v without storing A. q, k, v: [B, H, S, dh] (any
-    strides with a contiguous dh axis). Returns a new contiguous
-    [B, H, S, dh].
+    strides with a contiguous dh axis), float32 or, with ``fast_dots``,
+    bfloat16. Returns a new contiguous [B, H, S, dh] of q's dtype.
 
     Replaces ``flash_attention.flash_fwd`` (``_fwd_kernel``). Bound by
-    operations (4·B·H·S²·dh); both products run on the tensor cores as
-    3xTF32 ``mma.sync`` at fp32 accuracy. One block of 4 warps per
+    operations (4·B·H·S²·dh). fp32: both products run on the tensor cores
+    as 3xTF32 ``mma.sync`` at fp32 accuracy; one block of 4 warps per
     (64-query tile, head, image) keeps Q in shared memory, streams K and V
-    in 32-key ``cp.async`` tiles and keeps an online softmax per row, so
-    any S fits."""
+    in 32-key ``cp.async`` tiles and keeps an online softmax per row, so any
+    S fits. ``fast_dots``: bf16 ``mma.sync`` products on the same tiles
+    staged through registers, the row statistics in a first sweep over the
+    keys so that A is rounded to bf16 after its normalisation (6·B·H·S²·dh
+    flops)."""
     if _build.on_cpu(q):
-        return flash_fwd_plain(q, k, v)
-    _check(q.device, _heads_shape(q), q=q, k=k, v=v)
-    out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
-    _launch_fwd(q, k, v, out)
-    flash_fwd.launches += 1
+        return flash_fwd_plain(q, k, v, fast_dots)
+    dtype = storage_dtype(q, fast_dots)
+    _check(q.device, _heads_shape(q), dtype, q=q, k=k, v=v)
+    B, H, S, dh = q.shape
+    out = torch.empty(q.shape, device=q.device, dtype=dtype)
+    ensure_attention(S, dh, False, q.device, fast_dots)
+    with _build.on_device(q.device):
+        attn_fwd_launch(q, k, v, out, _build.stream(q.device), fast_dots)
+    _count(flash_fwd, fast_dots)
     return out
 
 
 def flash_bwd_ehat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   dout: torch.Tensor, r: torch.Tensor
+                   dout: torch.Tensor, r: torch.Tensor,
+                   fast_dots: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor]:
     """Attention backward fused with the relevancy-row fold.
 
-    q, k, v, dout: [B, H, S, dh] (any strides with a contiguous dh axis);
-    r: [B, S]. Returns (dq, dk, dv [B, H, S, dh] contiguous, e_row [B, S])
-    with ``e_row = r · mean_h relu(A ∘ dA)``.
+    q, k, v, dout: [B, H, S, dh] (any strides with a contiguous dh axis),
+    float32 or, with ``fast_dots``, bfloat16; r: [B, S] float32. Returns
+    (dq, dk, dv [B, H, S, dh] contiguous, of q's dtype, e_row [B, S]
+    float32) with ``e_row = r · mean_h relu(A ∘ dA)``.
 
     Replaces ``flash_attention.flash_bwd_ehat`` (``_bwd_kernel``). Bound by
     operations (10·B·H·S²·dh for the function's five products), all of
-    them run on the tensor cores as 3xTF32 ``mma.sync``: a q pass (the
-    online row statistics, then dq), a kv pass (A recomputed from the saved
-    row max and 1/sum, dk, dv, the per-head fold) and a fixed-order sum
-    over heads. Shared memory is fixed by dh, so any S fits."""
+    them run on the tensor cores, as 3xTF32 (or, with ``fast_dots``, bf16)
+    ``mma.sync``: a q pass (the online row statistics, then dq), a kv pass
+    (A recomputed from the saved row max and 1/sum, dk, dv, the per-head
+    fold) and a fixed-order sum over heads. Shared memory is fixed by dh,
+    so any S fits."""
     if _build.on_cpu(q):
-        return flash_bwd_ehat_plain(q, k, v, dout, r)
+        return flash_bwd_ehat_plain(q, k, v, dout, r, fast_dots)
     B, H, S, dh = _heads_shape(q)
-    _check(q.device, q.shape, q=q, k=k, v=v, dout=dout)
+    dtype = storage_dtype(q, fast_dots)
+    _check(q.device, q.shape, dtype, q=q, k=k, v=v, dout=dout)
     _check_r(q.device, r, B, S)
-    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    dq, dk, dv = (torch.empty(q.shape, device=q.device, dtype=dtype)
                   for _ in range(3))
-    e_row = _launch_bwd(q, k, v, dout, r, dq, dk, dv)
-    flash_bwd_ehat.launches += 1
+    ensure_attention(S, dh, True, q.device, fast_dots)
+    with _build.on_device(q.device):
+        e_row = attn_bwd_launch(q, k, v, dout, r, dq, dk, dv,
+                                _build.stream(q.device), fast_dots)
+    _count(flash_bwd_ehat, fast_dots)
     return dq, dk, dv, e_row
 
 
-def flash_fwd_qkv(qkv: torch.Tensor, nheads: int) -> torch.Tensor:
+def flash_fwd_qkv(qkv: torch.Tensor, nheads: int,
+                  fast_dots: bool = False) -> torch.Tensor:
     """qkv [B, S, 3D] (the fused projection's output) → attention output
     [B, S, D] in the merged-head layout, with no transposes.
 
     Replaces ``flash_attention.flash_fwd_qkv`` (``_fwd_kernel2``): the
     tensor-core kernel of ``flash_fwd`` on split-head views of qkv and of
-    the output (16-byte copies where dh is a multiple of 4: the merged
-    layout then aligns every head's rows); the same bits as ``flash_fwd``
-    on those views."""
+    the output (fp32: 16-byte copies where dh is a multiple of 4, the
+    merged layout then aligning every head's rows); the same bits as
+    ``flash_fwd`` on those views, with and without ``fast_dots``."""
     if _build.on_cpu(qkv):
-        return flash_fwd_qkv_plain(qkv, nheads)
+        return flash_fwd_qkv_plain(qkv, nheads, fast_dots)
     B, S, D3 = qkv.shape
     if D3 % (3 * nheads):
         raise RuntimeError(f"qkv width {D3} is not 3 × {nheads} heads")
     D = D3 // 3
-    _check(qkv.device, (B, S, D3), qkv=qkv)
-    out = torch.empty((B, S, D), device=qkv.device, dtype=torch.float32)
-    ensure_attention(S, D // nheads, False, qkv.device)
+    dtype = storage_dtype(qkv, fast_dots)
+    _check(qkv.device, (B, S, D3), dtype, qkv=qkv)
+    out = torch.empty((B, S, D), device=qkv.device, dtype=dtype)
+    ensure_attention(S, D // nheads, False, qkv.device, fast_dots)
     with _build.on_device(qkv.device):
-        attn_fwd_launch_qkv(qkv, out, nheads, _build.stream(qkv.device))
-    flash_fwd_qkv.launches += 1
+        attn_fwd_launch_qkv(qkv, out, nheads, _build.stream(qkv.device),
+                            fast_dots)
+    _count(flash_fwd_qkv, fast_dots)
     return out
 
 
 def flash_bwd_ehat_qkv(qkv: torch.Tensor, dout: torch.Tensor,
-                       r: torch.Tensor, nheads: int
+                       r: torch.Tensor, nheads: int, fast_dots: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of ``flash_fwd_qkv`` fused with the relevancy-row fold.
-    qkv [B, S, 3D]; dout [B, S, D] (the cotangent in merged layout);
-    r [B, S]. Returns (dqkv [B, S, 3D], e_row [B, S]).
+    qkv [B, S, 3D]; dout [B, S, D] (the cotangent in merged layout), both
+    float32 or, with ``fast_dots``, bfloat16; r [B, S] float32. Returns
+    (dqkv [B, S, 3D] of qkv's dtype, e_row [B, S] float32).
 
     Replaces ``flash_attention.flash_bwd_ehat_qkv`` (``_bwd_kernel2``): the
     kernels of ``flash_bwd_ehat`` on split-head views."""
     if _build.on_cpu(qkv):
-        return flash_bwd_ehat_qkv_plain(qkv, dout, r, nheads)
+        return flash_bwd_ehat_qkv_plain(qkv, dout, r, nheads, fast_dots)
     B, S, D3 = qkv.shape
     if D3 % (3 * nheads):
         raise RuntimeError(f"qkv width {D3} is not 3 × {nheads} heads")
-    _check(qkv.device, (B, S, D3), qkv=qkv)
-    _check(qkv.device, (B, S, D3 // 3), dout=dout)
+    dtype = storage_dtype(qkv, fast_dots)
+    _check(qkv.device, (B, S, D3), dtype, qkv=qkv)
+    _check(qkv.device, (B, S, D3 // 3), dtype, dout=dout)
     _check_r(qkv.device, r, B, S)
-    dqkv = torch.empty((B, S, D3), device=qkv.device, dtype=torch.float32)
-    e_row = _launch_bwd(*qkv_heads(qkv, nheads), heads(dout, nheads),
-                        r, *qkv_heads(dqkv, nheads))
-    flash_bwd_ehat_qkv.launches += 1
+    dqkv = torch.empty((B, S, D3), device=qkv.device, dtype=dtype)
+    ensure_attention(S, D3 // (3 * nheads), True, qkv.device, fast_dots)
+    with _build.on_device(qkv.device):
+        e_row = attn_bwd_launch(*qkv_heads(qkv, nheads), heads(dout, nheads),
+                                r, *qkv_heads(dqkv, nheads),
+                                _build.stream(qkv.device), fast_dots)
+    _count(flash_bwd_ehat_qkv, fast_dots)
     return dqkv, e_row
 
 
 KERNELS = (flash_fwd, flash_bwd_ehat, flash_fwd_qkv, flash_bwd_ehat_qkv)
 for _fn in KERNELS:
-    _fn.launches = 0
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    """CUDA launches of each wrapper since the last reset."""
+    """CUDA launches of each wrapper's fp32 kernels since the last reset."""
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def bf16_launch_counts() -> Dict[str, int]:
+    """CUDA launches of each wrapper's bf16-product kernels (``fast_dots``)
+    since the last reset, as ``<wrapper>_bf16``."""
+    return {f"{fn.__name__}_bf16": fn.launches_bf16 for fn in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0
