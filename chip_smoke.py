@@ -61,10 +61,11 @@
      device;
 4a. bf16 mode (rows 1-8 with ``fast_dots``: every product operand rounded
    to bf16, fp32 sums; the kernels of ``csrc/attn_block_bf16.cu`` and
-   ``csrc/common.cuh``'s ``gemm_bf16_kernel``): the products g1-g9 through
-   ``_gemm_bf16`` on bf16 operands within 1e-5 · max|C64| of the float64
-   product of the same bf16 values, each timed beside ``torch.matmul`` in
-   bf16 and its bound at the dense bf16 rate; then each of the eight
+   ``csrc/gemm_bf16.cuh``'s ``gemm_bf16_wgmma_kernel``): the products g1-g9
+   through ``_gemm_bf16`` on bf16 operands at B=8 and B=32 within 1e-5 ·
+   max|C64| of the float64 product of the same bf16 values, each timed
+   (device time) beside ``torch.matmul`` in bf16 and its bound at the
+   dense bf16 rate, with the tile width the launcher picks; then each of the eight
    wrappers at ViT-B/16 widths (B=8) on float32 and on bfloat16 tensors (r
    float32) against its plain version with ``fast_dots`` on the card: the
    median over the elements of |Δ| within a tenth of the same median
@@ -351,7 +352,7 @@ KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
     "roi_pool_pallas": ("roi_pool.cu", "roi_pool_pallas.py:95"),
 }
 # rows 1-8 again in the JAX package's chip mode, fast_dots (bf16 products):
-# the kernels of attn_block_bf16.cu and common.cuh's gemm_bf16_kernel
+# the kernels of attn_block_bf16.cu and gemm_bf16.cuh's wgmma GEMM
 BF16_ROWS = tuple(KERNELS)[:8]
 KERNELS.update({f"{n}_bf16": ("attn_block_bf16.cu", KERNELS[n][1])
                 for n in BF16_ROWS})
@@ -500,6 +501,16 @@ def device_ms(fn, iters: int = 20) -> dict:
         ms, n = out.get(ev.key, (0.0, 0.0))
         out[ev.key] = (ms + us / 1e3 / iters, n + ev.count / iters)
     return out
+
+
+def kernel_ms(fn, tries: int = 3) -> float:
+    """Device ms per call of all of ``fn()``'s kernels (``device_ms``); a
+    profiler window that recorded no kernel is measured again."""
+    for _ in range(tries):
+        ms = ms_of(device_ms(fn))
+        if ms > 0:
+            return ms
+    raise AssertionError("the profiler recorded no kernel")
 
 
 def ms_of(times: dict, pattern: str = "") -> float:
@@ -967,46 +978,55 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
 
 def bf16_gemm_phase(ab, gen) -> None:
     """Each product of the block kernels (g1-g9) through ``_gemm_bf16`` on
-    bf16 operands, as the bf16-tensor path runs it: its time (median of 5
-    event means) and TFLOP/s beside ``torch.matmul`` on the same bf16
-    operands (cuBLAS) and the bound at the dense bf16 rate, and its
-    distance from the float64 product of the same bf16 values, held to
-    GEMM_BAR · max|C64| (the fp32 output; one accumulator per 64-deep
-    slice)."""
+    bf16 operands, as the bf16-tensor path runs it, at B=8 and B=32
+    (M = B·S), fp32 output and no epilogue: the kernel's own device time
+    (torch.profiler; CUDA-event means of back-to-back calls are the host's
+    where the wrapper takes longer than the kernel, as at B=8) and TFLOP/s
+    beside ``torch.matmul`` on the same bf16 operands (cuBLAS, bf16 output)
+    and the bound at the dense bf16 rate, the tile width the launcher's
+    table picks, no operand copied or rounded, and the distance from the
+    float64 product of the same bf16 values held to GEMM_BAR · max|C64|
+    (the fp32 output; one fp32 sum of fresh 256-deep accumulators)."""
     dev = torch.device("cuda")
     lib = ab.library(fast_dots=True)
     st = torch.cuda.current_stream().cuda_stream
-    total = total_lib = 0.0
-    for name, (M, N, K, trans_b, epi, batch, per_call) in GEMMS.items():
-        if batch > 1:
-            continue
-        a = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
-        b = (torch.randn((N, K) if trans_b else (K, N), generator=gen)
-             / math.sqrt(K)).to(dev, torch.bfloat16)
-        run = lambda: ab._gemm_bf16(lib, a, b, st, trans_b=trans_b)
-        got = run()
-        want = ab.gemm_plain(a.double(), b.double(), trans_b)
-        torch.cuda.synchronize()
-        err = float((got.double() - want).abs().max() / want.abs().max())
-        op_b = b.transpose(-1, -2) if trans_b else b
-        ms, lo, hi = timed(run, 5)
-        lib_ms = timed(lambda: torch.matmul(a, op_b), 5)[0]
-        flops = 2 * M * N * K
-        nbytes = 2 * (M * K + K * N) + 4 * M * N
-        bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_S) * 1e3
-        total += per_call * ms
-        total_lib += per_call * lib_ms
-        print(f"gemm bf16 {name}: {M}x{K}x{N} (MxKxN), B "
-              f"{'[N,K]' if trans_b else '[K,N]'}, bf16 operands, fp32 out: "
-              f"kernel {ms:.4f} ms ({lo:.4f}-{hi:.4f}) "
-              f"{flops / ms / 1e9:.1f} TFLOP/s; library (torch.matmul bf16) "
-              f"{lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} TFLOP/s; bound "
-              f"{bound:.4f} ms; max|Δ|/max|C64| {err:.2e} (bar "
-              f"{GEMM_BAR:g}); {per_call} launches per call", flush=True)
-        assert err <= GEMM_BAR, f"gemm bf16 {name}: {err}"
-    print(f"gemm bf16 per relevancy_fused_block2 call (B={B}, g1-g9): kernel "
-          f"{total:.3f} ms, library {total_lib:.3f} ms (sum of launches x "
-          f"median event means)", flush=True)
+    for batch in (B, 32):
+        total = total_lib = 0.0
+        for name, (M, N, K, trans_b, epi, nz, per_call) in GEMMS.items():
+            if nz > 1:
+                continue
+            M = batch * S
+            a = torch.randn((M, K), generator=gen).to(dev, torch.bfloat16)
+            b = (torch.randn((N, K) if trans_b else (K, N), generator=gen)
+                 / math.sqrt(K)).to(dev, torch.bfloat16)
+            run = lambda: ab._gemm_bf16(lib, a, b, st, trans_b=trans_b)
+            ab.reset_launch_counts()
+            got = run()
+            want = ab.gemm_plain(a.double(), b.double(), trans_b)
+            torch.cuda.synchronize()
+            err = float((got.double() - want).abs().max() / want.abs().max())
+            assert ab._gemm_bf16.copies == ab._gemm_bf16.rounded == 0, name
+            op_b = b.transpose(-1, -2) if trans_b else b
+            ms = kernel_ms(run)
+            ev_ms = timed(run, 5)[0]
+            lib_ms = kernel_ms(lambda: torch.matmul(a, op_b))
+            flops = 2 * M * N * K
+            nbytes = 2 * (M * K + K * N) + 4 * M * N
+            bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_S) * 1e3
+            total += per_call * ms
+            total_lib += per_call * lib_ms
+            print(f"gemm bf16 B={batch} {name}: {M}x{K}x{N} (MxKxN), B "
+                  f"{'[N,K]' if trans_b else '[K,N]'}, bf16 operands, fp32 "
+                  f"out, tile 128x{lib.tmx_gemm_bf16_tile(M, N, 1)}: kernel "
+                  f"{ms:.4f} ms device ({flops / ms / 1e9:.1f} TFLOP/s; "
+                  f"events {ev_ms:.4f} ms a call); library (torch.matmul "
+                  f"bf16) {lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} TFLOP/s; "
+                  f"bound {bound:.4f} ms; max|Δ|/max|C64| {err:.2e} (bar "
+                  f"{GEMM_BAR:g}); {per_call} launches per call", flush=True)
+            assert err <= GEMM_BAR, f"gemm bf16 B={batch} {name}: {err}"
+        print(f"gemm bf16 per relevancy_fused_block2 call (B={batch}, "
+              f"g1-g9): kernel {total:.3f} ms, library {total_lib:.3f} ms "
+              f"(sum of launches x device ms)", flush=True)
 
 
 def bf16_row(name: str, kernel, plain, kernel_fp32, library,
@@ -1385,7 +1405,8 @@ def check_maps(path: str, maps, refs: dict) -> None:
 # then cuDNN's convolutions and cuBLAS / cuDNN products
 KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
                  ("GEMM 64x64 (tensor cores)", "gemm_tc_kernel"),
-                 ("GEMM bf16 products", "gemm_bf16_kernel"),
+                 ("GEMM bf16 products (wgmma)", "gemm_bf16_wgmma_kernel"),
+                 ("fp32 operands rounded to bf16", "round_bf16_kernel"),
                  ("attn bf16 fwd", "attn_fwd_bf16_kernel"),
                  ("attn bf16 bwd q pass", "attn_bwd_q_bf16_kernel"),
                  ("attn bf16 bwd kv pass", "attn_bwd_kv_bf16_kernel"),
@@ -4992,7 +5013,8 @@ def main() -> int:
                 path.with_suffix(".log").read_text()):
             print(f"  ptxas {lib}: {kernel}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads")
-            assert not kernel.startswith(("gemm_tc_kernel", "gemm_bf16_kernel",
+            assert not kernel.startswith(("gemm_tc_kernel",
+                                          "gemm_bf16_wgmma_kernel",
                                           "attn_bwd_")) \
                 or st + ld == 0, f"{kernel} spills"
     mods = (ab, fa, rp, rpool)

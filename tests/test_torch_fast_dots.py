@@ -379,8 +379,11 @@ def test_cuda_branch_marshals_the_bf16_mode(dtype, monkeypatch):
     library's LayerNorm, GEMM and attention entry points, with the bits of
     the GEMM's bfloat16 tensors (a 1, b 2, out 4, bias 8, res 16) that keep
     every product-only intermediate in bf16 and the rest in the tensors'
-    dtype; outputs come back in that dtype, e_row float32; fp32 tensors
-    without fast_dots call the fp32 library only."""
+    dtype; the GEMM's operands a and b always reach it in bf16, each
+    float32 one (the weights and cotangents of a float32 model) rounded
+    first by ``tmx_round_bf16``; outputs come back in the tensors' dtype,
+    e_row float32; fp32 tensors without fast_dots call the fp32 library
+    only."""
     fake = _FakeLibrary()
     monkeypatch.setattr(_build, "on_cpu", lambda x: False)
     monkeypatch.setattr(_build, "load", lambda name, signatures: fake)
@@ -405,10 +408,13 @@ def test_cuda_branch_marshals_the_bf16_mode(dtype, monkeypatch):
              if name == "tmx_gemm_bf16"]   # (trans_b, act, dtypes)
     # attn_block_bwd: qkv, cot·W_outᵀ, dqkv·W_qkvᵀ; mlp_block_bwd: a1,
     # cot·W2ᵀ × GELU'(a1), da·W1ᵀ
-    assert gemms == [(0, 0, 1 | 4 | bf * (2 | 8)), (1, 0, 4 | bf * (1 | 2)),
-                     (1, 0, 1 | bf * 2), (0, 0, 1 | bf * (2 | 8)),
-                     (1, 2, 4 | bf * (1 | 2)), (1, 0, 1 | bf * 2)]
+    assert gemms == [(0, 0, 1 | 2 | 4 | bf * 8), (1, 0, 1 | 2 | 4),
+                     (1, 0, 1 | 2), (0, 0, 1 | 2 | bf * 8),
+                     (1, 2, 1 | 2 | 4), (1, 0, 1 | 2)]
     names = [name for name, _ in fake.calls]
+    # float32 a or b operands, rounded before their GEMM: W_qkv (twice),
+    # the cotangent and W_out; W1 (twice), the cotangent and W2
+    assert names.count("tmx_round_bf16") == (1 - bf) * 8
     assert names.count("tmx_attn_bwd_bf16") == 1
     assert names.count("tmx_layer_norm_bf16") == 2
     assert names.count("tmx_layer_norm_vjp_any") == 2

@@ -17,6 +17,8 @@ tests/test_torch_frcnn.py, which hold the plain versions to the JAX package
 on the CPU.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -923,7 +925,7 @@ def test_detr_explain_image_cuda_equals_cpu(cuda):
 
 # ---------------------------------------------------------------------------
 # the bf16-product mode (fast_dots) and bf16 tensors: csrc/attn_block_bf16.cu
-# and common.cuh's gemm_bf16_kernel, against the plain versions with
+# and gemm_bf16.cuh's wgmma GEMM, against the plain versions with
 # fast_dots on the card
 # ---------------------------------------------------------------------------
 
@@ -1089,28 +1091,49 @@ def gemm_bf16_cuda(a, b, **kw):
                           _build.stream(a.device), **kw)
 
 
+# (M, N, K, batch): the main path's widths at B=1, 8 and 32 (M = 197,
+# 1576, 6304); M at the edges of the 128-row tiles (127, 128, 129) and of
+# the waves (1576 rows and 768 columns: 78 tiles of 128 x 128 for 132 SMs);
+# N = 769 and 70 (ragged column tiles, rows of a B[K, N] that the wrapper
+# copies transposed); K = 5 and 33 (zero-padded to 8 and 40 by the
+# wrapper), 197 and 3072 (the longest K of the path); three products of
+# one call (batch 3)
+GEMM_BF16_SHAPES = [(1, 1, 1, 1), (7, 33, 197, 1), (33, 7, 5, 1),
+                    (127, 769, 5, 1), (128, 768, 33, 1), (129, 70, 768, 1),
+                    (130, 70, 33, 1), (197, 768, 768, 1),
+                    (1576, 2304, 768, 1), (1576, 768, 3072, 1),
+                    (6304, 768, 3072, 1), (6304, 3072, 768, 1),
+                    (130, 72, 96, 3)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("trans_b", [False, True])
-@pytest.mark.parametrize("M,N,K", [(1, 1, 1), (7, 33, 197), (33, 7, 5),
-                                   (197, 768, 768), (1576, 2304, 768),
-                                   (1576, 768, 3072), (130, 70, 33)])
+@pytest.mark.parametrize("M,N,K,batch", GEMM_BF16_SHAPES)
 @pytest.mark.parametrize("dtypes", ["f32 f32 f32", "bf16 f32 bf16",
                                     "bf16 bf16 f32", "f32 bf16 bf16"])
-def test_gemm_bf16_matches_rounded_operands_in_float64(cuda, M, N, K,
+def test_gemm_bf16_matches_rounded_operands_in_float64(cuda, M, N, K, batch,
                                                        trans_b, dtypes):
-    """The bf16-product GEMM (a, b and out each float32 or bfloat16) against
-    the float64 product of the operands rounded to bf16 (``gemm_plain`` with
-    fast_dots in float64): the rounding is the same (to nearest even), so
-    only the fp32 sum differs, within GEMM_BAR · max|C64| for a float32
-    output and one bf16 rounding for a bfloat16 one; the same bits twice."""
+    """The bf16-product GEMM (a, b and out each float32 or bfloat16: the
+    four storage pairs of a and b) against the float64 product of the
+    operands rounded to bf16 (``gemm_plain`` with fast_dots in float64):
+    the rounding is the same (to nearest even), so only the fp32 sum
+    differs, within GEMM_BAR · max|C64| for a float32 output and one bf16
+    rounding for a bfloat16 one; the same bits twice. The wrapper's copies
+    (K not a multiple of 8, or N of a B[K, N]) are counted, none on the
+    aligned shapes."""
     da, db, dout = ({"f32": torch.float32, "bf16": torch.bfloat16}[x]
                     for x in dtypes.split())
+    lead = (batch,) if batch > 1 else ()
     a, b = (torch.from_numpy(t).to(cuda)
-            for t in gemm_operands(M, N, K, trans_b, seed=6))
+            for t in gemm_operands(M, N, K, trans_b, seed=6, lead=lead))
     a, b = a.to(da), b.to(db)
+    tab.reset_launch_counts()
     got = gemm_bf16_cuda(a, b, trans_b=trans_b, out_dtype=dout)
     torch.cuda.synchronize()
-    assert got.dtype == dout and got.shape == (M, N)
+    assert got.dtype == dout and got.shape == (*lead, M, N)
+    _, copy_a, copy_b, _ = tab.gemm_bf16_copies(K, N, trans_b)
+    assert tab._gemm_bf16.copies == copy_a + copy_b
+    assert (copy_a or copy_b) == (K % 8 != 0 or (not trans_b and N % 8 != 0))
     want = tab.gemm_plain(a.double(), b.double(), trans_b, fast_dots=True)
     if dout == torch.float32:
         assert_near_f64(got, want)
@@ -1125,16 +1148,23 @@ def test_gemm_bf16_matches_rounded_operands_in_float64(cuda, M, N, K,
 @pytest.mark.parametrize("trans_b", [False, True])
 @pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
 @pytest.mark.parametrize("dtype", FAST_DTYPES)
-def test_gemm_bf16_epilogues(cuda, epilogue, trans_b, dtype):
+@pytest.mark.parametrize("M,N,K,batch", [(197, 769, 768, 1),
+                                         (129, 768, 33, 1),
+                                         (1576, 768, 3072, 1),
+                                         (130, 72, 96, 3)])
+def test_gemm_bf16_epilogues(cuda, epilogue, trans_b, dtype, M, N, K, batch):
     """Each epilogue with bias and res in float32 or bfloat16 (aux
-    float32), in fp32 before the float32 output."""
-    M, N, K = 197, 769, 768
+    float32), in fp32 before the float32 output, against float64 within
+    GEMM_BAR · max|C64|, the same bits twice: ragged columns (N = 769, one
+    column at a time), a padded K, the longest K of the path, and a batch
+    of three products with bias over the columns of each."""
+    lead = (batch,) if batch > 1 else ()
     a, b = (torch.from_numpy(t).to(cuda)
-            for t in gemm_operands(M, N, K, trans_b, seed=7))
+            for t in gemm_operands(M, N, K, trans_b, seed=7, lead=lead))
     rng = np.random.RandomState(8)
     bias, res, aux = (torch.from_numpy(t.astype(np.float32)).to(cuda)
-                      for t in (rng.randn(N), rng.randn(M, N),
-                                rng.randn(M, N)))
+                      for t in (rng.randn(N), rng.randn(*lead, M, N),
+                                rng.randn(*lead, M, N)))
     bias, res = bias.to(dtype), res.to(dtype)
     kw = {"bias": dict(bias=bias),
           "bias_res": dict(bias=bias, res=res),
@@ -1147,6 +1177,34 @@ def test_gemm_bf16_epilogues(cuda, epilogue, trans_b, dtype):
                           **{k: v.double() if torch.is_tensor(v) else v
                              for k, v in kw.items()})
     assert_near_f64(got, want)
+    assert torch.equal(gemm_bf16_cuda(a, b, trans_b=trans_b, **kw), got)
+
+
+@pytest.mark.cuda
+def test_gemm_bf16_library_runs_wgmma_and_lost_the_mma_sync_kernel(cuda):
+    """The built bf16 library's SASS: the GEMM is the wgmma kernel (HGMMA
+    instructions, TMA loads), and the mma.sync kernel it replaced
+    (``gemm_bf16_kernel``) is gone; the launcher's tile table takes 64
+    columns only where 128 would leave more than half the SMs idle."""
+    import shutil
+    import subprocess
+
+    lib = tab.library(fast_dots=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "attn_block_bf16"))], capture_output=True, text=True,
+        check=True).stdout
+    functions = re.findall(r"Function : (\S+)", sass)
+    gemm = [f for f in functions if "gemm_bf16" in f]
+    assert gemm and all("gemm_bf16_wgmma_kernel" in f for f in gemm), gemm
+    body = sass[sass.index(gemm[0]):]
+    assert "HGMMA.64x" in body and "UTMALDG" in body
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for M, N, batch in ((197, 768, 1), (197, 3072, 1), (1576, 768, 1),
+                        (6304, 3072, 1), (130, 72, 3)):
+        tiles128 = -(-M // 128) * -(-N // 128) * batch
+        want = 64 if 2 * tiles128 < sms else 128
+        assert lib.tmx_gemm_bf16_tile(M, N, batch) == want, (M, N, batch)
 
 
 @pytest.mark.cuda

@@ -12,7 +12,7 @@
 // and the LayerNorm parameters in bf16; the kernels upcast them on load and
 // write x_mid, x_out, cot_x, the attention outputs and dq, dk, dv (dqkv) in
 // the inputs' dtype, e_row in fp32. This file holds what that mode needs
-// beside the bf16-product GEMM of common.cuh (gemm_bf16_kernel):
+// beside the bf16-product GEMM of gemm_bf16.cuh (gemm_bf16_wgmma_kernel):
 //
 //   ln_fwd_bf16_kernel   LayerNorm forward of fp32 or bf16 rows, fp32
 //                        statistics (also written for the VJP); the output
@@ -54,6 +54,7 @@
 
 #include "attn_common.cuh"
 #include "common.cuh"
+#include "gemm_bf16.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -134,21 +135,6 @@ ln_vjp_any_kernel(const float* __restrict__ dy, const T* __restrict__ x,
     const float xh = (as_float(x[base + j]) - mu) * rs;
     out[base + j] = from_float<T>(as_float(cot[base + j]) + rs * (g - gm - xh * gx));
   }
-}
-
-// The bf16-product GEMM of every caller (common.cuh gemm_bf16_kernel):
-// checks the arguments and launches the instantiation of the operands'
-// storage types for `batch` products.
-cudaError_t gemm_bf16(const GemmBf16Args& p, bool trans_b, int batch, cudaStream_t stream) {
-  if (p.M < 1 || p.N < 1 || p.K < 1 || batch < 1 || batch > 65535 ||
-      (p.M + kGemmBM - 1) / kGemmBM > 65535)
-    return cudaErrorInvalidValue;
-  const bool a16 = p.dtypes & kBf16A, b16 = p.dtypes & kBf16B;
-  if (a16)
-    return b16 ? gemm_bf16_launch<bf16, bf16>(p, trans_b, batch, stream)
-               : gemm_bf16_launch<bf16, float>(p, trans_b, batch, stream);
-  return b16 ? gemm_bf16_launch<float, bf16>(p, trans_b, batch, stream)
-             : gemm_bf16_launch<float, float>(p, trans_b, batch, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -746,14 +732,32 @@ int tmx_layer_norm_vjp_any(const float* dy, const void* x, const float* mean, co
 }
 
 // C = epilogue(A op(B)) with bf16 products for `batch` products
-// (common.cuh gemm_bf16): A [M, K], B [K, N] or, with trans_b, [N, K];
+// (gemm_bf16.cuh gemm_bf16): A [M, K], B [K, N] or, with trans_b, [N, K];
 // bias [N] or null; res [M, N] or null; aux [M, N] fp32 or null; act: an
 // Act; dtypes: Bf16Operand bits. bsA, bsB, bsC: element batch strides.
+// Every row of A and B starts on a 16-byte boundary (cudaErrorMisalignedAddress
+// otherwise: ops/attn_block._gemm_bf16 copies such operands first).
 int tmx_gemm_bf16(const void* A, const void* B, void* C, int M, int N, int K, int trans_b,
                   const void* bias, const void* res, const float* aux, int act, int dtypes,
                   int batch, long long bsA, long long bsB, long long bsC, void* stream) {
   const GemmBf16Args p = {A, B, C, bias, res, aux, bsA, bsB, bsC, M, N, K, act, dtypes};
   return (int)gemm_bf16(p, trans_b != 0, batch, (cudaStream_t)stream);
+}
+
+// The GEMM's tile width for an M x N grid of `batch` products (the
+// launcher's table), after tmx_gemm_bf16_force_tile.
+int tmx_gemm_bf16_tile(int M, int N, int batch) { return gemm_bf16_tile_n(M, N, batch); }
+
+// Makes every later call take tile width bn (64 or 128), or the table
+// again with 0: for measuring the table's entries. Returns the width set.
+int tmx_gemm_bf16_force_tile(int bn) {
+  g16_forced_tile_n = bn == 64 || bn == 128 ? bn : 0;
+  return g16_forced_tile_n;
+}
+
+// x: n fp32 values; y: n bf16, x rounded to nearest even.
+int tmx_round_bf16(const float* x, void* y, long long n, void* stream) {
+  return (int)round_bf16(x, static_cast<bf16*>(y), n, (cudaStream_t)stream);
 }
 
 // Bytes of dynamic shared memory one attention block needs (fixed by dh).

@@ -1,6 +1,6 @@
-// The GEMMs on the tensor cores (and the GELU of their epilogues) shared by
-// the port's CUDA sources: the fp32 GEMM (3xTF32) and its bf16-product
-// variant (the fast_dots mode, at the end).
+// The fp32 GEMM on the tensor cores (3xTF32) and the GELU of its epilogue,
+// shared by the port's CUDA sources (gemm_bf16.cuh builds its bf16-product
+// variant of the fast_dots mode on them).
 //
 // Each csrc/<name>.cu is built on its own into one shared library (one
 // translation unit), so everything here has internal linkage. ops/_build.py
@@ -12,7 +12,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -364,282 +363,6 @@ cudaError_t gemm(GemmArgs p, bool trans_b, int batch, int copy_bytes, cudaStream
            aligned(p.res, 8) && aligned(p.aux, 8);
   if (gemm_warps(p.M, p.N, batch) == 8) return launch_gemm<4>(p, trans_b, vec, batch, stream);
   return launch_gemm<2>(p, trans_b, vec, batch, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The bf16-product GEMM: C = epilogue(A @ op(B)) as gemm() above, with every
-// product of the JAX package's fast_dots mode (mma_bf16.cuh): each operand
-// rounded to bf16 (to nearest even) as its fragment is read, the products
-// summed in fp32. A and B are each fp32 or bf16 in device memory (template
-// flags), C, bias and res each fp32 or bf16 (GemmBf16Args::dtypes), aux
-// fp32; every value is read as fp32 and the epilogue is fp32 before C is
-// written. It replaces no TPU kernel of its own: it is the products of the
-// four block kernels (#1-#4) in that mode, where the Pallas bodies round
-// each dot operand to bf16 (attn_block_pallas.py _dot, :54-61).
-//
-// Bound by operations at the main path's shapes, now at the dense bf16
-// tensor-core rate (989 TFLOP/s), six times the 3xTF32 bound of gemm(). The
-// design is gemm()'s, with bf16 fragments:
-//   - a 64 x 64 output tile per block of 4 warps (2 x 2, each 32 x 32: 2 x
-//     4 m16n8 accumulators); 32-deep k slices in a three-stage cp.async
-//     ring, two slices in flight while one is multiplied. (128 x 64 tiles
-//     of 64 x 32 warp tiles, two blocks an SM, ran the block branches'
-//     products at 52-108 TFLOP/s against 72-118 on an H100.) Each operand's
-//     tile keeps its storage type in shared memory: bf16 fragments come
-//     from ldmatrix (.trans for a B[K, N] tile), fp32 ones from pairs of
-//     floats packed to bf16 as they are read. (A first version staged the
-//     tiles through registers, converting them on the way, one slice in
-//     flight a block: 34-62 TFLOP/s on the block branches' products.)
-//   - rows padded so that every fragment read hits 32 banks: bf16 tiles
-//     [rows][k + 8] (an odd number of 16-byte units a row), fp32 A and B^T
-//     tiles [rows][32 + 8] (float pairs: ld % 32 == 8), fp32 B[K, N] tiles
-//     [32][64 + 4] (column reads: ld % 32 == 4);
-//   - each 32-deep slice summed into a fresh accumulator that is added to
-//     the running sum in fp32, as gemm() does: one mma accumulator over all
-//     of k drifts from a rounded fp32 sum as k grows;
-//   - tails zero-filled in shared memory, so every M, N, K runs: 16-byte
-//     copies where every row of A and B starts on a 16-byte boundary and K
-//     (and N for a B[K, N]) is a multiple of a 16-byte chunk, else
-//     element-by-element loads (the VEC flag, picked by the launcher);
-//   - each output element summed by one thread in a fixed k order, with no
-//     split over k and no atomics: the same bits on every run; the
-//     epilogue element by element from the registers.
-// ---------------------------------------------------------------------------
-
-enum Bf16Operand { kBf16A = 1, kBf16B = 2, kBf16C = 4, kBf16Bias = 8, kBf16Res = 16 };
-
-struct GemmBf16Args {
-  const void* A;
-  const void* B;
-  void* C;
-  const void* bias;
-  const void* res;
-  const float* aux;
-  long long bsA, bsB, bsC;
-  int M, N, K, act;
-  int dtypes;  // Bf16Operand bits: these tensors are bf16, the others fp32
-};
-
-constexpr int kG16Threads = 128;
-
-// Row stride (elements) of a shared-memory tile of T: rows of k values (A,
-// B^T) or of n values (B[K, N]); see the design note above.
-template <typename T, bool K_ROWS>
-__host__ __device__ constexpr int g16_ld() {
-  return sizeof(T) == 2 ? (K_ROWS ? kGemmBK : kGemmBN) + 8 : (K_ROWS ? kGemmBK + 8 : kGemmBN + 4);
-}
-
-// Copies the ROWS x COLS tile at src (row stride ld) into dst (row stride
-// LD); elements at or past rows_valid / cols_valid become 0. VEC: 16-byte
-// cp.async copies (cols_valid a multiple of a copy, checked before launch);
-// else element-by-element loads and stores.
-template <typename T, int ROWS, int COLS, int LD, bool VEC>
-__device__ __forceinline__ void g16_load_tile(T* dst, const T* src, long long ld,
-                                              int rows_valid, int cols_valid) {
-  constexpr int W = VEC ? 16 / (int)sizeof(T) : 1;  // elements per copy
-  constexpr int PER_ROW = COLS / W;
-  static_assert(ROWS * PER_ROW % kG16Threads == 0, "tile/thread mismatch");
-#pragma unroll
-  for (int i = 0; i < ROWS * PER_ROW / kG16Threads; ++i) {
-    const int e = threadIdx.x + i * kG16Threads;
-    const int r = e / PER_ROW, c = (e % PER_ROW) * W;
-    T* to = dst + r * LD + c;
-    const bool ok = r < rows_valid && c < cols_valid;
-    if constexpr (VEC) {
-      if (ok)
-        cp_async16(to, src + r * ld + c);
-      else
-        *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      *to = ok ? src[r * ld + c] : T{};
-    }
-  }
-}
-
-// The A fragment (16 x 16 at a, rows of k, row stride ld) in bf16.
-__device__ __forceinline__ void g16_frag_a(const bf16* a, int ld, int lane, uint32_t r[4]) {
-  load_a_bf16(a, ld, lane, r);
-}
-
-__device__ __forceinline__ void g16_frag_a(const float* a, int ld, int lane, uint32_t r[4]) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {  // a0..a3: rows g, g + 8; k 2t, 2t + 8
-    const float2 v = *reinterpret_cast<const float2*>(a + (g + 8 * (e & 1)) * ld + 2 * t +
-                                                      8 * (e >> 1));
-    r[e] = pack_bf16(v.x, v.y);
-  }
-}
-
-// Two B fragments (n 0-15, k 0-15) of a tile of rows of k (B^T).
-__device__ __forceinline__ void g16_frag_bt2(const bf16* bt, int ld, int lane, uint32_t b[2][2]) {
-  load_bt2_bf16(bt, ld, lane, b);
-}
-
-__device__ __forceinline__ void g16_frag_bt2(const float* bt, int ld, int lane, uint32_t b[2][2]) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {  // fragment e >> 1, b0 / b1: k 2t, 2t + 8
-    const float2 v = *reinterpret_cast<const float2*>(bt + (g + 8 * (e >> 1)) * ld + 2 * t +
-                                                      8 * (e & 1));
-    b[e >> 1][e & 1] = pack_bf16(v.x, v.y);
-  }
-}
-
-// Two B fragments (n 0-15, k 0-15) of a tile of rows of n (B[K, N]).
-__device__ __forceinline__ void g16_frag_b2(const bf16* b, int ld, int lane, uint32_t f[2][2]) {
-  load_b2_bf16(b, ld, lane, f);
-}
-
-__device__ __forceinline__ void g16_frag_b2(const float* b, int ld, int lane, uint32_t f[2][2]) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {  // fragment e >> 1 (n + 8), b0 / b1 (k + 8)
-    const float* col = b + 8 * (e >> 1) + g + (2 * t + 8 * (e & 1)) * ld;
-    f[e >> 1][e & 1] = pack_bf16(col[0], col[ld]);
-  }
-}
-
-template <typename TA, typename TB, bool TRANS_B, bool VEC>
-__global__ void __launch_bounds__(kG16Threads)
-gemm_bf16_kernel(GemmBf16Args p) {
-  constexpr int BM = kGemmBM, BN = kGemmBN, BK = kGemmBK, ST = kGemmST;
-  constexpr int TM = BM / 2, TN = BN / 2, MT = TM / 16, NT = TN / 8;  // 2 x 2 warps
-  constexpr int LDA = g16_ld<TA, true>(), LDB = g16_ld<TB, TRANS_B>();
-  constexpr int A_TILE = BM * LDA;
-  constexpr int B_TILE = TRANS_B ? BN * LDB : BK * LDB;
-  extern __shared__ __align__(16) unsigned char g16_sm[];
-  TA* As = reinterpret_cast<TA*>(g16_sm);                               // [ST][BM][LDA]
-  TB* Bs = reinterpret_cast<TB*>(g16_sm + sizeof(TA) * ST * A_TILE);  // [ST][..][LDB]
-
-  const long long z = blockIdx.z;
-  const int M = p.M, N = p.N, K = p.K;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const TA* Ab = static_cast<const TA*>(p.A) + z * p.bsA + (long long)m0 * K;
-  const TB* Bb = static_cast<const TB*>(p.B) + z * p.bsB +
-                 (TRANS_B ? (long long)n0 * K : (long long)n0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / 2, wn = warp % 2;
-
-  auto load = [&](int stage, int k0) {
-    g16_load_tile<TA, BM, BK, LDA, VEC>(As + stage * A_TILE, Ab + k0, K, M - m0, K - k0);
-    if constexpr (TRANS_B)
-      g16_load_tile<TB, BN, BK, LDB, VEC>(Bs + stage * B_TILE, Bb + k0, K, N - n0, K - k0);
-    else
-      g16_load_tile<TB, BK, BN, LDB, VEC>(Bs + stage * B_TILE, Bb + (long long)k0 * N, N,
-                                          K - k0, N - n0);
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int KT = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < ST - 1; ++s) {
-    if (s < KT) load(s, s * BK);
-    cp_async_commit();  // one group per slice, empty past the last
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<ST - 2>();  // slice kt has landed (this thread's copies)
-    __syncthreads();          // everyone's; and slice kt - 1 is consumed
-    if (kt + ST - 1 < KT) load((kt + ST - 1) % ST, (kt + ST - 1) * BK);
-    cp_async_commit();
-    const TA* a = As + (kt % ST) * A_TILE + wm * TM * LDA;
-    const TB* b = Bs + (kt % ST) * B_TILE + (TRANS_B ? wn * TN * LDB : wn * TN);
-    float d[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) d[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4], bf[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) g16_frag_a(a + i * 16 * LDA + kk, LDA, lane, af[i]);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        if constexpr (TRANS_B)
-          g16_frag_bt2(b + j * 8 * LDB + kk, LDB, lane, bf + j);
-        else
-          g16_frag_b2(b + kk * LDB + j * 8, LDB, lane, bf + j);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(d[i][j], af[i], bf[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
-  }
-  cp_async_wait<0>();
-
-  // epilogue: c0, c1 at (row g, columns 2t, 2t + 1); c2, c3 at row g + 8
-  const int g = lane >> 2, t = lane & 3;
-  const bool c16 = p.dtypes & kBf16C, bias16 = p.dtypes & kBf16Bias,
-             res16 = p.dtypes & kBf16Res;
-  const long long cz = z * p.bsC;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * TM + i * 16 + g + 8 * h;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn * TN + j * 8 + 2 * t + e;
-          if (n >= N) continue;
-          const long long idx = cz + (long long)m * N + n;
-          float v = acc[i][j][2 * h + e];
-          if (p.bias) v += load_any(p.bias, n, bias16);
-          if (p.act == kActGelu) v = gelu_f(v);
-          if (p.act == kActMulGeluGrad) v *= gelu_grad_f(p.aux[idx]);
-          if (p.res) v += load_any(p.res, idx, res16);
-          store_any(p.C, idx, v, c16);
-        }
-      }
-    }
-  }
-}
-
-template <typename TA, typename TB, bool TRANS_B>
-constexpr size_t gemm_bf16_smem() {
-  return kGemmST * (sizeof(TA) * kGemmBM * g16_ld<TA, true>() +
-                    sizeof(TB) * (TRANS_B ? kGemmBN : kGemmBK) * g16_ld<TB, TRANS_B>());
-}
-
-// The bf16-product GEMM for one choice of operand types: 16-byte copies
-// where every row of A and B starts on a 16-byte boundary and holds whole
-// copies (K, and N for a B[K, N]), else element by element.
-template <typename TA, typename TB>
-cudaError_t gemm_bf16_launch(const GemmBf16Args& p, bool trans_b, int batch,
-                             cudaStream_t stream) {
-  constexpr int WA = 16 / sizeof(TA), WB = 16 / sizeof(TB);
-  const bool vec = aligned(p.A, 16) && aligned(p.B, 16) && p.K % WA == 0 && p.K % WB == 0 &&
-                   (trans_b || p.N % WB == 0) && p.bsA % WA == 0 && p.bsB % WB == 0;
-  auto kernel = trans_b ? (vec ? gemm_bf16_kernel<TA, TB, true, true>
-                               : gemm_bf16_kernel<TA, TB, true, false>)
-                        : (vec ? gemm_bf16_kernel<TA, TB, false, true>
-                               : gemm_bf16_kernel<TA, TB, false, false>);
-  const size_t smem =
-      trans_b ? gemm_bf16_smem<TA, TB, true>() : gemm_bf16_smem<TA, TB, false>();
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.N + kGemmBN - 1) / kGemmBN, (p.M + kGemmBM - 1) / kGemmBM, batch);
-  kernel<<<grid, kG16Threads, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
 }  // namespace

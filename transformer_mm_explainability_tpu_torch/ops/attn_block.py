@@ -31,11 +31,11 @@ the LN parameters; r stays float32): the kernels upcast them on load and
 write x_mid, x_out, cot_mid and cot_x in their dtype, e_row in float32.
 With ``fast_dots`` the wrappers launch the kernels of
 ``csrc/attn_block_bf16.cu`` (its LayerNorm rows, the bf16-product GEMM of
-``csrc/common.cuh`` and its attention), and count them in
-``launches_bf16`` (see ``bf16_launch_counts``); the intermediates that are
-only ever product operands (LN outputs, qkv, the merged attention output,
-the GELU output, dqkv) are stored rounded to bf16, which is what the JAX
-bodies multiply. bfloat16 tensors without ``fast_dots`` raise on CUDA.
+``csrc/gemm_bf16.cuh`` on ``wgmma`` and TMA, and its attention), and count
+them in ``launches_bf16`` (see ``bf16_launch_counts``); the intermediates
+that are only ever product operands (LN outputs, qkv, the merged attention
+output, the GELU output, dqkv) are stored rounded to bf16, which is what
+the JAX bodies multiply. bfloat16 tensors without ``fast_dots`` raise on CUDA.
 Weights are ``[in, out]`` as in the JAX package. ``chunks`` is validated
 as the JAX wrappers do (``I % chunks == 0``); the CUDA MLP kernels do not
 chunk the hidden dim but hold the whole ``[B*S, I]`` activation in device
@@ -69,6 +69,9 @@ _SIGNATURES_BF16 = {  # ... and of csrc/attn_block_bf16.cu
     "tmx_layer_norm_vjp_any": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tmx_gemm_bf16": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                       _L, _L, _L, _P],
+    "tmx_gemm_bf16_tile": [_I, _I, _I],
+    "tmx_gemm_bf16_force_tile": [_I],
+    "tmx_round_bf16": [_P, _P, _L, _P],
 }
 _ACT_NONE, _ACT_GELU, _ACT_MUL_GELU_GRAD = 0, 1, 2
 # the bits of tmx_gemm_bf16's dtypes: which of its tensors are bfloat16
@@ -316,15 +319,54 @@ def _ln_vjp_any(lib, dy, x2, mean, rstd, scale, cot, stream):
     return out
 
 
+def gemm_bf16_copies(K: int, N: int, trans_b: bool, a_aligned: bool = True,
+                     b_aligned: bool = True) -> Tuple[int, bool, bool, bool]:
+    """Which bf16 operands ``_gemm_bf16`` copies before the launch: the
+    GEMM's TMA copies need every row of A and B to start on a 16-byte
+    boundary. K (the row length of A and of a B[N, K]) or N (that of a
+    B[K, N]) that is not a multiple of 8, or a pointer off that boundary
+    (``*_aligned`` false), takes a zero-filled copy: K padded
+    to a multiple of 8 in both operands (zeros add nothing to the
+    products), a B[K, N] with such an N copied transposed to B[N, Kp].
+    Returns (Kp, copy a, copy b, trans_b of the launch)."""
+    kp = -(-K // 8) * 8
+    transpose = not trans_b and N % 8 != 0
+    return (kp, kp != K or not a_aligned,
+            kp != K or not b_aligned or transpose, trans_b or transpose)
+
+
+def _padded(t, rows: int, cols: int, transpose: bool = False):
+    """A zero-filled copy [..., rows, cols] of t (or of its transpose)."""
+    src = t.transpose(-1, -2) if transpose else t
+    out = t.new_zeros((*t.shape[:-2], rows, cols))
+    out[..., :src.shape[-2], :src.shape[-1]] = src
+    return out
+
+
+def _round_bf16(lib, t, stream):
+    """A float32 tensor rounded to bfloat16 (to nearest even) by the bf16
+    library's rounding kernel; a bfloat16 one as it is."""
+    if t.dtype == torch.bfloat16:
+        return t
+    out = torch.empty(t.shape, device=t.device, dtype=torch.bfloat16)
+    _build.check(lib, "tmx_round_bf16", lib.tmx_round_bf16(
+        _ptr(t), _ptr(out), t.numel(), stream))
+    _gemm_bf16.rounded += 1
+    return out
+
+
 def _gemm_bf16(lib, a, b, stream, trans_b=False, bias=None, res=None,
                aux=None, act=_ACT_NONE, out_dtype=torch.float32):
     """``_gemm``'s function with bf16 products (``fast_dots``): a and b
-    rounded to bf16 as they enter shared memory, the products summed in
-    fp32, the epilogue in fp32. a, b, bias and res are each float32 or
-    bfloat16, aux float32; the output is new, of ``out_dtype``. Every
-    operand is contiguous and of its shape, or it is refused before the
-    launch; ``gemm_plain(..., fast_dots=True)`` is the same function in
-    PyTorch."""
+    rounded to bf16, the products summed in fp32, the epilogue in fp32.
+    a, b, bias and res are each float32 or bfloat16, aux float32; the
+    output is new, of ``out_dtype``. Every operand is contiguous and of
+    its shape, or it is refused before the launch. The kernel reads bf16
+    operands through TMA: a float32 a or b is first rounded by a kernel
+    of its own (counted in ``_gemm_bf16.rounded``), and an operand whose
+    rows TMA cannot read is copied (``gemm_bf16_copies``, counted in
+    ``_gemm_bf16.copies``). ``gemm_plain(..., fast_dots=True)`` is the
+    same function in PyTorch."""
     if a.dim() not in (2, 3) or b.dim() != a.dim():
         raise RuntimeError(f"a and b must both be 2-D or both 3-D, not "
                            f"{a.dim()}-D and {b.dim()}-D")
@@ -340,13 +382,23 @@ def _gemm_bf16(lib, a, b, stream, trans_b=False, bias=None, res=None,
     _cuda_args(a.device, (torch.float32, torch.bfloat16), **args)
     if aux is not None:
         _cuda_args(a.device, aux=(aux, c))
-    dtypes = sum(bit for name, bit in _BF16_BITS.items()
-                 if name in args and args[name][0].dtype == torch.bfloat16)
+    a, b = _round_bf16(lib, a, stream), _round_bf16(lib, b, stream)
+    dtypes = _BF16_BITS["a"] | _BF16_BITS["b"] | sum(
+        _BF16_BITS[name] for name in ("out", "bias", "res")
+        if name in args and args[name][0].dtype == torch.bfloat16)
+    kp, copy_a, copy_b, launch_t = gemm_bf16_copies(
+        K, N, trans_b, a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
+    if copy_a:
+        a = _padded(a, M, kp)
+    if copy_b:
+        b = (_padded(b, N, kp, transpose=not trans_b) if launch_t
+             else _padded(b, kp, N))
+    _gemm_bf16.copies += copy_a + copy_b
     batch, bs = 1, (0, 0, 0)
     if lead:
         batch, bs = lead[0], (a.stride(0), b.stride(0), out.stride(0))
     _build.check(lib, "tmx_gemm_bf16", lib.tmx_gemm_bf16(
-        _ptr(a), _ptr(b), _ptr(out), M, N, K, int(trans_b), _ptr(bias),
+        _ptr(a), _ptr(b), _ptr(out), M, N, kp, int(launch_t), _ptr(bias),
         _ptr(res), _ptr(aux), act, dtypes, batch, *bs, stream))
     return out
 
@@ -604,6 +656,7 @@ def _attn_block_bwd_bf16(lib, x2, c2, r, w_qkv, b_qkv, w_out, ln_scale,
 KERNELS = (attn_block_fwd, mlp_block_fwd, mlp_block_bwd, attn_block_bwd)
 for _fn in KERNELS:
     _fn.launches = _fn.launches_bf16 = 0
+_gemm_bf16.copies = _gemm_bf16.rounded = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -620,3 +673,4 @@ def bf16_launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = fn.launches_bf16 = 0
+    _gemm_bf16.copies = _gemm_bf16.rounded = 0
