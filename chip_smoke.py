@@ -74,7 +74,14 @@
    tensors without ``fast_dots`` refused; each bf16-tensor row timed (its
    kernels on float32 tensors too) with its plain version, its bound (bf16
    bytes, operations at 989 TFLOP/s) and, for the forward attentions, SDPA
-   on the same bf16 tensors: the ``*_bf16`` rows of the kernels line;
+   on the same bf16 tensors: the ``*_bf16`` rows of the kernels line; the
+   three rows that run the attention backward (``csrc/attn_block_bf16.cu``'s
+   ``wgmma`` passes) also by their device time (CUDA-graph replays,
+   ``device_ms``), with SDPA's bf16 backward on the same q, k, v and dout
+   (dq, dk, dv without ``e_row``: context, never the row's library time);
+   then ``flash_bwd_ehat`` with ``fast_dots`` at S = 2,000 and 4,000 (B=1,
+   H=2) on both dtypes, held to its plain version at the same bars and
+   timed;
 5. ViT path phase, full-width ViT-B/16 (12 layers, seeded random weights,
    B=8): ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
    ``relevancy_fused_block``. For each, every launch counter is set to 0
@@ -98,8 +105,8 @@
    (the JAX bench's throughput mode) through the same kernels, its maps'
    distance from the fp32 maps printed and gated only to be finite;
    maps/s at B=32 of ``relevancy_fused_block2`` in fp32, with
-   ``fast_dots`` on float32 tensors and on bfloat16 tensors; a profile of
-   the bf16-tensor call at B=8;
+   ``fast_dots`` on float32 tensors and on bfloat16 tensors; profiles of
+   the bf16-tensor call at B=8 and B=32;
 6. cli phase: ``cli explain-vit --device cuda`` on a generated PNG, again
    through the kernels;
 7. FRCNN path phase, full-width ``FRCNN_VG`` (ResNet-101 C4, 6000 → 1000
@@ -875,6 +882,64 @@ def _dist(got, want) -> tuple:
     return float(d.median()) / top, float(d.max()) / top
 
 
+def hold_fast(name: str, label: str, store: str, got, want, ref) -> None:
+    """Each output of ``got`` (a bf16-mode wrapper on the card) against
+    ``want`` (its plain version with ``fast_dots``) at the bf16 mode's bars,
+    ``ref`` the plain version in fp32 arithmetic on the same values; prints
+    the distances and raises past a bar."""
+    texts, failed = [], []
+    for i, (g, w, f) in enumerate(zip(got, want, ref)):
+        assert g.dtype == w.dtype and torch.isfinite(g).all(), name
+        med, top = _dist(g, w)
+        fmed, ftop = _dist(w, f)
+        # with bf16 values the flash wrappers' e_row takes products of the
+        # inputs only, exact with or without fast_dots
+        unmoved = (store == "bf16" and name.startswith("flash_bwd")
+                   and i == len(got) - 1)
+        bar_med = UNMOVED_BAR if unmoved else fmed / 10
+        bar_top = BF16_MAX_BARS["bf16" if g.dtype == torch.bfloat16
+                                else "fp32"]
+        texts.append(
+            f"[{i}] {str(g.dtype)[6:]} median {med:.2e} max "
+            f"{top:.2e} (bars {bar_med:.2e}, {bar_top:.3g}); fast "
+            f"against fp32 median {fmed:.2e} max {ftop:.2e}")
+        if med > bar_med or top > bar_top or (unmoved and ftop):
+            failed.append(i)
+    print(f"bf16 mode {name} {label}, kernel vs plain (|Δ| over "
+          f"max|plain|): " + "; ".join(texts), flush=True)
+    assert not failed, (name, label, failed)
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call of ``fn()``: ``iters`` calls captured in a CUDA
+    graph, its replays timed with CUDA events (median of ``replays``), so
+    that no host launch time lies between the kernels (as
+    ``scripts/gemm_bf16_ab.py`` and ``scripts/attn_bwd_bf16_ab.py`` time)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: a launcher may set a kernel attribute while it is captured
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(times)
+
+
+# the rows whose kernels include the bf16 attention backward
+BWD16_ROWS = ("attn_block_bwd", "flash_bwd_ehat", "flash_bwd_ehat_qkv")
+
+
 def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
     """The eight wrappers of rows 1-8 with ``fast_dots=True`` at ViT-B/16
     widths (B=8), on float32 tensors and on bfloat16 ones (r float32),
@@ -885,7 +950,11 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
     of 5 event means) beside its plain version, its bound (bytes of bf16
     tensors, operations at the dense bf16 rate) and, for the two forward
     attentions, SDPA on the same bf16 tensors; one row each of the kernels
-    line."""
+    line. The three rows that run the attention backward also carry their
+    device time (``graph_ms``, on bf16 and fp32 tensors); SDPA's bf16
+    backward on the same q, k, v and dout is printed as context; and
+    ``flash_bwd_ehat`` runs at S = 2,000 and 4,000 (B=1, H=2) on both
+    dtypes, held at the same bars, repeating its bits, and timed."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     dev = torch.device("cuda")
@@ -933,27 +1002,7 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
             ref = as_tuple(plain(name, {k: v.float() for k, v in a.items()},
                                  False))
             torch.cuda.synchronize()
-            texts, failed = [], []
-            for i, (g, w, f) in enumerate(zip(got, want, ref)):
-                assert g.dtype == w.dtype and torch.isfinite(g).all(), name
-                med, top = _dist(g, w)
-                fmed, ftop = _dist(w, f)
-                # with bf16 values the flash wrappers' e_row takes products
-                # of the inputs only, exact with or without fast_dots
-                unmoved = (store == "bf16" and name.startswith("flash_bwd")
-                           and i == len(got) - 1)
-                bar_med = UNMOVED_BAR if unmoved else fmed / 10
-                bar_top = BF16_MAX_BARS["bf16" if g.dtype == torch.bfloat16
-                                        else "fp32"]
-                texts.append(
-                    f"[{i}] {str(g.dtype)[6:]} median {med:.2e} max "
-                    f"{top:.2e} (bars {bar_med:.2e}, {bar_top:.3g}); fast "
-                    f"against fp32 median {fmed:.2e} max {ftop:.2e}")
-                if med > bar_med or top > bar_top or (unmoved and ftop):
-                    failed.append(i)
-            print(f"bf16 mode {name} on {store} tensors, kernel vs plain "
-                  f"(|Δ| over max|plain|): " + "; ".join(texts), flush=True)
-            assert not failed, (name, store, failed)
+            hold_fast(name, f"on {store} tensors", store, got, want, ref)
         try:
             call(name, stores["bf16"], False)
         except RuntimeError as err:
@@ -971,8 +1020,58 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
             name, lambda: call(name, a16, True),
             lambda: plain(name, a16, True), lambda: call(name, a32, True),
             library, card)
+        if name in BWD16_ROWS:
+            row = rows[f"{name}_bf16"]
+            row["device_ms"] = graph_ms(lambda: call(name, a16, True))
+            row["device_ms_fp32_tensors"] = graph_ms(
+                lambda: call(name, a32, True))
+            print(f"kernel {name}_bf16 device time (CUDA-graph replays): "
+                  f"{row['device_ms']:.4f} ms on bf16 tensors, "
+                  f"{row['device_ms_fp32_tensors']:.4f} ms on fp32 tensors; "
+                  f"event means {row['ms']:.4f}, {row['ms_fp32_tensors']:.4f} "
+                  f"ms; bound {row['bound_ms']:.4f} ms; on {card}", flush=True)
     print("bf16 mode: bfloat16 tensors without fast_dots=True refused by all "
           "eight wrappers on CUDA", flush=True)
+    # context only: PyTorch's own bf16 attention backward computes dq, dk,
+    # dv without the e_row fold, so it is never a row's library time
+    qg, kg, vg = (stores["bf16"][k].detach().clone().requires_grad_()
+                  for k in "qkv")
+    out, d16 = sdpa(qg, kg, vg), stores["bf16"]["dout"]
+    grad = lambda: torch.autograd.grad(out, (qg, kg, vg), d16,
+                                       retain_graph=True)
+    print(f"context: torch.autograd.grad through SDPA bf16 for (dq, dk, dv) "
+          f"at {tuple(qg.shape)}: device {kernel_ms(grad):.4f} ms, event "
+          f"mean {timed(grad, 5)[0]:.4f} ms; not the same function (no e_row)"
+          f" and never called by the port", flush=True)
+    del qg, kg, vg, out
+    # the bf16 backward at lengths far past the main path's
+    for L in (2000, 4000):
+        long = {k: rnd(1, 2, L, DH, scale=0.5) for k in ("q", "k", "v",
+                                                        "dout")}
+        long["r"] = torch.rand((1, L), generator=gen).to(dev)
+        for store in ("fp32", "bf16"):
+            a = {k: v if k == "r" else v.to(stores[store]["q"].dtype)
+                 for k, v in long.items()}
+            run = lambda: call("flash_bwd_ehat", a, True)
+            got = as_tuple(run())
+            want = as_tuple(plain("flash_bwd_ehat", a, True))
+            ref = as_tuple(plain("flash_bwd_ehat", {
+                k: v.float() for k, v in a.items()}, False))
+            torch.cuda.synchronize()
+            hold_fast("flash_bwd_ehat", f"at S={L} (B=1, H=2) on {store} "
+                      f"tensors", store, got, want, ref)
+            assert all(torch.equal(x, y) for x, y in zip(as_tuple(run()),
+                                                         got))
+            flops, nbytes = (5 * 2 * 2 * L * L * DH,
+                             (2 if store == "bf16" else 4) * 7 * 2 * L * DH
+                             + 4 * 2 * L)
+            bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_S) * 1e3
+            print(f"kernel flash_bwd_ehat_bf16 at S={L} (B=1, H=2, dh={DH}) "
+                  f"on {store} tensors: device {graph_ms(run):.4f} ms "
+                  f"(CUDA graph), event mean {timed(run, 3)[0]:.4f} ms, plain "
+                  f"{timed(lambda: plain('flash_bwd_ehat', a, True), 1)[0]:.4f}"
+                  f" ms, bound {bound:.4f} ms; the same bits on a second "
+                  f"call; on {card}", flush=True)
     return rows
 
 
@@ -1128,7 +1227,11 @@ def bf16_path_phase(mods, vit, model, images, targets, card: str) -> dict:
     call = lambda: fn(model16, im16, targets, fast_dots=True)
     call_ms = B / _rate(call, B) * 1e3
     profile(f"relevancy_fused_block2 bf16 tensors B={B}", call, call_ms)
-    del model16
+    big16 = big.bfloat16()
+    profile("relevancy_fused_block2 bf16 tensors B=32",
+            lambda: fn(model16, big16, big_t, fast_dots=True),
+            32 / rates["bf16 tensors"] * 1e3)
+    del model16, big16
     return launches
 
 
@@ -1408,8 +1511,12 @@ KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
                  ("GEMM bf16 products (wgmma)", "gemm_bf16_wgmma_kernel"),
                  ("fp32 operands rounded to bf16", "round_bf16_kernel"),
                  ("attn bf16 fwd", "attn_fwd_bf16_kernel"),
-                 ("attn bf16 bwd q pass", "attn_bwd_q_bf16_kernel"),
-                 ("attn bf16 bwd kv pass", "attn_bwd_kv_bf16_kernel"),
+                 ("attn bf16 bwd statistics pass (wgmma)",
+                  "attn_bwd_stats_wgmma_kernel"),
+                 ("attn bf16 bwd keys pass (wgmma)",
+                  "attn_bwd_keys_wgmma_kernel"),
+                 ("attn bf16 bwd dq sum and e_row", "attn_bwd_finish_kernel"),
+                 ("attn bf16 bwd operands packed", "attn_bwd_pack_kernel"),
                  ("layernorm bf16 out", "ln_fwd_bf16_kernel"),
                  ("layernorm vjp (bf16 mode)", "ln_vjp_any_kernel"),
                  ("attn fwd", "attn_fwd_kernel"),

@@ -394,6 +394,7 @@ def test_cuda_branch_marshals_the_bf16_mode(dtype, monkeypatch):
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(tfa, "_libs", {})
     monkeypatch.setattr(tfa, "_accepted", set())
+    tfa.reset_launch_counts()
     tdt = getattr(torch, dtype)
     a = {k: v if k == "r" else v.to(tdt) for k, v in
          ((k, torch.from_numpy(v)) for k, v in
@@ -422,6 +423,15 @@ def test_cuda_branch_marshals_the_bf16_mode(dtype, monkeypatch):
     attn = next(args for name, args in fake.calls
                 if name == "tmx_attn_bwd_bf16")
     assert attn[-2] == 1   # qkv and dqkv stored in bf16 for the attention
+    # the merged bf16 qkv and cotangent are read in place: no packed slot;
+    # the scratch carved in order stats, dq_part, e_part from one allocation
+    plan = tfa.bwd16_plan(2, H, 17, 64 // H, True, attn[:4], list(attn[13]))
+    assert len(attn) == 21 and attn[11] is None and not any(plan.packs)
+    stats, e_part, dq_part = attn[8:11]
+    assert dq_part - stats == 4 * plan.stats
+    assert e_part - dq_part == 4 * plan.dq_part
+    assert (tfa.attn_bwd_launch.copies, tfa.attn_bwd_launch.rounded,
+            tfa.attn_bwd_launch.dq_partial_sums) == (0, 0, 1)
     if dtype == "bfloat16":
         with pytest.raises(RuntimeError, match="fast_dots=True"):
             CALLS["attn_block_fwd"][1](tab, a)
@@ -432,3 +442,111 @@ def test_cuda_branch_marshals_the_bf16_mode(dtype, monkeypatch):
                                                 "tmx_layer_norm"}
     assert not any(name.endswith(("_bf16", "_any"))
                    for name, _ in fake.calls)
+
+
+def _fake_cuda(monkeypatch) -> _FakeLibrary:
+    """The wrappers' CUDA branch on CPU tensors with a stand-in library (as
+    ``test_cuda_branch_marshals_the_bf16_mode``)."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(_build, "on_cpu", lambda x: False)
+    monkeypatch.setattr(_build, "load", lambda name, signatures: fake)
+    monkeypatch.setattr(_build, "stream", lambda dev: 0)
+    monkeypatch.setattr(_build, "on_device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(tfa, "_libs", {})
+    monkeypatch.setattr(tfa, "_accepted", set())
+    return fake
+
+
+# (layout, dtype, dh, packed operands): float32 tensors are rounded into
+# packed slots, all four; bfloat16 ones are read in place where every row
+# starts on a 16-byte boundary: per-head copies and the merged qkv at dh =
+# 16 and 40, not at dh = 20 (rows of 40 bytes), nor a dout view one
+# element off its buffer's start
+BWD16_CASES = [("heads", "float32", 16, 4), ("qkv", "float32", 40, 4),
+               ("heads", "bfloat16", 16, 0), ("qkv", "bfloat16", 40, 0),
+               ("qkv", "bfloat16", 20, 4), ("heads", "bfloat16", 16, 1)]
+
+
+@pytest.mark.parametrize("layout,dtype,dh,packed", BWD16_CASES)
+def test_cuda_branch_marshals_the_bf16_backward(layout, dtype, dh, packed,
+                                                monkeypatch):
+    """``flash_bwd_ehat`` / ``flash_bwd_ehat_qkv`` with fast_dots through
+    the CUDA branch (stand-in library): one ``tmx_attn_bwd_bf16`` call of
+    the 14 pointers and 7 scalars of its C signature, its scratch carved
+    from one allocation as ``bwd16_plan`` sizes it, a packed slot for each
+    operand TMA cannot read in place (counted as copies for bfloat16, as
+    rounded for float32) and none else, every call counted as one through
+    the dq partial sums."""
+    fake = _fake_cuda(monkeypatch)
+    tdt = getattr(torch, dtype)
+    f = {k: torch.from_numpy(v) for k, v in flash_inputs(2, 3, 17, dh).items()}
+    f = {k: v if k == "r" else v.to(tdt) for k, v in f.items()}
+    tfa.reset_launch_counts()
+    if layout == "qkv":
+        dqkv, e_row = tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"], f["r"],
+                                             3, fast_dots=True)
+        assert dqkv.dtype == tdt and dqkv.shape == f["qkv"].shape
+    else:
+        dout = f["dout"]
+        if packed == 1:   # a view whose rows start 2 bytes past the grid
+            wide = torch.zeros(dout.shape[:-1] + (dh + 8,), dtype=tdt)
+            wide[..., 1:dh + 1] = dout
+            dout = wide[..., 1:dh + 1]
+        *grads, e_row = tfa.flash_bwd_ehat(f["q"], f["k"], f["v"], dout,
+                                           f["r"], fast_dots=True)
+        assert all(g.dtype == tdt and g.shape == f["q"].shape for g in grads)
+    assert e_row.dtype == torch.float32 and e_row.shape == (2, 17)
+    (name, args), = fake.calls[-1:]
+    assert name == "tmx_attn_bwd_bf16" and len(args) == 21
+    assert args[14:19] == (2, 17, 3, dh, pytest.approx(dh ** -0.5))
+    assert args[19] == int(dtype == "bfloat16")
+    plan = tfa.bwd16_plan(2, 3, 17, dh, dtype == "bfloat16", args[:4],
+                          list(args[13]))
+    assert sum(plan.packs) == packed
+    assert (args[11] is None) == (packed == 0)
+    stats, e_part, dq_part = args[8:11]
+    assert dq_part - stats == 4 * plan.stats
+    assert e_part - dq_part == 4 * plan.dq_part
+    if packed:
+        assert args[11] - e_part == 4 * plan.e_part
+        assert plan.packed == packed * 2 * 3 * 17 * (-(-dh // 8) * 8)
+    counts = (tfa.attn_bwd_launch.copies, tfa.attn_bwd_launch.rounded)
+    assert counts == ((packed, 0) if dtype == "bfloat16" else (0, packed))
+    assert tfa.attn_bwd_launch.dq_partial_sums == 1
+    assert tfa.bf16_launch_counts()[
+        "flash_bwd_ehat_qkv_bf16" if layout == "qkv"
+        else "flash_bwd_ehat_bf16"] == 1
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 197, 257, 513,
+                               1100, 2000, 4000])
+def test_bwd16_plan_covers_every_shape(S):
+    """Every (S, dh, B·H) gets a plan: 64-row tiles covering S, one partial
+    dq sum per 64 keys, dq partial rows of dh padded to 64 or 128, and
+    scratch of the sizes the C side's comment states; aligned bfloat16
+    operands are read in place, float32 ones always packed."""
+    for dh in (8, 16, 20, 40, 64, 72, 100, 128):
+        for B, H in ((1, 1), (1, 12), (8, 12), (32, 12)):
+            aligned = [0, 128, 256, 384]
+            rows = [H * S * 64, 64 * S, 64] * 4
+            for bf16 in (True, False):
+                plan = tfa.bwd16_plan(B, H, S, dh, bf16, aligned, rows)
+                assert plan.s_pad % 64 == 0 and S <= plan.s_pad < S + 64
+                assert plan.n_sub * 64 == plan.s_pad
+                assert plan.dp == (64 if dh <= 64 else 128)
+                assert plan.stats == B * H * plan.s_pad * 4
+                assert plan.dq_part == plan.n_sub * B * H * plan.s_pad * plan.dp
+                assert B * H * S <= plan.e_part < B * H * S + 64
+                assert plan.packs == (not bf16 or dh % 8 != 0,) * 4
+                dh8 = -(-dh // 8) * 8
+                assert plan.packed == sum(plan.packs) * B * H * S * dh8
+
+
+def test_bwd16_plan_ignores_strides_of_unit_dimensions():
+    """A stride of a dimension of size 1 is never stepped, so it does not
+    make an operand packed; an odd stride of a longer one does."""
+    odd = [3, 5, 8] * 4
+    assert not any(tfa.bwd16_plan(1, 1, 9, 8, True, [0] * 4, odd).packs)
+    assert all(tfa.bwd16_plan(2, 1, 9, 8, True, [0] * 4, odd).packs)
+    assert all(tfa.bwd16_plan(1, 1, 9, 8, True, [8] * 4, [0] * 12).packs)

@@ -1067,6 +1067,156 @@ def test_flash_kernels_fast_dots_match_plain(cuda, B, H, S, Dh, dtype):
     assert torch.equal(e_row, e_qkv)
 
 
+# the bf16 backward's edges (B, H, S, dh): S around the 64-row tiles and
+# the 128-key blocks (1 to 1,100), head dims padded to 64 or 128 (8, 40,
+# 64, 72, 128) and the grids either side of the key-width table (B·H = 6
+# takes 64-key blocks at every S here, 96 and 384 take 128-key ones at S =
+# 197: 192 and 768 blocks for 132 SMs)
+FAST_BWD_EDGES = (
+    [(2, 3, s, 64) for s in (1, 63, 64, 65, 127, 128, 129, 197, 257, 513,
+                             1100)]
+    + [(2, 3, s, dh) for dh in (8, 40, 72, 128) for s in (1, 65, 129, 257,
+                                                          1100)]
+    + [(8, 12, 197, 64), (32, 12, 197, 64)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FAST_DTYPES)
+@pytest.mark.parametrize("B,H,S,Dh", FAST_BWD_EDGES)
+def test_flash_bwd_fast_dots_edges_match_plain(cuda, B, H, S, Dh, dtype):
+    """The bf16 backward (wgmma, TMA) at its edges on float32 and bfloat16
+    tensors: flash_bwd_ehat and flash_bwd_ehat_qkv within the FAST bars of
+    their plain versions, the same bits on a second call, the per-head
+    kernels on split-head views of qkv the qkv kernels' bits; each key
+    width forced (64 or 128 keys a block where dh <= 64: dq's partial sums
+    per 64 or per 128 keys, in key order) within the same bars and
+    repeating its bits, dk, dv and e_row equal across the widths. The
+    packed operands are counted: all four on float32 tensors, none on
+    aligned bfloat16 ones (dh a multiple of 8)."""
+    f = _stored(to_torch(flash_inputs(B, H, S, Dh, seed=3), cuda), dtype)
+    f32 = _f32(f)
+    per_head = lambda t: (t["q"], t["k"], t["v"], t["dout"], t["r"])
+    tfa.reset_launch_counts()
+    got = tfa.flash_bwd_ehat(*per_head(f), fast_dots=True)
+    torch.cuda.synchronize()
+    packs = 4 * (dtype == torch.float32 or Dh % 8 != 0)
+    copies = (tfa.attn_bwd_launch.copies, tfa.attn_bwd_launch.rounded)
+    assert copies == ((0, packs) if dtype == torch.float32 else (packs, 0))
+    assert tfa.attn_bwd_launch.dq_partial_sums == 1
+    _fast_close(got, tfa.flash_bwd_ehat_plain(*per_head(f), fast_dots=True),
+                tfa.flash_bwd_ehat_plain(*per_head(f32)))
+    qkv = tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"], f["r"], H,
+                                 fast_dots=True)
+    _fast_close(qkv, tfa.flash_bwd_ehat_qkv_plain(f["qkv"], f["dmerged"],
+                                                  f["r"], H, fast_dots=True),
+                tfa.flash_bwd_ehat_qkv_plain(f32["qkv"], f32["dmerged"],
+                                             f32["r"], H))
+    again = tfa.flash_bwd_ehat(*per_head(f), fast_dots=True)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    *grads, e_row = tfa.flash_bwd_ehat(*tfa.qkv_heads(f["qkv"], H),
+                                       tfa.heads(f["dmerged"], H), f["r"],
+                                       fast_dots=True)
+    assert all(torch.equal(g, w) for g, w in zip(grads, tfa.qkv_heads(
+        qkv[0], H)))
+    assert torch.equal(e_row, qkv[1])
+    lib = tfa.library(fast_dots=True)
+    want = tfa.flash_bwd_ehat_plain(*per_head(f), fast_dots=True)
+    ref = tfa.flash_bwd_ehat_plain(*per_head(f32))
+    try:
+        for keys in (64, 128):
+            assert lib.tmx_attn_bwd_bf16_force_keys(keys) == keys
+            forced = tfa.flash_bwd_ehat(*per_head(f), fast_dots=True)
+            _fast_close(forced, want, ref)
+            assert all(torch.equal(a, g) for a, g in zip(
+                forced, tfa.flash_bwd_ehat(*per_head(f), fast_dots=True)))
+            assert all(torch.equal(a, g) for a, g in zip(forced[1:], got[1:]))
+    finally:
+        lib.tmx_attn_bwd_bf16_force_keys(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FAST_DTYPES)
+def test_flash_bwd_fast_dots_packs_views_tma_cannot_read(cuda, dtype):
+    """q, k, v, dout = t[..., 1:dh + 1] of [B, H, S, dh + 8] tensors: rows
+    2 or 4 bytes past the 16-byte grid, which TMA cannot read, so each is
+    packed (counted as a copy for bfloat16, as rounded for float32); the
+    outputs are the bits of the same values stored contiguously, and within
+    the FAST bars of the plain version."""
+    B, H, S, Dh = 2, 3, 77, 64
+    t = [torch.from_numpy(np.random.RandomState(i).randn(B, H, S, Dh + 8)
+                          .astype(np.float32) * 0.5).to(cuda, dtype)
+         [..., 1:Dh + 1] for i in range(4)]
+    r = torch.rand((B, S), generator=torch.Generator().manual_seed(0)).to(cuda)
+    dense = [x.contiguous() for x in t]
+    tfa.reset_launch_counts()
+    got = tfa.flash_bwd_ehat(*t, r, fast_dots=True)
+    torch.cuda.synchronize()
+    counts = (tfa.attn_bwd_launch.copies, tfa.attn_bwd_launch.rounded)
+    assert counts == ((4, 0) if dtype == torch.bfloat16 else (0, 4))
+    _fast_close(got, tfa.flash_bwd_ehat_plain(*t, r, fast_dots=True),
+                tfa.flash_bwd_ehat_plain(*(x.float() for x in t), r))
+    tfa.reset_launch_counts()
+    want = tfa.flash_bwd_ehat(*dense, r, fast_dots=True)
+    assert tfa.attn_bwd_launch.copies == 0
+    assert all(torch.equal(a, g) for a, g in zip(want, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2000, 4000])
+def test_flash_bwd_fast_dots_long_sequence_matches_plain(cuda, S):
+    """S = 2,000 and 4,000 (B=1, H=2): the bf16 backward's shared memory
+    is fixed by dh, and its partial dq sums grow with S (63 at S = 4,000)."""
+    lib = tfa.library(fast_dots=True)
+    assert lib.tmx_attn_smem_bf16(S, 64, 1) == lib.tmx_attn_smem_bf16(197, 64,
+                                                                       1)
+    for dtype in FAST_DTYPES:
+        f = _stored(to_torch(flash_inputs(1, 2, S, 64, seed=5), cuda), dtype)
+        args = (f["q"], f["k"], f["v"], f["dout"], f["r"])
+        tfa.reset_launch_counts()
+        got = tfa.flash_bwd_ehat(*args, fast_dots=True)
+        torch.cuda.synchronize()
+        assert tfa.bf16_launch_counts()["flash_bwd_ehat_bf16"] == 1
+        _fast_close(got, tfa.flash_bwd_ehat_plain(*args, fast_dots=True),
+                    tfa.flash_bwd_ehat_plain(*(x.float() for x in args)))
+        assert all(torch.equal(a, g) for a, g in zip(
+            tfa.flash_bwd_ehat(*args, fast_dots=True), got))
+
+
+@pytest.mark.cuda
+def test_attn_bwd_bf16_runs_wgmma_and_lost_the_mma_sync_kernels(cuda):
+    """The built bf16 library's SASS: the backward's statistics and
+    key-major passes hold wgmma products (HGMMA) and TMA loads (UTMALDG);
+    the two mma.sync passes they replaced (``attn_bwd_q_bf16_kernel``,
+    ``attn_bwd_kv_bf16_kernel``) are gone; the key-width table takes 128
+    keys a block where those blocks still give every SM one, 64 past dh =
+    64 or on smaller grids."""
+    import shutil
+    import subprocess
+
+    lib = tfa.library(fast_dots=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(
+        "attn_block_bf16"))], capture_output=True, text=True,
+        check=True).stdout
+    functions = re.findall(r"Function : (\S+)", sass)
+    bwd = [f for f in functions if "attn_bwd" in f]
+    assert not [f for f in bwd if re.search(r"attn_bwd_(q|kv)_bf16", f)], bwd
+    wgmma = [f for f in bwd if "wgmma" in f]
+    assert any("stats" in f for f in wgmma) and any("keys" in f
+                                                    for f in wgmma), bwd
+    starts = [sass.index(f"Function : {f}") for f in functions]
+    for f in wgmma:
+        i = sass.index(f"Function : {f}")
+        end = min([s for s in starts if s > i], default=len(sass))
+        body = sass[i:end]
+        assert "HGMMA.64x64x16" in body and "UTMALDG" in body, f
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for S, dh, BH in ((197, 64, 96), (197, 64, 384), (197, 64, 12),
+                      (1100, 64, 6), (197, 128, 384), (4000, 64, 2)):
+        want = 64 if dh > 64 or -(-S // 128) * BH < sms else 128
+        assert lib.tmx_attn_bwd_bf16_keys(S, dh, BH) == want, (S, dh, BH)
+
+
 @pytest.mark.cuda
 def test_bf16_tensors_need_fast_dots_on_cuda(cuda):
     a = _stored(to_torch(attn_inputs(1, 5, 16), cuda), torch.bfloat16)

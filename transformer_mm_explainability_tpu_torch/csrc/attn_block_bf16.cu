@@ -21,36 +21,35 @@
 //                        multiplies.
 //   ln_vjp_any_kernel    LayerNorm input cotangent plus the residual skip,
 //                        fp32 arithmetic on fp32 or bf16 storage.
-//   attn_fwd_bf16_kernel, attn_bwd_q_bf16_kernel, attn_bwd_kv_bf16_kernel
-//                        the attention forward and the two passes of its
-//                        backward with bf16 products (below); e_row_kernel
-//                        (attn_common.cuh) sums the heads of the fold.
+//   attn_fwd_bf16_kernel the attention forward with bf16 products (below).
+//   attn_bwd_*_kernel    its backward with the fold, on wgmma and TMA: a
+//                        statistics pass, a key-major pass and a finishing
+//                        sum (the section note before attn_bwd_pack_kernel).
 //
 // What bounds them: the attention does 4 S*S*dh (forward) and 10 S*S*dh
 // (backward) flops per (image, head) against 16 and 28 S*dh bytes, bound by
-// operations at the dense bf16 tensor-core rate (989 TFLOP/s); the
-// LayerNorm rows are bound by bytes. The design follows attn_block.cu's
-// fp32 kernels (one block of 4 warps per 64-row tile, head and image; the
-// other operand streamed in 32-row tiles; no atomics, every output row
-// written by one warp, so the same bits on every run), with these changes:
+// operations at the dense bf16 tensor-core rate (989 TFLOP/s) at long S and
+// by bytes at ViT-B's S = 197; the LayerNorm rows are bound by bytes. The
+// forward follows attn_block.cu's fp32 kernel (one block of 4 warps per
+// 64-row tile, head and image; the other operand streamed in 32-row tiles;
+// no atomics, every output row written by one warp, so the same bits on
+// every run), with these changes:
 //   - every operand tile is staged through registers (mma_bf16.cuh
 //     TileRegs): fp32 or bf16 rows are read, rounded to bf16 and written
 //     to one of two shared-memory buffers, bf16 rows of dh16 + 8 elements
 //     (dh16: dh rounded up to 16, zero-filled), read by ldmatrix; the next
 //     tile's reads are in flight while this one is multiplied;
-//   - the forward runs two sweeps over the key tiles: the row max and sum
-//     first, then A = 2^(s - m) / l normalised before it is rounded to bf16
-//     for the A v product. The JAX body rounds the normalised A; an online
+//   - it runs two sweeps over the key tiles: the row max and sum first,
+//     then A = 2^(s - m) / l normalised before it is rounded to bf16 for
+//     the A v product. The JAX body rounds the normalised A; an online
 //     softmax would round unnormalised terms, a different rounding whose
 //     distance from JAX is of the order of the fast_dots rounding itself.
 //     The price is one more q k^T product (3 S*S*dh products for 2);
-//   - q k^T and dout v^T take q, k, v and dout as bf16 fragments; A (or its
-//     transpose) and ds go to bf16 from the accumulators for the A v,
-//     ds k, A^T dout and ds^T q products (mma_bf16.cuh a_from_acc_bf16).
-//     The row statistics, dsum, ds before its rounding and the fold are
-//     fp32, from the same fp32 scores.
-// Shared memory is fixed by dh (28 KB forward, 37 KB backward at dh = 64),
-// so any S runs.
+//   - q k^T takes q and k as bf16 fragments, A goes to bf16 from the
+//     accumulators for the A v product (mma_bf16.cuh a_from_acc_bf16). The
+//     row statistics are fp32.
+// Shared memory is fixed by dh (28 KB forward at dh = 64; the backward 83
+// KB at dh <= 64, 107 KB past it), so any S runs.
 
 #include "attn_common.cuh"
 #include "common.cuh"
@@ -357,276 +356,11 @@ attn_fwd_bf16_kernel(FwdBf16Args a) {
   store_rows<DP>(a.out, head_at(a.so, b, h), a.so.s, a.bf, o, q0 + warp * 16, lane, S, dh);
 }
 
-struct BwdBf16Args {
-  Operand q, k, v, dout;
-  const float* r;
-  void *dq, *dk, *dv;
-  Strides sdq, sdk, sdv;
-  float *stats, *e_part, *e_row;
-  int B, S, H, dh;
-  float scale_log2, scale;
-  bool bf, vec;
-};
-
-// The q pass: one block per (64-query tile, head, image), each warp 16
-// query rows, two sweeps over the 32-key tiles (tile it % ntiles). Sweep 1:
-// s = q k^T and dA = dout v^T, the online row max m, sum l and
-// u = sum_j 2^(s_j - m) dA_j (log2 domain, rescaled together); dsum = u / l.
-// Sweep 2: s and dA again, ds = A (dA - dsum) scale, dq += ds k. Writes dq
-// and stats[0..2] = (m, 1/l, dsum) per row (planes of B * H * S).
-template <int DP>
-__global__ void __launch_bounds__(kAttThreads, DP <= 64 ? 3 : 1)
-attn_bwd_q_bf16_kernel(BwdBf16Args a) {
-  constexpr int LD = DP + 8, NT = DP / 8;
-  extern __shared__ __align__(16) bf16 bwd16_sm[];
-  bf16* Qs = bwd16_sm;                     // [kAttRows][LD]
-  bf16* Os = Qs + kAttRows * LD;           // [kAttRows][LD]  dout rows
-  bf16* Ks = Os + kAttRows * LD;           // [2][kAttTile][LD]
-  bf16* Vs = Ks + 2 * kAttTile * LD;       // [2][kAttTile][LD]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kAttRows;
-  const int S = a.S, dh = a.dh;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int t = lane & 3;
-  const int ntiles = (S + kAttTile - 1) / kAttTile, steps = 2 * ntiles;
-
-  {
-    TileRegs<kAttRows, DP, kAttThreads> rows;
-    fetch_rows(rows, a.q, b, h, q0, S, dh, a.bf, a.vec);
-    rows.store(Qs, LD);
-    fetch_rows(rows, a.dout, b, h, q0, S, dh, a.bf, a.vec);
-    rows.store(Os, LD);
-  }
-  TileRegs<kAttTile, DP, kAttThreads> rk, rv;
-  fetch_rows(rk, a.k, b, h, 0, S, dh, a.bf, a.vec);
-  fetch_rows(rv, a.v, b, h, 0, S, dh, a.bf, a.vec);
-  rk.store(Ks, LD);
-  rv.store(Vs, LD);
-  __syncthreads();
-
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};  // this lane's parts of l, u
-  float inv[2], dsum[2];
-  const bf16* Qw = Qs + warp * 16 * LD;
-  const bf16* Ow = Os + warp * 16 * LD;
-
-  for (int it = 0; it < steps; ++it) {
-    const int cur = it & 1, next = it + 1;
-    if (next < steps) {
-      fetch_rows(rk, a.k, b, h, next % ntiles * kAttTile, S, dh, a.bf, a.vec);
-      fetch_rows(rv, a.v, b, h, next % ntiles * kAttTile, S, dh, a.bf, a.vec);
-    }
-    const bf16* Kt = Ks + cur * kAttTile * LD;
-    const bf16* Vt = Vs + cur * kAttTile * LD;
-    float s[kKT][4], g[kKT][4];
-    mma_rows_bt<DP>(Qw, Kt, lane, s);
-    mma_rows_bt<DP>(Ow, Vt, lane, g);
-    scale_mask(s, (it % ntiles) * kAttTile, S, t, a.scale_log2);
-    if (it < ntiles) {  // sweep 1: the online statistics
-      float alpha[2];
-      update_max(s, m, alpha);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] *= alpha[r];
-        u[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int n = 0; n < kKT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[n][e] - m[e >> 1]);
-          l[e >> 1] += p;
-          u[e >> 1] = fmaf(p, g[n][e], u[e >> 1]);
-        }
-      }
-      if (it == ntiles - 1) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          inv[r] = 1.0f / quad_sum(l[r]);
-          dsum[r] = quad_sum(u[r]) * inv[r];
-        }
-      }
-    } else {  // sweep 2: ds = A (dA - dsum) scale, then dq += ds k
-#pragma unroll
-      for (int n = 0; n < kKT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[n][e] - m[e >> 1]) * inv[e >> 1];
-          g[n][e] = p * (g[n][e] - dsum[e >> 1]) * a.scale;
-        }
-      }
-      mma_acc_rows<DP>(g, Kt, lane, acc);
-    }
-    if (next < steps) {
-      rk.store(Ks + (cur ^ 1) * kAttTile * LD, LD);
-      rv.store(Vs + (cur ^ 1) * kAttTile * LD, LD);
-    }
-    __syncthreads();
-  }
-
-  store_rows<DP>(a.dq, head_at(a.sdq, b, h), a.sdq.s, a.bf, acc, q0 + warp * 16, lane, S, dh);
-  if (t == 0) {
-    const int row = q0 + warp * 16 + (lane >> 2);
-    const size_t plane = (size_t)a.B * a.H * S, base = ((size_t)b * a.H + h) * S;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = row + 8 * r;
-      if (i >= S) continue;
-      a.stats[base + i] = m[r];
-      a.stats[plane + base + i] = inv[r];
-      a.stats[2 * plane + base + i] = dsum[r];
-    }
-  }
-}
-
-// The kv pass: one block per (64-key tile, head, image), each warp 16 keys;
-// K and V rows stay in shared memory while 32-query tiles of q, dout and
-// their (m, 1/l, dsum, r) stream through. Per tile: s^T = k q^T,
-// dA^T = v dout^T, A^T = 2^(s^T - m) / l, the fold e += r_q relu(A^T dA^T),
-// ds^T = A^T (dA^T - dsum) scale, then dv += A^T dout and dk += ds^T q.
-// Queries at or past S get 1/l = 0 and r = 0. Past DP = 80 the pass sweeps
-// the query tiles twice, dv alone first, so one accumulator is live at a
-// time (as attn_block.cu's kv pass, for the same register budget).
-template <int DP>
-__global__ void __launch_bounds__(kAttThreads, 2)
-attn_bwd_kv_bf16_kernel(BwdBf16Args a) {
-  constexpr int LD = DP + 8, NT = DP / 8;
-  constexpr bool TWO = DP > 80;
-  extern __shared__ __align__(16) bf16 bwd16_sm[];
-  bf16* Ks = bwd16_sm;                     // [kAttRows][LD]
-  bf16* Vs = Ks + kAttRows * LD;           // [kAttRows][LD]
-  bf16* Qs = Vs + kAttRows * LD;           // [2][kAttTile][LD]
-  bf16* Os = Qs + 2 * kAttTile * LD;       // [2][kAttTile][LD]
-  float* Ts = reinterpret_cast<float*>(Os + 2 * kAttTile * LD);  // [2][4][kAttTile]
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kAttRows;
-  const int S = a.S, dh = a.dh;
-  const size_t plane = (size_t)a.B * a.H * S, base = ((size_t)b * a.H + h) * S;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int t = lane & 3;
-  const int ntiles = (S + kAttTile - 1) / kAttTile, steps = (TWO ? 2 : 1) * ntiles;
-
-  // one statistic per thread: m, 1/l, dsum of the q pass, then r
-  static_assert(kAttThreads == 4 * kAttTile, "one value per thread");
-  const int which = threadIdx.x / kAttTile, qi = threadIdx.x % kAttTile;
-  auto fetch_stat = [&](int q0) -> float {
-    if (q0 + qi >= S) return 0.f;
-    return which < 3 ? a.stats[which * plane + base + q0 + qi] : a.r[(size_t)b * S + q0 + qi];
-  };
-
-  {
-    TileRegs<kAttRows, DP, kAttThreads> rows;
-    fetch_rows(rows, a.k, b, h, k0, S, dh, a.bf, a.vec);
-    rows.store(Ks, LD);
-    fetch_rows(rows, a.v, b, h, k0, S, dh, a.bf, a.vec);
-    rows.store(Vs, LD);
-  }
-  TileRegs<kAttTile, DP, kAttThreads> rq, ro;
-  fetch_rows(rq, a.q, b, h, 0, S, dh, a.bf, a.vec);
-  fetch_rows(ro, a.dout, b, h, 0, S, dh, a.bf, a.vec);
-  rq.store(Qs, LD);
-  ro.store(Os, LD);
-  Ts[threadIdx.x] = fetch_stat(0);
-  __syncthreads();
-
-  // Per lane: keys g and g + 8 of the warp's 16 (index 0 and 1 below).
-  // ak: dk, or dv in the first of two sweeps; av: dv (one sweep only).
-  float ak[NT][4], av[TWO ? 1 : NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.f;
-  if constexpr (!TWO) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n) av[n][0] = av[n][1] = av[n][2] = av[n][3] = 0.f;
-  }
-  float fold[2] = {0.f, 0.f};  // this lane's part of sum_q r_q relu(A dA)
-  const int key = k0 + warp * 16 + (lane >> 2);
-  const bool key_ok[2] = {key < S, key + 8 < S};
-  const bf16* Kw = Ks + warp * 16 * LD;
-  const bf16* Vw = Vs + warp * 16 * LD;
-
-  // The next tile's reads are issued before this tile's products where the
-  // registers allow (DP <= 80); past that, after them: staged through the
-  // products, the two 32-row tiles spilled at DP = 112 and 128.
-  const auto fetch_next = [&](int it, float& stat) {
-    if (it + 1 < steps) {
-      const int nq = (it + 1) % ntiles * kAttTile;
-      fetch_rows(rq, a.q, b, h, nq, S, dh, a.bf, a.vec);
-      fetch_rows(ro, a.dout, b, h, nq, S, dh, a.bf, a.vec);
-      stat = fetch_stat(nq);
-    }
-  };
-  for (int it = 0; it < steps; ++it) {
-    const int cur = it & 1, next = it + 1;
-    float stat = 0.f;
-    if constexpr (!TWO) fetch_next(it, stat);
-    const bf16* Qt = Qs + cur * kAttTile * LD;
-    const bf16* Ot = Os + cur * kAttTile * LD;
-    const float* T = Ts + cur * 4 * kAttTile;
-    const bool dv_only = TWO && it < ntiles;
-    float s[kKT][4], g[kKT][4];
-    mma_rows_bt<DP>(Kw, Qt, lane, s);
-    if (!dv_only) mma_rows_bt<DP>(Vw, Ot, lane, g);
-#pragma unroll
-    for (int n = 0; n < kKT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // query column n * 8 + 2t + (e & 1)
-        const int c = n * 8 + 2 * t + (e & 1);
-        const float p =
-            key_ok[e >> 1] ? exp2f(s[n][e] * a.scale_log2 - T[c]) * T[kAttTile + c] : 0.f;
-        if (!dv_only) {
-          fold[e >> 1] += fmaxf(p * g[n][e], 0.f) * T[3 * kAttTile + c];
-          g[n][e] = p * (g[n][e] - T[2 * kAttTile + c]) * a.scale;
-        }
-        s[n][e] = p;
-      }
-    }
-    if constexpr (TWO) {
-      if (dv_only) {
-        mma_acc_rows<DP>(s, Ot, lane, ak);
-        if (it == ntiles - 1) {  // dv done: the registers take dk next
-          store_rows<DP>(a.dv, head_at(a.sdv, b, h), a.sdv.s, a.bf, ak, k0 + warp * 16, lane, S,
-                         dh);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.f;
-        }
-      } else {
-        mma_acc_rows<DP>(g, Qt, lane, ak);
-      }
-    } else {
-      mma_acc_rows<DP>(s, Ot, lane, av);
-      mma_acc_rows<DP>(g, Qt, lane, ak);
-    }
-    if constexpr (TWO) fetch_next(it, stat);
-    if (next < steps) {
-      rq.store(Qs + (cur ^ 1) * kAttTile * LD, LD);
-      ro.store(Os + (cur ^ 1) * kAttTile * LD, LD);
-      Ts[(cur ^ 1) * 4 * kAttTile + threadIdx.x] = stat;
-    }
-    __syncthreads();
-  }
-
-  store_rows<DP>(a.dk, head_at(a.sdk, b, h), a.sdk.s, a.bf, ak, k0 + warp * 16, lane, S, dh);
-  if constexpr (!TWO)
-    store_rows<DP>(a.dv, head_at(a.sdv, b, h), a.sdv.s, a.bf, av, k0 + warp * 16, lane, S, dh);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) fold[r] = quad_sum(fold[r]);  // fixed order over 4 lanes
-  if (t == 0) {
-    if (key_ok[0]) a.e_part[base + key] = fold[0];
-    if (key_ok[1]) a.e_part[base + key + 8] = fold[1];
-  }
-}
-
 // dh rounded up to the m16n8k16 product's 16-deep steps.
 int att_dp16(int dh) { return (dh + 15) / 16 * 16; }
 
 size_t fwd16_smem(int dh) {
   return sizeof(bf16) * (size_t)(kAttRows + 4 * kAttTile) * (att_dp16(dh) + 8);
-}
-
-size_t bwd16_smem(int dh) {
-  return sizeof(bf16) * (size_t)(2 * kAttRows + 4 * kAttTile) * (att_dp16(dh) + 8) +
-         sizeof(float) * 2 * 4 * kAttTile;
 }
 
 // Launches attn_fwd_bf16_kernel<DP> for DP = att_dp16(dh), found by walking
@@ -646,26 +380,817 @@ cudaError_t launch_fwd16(const FwdBf16Args& a, int B, int H, cudaStream_t stream
   }
 }
 
-template <int DP>
-cudaError_t launch_bwd16(const BwdBf16Args& a, cudaStream_t stream) {
-  if constexpr (DP > kMaxDh) {
-    return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// The attention backward with bf16 products on wgmma and TMA (#4, #6 and #8
+// in the fast_dots mode). Three launches, four with operands that TMA cannot
+// read in place:
+//
+//   attn_bwd_pack_kernel    (only where needed) an operand stored in fp32, or
+//                           in bf16 with rows off the 16-byte grid (dh not a
+//                           multiple of 8, a view's odd stride or base),
+//                           rounded to bf16 into an aligned [B, H, S, dh8]
+//                           scratch (dh8: dh rounded up to 8);
+//   attn_bwd_stats_wgmma_kernel  one warpgroup per (64-query tile, head,
+//                           image): s = q k^T and dA = dout v^T on wgmma over
+//                           the 64-key tiles, which a producer warp streams
+//                           by TMA through a two-stage ring; the online row
+//                           max m, sum l and u = sum_j 2^(s_j - m) dA_j (log2
+//                           domain, rescaled together), then (m, 1/l,
+//                           dsum = u / l, r) per query into `stats`
+//                           (queries at or past S get zeros: 1/l = 0, r = 0);
+//   attn_bwd_keys_wgmma_kernel   a persistent grid; a block holds the K and V
+//                           rows of NWG warpgroups of 64 keys in shared
+//                           memory (the next key block's loaded into a second
+//                           buffer meanwhile) while a producer warpgroup
+//                           streams the 64-query tiles of q, dout and their
+//                           statistics through the ring. Per tile: S^T =
+//                           K q^T and dA^T = V dout^T (wgmma, both operands
+//                           in shared memory); A^T = 2^(S^T - m) / l, the
+//                           fold e += r relu(A^T dA^T) and dS^T = A^T (dA^T -
+//                           dsum) scale in registers; dV += A^T dout and
+//                           dK += dS^T q on wgmma with A from registers (the
+//                           accumulator layout, rounded to bf16, is the A
+//                           fragment); dS^T rounded to bf16 into shared
+//                           memory (128-byte swizzle), and the partial dq =
+//                           dS K of the block's keys on wgmma (A transposed
+//                           from shared memory; with two warpgroups, the
+//                           second's handed to the first through shared
+//                           memory and added, in key order) into an fp32
+//                           scratch [n_sub][B*H][S_pad][64 DC];
+//   attn_bwd_finish_kernel  dq = the partials summed in key order, written in
+//                           the outputs' dtype; e_row = (1/H) sum_h e_part,
+//                           the heads in a fixed order.
+//
+// Seven S*S*dh products per (image, head) for the function's five: s and dA
+// twice, dV, dK, dq once. Both passes are bound by latency at ViT-B's S =
+// 197 (a block streams four tiles; one or two warps a scheduler) and by the
+// exponentials and the tensor cores at long S; the finish by the partials'
+// bytes. No atomics and no sum ordered by timing: the same
+// inputs give the same bits, whatever their layout (per-head views or the
+// merged qkv; operands that are packed first hold the same bf16 values).
+// Keys at or past S are masked in the kernels (A = 0), queries at or past S
+// by their statistics (1/l = 0, r = 0). dh is padded to 64 (DC = 1) or 128
+// (DC = 2): TMA copies 64-column boxes and fills the columns at or past dh,
+// and the rows at or past S, with zeros, exact in every product. Shared
+// memory is fixed by dh, so any S runs.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwRows = 64;                  // rows of a tile: queries or keys
+constexpr uint32_t kBwTile = kBwRows * 128;  // [64][64] bf16, 128-byte swizzled rows
+constexpr int kBwStages = 2;                 // ring stages of the streamed tiles
+constexpr int kBwProducer = 32;              // the producer warp, after the warpgroups
+constexpr int kBwSmemSlack = 1024 + 128;   // tile alignment, up to 16 barriers
+
+struct BwdArgs {
+  const float* r;        // [B, S]
+  void *dq, *dk, *dv;    // [B, H, S, dh] views, fp32 or bf16 (bf)
+  Strides sdq, sdk, sdv;
+  float4* stats;         // [B*H][s_pad]: (m, 1/l, dsum, r) per query
+  float* dq_part;        // [n_sub][B*H][s_pad][64 DC], n_sub = S / (64 NWG) rounded up
+  float* e_part;         // [B*H][S]
+  float* e_row;          // [B][S]
+  int B, S, H, dh, s_pad, n_sub;
+  float scale_log2, scale;
+  bool bf;
+  bool pair_kv, pair_q;  // dk and dv (dq) take two neighbouring columns a store
+};
+
+// 2^x (ex2.approx: 2 ulp, denormal results flushed to 0; -inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two neighbouring elements at i of a tensor of fp32 or bf16 (rounded to
+// nearest even), one store where `pair` (i even, the tensor aligned for it).
+__device__ __forceinline__ void store2_any(void* p, long long i, float x, float y, bool bf,
+                                           bool pair) {
+  if (!pair) {
+    store_any(p, i, x, bf);
+    store_any(p, i + 1, y, bf);
+  } else if (bf) {
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p) + i) = pack_bf16(x, y);
   } else {
-    if (att_dp16(a.dh) != DP) return launch_bwd16<DP + 16>(a, stream);
-    const size_t smem = bwd16_smem(a.dh);
-    cudaError_t err = allow_smem(attn_bwd_q_bf16_kernel<DP>, smem);
-    if (err == cudaSuccess) err = allow_smem(attn_bwd_kv_bf16_kernel<DP>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.S + kAttRows - 1) / kAttRows, a.H, a.B);
-    attn_bwd_q_bf16_kernel<DP><<<grid, kAttThreads, smem, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    attn_bwd_kv_bf16_kernel<DP><<<grid, kAttThreads, smem, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    e_row_kernel<<<(a.B * a.S + 255) / 256, 256, 0, stream>>>(a.e_part, a.e_row, a.B, a.S, a.H);
-    return cudaGetLastError();
+    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(x, y);
   }
+}
+
+// One TMA copy of the 64 x 64 box at (column c0, row c1) of head (c2 = h,
+// c3 = b) of a [B, H, S, dh] map into shared memory at dst.
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One bulk copy of `bytes` contiguous bytes (16-byte aligned) into shared memory.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The 128 threads of warpgroup w meet (named barrier 1 + w), after their
+// shared-memory writes are made visible to wgmma's reads (the async proxy).
+__device__ __forceinline__ void wg_publish(int w) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+}
+
+// d (+)= A B for one k16 step of a 64 x 64 warpgroup tile, both operands in
+// shared memory; TA / TB: A / B MN-major (read transposed).
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same for a 64 x 32 tile (m64n32k16).
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same with A from registers: the m16n8k16 A fragments of the warp's 16
+// rows (a_from_acc_bf16 of two accumulator columns of eight); TB as above.
+template <int TB>
+__device__ __forceinline__ void wg_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// Descriptors of k16 step kk (0 .. 4 DC - 1) of a 128-byte-swizzled operand
+// of DC chunks [64 rows][64 columns] (kBwTile apart): K-major (the rows are
+// the product's m or n, the columns its k: 32 bytes a step within a chunk)
+// and MN-major (the rows are the product's k: 16 rows of 128 bytes a step).
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return g16_desc(tile + (kk / 4) * kBwTile + 32 * (kk % 4), 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return g16_desc(tile + 2048 * kk, kBwTile, 1024);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+template <int DC>
+constexpr uint32_t bwd16_stats_smem() {
+  return kBwSmemSlack + (2 + 2 * kBwStages) * DC * kBwTile;
+}
+
+constexpr int kBwKV = 2;  // K and V buffers of the keys pass: the next block's loads early
+
+// With two warpgroups, warpgroup 1 hands its partial dq (64 x 64 fp32 a
+// chunk) to warpgroup 0 through a buffer of its own, two of them (by tile
+// parity) for each chunk.
+template <int DC, int NWG>
+__host__ __device__ constexpr uint32_t bwd16_xchg_bytes() {
+  return NWG == 2 ? 2 * DC * 128 * 32 * 4 : 0;
+}
+
+template <int DC, int NWG>
+constexpr uint32_t bwd16_keys_smem() {
+  return kBwSmemSlack + (2 * kBwKV * NWG * DC + NWG) * kBwTile +
+         kBwStages * (2 * DC * kBwTile + 1024) + bwd16_xchg_bytes<DC, NWG>();
+}
+
+// s = q k^T and dA = dout v^T over the key tiles of one (64-query tile,
+// head, image); the online statistics (see the section note). Warps 0-3 are
+// the consumer warpgroup, warp 4 the producer.
+template <int DC>
+__global__ void __launch_bounds__(128 + kBwProducer)
+attn_bwd_stats_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_do, BwdArgs a) {
+  constexpr uint32_t OP = DC * kBwTile;  // one operand's 64 rows
+  extern __shared__ __align__(1024) unsigned char bw_raw[];
+  const uint32_t base = (smem_u32(bw_raw) + 1023) & ~1023u;
+  const uint32_t qs = base, os = base + OP;  // this tile's q and dout rows
+  const uint32_t ring = base + 2 * OP;       // stage s: k at ring + 2 OP s, v after it
+  const uint32_t bars = ring + kBwStages * 2 * OP;
+  auto full = [&](int s) { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 + 8 * (kBwStages + s); };
+  const int b = blockIdx.z, h = blockIdx.y, S = a.S;
+  const int q0 = blockIdx.x * kBwRows, nk = (S + kBwRows - 1) / kBwRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kBwStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ---- producer: one thread starts every copy
+    if (threadIdx.x != 128) return;
+    mbar_arrive_tx(bars, 2 * OP);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      tma_load4(qs + c * kBwTile, &map_q, bars, 64 * c, q0, h, b);
+      tma_load4(os + c * kBwTile, &map_do, bars, 64 * c, q0, h, b);
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(empty(s), phase ^ 1);  // the first pass finds every stage free
+      mbar_arrive_tx(full(s), 2 * OP);
+      const uint32_t dst = ring + s * 2 * OP;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        tma_load4(dst + c * kBwTile, &map_k, full(s), 64 * c, kt * kBwRows, h, b);
+        tma_load4(dst + OP + c * kBwTile, &map_v, full(s), 64 * c, kt * kBwRows, h, b);
+      }
+      if (++s == kBwStages) s = 0, phase ^= 1;
+    }
+    return;
+  }
+
+  // ---- consumers: this lane's rows are queries q0 + 16 warp + g + 8 hh;
+  // accumulator element 4 j + 2 hh + e is key 8 j + 2 t + e of the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  mbar_wait(bars, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(full(s), phase);
+    const uint32_t ks = ring + s * 2 * OP, vs = ks + OP;
+    float sc[32], dg[32];  // fresh: the first k step does not read them
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * DC; ++kk) wg_ss<0, 0>(sc, kmajor(qs, kk), kmajor(ks, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4 * DC; ++kk) wg_ss<0, 0>(dg, kmajor(os, kk), kmajor(vs, kk), kk > 0);
+    wg_commit();
+    wg_wait0();
+    g16_fence_regs(sc);
+    g16_fence_regs(dg);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (++s == kBwStages) s = 0, phase ^= 1;
+
+    const int k0 = kt * kBwRows;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = k0 + 8 * j + 2 * t + e < S;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float& v = sc[4 * j + 2 * hh + e];
+          v = ok ? v * a.scale_log2 : -INFINITY;
+        }
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = m[hh];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = ex2(m[hh] - mx);  // 0 on the first tile
+      m[hh] = mx;
+      l[hh] *= alpha;
+      u[hh] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          const float p = ex2(sc[i] - mx);
+          l[hh] += p;
+          u[hh] = fmaf(p, dg[i], u[hh]);
+        }
+    }
+  }
+
+  const size_t bh = (size_t)b * a.H + h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float L = quad_sum(l[hh]), U = quad_sum(u[hh]);
+    const int row = q0 + 16 * warp + (lane >> 2) + 8 * hh;
+    if (t == 0)
+      a.stats[bh * a.s_pad + row] =
+          row < S ? make_float4(m[hh], 1.0f / L, U / L, a.r[(size_t)b * S + row])
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// dK, dV, the fold and the partial dq of blocks of 64 NWG keys of one
+// (head, image), each streaming every query tile (see the section note).
+// The grid is persistent: block i takes key blocks i, i + gridDim.x, ...
+// (the key blocks of a head consecutive), and the producer loads the next
+// one's K and V rows into the other of two buffers while this one is
+// computed. Warpgroups 0 .. NWG - 1 are the consumers (warpgroup w: keys
+// k0 + 64 w ..), the last one the producer, which hands its registers to
+// them (setmaxnreg). The S^T and dA^T products take the query tile in DC
+// steps of 64 / DC queries, so that with dh > 64 (DC = 2) the 128
+// accumulators of dK and dV fit beside them.
+template <int DC, int NWG>
+__global__ void __launch_bounds__(128 * (NWG + 1), NWG == 1 ? 2 : 1)
+attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do, BwdArgs a) {
+  constexpr uint32_t OP = DC * kBwTile;
+  constexpr uint32_t STAGE = 2 * OP + kBwRows * sizeof(float4);  // q, dout, statistics
+  constexpr uint32_t KV = 2 * NWG * OP;                           // one K and V buffer
+  constexpr int DP = 64 * DC;
+  constexpr int QH = kBwRows / DC;  // queries of one S^T step
+  constexpr int NA = QH / 2;        // its accumulator registers a thread
+  extern __shared__ __align__(1024) unsigned char bw_raw[];
+  const uint32_t raw = smem_u32(bw_raw), base = (raw + 1023) & ~1023u;
+  // K/V buffer x at base + KV x: warpgroup w's k rows at + OP w, v rows at
+  // + OP (NWG + w); dS^T of warpgroup w at dss + kBwTile w; the ring after
+  const uint32_t dss = base + kBwKV * KV;
+  const uint32_t ring = dss + NWG * kBwTile;
+  const uint32_t xchg = ring + kBwStages * STAGE;  // the partial dq handed over (NWG = 2)
+  const uint32_t bars = xchg + bwd16_xchg_bytes<DC, NWG>();
+  auto kv_full = [&](int x) { return bars + 8 * x; };
+  auto kv_empty = [&](int x) { return bars + 8 * (kBwKV + x); };
+  auto full = [&](int s) { return bars + 8 * (2 * kBwKV + s); };
+  auto empty = [&](int s) { return bars + 8 * (2 * kBwKV + kBwStages + s); };
+  const int S = a.S, nq = a.s_pad / kBwRows;
+  const int n_kb = (S + kBwRows * NWG - 1) / (kBwRows * NWG);
+  const int items = n_kb * a.B * a.H;
+
+  if (threadIdx.x == 0) {
+    for (int x = 0; x < kBwKV; ++x) {
+      mbar_init(kv_full(x), 1);
+      mbar_init(kv_empty(x), 4 * NWG);
+    }
+    for (int s = 0; s < kBwStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NWG) {
+    // ---- producer warpgroup: one thread starts every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(NWG == 1 ? 24 : 40));
+    if (threadIdx.x != 128 * NWG) return;
+    int s = 0, x = 0;
+    uint32_t phase = 0, kv_phase = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int bh = it / n_kb, k0 = (it % n_kb) * kBwRows * NWG, b = bh / a.H, h = bh % a.H;
+      mbar_wait(kv_empty(x), kv_phase ^ 1);  // the first pass finds both buffers free
+      mbar_arrive_tx(kv_full(x), KV);
+#pragma unroll
+      for (int w = 0; w < NWG; ++w)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const int row = k0 + kBwRows * w;
+          tma_load4(base + x * KV + w * OP + c * kBwTile, &map_k, kv_full(x), 64 * c, row, h, b);
+          tma_load4(base + x * KV + (NWG + w) * OP + c * kBwTile, &map_v, kv_full(x), 64 * c,
+                    row, h, b);
+        }
+      if (++x == kBwKV) x = 0, kv_phase ^= 1;
+      for (int qt = 0; qt < nq; ++qt) {
+        mbar_wait(empty(s), phase ^ 1);
+        mbar_arrive_tx(full(s), STAGE);
+        const uint32_t dst = ring + s * STAGE;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          tma_load4(dst + c * kBwTile, &map_q, full(s), 64 * c, qt * kBwRows, h, b);
+          tma_load4(dst + OP + c * kBwTile, &map_do, full(s), 64 * c, qt * kBwRows, h, b);
+        }
+        bulk_load(dst + 2 * OP, a.stats + (size_t)bh * a.s_pad + qt * kBwRows,
+                  kBwRows * sizeof(float4), full(s));
+        if (++s == kBwStages) s = 0, phase ^= 1;
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup w, warp wi; this lane's rows are keys
+    // kw0 + 16 wi + g + 8 hh; accumulator element 4 j + 2 hh + e of S^T is
+    // query 8 j + 2 t + e of the step, of dV, dK or dq column 8 j + 2 t + e
+    // of a 64-column chunk
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int w = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t ds = dss + w * kBwTile;
+    int s = 0, x = 0;
+    uint32_t phase = 0, kv_phase = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int bh = it / n_kb, b = bh / a.H, h = bh % a.H;
+      const int kw0 = (it % n_kb) * kBwRows * NWG + kBwRows * w;
+      const bool live = kw0 < S;  // a warpgroup past the last key only keeps the ring turning
+      // with two warpgroups, the block's partial dq is warpgroup 0's plus
+      // warpgroup 1's (keys in order), where warpgroup 1 has keys
+      const bool pair_dq = NWG == 2 && kw0 - kBwRows * w + kBwRows < S;
+      const bool key_ok[2] = {kw0 + 16 * wi + g < S, kw0 + 16 * wi + g + 8 < S};
+      const uint32_t ks = base + x * KV + w * OP, vs = base + x * KV + (NWG + w) * OP;
+      float dv[DC][32], dk[DC][32];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        zero(dv[c]);
+        zero(dk[c]);
+      }
+      float fold[2] = {0.f, 0.f};  // this lane's part of sum_q r_q relu(A dA), keys g, g + 8
+      float* part = a.dq_part + ((size_t)(it % n_kb) * a.B * a.H + bh) * (size_t)a.s_pad * DP;
+      mbar_wait(kv_full(x), kv_phase);
+      for (int qt = 0; qt < nq; ++qt) {
+        mbar_wait(full(s), phase);
+        if (live) {
+          const uint32_t qs = ring + s * STAGE, os = qs + OP;
+          const float4* stat = reinterpret_cast<const float4*>(bw_raw + (qs + 2 * OP - raw));
+          // queries hq QH .. hq QH + QH - 1 of the tile; not unrolled: with
+          // DC = 2 the two steps interleaved spill past 232 registers
+#pragma unroll 1
+          for (int hq = 0; hq < DC; ++hq) {
+            float sc[NA], dg[NA];  // fresh: the first k step does not read them
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4 * DC; ++kk)
+              wg_ss<0, 0>(sc, kmajor(ks, kk), kmajor(qs + hq * QH * 128, kk), kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < 4 * DC; ++kk)
+              wg_ss<0, 0>(dg, kmajor(vs, kk), kmajor(os + hq * QH * 128, kk), kk > 0);
+            wg_commit();
+            wg_wait0();
+            g16_fence_regs(sc);
+            g16_fence_regs(dg);
+
+#pragma unroll
+            for (int j = 0; j < QH / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float4 st = stat[hq * QH + 8 * j + 2 * t + e];  // m, 1/l, dsum, r
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                  const int i = 4 * j + 2 * hh + e;
+                  const float p = key_ok[hh] ? ex2(sc[i] * a.scale_log2 - st.x) * st.y : 0.f;
+                  fold[hh] += fmaxf(p * dg[i], 0.f) * st.w;
+                  dg[i] = p * (dg[i] - st.z) * a.scale;
+                  sc[i] = p;
+                }
+              }
+            // A^T and dS^T as bf16 A fragments (16 queries each), and dS^T
+            // into shared memory, row = key, in the 128-byte swizzle
+            uint32_t pa[QH / 16][4], sa[QH / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < QH / 16; ++kk) {
+              a_from_acc_bf16(&sc[8 * kk], &sc[8 * kk + 4], pa[kk]);
+              a_from_acc_bf16(&dg[8 * kk], &dg[8 * kk + 4], sa[kk]);
+            }
+            const int row = 16 * wi + g;  // and row + 8, of the same swizzle phase
+            const uint32_t at = ds + row * 128 + 4 * t;
+#pragma unroll
+            for (int kk = 0; kk < QH / 16; ++kk)
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj) {
+                const uint32_t col = (((hq * QH / 8 + 2 * kk + jj) ^ (row & 7)) << 4);
+                asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at + col), "r"(sa[kk][2 * jj])
+                             : "memory");
+                asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at + 8 * 128 + col),
+                             "r"(sa[kk][2 * jj + 1])
+                             : "memory");
+              }
+            // dV += A^T dout, dK += dS^T q over this step's queries
+            wg_fence();
+#pragma unroll
+            for (int c = 0; c < DC; ++c)
+#pragma unroll
+              for (int kk = 0; kk < QH / 16; ++kk) {
+                const int k16 = hq * QH / 16 + kk;
+                wg_rs<1>(dv[c], pa[kk], mnmajor(os + c * kBwTile, k16), 1);
+                wg_rs<1>(dk[c], sa[kk], mnmajor(qs + c * kBwTile, k16), 1);
+              }
+            wg_commit();
+            wg_wait0();
+          }
+          wg_publish(w);
+          // the partial dq of this warpgroup's keys, one 64-column chunk at a time
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            float dq[32];  // fresh, as sc
+            wg_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wg_ss<1, 1>(dq, mnmajor(ds, kk), mnmajor(ks + c * kBwTile, kk), kk > 0);
+            wg_commit();
+            wg_wait0();
+            g16_fence_regs(dq);
+            if (pair_dq) {
+              float* xb = reinterpret_cast<float*>(
+                              bw_raw + (xchg - raw + ((qt & 1) * DC + c) * 128 * 32 * 4)) +
+                          threadIdx.x % 128;
+              if (w == 1) {
+#pragma unroll
+                for (int i = 0; i < 32; ++i) xb[128 * i] = dq[i];
+              }
+              asm volatile("bar.sync 3, 256;\n" ::: "memory");
+              if (w == 1) continue;
+#pragma unroll
+              for (int i = 0; i < 32; ++i) dq[i] += xb[128 * i];
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float* prow =
+                  part + (size_t)(qt * kBwRows + 16 * wi + g + 8 * hh) * DP + 64 * c + 2 * t;
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                *reinterpret_cast<float2*>(prow + 8 * j) =
+                    make_float2(dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            g16_fence_regs(dv[c]);
+            g16_fence_regs(dk[c]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+        if (++s == kBwStages) s = 0, phase ^= 1;
+      }
+      // this block's K and V are read no more: the producer may load the next
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty(x));
+      if (++x == kBwKV) x = 0, kv_phase ^= 1;
+      if (!live) continue;
+
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (!key_ok[hh]) continue;
+        const int key = kw0 + 16 * wi + g + 8 * hh;
+        const long long rk = head_at(a.sdk, b, h) + (long long)key * a.sdk.s;
+        const long long rv = head_at(a.sdv, b, h) + (long long)key * a.sdv.s;
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int d = 64 * c + 8 * j + 2 * t, i = 4 * j + 2 * hh;
+            if (d + 1 < a.dh) {
+              store2_any(a.dk, rk + d, dk[c][i], dk[c][i + 1], a.bf, a.pair_kv);
+              store2_any(a.dv, rv + d, dv[c][i], dv[c][i + 1], a.bf, a.pair_kv);
+            } else if (d < a.dh) {
+              store_any(a.dk, rk + d, dk[c][i], a.bf);
+              store_any(a.dv, rv + d, dv[c][i], a.bf);
+            }
+          }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float f = quad_sum(fold[hh]);  // fixed order over the 4 lanes
+        if (t == 0 && key_ok[hh]) a.e_part[(size_t)bh * S + kw0 + 16 * wi + g + 8 * hh] = f;
+      }
+    }
+  }
+}
+
+// blockIdx.y == 0: dq[b, h, q, 4 i .. 4 i + 3] = the partials summed in key
+// order (the first partial plus the next, and so on); 1: e_row[b, k] =
+// (1/H) sum_h e_part[b, h, k], the heads in order (as e_row_kernel).
+__global__ void attn_bwd_finish_kernel(BwdArgs a, int DP) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int S = a.S;
+  if (blockIdx.y == 1) {
+    if (idx >= (long long)a.B * S) return;
+    const int b = idx / S, k = idx % S;
+    float sum = 0.f;
+    for (int h = 0; h < a.H; ++h) sum += a.e_part[((size_t)b * a.H + h) * S + k];
+    a.e_row[idx] = sum * (1.0f / a.H);
+    return;
+  }
+  const int groups = (a.dh + 3) / 4;
+  if (idx >= (long long)a.B * a.H * S * groups) return;
+  const int col = (int)(idx % groups) * 4;
+  const long long row = idx / groups;  // (b, h, q)
+  const int q = row % S;
+  const long long bh = row / S;
+  const size_t plane = (size_t)a.B * a.H * a.s_pad * DP;
+  const float* p = a.dq_part + ((size_t)bh * a.s_pad + q) * DP + col;
+  float4 acc = *reinterpret_cast<const float4*>(p);
+  for (int i = 1; i < a.n_sub; ++i) add4(acc, *reinterpret_cast<const float4*>(p + i * plane));
+  const int b = bh / a.H, h = bh % a.H;
+  const long long at = head_at(a.sdq, b, h) + (long long)q * a.sdq.s + col;
+  const float v[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+  for (int e = 0; e < 4; e += 2) {
+    if (col + e + 1 < a.dh)
+      store2_any(a.dq, at + e, v[e], v[e + 1], a.bf, a.pair_q);
+    else if (col + e < a.dh)
+      store_any(a.dq, at + e, v[e], a.bf);
+  }
+}
+
+struct BwdOperand {
+  const void* p;
+  Strides st;
+};
+
+struct PackArgs {
+  BwdOperand src[4];
+  bf16* dst[4];  // null: the operand is read in place
+};
+
+// dst[o][b, h, s, :dh8] = src[o][b, h, s, :dh] rounded to bf16, zeros past
+// dh; eight columns a thread (one 16-byte store).
+__global__ void attn_bwd_pack_kernel(PackArgs p, int H, int S, int dh, int dh8,
+                                     long long rows, bool bf) {
+  const int o = blockIdx.y;
+  bf16* dst = p.dst[o];
+  if (!dst) return;
+  const int per = dh8 / 8;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * per) return;
+  const long long row = i / per;
+  const int c0 = (int)(i % per) * 8, s = row % S;
+  const long long bh = row / S;
+  const long long at = head_at(p.src[o].st, bh / H, bh % H) + (long long)s * p.src[o].st.s;
+  float x[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = c0 + e < dh ? load_any(p.src[o].p, at + c0 + e, bf) : 0.f;
+  *reinterpret_cast<uint4*>(dst + row * dh8 + c0) =
+      make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]), pack_bf16(x[4], x[5]),
+                 pack_bf16(x[6], x[7]));
+}
+
+// TMA reads an operand in place where it is bf16 and every row starts on a
+// 16-byte boundary (strides of dimensions of size 1 do not matter);
+// ops/flash_attention.bwd16_plan states the same rule.
+bool bwd16_in_place(const BwdOperand& o, int B, int H, int S, int dh, bool bf) {
+  return bf && dh % 8 == 0 && aligned(o.p, 16) && (B == 1 || o.st.b % 8 == 0) &&
+         (H == 1 || o.st.h % 8 == 0) && (S == 1 || o.st.s % 8 == 0);
+}
+
+// A 4-D map (dh8, S, H, B; innermost first) of a bf16 operand, copied in
+// 64 x 64 boxes with the 128-byte swizzle that wgmma reads; TMA fills what
+// lies past dh8 or S with zeros (an operand read in place has dh8 = dh; a
+// packed one holds zeros past dh).
+bool bwd16_map(CUtensorMap* map, const BwdOperand& o, int B, int H, int S, int dh) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  // a dimension of size 1 takes a stride that TMA accepts; it is never stepped
+  const cuuint64_t rs = S > 1 ? 2 * o.st.s : (cuuint64_t)(dh + 7) / 8 * 16;
+  const cuuint64_t hs = H > 1 ? 2 * o.st.h : rs * S;
+  const cuuint64_t bs = B > 1 ? 2 * o.st.b : hs * H;
+  const cuuint64_t dims[4] = {(cuuint64_t)(dh + 7) / 8 * 8, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {rs, hs, bs};
+  const cuuint32_t box[4] = {64, kBwRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(o.p), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int bwd16_forced_keys = 0;  // 0: the table; 64 or 128: that width (measurements)
+
+// Keys a block of the keys pass holds: 128 (two warpgroups, one block an
+// SM, half the dq partials) where the 128-key blocks still give every SM
+// one, else 64 (one warpgroup, two blocks an SM); 64 past dh = 64, where
+// two warpgroups' dK and dV accumulators do not fit the registers. Measured
+// in PERF.md (scripts/attn_bwd_bf16_ab.py): 128 faster at B = 8 and 32
+// (S = 197, H = 12), 64 at B = 1 and at S = 2,000 and 4,000 (H = 2).
+int bwd16_keys(int S, int dh, int BH) {
+  if (dh > 64) return 64;
+  if (bwd16_forced_keys) return bwd16_forced_keys;
+  return (long long)((S + 127) / 128) * BH >= num_sms() ? 128 : 64;
+}
+
+// Launches a pass on a persistent grid: as many blocks as the SMs hold at
+// once (the kernel's occupancy, asked once a card, when its shared-memory
+// limit is set), or one an item where there are fewer.
+template <auto KERNEL>
+cudaError_t bwd16_persistent(int threads, uint32_t smem, long long items,
+                             const CUtensorMap (&m)[4], const BwdArgs& a, cudaStream_t stream) {
+  static int resident[64] = {0};  // blocks an SM, by device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int per_sm = dev < 64 ? resident[dev] : 0;
+  if (per_sm == 0) {
+    cudaError_t err =
+        cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    if (dev < 64) resident[dev] = per_sm;
+  }
+  const long long slots = (long long)per_sm * num_sms();
+  KERNEL<<<(unsigned)(items < slots ? items : slots), threads, smem, stream>>>(m[0], m[1], m[2],
+                                                                              m[3], a);
+  return cudaGetLastError();
+}
+
+// The three passes for dh <= 64 DC, with blocks of 64 NWG keys in the keys
+// pass.
+template <int DC, int NWG>
+cudaError_t bwd16_launch(const CUtensorMap (&m)[4], BwdArgs a, cudaStream_t stream) {
+  static unsigned long long devices = 0;  // the statistics pass's limit, set once a card
+  const long long heads = (long long)a.B * a.H;
+  constexpr uint32_t smem = bwd16_stats_smem<DC>();
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaError_t err = cudaSuccess;
+  if (dev >= 64 || !(devices >> dev & 1)) {
+    err = cudaFuncSetAttribute(attn_bwd_stats_wgmma_kernel<DC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) devices |= 1ull << dev;
+  }
+  attn_bwd_stats_wgmma_kernel<DC><<<dim3(a.s_pad / kBwRows, a.H, a.B), 128 + kBwProducer, smem,
+                                    stream>>>(m[0], m[1], m[2], m[3], a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  a.n_sub = (a.S + kBwRows * NWG - 1) / (kBwRows * NWG);  // partial dq sums of a query
+  err = bwd16_persistent<attn_bwd_keys_wgmma_kernel<DC, NWG>>(
+      128 * (NWG + 1), bwd16_keys_smem<DC, NWG>(), heads * a.n_sub, m, a, stream);
+  if (err != cudaSuccess) return err;
+  const long long dq_threads = heads * a.S * ((a.dh + 3) / 4);
+  const long long threads = dq_threads > (long long)a.B * a.S ? dq_threads : (long long)a.B * a.S;
+  attn_bwd_finish_kernel<<<dim3((unsigned)((threads + 255) / 256), 2), 256, 0, stream>>>(
+      a, 64 * DC);
+  return cudaGetLastError();
+}
+
+// The backward of every caller: packs the operands TMA cannot read in place
+// into `packed` (one [B, H, S, dh8] bf16 slot each, in operand order; null
+// where none needs it), encodes the four maps and launches the passes.
+cudaError_t attn_bwd_bf16(BwdOperand (&ops)[4], BwdArgs& a, bf16* packed, cudaStream_t stream) {
+  if (a.B < 1 || a.S < 1 || a.H < 1 || a.dh < 1 || a.dh > kMaxDh || a.B > 65535 || a.H > 65535)
+    return cudaErrorInvalidValue;
+  const int dh8 = (a.dh + 7) / 8 * 8;
+  const long long rows = (long long)a.B * a.H * a.S;
+  PackArgs pack;
+  int slots = 0;
+  for (int o = 0; o < 4; ++o) {
+    pack.src[o] = ops[o];
+    pack.dst[o] = nullptr;
+    if (bwd16_in_place(ops[o], a.B, a.H, a.S, a.dh, a.bf)) continue;
+    if (!packed) return cudaErrorInvalidValue;
+    pack.dst[o] = packed + slots++ * rows * dh8;
+    ops[o] = {pack.dst[o], {a.H * a.S * (long long)dh8, a.S * (long long)dh8, dh8}};
+  }
+  if (slots) {
+    const long long threads = rows * (dh8 / 8);
+    attn_bwd_pack_kernel<<<dim3((unsigned)((threads + 255) / 256), 4), 256, 0, stream>>>(
+        pack, a.H, a.S, a.dh, dh8, rows, a.bf);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  CUtensorMap maps[4];
+  for (int o = 0; o < 4; ++o)
+    if (!bwd16_map(&maps[o], ops[o], a.B, a.H, a.S, a.dh)) return cudaErrorInvalidValue;
+  if (a.dh > 64) return bwd16_launch<2, 1>(maps, a, stream);
+  return bwd16_keys(a.S, a.dh, a.B * a.H) == 128 ? bwd16_launch<1, 2>(maps, a, stream)
+                                                 : bwd16_launch<1, 1>(maps, a, stream);
 }
 
 // Every row of every head starts on a 4-element boundary: the 4-wide loads
@@ -760,10 +1285,12 @@ int tmx_round_bf16(const float* x, void* y, long long n, void* stream) {
   return (int)round_bf16(x, static_cast<bf16*>(y), n, (cudaStream_t)stream);
 }
 
-// Bytes of dynamic shared memory one attention block needs (fixed by dh).
+// Bytes of dynamic shared memory one attention block needs (fixed by dh;
+// the backward: its largest block, the keys pass at its widest key tile).
 int tmx_attn_smem_bf16(int S, int dh, int backward) {
   (void)S;
-  return (int)(backward ? bwd16_smem(dh) : fwd16_smem(dh));
+  if (!backward) return (int)fwd16_smem(dh);
+  return (int)(dh <= 64 ? bwd16_keys_smem<1, 2>() : bwd16_keys_smem<2, 1>());
 }
 
 // q, k, v, out: [B, H, S, dh] operands, bf16 where bf else fp32; strides:
@@ -788,17 +1315,24 @@ int tmx_attn_fwd_bf16(const void* q, const void* k, const void* v, void* out,
 
 // q, k, v, dout in and dq, dk, dv out: [B, H, S, dh] operands, bf16 where
 // bf else fp32; strides: [7][3] (batch, head, row) element strides of q, k,
-// v, dout, dq, dk, dv in that order. r, e_row: [B, S] fp32; stats: scratch
-// [3, B, H, S]; e_part: scratch [B, H, S].
+// v, dout, dq, dk, dv in that order. r, e_row: [B, S] fp32. Scratch, with
+// s_pad = S rounded up to 64 and n_sub = s_pad / 64 (key blocks of 128 use
+// half): stats [B, H, s_pad, 4]
+// fp32; e_part [B, H, S] fp32; dq_part [n_sub, B, H, s_pad, 64 DC] fp32 (DC
+// = 1 where dh <= 64, else 2); packed: one [B, H, S, dh8] bf16 slot (dh8: dh
+// rounded up to 8) for each operand that TMA cannot read in place (fp32, or
+// rows off the 16-byte grid), in operand order, or null where none needs one
+// (cudaErrorInvalidValue if one does). ops/flash_attention.bwd16_plan sizes
+// them.
 int tmx_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                       const float* r, void* dq, void* dk, void* dv, float* stats, float* e_part,
-                      float* e_row, const long long* strides, int B, int S, int H, int dh,
-                      float scale, int bf, void* stream) {
-  BwdBf16Args a;
-  a.q = {q, strides_at(strides, 0)};
-  a.k = {k, strides_at(strides, 1)};
-  a.v = {v, strides_at(strides, 2)};
-  a.dout = {dout, strides_at(strides, 3)};
+                      float* dq_part, void* packed, float* e_row, const long long* strides, int B,
+                      int S, int H, int dh, float scale, int bf, void* stream) {
+  BwdOperand ops[4] = {{q, strides_at(strides, 0)},
+                       {k, strides_at(strides, 1)},
+                       {v, strides_at(strides, 2)},
+                       {dout, strides_at(strides, 3)}};
+  BwdArgs a;
   a.r = r;
   a.dq = dq;
   a.dk = dk;
@@ -806,19 +1340,36 @@ int tmx_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* d
   a.sdq = strides_at(strides, 4);
   a.sdk = strides_at(strides, 5);
   a.sdv = strides_at(strides, 6);
-  a.stats = stats;
+  a.stats = reinterpret_cast<float4*>(stats);
+  a.dq_part = dq_part;
   a.e_part = e_part;
   a.e_row = e_row;
   a.B = B;
   a.S = S;
   a.H = H;
   a.dh = dh;
+  a.s_pad = (S + kBwRows - 1) / kBwRows * kBwRows;  // n_sub: set by the launcher
   a.scale_log2 = scale * 1.4426950408889634f;
   a.scale = scale;
   a.bf = bf != 0;
-  a.vec = dh % 4 == 0 && rows_aligned4(q, a.q.st, a.bf) && rows_aligned4(k, a.k.st, a.bf) &&
-          rows_aligned4(v, a.v.st, a.bf) && rows_aligned4(dout, a.dout.st, a.bf);
-  return (int)launch_bwd16<16>(a, (cudaStream_t)stream);
+  const int align = a.bf ? 4 : 8;
+  auto even = [](const Strides& s) { return s.b % 2 == 0 && s.h % 2 == 0 && s.s % 2 == 0; };
+  a.pair_kv = dh % 2 == 0 && aligned(dk, align) && aligned(dv, align) && even(a.sdk) &&
+              even(a.sdv);
+  a.pair_q = dh % 2 == 0 && aligned(dq, align) && even(a.sdq);
+  return (int)attn_bwd_bf16(ops, a, static_cast<bf16*>(packed), (cudaStream_t)stream);
+}
+
+// Keys a block of the backward's keys pass holds for (S, dh, B*H): the
+// launcher's table, after tmx_attn_bwd_bf16_force_keys.
+int tmx_attn_bwd_bf16_keys(int S, int dh, int BH) { return bwd16_keys(S, dh, BH); }
+
+// Makes every later call with dh <= 64 take key blocks of `keys` (64 or
+// 128), or the table again with 0: for measuring the table's entries.
+// Returns the width set.
+int tmx_attn_bwd_bf16_force_keys(int keys) {
+  bwd16_forced_keys = keys == 64 || keys == 128 ? keys : 0;
+  return bwd16_forced_keys;
 }
 
 }  // extern "C"

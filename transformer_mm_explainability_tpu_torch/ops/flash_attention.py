@@ -36,15 +36,20 @@ merged qkv tensor included, without a copy), and the qkv wrappers pass
 split-head views of their merged tensors. A is never stored. The fp32
 kernels run both directions on the tensor cores as 3xTF32 ``mma.sync``
 products (fp32 accuracy: split operands, no TF32 switch anywhere) over
-tiles streamed by ``cp.async``; the bf16 kernels as bf16 ``mma.sync``
-products over tiles staged through registers. The forward keeps an online
+tiles streamed by ``cp.async``; the bf16 forward as bf16 ``mma.sync``
+products over tiles staged through registers, the bf16 backward as
+``wgmma`` products over tiles that TMA copies. The forward keeps an online
 softmax over key tiles (the bf16 forward takes the row statistics in a
 first sweep, so that A is rounded after its normalisation, as in the JAX
-body). The backward runs two passes that recompute A from q and k: a q
-pass (online row statistics, then dq) and a kv pass (dk, dv and the
-per-head fold), with no atomics, so e_row is the same on every run.
-Neither direction splits a sum across blocks or orders it by timing: the
-same inputs give the same bits, whatever their layout. Both keep shared
+body). The fp32 backward runs two passes that recompute A from q and k: a
+q pass (online row statistics, then dq) and a kv pass (dk, dv and the
+per-head fold). The bf16 backward (``_bwd16``) runs a statistics pass, a
+key-major pass (dk, dv, the fold and each 64-key tile's partial dq) and a
+pass that sums the partials in key order and the fold over heads; operands
+that TMA cannot read in place (float32, rows off the 16-byte grid) are
+packed first (``bwd16_plan``). No direction uses atomics, splits a sum
+across blocks in an order set by timing, or depends on the layout: the
+same inputs give the same bits, whatever their layout. All keep shared
 memory fixed by dh, so they take any S. Each wrapper counts its CUDA
 launches in ``launches`` (the fp32 kernels) and ``launches_bf16`` (the
 bf16-product kernels); see ``launch_counts`` and ``bf16_launch_counts``.
@@ -62,7 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -78,7 +83,9 @@ _SIGNATURES = {  # the attention entry points of csrc/attn_block.cu
 }
 _SIGNATURES_BF16 = {  # ... and of csrc/attn_block_bf16.cu
     "tmx_attn_fwd_bf16": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
-    "tmx_attn_bwd_bf16": [_P] * 12 + [_I, _I, _I, _I, _F, _I, _P],
+    "tmx_attn_bwd_bf16": [_P] * 14 + [_I, _I, _I, _I, _F, _I, _P],
+    "tmx_attn_bwd_bf16_keys": [_I, _I, _I],
+    "tmx_attn_bwd_bf16_force_keys": [_I],
     "tmx_attn_smem_bf16": [_I, _I, _I],
     "tmx_smem_optin": [],
     "tmx_max_dh": [],
@@ -333,6 +340,76 @@ def attn_fwd_launch_qkv(qkv, out, nheads: int, stream,
          fast_dots, qkv.dtype == torch.bfloat16)
 
 
+class Bwd16Plan(NamedTuple):
+    """What one call of the bf16 backward (``tmx_attn_bwd_bf16``) needs
+    beside its tensors: which of q, k, v, dout TMA cannot read in place and
+    the kernels pack (round to bf16 into an aligned slot), and the scratch,
+    in float32 elements (``packed``: bfloat16 elements)."""
+    packs: Tuple[bool, bool, bool, bool]
+    s_pad: int      # S rounded up to the 64-row tiles
+    n_sub: int      # 64-key sub-tiles: partial dq sums of one query
+    dp: int         # dq partial row: dh padded to 64 or 128
+    stats: int      # (m, 1/l, dsum, r) per query, [B, H, s_pad, 4]
+    dq_part: int    # [n_sub, B, H, s_pad, dp]
+    e_part: int     # [B, H, S], rounded up to 64 (alignment)
+    packed: int     # one [B, H, S, dh8] slot per packed operand
+
+
+def bwd16_plan(B: int, H: int, S: int, dh: int, bf16: bool, pointers,
+               strides) -> Bwd16Plan:
+    """The plan of ``tmx_attn_bwd_bf16`` for q, k, v, dout (their pointers
+    and (batch, head, row) element strides, as ``view_args`` gives them):
+    an operand is read in place where it is bfloat16 and every row starts
+    on a 16-byte boundary (dh a multiple of 8, the pointer and the strides
+    of dimensions longer than 1 aligned: the rule of the C side's
+    ``bwd16_in_place``); else it is packed. The sizes follow the C side's
+    comment on ``tmx_attn_bwd_bf16``."""
+    packs = []
+    for i, ptr in enumerate(pointers[:4]):
+        sb, sh, ss = strides[3 * i:3 * i + 3]
+        packs.append(not (
+            bf16 and dh % 8 == 0 and ptr % 16 == 0
+            and (B == 1 or sb % 8 == 0) and (H == 1 or sh % 8 == 0)
+            and (S == 1 or ss % 8 == 0)))
+    n_sub = -(-S // 64)
+    s_pad, dp, dh8 = 64 * n_sub, 64 if dh <= 64 else 128, -(-dh // 8) * 8
+    return Bwd16Plan(
+        packs=tuple(packs), s_pad=s_pad, n_sub=n_sub, dp=dp,
+        stats=B * H * s_pad * 4, dq_part=n_sub * B * H * s_pad * dp,
+        e_part=-(-B * H * S // 64) * 64,
+        packed=sum(packs) * B * H * S * dh8)
+
+
+def _bwd16(lib, q, k, v, dout, r, dq, dk, dv, stream) -> torch.Tensor:
+    """``tmx_attn_bwd_bf16`` with its scratch carved from one allocation;
+    counts the packed operands (``copies``: bfloat16 ones moved to an
+    aligned slot; ``rounded``: float32 ones) and the calls whose dq went
+    through the partial sums (``dq_partial_sums``, every call: the one
+    route) on ``attn_bwd_launch``."""
+    B, H, S, dh = q.shape
+    pointers, strides = view_args(q, k, v, dout, dq, dk, dv)
+    bf16 = q.dtype == torch.bfloat16
+    plan = bwd16_plan(B, H, S, dh, bf16, pointers[:4], strides[:12])
+    work = torch.empty(plan.stats + plan.dq_part + plan.e_part
+                       + -(-plan.packed // 2), device=q.device)
+    at = work.data_ptr()
+    stats, dq_part = at, at + 4 * plan.stats
+    e_part = dq_part + 4 * plan.dq_part
+    packed = e_part + 4 * plan.e_part if plan.packed else None
+    e_row = torch.empty((B, S), device=q.device)
+    _build.check(lib, "tmx_attn_bwd_bf16", lib.tmx_attn_bwd_bf16(
+        *pointers[:4], r.data_ptr(), *pointers[4:], stats, e_part, dq_part,
+        packed, e_row.data_ptr(), _stride_array(strides), B, S, H, dh,
+        1.0 / math.sqrt(dh), int(bf16), stream))
+    n = sum(plan.packs)
+    if bf16:
+        attn_bwd_launch.copies += n
+    else:
+        attn_bwd_launch.rounded += n
+    attn_bwd_launch.dq_partial_sums += 1
+    return e_row
+
+
 def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream,
                     fast_dots: bool = False) -> torch.Tensor:
     """Attention backward into (dq, dk, dv) and the fold
@@ -341,21 +418,17 @@ def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream,
     [B, S] float32 contiguous (checked by the caller, as for
     ``attn_fwd_launch``). The fp32 kernels pick their copy width from q, k,
     v and dout (``copy_width``); with ``fast_dots`` the bf16-product
-    kernels run, on float32 or bfloat16 storage."""
+    kernels run (``_bwd16``), on float32 or bfloat16 storage."""
+    lib = library(fast_dots)
+    if fast_dots:
+        return _bwd16(lib, q, k, v, dout, r, dq, dk, dv, stream)
     B, H, S, dh = q.shape
     dev = q.device
     stats = torch.empty((3, B, H, S), device=dev)
     e_part = torch.empty((B, H, S), device=dev)
     e_row = torch.empty((B, S), device=dev)
     pointers, strides = view_args(q, k, v, dout, dq, dk, dv)
-    lib = library(fast_dots)
     p = _build.ptr
-    if fast_dots:
-        _build.check(lib, "tmx_attn_bwd_bf16", lib.tmx_attn_bwd_bf16(
-            *pointers[:4], p(r), *pointers[4:], p(stats), p(e_part),
-            p(e_row), _stride_array(strides), B, S, H, dh,
-            1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16), stream))
-        return e_row
     _build.check(lib, "tmx_attn_bwd", lib.tmx_attn_bwd(
         *pointers[:4], p(r), *pointers[4:], p(stats), p(e_part), p(e_row),
         _stride_array(strides), B, S, H, dh, 1.0 / math.sqrt(dh),
@@ -412,11 +485,14 @@ def flash_bwd_ehat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Replaces ``flash_attention.flash_bwd_ehat`` (``_bwd_kernel``). Bound by
     operations (10·B·H·S²·dh for the function's five products), all of
-    them run on the tensor cores, as 3xTF32 (or, with ``fast_dots``, bf16)
-    ``mma.sync``: a q pass (the online row statistics, then dq), a kv pass
-    (A recomputed from the saved row max and 1/sum, dk, dv, the per-head
-    fold) and a fixed-order sum over heads. Shared memory is fixed by dh,
-    so any S fits."""
+    them run on the tensor cores. fp32: 3xTF32 ``mma.sync`` in a q pass
+    (the online row statistics, then dq), a kv pass (A recomputed from the
+    saved row max and 1/sum, dk, dv, the per-head fold) and a fixed-order
+    sum over heads. ``fast_dots``: bf16 ``wgmma`` on TMA-copied tiles in a
+    statistics pass, a key-major pass (dk, dv, the fold, partial dq per
+    64 keys) and a pass summing the partials and the heads in a fixed
+    order (7·B·H·S²·dh products' worth, see ``csrc/attn_block_bf16.cu``).
+    Shared memory is fixed by dh, so any S fits."""
     if _build.on_cpu(q):
         return flash_bwd_ehat_plain(q, k, v, dout, r, fast_dots)
     B, H, S, dh = _heads_shape(q)
@@ -492,6 +568,8 @@ def flash_bwd_ehat_qkv(qkv: torch.Tensor, dout: torch.Tensor,
 KERNELS = (flash_fwd, flash_bwd_ehat, flash_fwd_qkv, flash_bwd_ehat_qkv)
 for _fn in KERNELS:
     _fn.launches = _fn.launches_bf16 = 0
+attn_bwd_launch.copies = attn_bwd_launch.rounded = 0
+attn_bwd_launch.dq_partial_sums = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -508,3 +586,5 @@ def bf16_launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = fn.launches_bf16 = 0
+    attn_bwd_launch.copies = attn_bwd_launch.rounded = 0
+    attn_bwd_launch.dq_partial_sums = 0
