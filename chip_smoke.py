@@ -8,7 +8,7 @@
    ``csrc/relevancy_chain.cu`` and ``csrc/roi_pool.cu`` with ``nvcc`` for
    ``sm_90a`` (one compiler process each, started together) and prints the
    build time and ptxas's register / spill report, one line per kernel (the
-   GEMMs and the attention backward passes must not spill);
+   GEMMs and the bf16 attention kernels must not spill);
 3. GEMM phase: each product of the block kernels (g1-g9) and the chain's
    product unpadded (gc, on no path since the chain pads its rows) at the
    shapes of the main path (B=8), through
@@ -75,13 +75,15 @@
    kernels on float32 tensors too) with its plain version, its bound (bf16
    bytes, operations at 989 TFLOP/s) and, for the forward attentions, SDPA
    on the same bf16 tensors: the ``*_bf16`` rows of the kernels line; the
-   three rows that run the attention backward (``csrc/attn_block_bf16.cu``'s
-   ``wgmma`` passes) also by their device time (CUDA-graph replays,
-   ``device_ms``), with SDPA's bf16 backward on the same q, k, v and dout
-   (dq, dk, dv without ``e_row``: context, never the row's library time);
-   then ``flash_bwd_ehat`` with ``fast_dots`` at S = 2,000 and 4,000 (B=1,
-   H=2) on both dtypes, held to its plain version at the same bars and
-   timed;
+   six rows that run the bf16 attention (``csrc/attn_block_bf16.cu``'s
+   ``wgmma`` kernels: the forward in #1, #5, #7, the backward in #4, #6,
+   #8) also by their device time (CUDA-graph replays, ``device_ms``), and
+   SDPA's bf16 forward by the same device time as the library time of #5
+   and #7, with SDPA's bf16 backward on the same q, k, v and dout (dq, dk,
+   dv without ``e_row``: context, never the row's library time); then
+   ``flash_fwd`` and ``flash_bwd_ehat`` with ``fast_dots`` at S = 2,000 and
+   4,000 (B=1, H=2) on both dtypes, held to their plain versions at the
+   same bars, the same bits on a second call, and timed;
 5. ViT path phase, full-width ViT-B/16 (12 layers, seeded random weights,
    B=8): ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
    ``relevancy_fused_block``. For each, every launch counter is set to 0
@@ -914,7 +916,7 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     """Device time per call of ``fn()``: ``iters`` calls captured in a CUDA
     graph, its replays timed with CUDA events (median of ``replays``), so
     that no host launch time lies between the kernels (as
-    ``scripts/gemm_bf16_ab.py`` and ``scripts/attn_bwd_bf16_ab.py`` time)."""
+    ``scripts/gemm_bf16_ab.py`` and ``scripts/attn_bf16_ab.py`` time)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -936,8 +938,9 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-# the rows whose kernels include the bf16 attention backward
+# the rows whose kernels include the bf16 attention backward, and forward
 BWD16_ROWS = ("attn_block_bwd", "flash_bwd_ehat", "flash_bwd_ehat_qkv")
+FWD16_ROWS = ("attn_block_fwd", "flash_fwd", "flash_fwd_qkv")
 
 
 def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
@@ -950,11 +953,13 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
     of 5 event means) beside its plain version, its bound (bytes of bf16
     tensors, operations at the dense bf16 rate) and, for the two forward
     attentions, SDPA on the same bf16 tensors; one row each of the kernels
-    line. The three rows that run the attention backward also carry their
-    device time (``graph_ms``, on bf16 and fp32 tensors); SDPA's bf16
-    backward on the same q, k, v and dout is printed as context; and
-    ``flash_bwd_ehat`` runs at S = 2,000 and 4,000 (B=1, H=2) on both
-    dtypes, held at the same bars, repeating its bits, and timed."""
+    line. The six rows that run the bf16 attention, forward or backward,
+    also carry their device time (``graph_ms``, on bf16 and fp32 tensors);
+    the two forward attentions' ``library_ms`` is SDPA's bf16 device time
+    by the same means (its event mean beside it); SDPA's bf16 backward on
+    the same q, k, v and dout is printed as context; and ``flash_fwd`` and
+    ``flash_bwd_ehat`` run at S = 2,000 and 4,000 (B=1, H=2) on both
+    dtypes, held at the same bars, repeating their bits, and timed."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     dev = torch.device("cuda")
@@ -1020,8 +1025,15 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
             name, lambda: call(name, a16, True),
             lambda: plain(name, a16, True), lambda: call(name, a32, True),
             library, card)
-        if name in BWD16_ROWS:
-            row = rows[f"{name}_bf16"]
+        row = rows[f"{name}_bf16"]
+        if library is not None:
+            row["library_event_ms"] = row["library_ms"]
+            row["library_ms"] = graph_ms(library)
+            print(f"library {name}_bf16 (SDPA bf16 forward on the same "
+                  f"tensors) device time (CUDA-graph replays): "
+                  f"{row['library_ms']:.4f} ms; event mean "
+                  f"{row['library_event_ms']:.4f} ms; on {card}", flush=True)
+        if name in BWD16_ROWS + FWD16_ROWS:
             row["device_ms"] = graph_ms(lambda: call(name, a16, True))
             row["device_ms_fp32_tensors"] = graph_ms(
                 lambda: call(name, a32, True))
@@ -1044,11 +1056,38 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
           f"mean {timed(grad, 5)[0]:.4f} ms; not the same function (no e_row)"
           f" and never called by the port", flush=True)
     del qg, kg, vg, out
-    # the bf16 backward at lengths far past the main path's
+    # the bf16 forward and backward at lengths far past the main path's
     for L in (2000, 4000):
         long = {k: rnd(1, 2, L, DH, scale=0.5) for k in ("q", "k", "v",
                                                         "dout")}
         long["r"] = torch.rand((1, L), generator=gen).to(dev)
+        for store in ("fp32", "bf16"):
+            a = {k: v if k == "r" else v.to(stores[store]["q"].dtype)
+                 for k, v in long.items()}
+            run = lambda: call("flash_fwd", a, True)
+            got = as_tuple(run())
+            want = as_tuple(plain("flash_fwd", a, True))
+            ref = as_tuple(plain("flash_fwd", {
+                k: v.float() for k, v in a.items()}, False))
+            torch.cuda.synchronize()
+            hold_fast("flash_fwd", f"at S={L} (B=1, H=2) on {store} "
+                      f"tensors", store, got, want, ref)
+            assert all(torch.equal(x, y) for x, y in zip(as_tuple(run()),
+                                                         got))
+            flops, nbytes = (2 * 2 * 2 * L * L * DH,
+                             (2 if store == "bf16" else 4) * 4 * 2 * L * DH)
+            bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_S) * 1e3
+            sdpa_ms = graph_ms(lambda: sdpa(a["q"], a["k"], a["v"])) \
+                if store == "bf16" else None
+            print(f"kernel flash_fwd_bf16 at S={L} (B=1, H=2, dh={DH}) on "
+                  f"{store} tensors: device {graph_ms(run):.4f} ms (CUDA "
+                  f"graph), event mean {timed(run, 3)[0]:.4f} ms, plain "
+                  f"{timed(lambda: plain('flash_fwd', a, True), 1)[0]:.4f} "
+                  f"ms, bound {bound:.4f} ms"
+                  + ("" if sdpa_ms is None else
+                     f", SDPA bf16 forward {sdpa_ms:.4f} ms device")
+                  + f"; the same bits on a second call; on {card}",
+                  flush=True)
         for store in ("fp32", "bf16"):
             a = {k: v if k == "r" else v.to(stores[store]["q"].dtype)
                  for k, v in long.items()}
@@ -1510,13 +1549,15 @@ KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
                  ("GEMM 64x64 (tensor cores)", "gemm_tc_kernel"),
                  ("GEMM bf16 products (wgmma)", "gemm_bf16_wgmma_kernel"),
                  ("fp32 operands rounded to bf16", "round_bf16_kernel"),
-                 ("attn bf16 fwd", "attn_fwd_bf16_kernel"),
+                 ("attn bf16 fwd (wgmma)", "attn_fwd_tile_wgmma_kernel"),
+                 ("attn bf16 fwd, two sweeps (wgmma)",
+                  "attn_fwd_sweeps_wgmma_kernel"),
                  ("attn bf16 bwd statistics pass (wgmma)",
                   "attn_bwd_stats_wgmma_kernel"),
                  ("attn bf16 bwd keys pass (wgmma)",
                   "attn_bwd_keys_wgmma_kernel"),
                  ("attn bf16 bwd dq sum and e_row", "attn_bwd_finish_kernel"),
-                 ("attn bf16 bwd operands packed", "attn_bwd_pack_kernel"),
+                 ("attn bf16 operands packed", "attn_pack_kernel"),
                  ("layernorm bf16 out", "ln_fwd_bf16_kernel"),
                  ("layernorm vjp (bf16 mode)", "ln_vjp_any_kernel"),
                  ("attn fwd", "attn_fwd_kernel"),
@@ -5122,7 +5163,7 @@ def main() -> int:
                   f"spill stores, {ld} bytes spill loads")
             assert not kernel.startswith(("gemm_tc_kernel",
                                           "gemm_bf16_wgmma_kernel",
-                                          "attn_bwd_")) \
+                                          "attn_bwd_", "attn_fwd_")) \
                 or st + ld == 0, f"{kernel} spills"
     mods = (ab, fa, rp, rpool)
     for mod in mods:

@@ -1,17 +1,19 @@
-"""Time the bf16 attention backward of several checkouts of the port on one card.
+"""Time the bf16 attention (forward and backward) of several checkouts of the port on one card.
 
-    python scripts/attn_bwd_bf16_ab.py ROOT [ROOT ...] [--profile] [--json OUT]
+    python scripts/attn_bf16_ab.py ROOT [ROOT ...] [--profile] [--json OUT]
 
 Each ROOT is the root of a checkout (e.g. the parent commit unpacked with
 ``git archive`` beside this one); give them in turns (parent, change,
 change, parent) to see the spread. First every checkout's bf16 library
 (``csrc/attn_block_bf16.cu``) is built, all at once; then, one checkout at a
-time in a process of its own, ``ops/flash_attention.flash_bwd_ehat_qkv``
-with ``fast_dots=True`` (rows #6 and #8 of the kernel table in the bf16
-mode; #4's attention part is the same launch) runs on a merged bf16 qkv
+time in a process of its own, the bf16 attention of
+``ops/flash_attention`` with ``fast_dots=True`` runs on a merged bf16 qkv
 [B, S, 3D] and cotangent [B, S, D] drawn from a fixed seed, at ViT-B/16
 widths (S=197, H=12, dh=64) for B = 1, 8 and 32, and at S = 2,000 and
-4,000 (B=1, H=2):
+4,000 (B=1, H=2).
+
+The backward, ``flash_bwd_ehat_qkv`` (rows #6 and #8 of the kernel table
+in the bf16 mode; #4's attention part is the same launch):
 
   * ``kernel_ms``: the call's device time: 20 calls captured in a CUDA
     graph, its replays timed with CUDA events (median of 5), so that the
@@ -20,7 +22,7 @@ widths (S=197, H=12, dh=64) for B = 1, 8 and 32, and at S = 2,000 and
     time, from torch.profiler over 20 calls; ``split``: that time by
     kernel (names shortened);
   * ``fp32_ms``: ``kernel_ms`` on the same values stored in float32 (the
-    ``fast_dots`` mode of an fp32 model; the new backward rounds them first);
+    ``fast_dots`` mode of an fp32 model; the backward rounds them first);
   * ``event_ms``: CUDA events around 50 back-to-back calls, per call (the
     host's time where the wrapper takes longer than its kernels);
   * ``keys_ms`` (checkouts whose library can force the key width): the call
@@ -34,14 +36,26 @@ widths (S=197, H=12, dh=64) for B = 1, 8 and 32, and at S = 2,000 and
   * ``host_us``: the host time of one call at B=8 (the enqueue of 200 calls
     without a synchronise, per call).
 
+The forward (rows #5 and #7; #1's attention is the same launch as #7's),
+under ``fwd``: the same measures of ``flash_fwd_qkv`` (``kernel_ms``,
+``fp32_ms``, ``event_ms``, ``launches``, ``profiled_ms``, ``split``,
+``err`` against ``flash_fwd_qkv_plain`` with ``fast_dots``), ``views_ms``:
+the device time of ``flash_fwd`` on the split-head views of the same qkv,
+``sdpa_ms``: ``scaled_dot_product_attention`` on those views, the same
+function (the library time of #5 and #7), by the same CUDA-graph device
+time; ``bound_ms``: the bytes of the
+bf16 q, k, v and out over 3.35 TB/s or its two S×S×dh products over 989
+TFLOP/s, the larger.
+
 ``--profile`` also profiles ``vit.relevancy_fused_block2`` on a bf16 copy
 of a seeded ViT-B/16 with bf16 images and ``fast_dots=True`` at B=8 and
 B=32: the call's wall time (median of 3), device busy, and the device time
-of the attention backward and of the GEMM. ``bound_ms``: the larger of the
-bytes of the bf16 q, k, v, dout, dq, dk, dv (r and e_row fp32) over 3.35
-TB/s and the function's five S×S×dh products over 989 TFLOP/s. Prints one
-JSON object per checkout and shape and a table; ``--json`` writes them all.
-Needs one CUDA card; imports no JAX.
+of the attention forward, the attention backward, the GEMM and the
+LayerNorm rows (forward and VJP), each apart. The backward's ``bound_ms``:
+the larger of the bytes of the bf16 q, k, v, dout, dq, dk, dv (r and e_row
+fp32) over 3.35 TB/s and the function's five S×S×dh products over 989
+TFLOP/s. Prints one JSON object per checkout and shape and a table;
+``--json`` writes them all. Needs one CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -67,6 +81,15 @@ def bound_ms(B: int, H: int, S: int, dh: int) -> float:
     out; r in and e_row out fp32) at the memory rate, the larger."""
     flops = 5 * 2 * B * H * S * S * dh
     nbytes = 2 * 7 * B * H * S * dh + 4 * 2 * B * S
+    return max(flops / BF16_FLOPS, nbytes / HBM_BYTES_S) * 1e3
+
+
+def fwd_bound_ms(B: int, H: int, S: int, dh: int) -> float:
+    """The least time of the forward on the card: its two S×S×dh products
+    at the dense bf16 rate, or its bytes (bf16 q, k, v in, out out) at the
+    memory rate, the larger."""
+    flops = 2 * 2 * B * H * S * S * dh
+    nbytes = 2 * 4 * B * H * S * dh
     return max(flops / BF16_FLOPS, nbytes / HBM_BYTES_S) * 1e3
 
 
@@ -199,11 +222,43 @@ def run_one(root: str, with_profile: bool) -> list:
                 run()
             row["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
             torch.cuda.synchronize()
+        row["fwd"] = forward(fa, qkv, H)
         rows.append(row)
         print(json.dumps(row), flush=True)
     if with_profile:
         rows += profile_path(root)
     return rows
+
+
+def forward(fa, qkv, H: int) -> dict:
+    """The forward's measures on one merged bf16 qkv (module note)."""
+    import torch
+
+    B, S, D3 = qkv.shape
+    dh = D3 // (3 * H)
+    run = lambda t=qkv: fa.flash_fwd_qkv(t, H, fast_dots=True)
+    got = run()
+    want = fa.flash_fwd_qkv_plain(qkv, H, fast_dots=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    q32 = qkv.float()
+    views = fa.qkv_heads(qkv, H)
+    split = {}
+    profiled_ms, launches = _profiled(run, split=split)[2:4]
+    return dict(err=err, kernel_ms=_device_ms(run), event_ms=_event_ms(run),
+                fp32_ms=_device_ms(lambda: run(q32)),
+                views_ms=_device_ms(lambda: fa.flash_fwd(*views,
+                                                         fast_dots=True)),
+                launches=launches, profiled_ms=profiled_ms, split=split,
+                bound_ms=fwd_bound_ms(B, H, S, dh),
+                sdpa_ms=_device_ms(lambda: torch.nn.functional.
+                                   scaled_dot_product_attention(*views)))
+
+
+def _sum_of(split: dict, *patterns) -> float:
+    return sum(v for k, v in split.items()
+               if any(p in k for p in patterns))
 
 
 def profile_path(root: str) -> list:
@@ -234,12 +289,18 @@ def profile_path(root: str) -> list:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
-        bwd_ms, bwd_n, busy, n = _profiled(call, iters=3, pattern="attn_bwd")
-        gemm_ms = _profiled(call, iters=3, pattern="gemm_bf16")[0]
+        split = {}
+        bwd_ms, bwd_n, busy, n = _profiled(call, iters=3, pattern="attn_bwd",
+                                           split=split)
+        fwd_n = _profiled(call, iters=3, pattern="attn_fwd")[1]
         row = dict(root=root, path="relevancy_fused_block2 bf16", B=B,
                    wall_ms=wall, maps_per_sec=B / wall * 1e3, busy_ms=busy,
                    launches=n, attn_bwd_ms=bwd_ms, attn_bwd_launches=bwd_n,
-                   gemm_ms=gemm_ms)
+                   attn_fwd_ms=_sum_of(split, "attn_fwd"),
+                   attn_fwd_launches=fwd_n,
+                   gemm_ms=_sum_of(split, "gemm_bf16"),
+                   layernorm_ms=_sum_of(split, "ln_fwd_bf16", "ln_vjp_any"),
+                   split=split)
         rows.append(row)
         print(json.dumps(row), flush=True)
     return rows
@@ -290,8 +351,11 @@ def main() -> int:
                   f"a call), device busy {row['busy_ms']:.3f} ms in "
                   f"{row['launches']:.0f} launches; attention backward "
                   f"{row['attn_bwd_ms']:.3f} ms in "
-                  f"{row['attn_bwd_launches']:.0f}, GEMM "
-                  f"{row['gemm_ms']:.3f} ms")
+                  f"{row['attn_bwd_launches']:.0f}, attention forward "
+                  f"{row['attn_fwd_ms']:.3f} ms in "
+                  f"{row['attn_fwd_launches']:.0f}, GEMM "
+                  f"{row['gemm_ms']:.3f} ms, LayerNorm rows "
+                  f"{row['layernorm_ms']:.3f} ms")
             continue
         print(f"{names[row['root']]} B={row['B']} H={row['H']} S={row['S']} "
               f"dh={row['dh']}: kernels {row['kernel_ms']:.4f} ms "
@@ -307,6 +371,16 @@ def main() -> int:
                  if "keys" in row else "")
               + (f"; host {row['host_us']:.1f} us/call"
                  if "host_us" in row else ""))
+        f = row["fwd"]
+        print(f"{names[row['root']]} B={row['B']} H={row['H']} S={row['S']} "
+              f"dh={row['dh']} forward: qkv {f['kernel_ms']:.4f} ms (graph; "
+              f"profiler {f['profiled_ms']:.4f} ms in {f['launches']:.0f} "
+              "launches: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in f["split"].items())
+              + f"), views {f['views_ms']:.4f} ms, events "
+              f"{f['event_ms']:.4f} ms, fp32 tensors {f['fp32_ms']:.4f} ms, "
+              f"bound {f['bound_ms']:.4f} ms, SDPA fwd {f['sdpa_ms']:.4f} ms, "
+              f"max|Δ|/max|plain| {f['err']:.2e}")
     if args.json:
         pathlib.Path(args.json).write_text(json.dumps(
             {"card": card.strip(), "rows": rows}, indent=1))

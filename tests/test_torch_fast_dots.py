@@ -550,3 +550,91 @@ def test_bwd16_plan_ignores_strides_of_unit_dimensions():
     assert not any(tfa.bwd16_plan(1, 1, 9, 8, True, [0] * 4, odd).packs)
     assert all(tfa.bwd16_plan(2, 1, 9, 8, True, [0] * 4, odd).packs)
     assert all(tfa.bwd16_plan(1, 1, 9, 8, True, [8] * 4, [0] * 12).packs)
+
+
+# (layout, dtype, dh, packed operands): float32 tensors are rounded into
+# packed slots, all three; bfloat16 ones are read in place where every row
+# starts on a 16-byte boundary (per-head copies and the merged qkv at dh =
+# 16, 40, 64 and 128), not at dh = 20 (rows of 40 bytes), nor a q view one
+# element off its buffer's start
+FWD16_CASES = [("heads", "float32", 16, 3), ("qkv", "float32", 40, 3),
+               ("heads", "float32", 128, 3), ("heads", "bfloat16", 16, 0),
+               ("qkv", "bfloat16", 40, 0), ("heads", "bfloat16", 64, 0),
+               ("qkv", "bfloat16", 128, 0), ("qkv", "bfloat16", 20, 3),
+               ("heads", "bfloat16", 16, 1)]
+
+
+@pytest.mark.parametrize("layout,dtype,dh,packed", FWD16_CASES)
+def test_cuda_branch_marshals_the_bf16_forward(layout, dtype, dh, packed,
+                                               monkeypatch):
+    """``flash_fwd`` / ``flash_fwd_qkv`` with fast_dots through the CUDA
+    branch (stand-in library): one ``tmx_attn_fwd_bf16`` call of the 6
+    pointers and 7 scalars of its C signature, a bfloat16 scratch of one
+    [B, H, S, dh8] slot for each operand TMA cannot read in place (as
+    ``fwd16_plan`` sizes it; counted as copies for bfloat16, as rounded for
+    float32) and none else, the output in the inputs' dtype."""
+    fake = _fake_cuda(monkeypatch)
+    made = []
+    real_empty = torch.empty
+
+    def empty(*args, **kw):
+        made.append(real_empty(*args, **kw))
+        return made[-1]
+    monkeypatch.setattr(torch, "empty", empty)
+    tdt = getattr(torch, dtype)
+    f = {k: torch.from_numpy(v).to(tdt)
+         for k, v in flash_inputs(2, 3, 17, dh).items() if k != "r"}
+    tfa.reset_launch_counts()
+    if layout == "qkv":
+        out = tfa.flash_fwd_qkv(f["qkv"], 3, fast_dots=True)
+        assert out.shape == (2, 17, 3 * dh)
+    else:
+        q = f["q"]
+        if packed == 1:   # a view whose rows start 2 bytes past the grid
+            wide = torch.zeros(q.shape[:-1] + (dh + 8,), dtype=tdt)
+            wide[..., 1:dh + 1] = q
+            q = wide[..., 1:dh + 1]
+        out = tfa.flash_fwd(q, f["k"], f["v"], fast_dots=True)
+        assert out.shape == (2, 3, 17, dh)
+    assert out.dtype == tdt
+    (name, args), = fake.calls[-1:]
+    assert name == "tmx_attn_fwd_bf16" and len(args) == 13
+    assert args[6:10] == (2, 17, 3, dh)
+    assert args[10] == pytest.approx(dh ** -0.5)
+    assert args[11] == int(dtype == "bfloat16")
+    assert args[3] == out.data_ptr()
+    plan = tfa.fwd16_plan(2, 3, 17, dh, dtype == "bfloat16", args[:4],
+                          list(args[5]))
+    assert sum(plan.packs) == packed
+    assert plan.packed == packed * 2 * 3 * 17 * (-(-dh // 8) * 8)
+    if packed:
+        slot, = (t for t in made if t.data_ptr() == args[4])
+        assert slot.dtype == torch.bfloat16 and slot.numel() == plan.packed
+    else:
+        assert args[4] is None
+    counts = (tfa.attn_fwd_launch.copies, tfa.attn_fwd_launch.rounded)
+    assert counts == ((packed, 0) if dtype == "bfloat16" else (0, packed))
+    assert tfa.bf16_launch_counts()[
+        "flash_fwd_qkv_bf16" if layout == "qkv" else "flash_fwd_bf16"] == 1
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 197, 256, 257, 1100, 4000])
+def test_fwd16_plan_covers_every_shape(S):
+    """Every (S, dh, B·H) gets a forward plan: aligned bfloat16 operands read
+    in place, float32 ones (and dh off the multiple of 8) packed, slots of
+    the size the C side's comment states; the pack rule is the backward's
+    (``tma_packs``), operand for operand."""
+    for dh in (8, 16, 20, 40, 64, 72, 100, 128):
+        for B, H in ((1, 1), (1, 12), (8, 12), (32, 12)):
+            aligned = [0, 128, 256, 384]
+            rows = [H * S * 64, 64 * S, 64] * 4
+            for bf16 in (True, False):
+                plan = tfa.fwd16_plan(B, H, S, dh, bf16, aligned, rows)
+                assert plan.packs == (not bf16 or dh % 8 != 0,) * 3
+                dh8 = -(-dh // 8) * 8
+                assert plan.packed == sum(plan.packs) * B * H * S * dh8
+                assert plan.packs == tfa.bwd16_plan(
+                    B, H, S, dh, bf16, aligned, rows).packs[:3]
+    # strides of dimensions of size 1 are never stepped
+    odd = [3, 5, 8] * 4
+    assert not any(tfa.fwd16_plan(1, 1, S, 8, True, [0] * 4, odd).packs)

@@ -1029,8 +1029,8 @@ def test_mlp_block_kernels_fast_dots_match_plain(cuda, B, S, D, I, chunks,
 @pytest.mark.parametrize("dtype", FAST_DTYPES)
 @pytest.mark.parametrize("B,H,S,Dh", CUDA_FLASH)
 def test_flash_kernels_fast_dots_match_plain(cuda, B, H, S, Dh, dtype):
-    """The four flash wrappers with fast_dots (head dims 8 to 128, rounded
-    up to 16 in the kernels; S up to 300), and the per-head kernels on
+    """The four flash wrappers with fast_dots (head dims 8 to 128, padded
+    to 64 or 128 in the kernels; S up to 300), and the per-head kernels on
     split-head views of qkv write the qkv kernels' bits."""
     f = _stored(to_torch(flash_inputs(B, H, S, Dh), cuda), dtype)
     f32 = _f32(f)
@@ -1182,6 +1182,27 @@ def test_flash_bwd_fast_dots_long_sequence_matches_plain(cuda, S):
             tfa.flash_bwd_ehat(*args, fast_dots=True), got))
 
 
+def _sass(lib_name: str) -> str:
+    """``cuobjdump -sass`` of a built library of csrc/."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(_build.library_path(lib_name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def _bodies(sass: str, functions) -> dict:
+    """Each of ``functions``' SASS, up to the next function's."""
+    starts = [m.start() for m in re.finditer(r"Function : ", sass)]
+    out = {}
+    for f in functions:
+        i = sass.index(f"Function : {f}")
+        end = min([s for s in starts if s > i], default=len(sass))
+        out[f] = sass[i:end]
+    return out
+
+
 @pytest.mark.cuda
 def test_attn_bwd_bf16_runs_wgmma_and_lost_the_mma_sync_kernels(cuda):
     """The built bf16 library's SASS: the backward's statistics and
@@ -1190,31 +1211,163 @@ def test_attn_bwd_bf16_runs_wgmma_and_lost_the_mma_sync_kernels(cuda):
     ``attn_bwd_kv_bf16_kernel``) are gone; the key-width table takes 128
     keys a block where those blocks still give every SM one, 64 past dh =
     64 or on smaller grids."""
-    import shutil
-    import subprocess
-
     lib = tfa.library(fast_dots=True)
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build.library_path(
-        "attn_block_bf16"))], capture_output=True, text=True,
-        check=True).stdout
+    sass = _sass("attn_block_bf16")
     functions = re.findall(r"Function : (\S+)", sass)
     bwd = [f for f in functions if "attn_bwd" in f]
     assert not [f for f in bwd if re.search(r"attn_bwd_(q|kv)_bf16", f)], bwd
     wgmma = [f for f in bwd if "wgmma" in f]
     assert any("stats" in f for f in wgmma) and any("keys" in f
                                                     for f in wgmma), bwd
-    starts = [sass.index(f"Function : {f}") for f in functions]
-    for f in wgmma:
-        i = sass.index(f"Function : {f}")
-        end = min([s for s in starts if s > i], default=len(sass))
-        body = sass[i:end]
+    for f, body in _bodies(sass, wgmma).items():
         assert "HGMMA.64x64x16" in body and "UTMALDG" in body, f
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for S, dh, BH in ((197, 64, 96), (197, 64, 384), (197, 64, 12),
                       (1100, 64, 6), (197, 128, 384), (4000, 64, 2)):
         want = 64 if dh > 64 or -(-S // 128) * BH < sms else 128
         assert lib.tmx_attn_bwd_bf16_keys(S, dh, BH) == want, (S, dh, BH)
+
+
+# the bf16 forward's edges (B, H, S, dh): S around the 64-row tiles, both
+# sides of the one-sweep cap (256 keys: 4 tiles of 64 in the accumulators,
+# two sweeps past it) and far past it (1,100); head dims padded to 64 or 128
+# (8, 40, 64, 72, 128); B·H = 6, 96 and 384 (grids of 24 to 1,536 blocks for
+# 132 SMs)
+FAST_FWD_EDGES = (
+    [(2, 3, s, 64) for s in (1, 63, 64, 65, 129, 197, 256, 257, 1100)]
+    + [(2, 3, s, dh) for dh in (8, 40, 72, 128) for s in (1, 65, 197, 257,
+                                                          1100)]
+    + [(8, 12, 197, 64), (32, 12, 197, 64), (32, 12, 197, 128),
+       (8, 12, 256, 40)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FAST_DTYPES)
+@pytest.mark.parametrize("B,H,S,Dh", FAST_FWD_EDGES)
+def test_flash_fwd_fast_dots_edges_match_plain(cuda, B, H, S, Dh, dtype):
+    """The bf16 forward (wgmma, TMA) at its edges on float32 and bfloat16
+    tensors: flash_fwd and flash_fwd_qkv within the FAST bars of their
+    plain versions, the same bits on a second call, the per-head kernel on
+    split-head views of qkv the qkv kernel's bits. The packed operands are
+    counted: q, k, v on float32 tensors, none on aligned bfloat16 ones
+    (dh a multiple of 8)."""
+    f = _stored(to_torch(flash_inputs(B, H, S, Dh, seed=4), cuda), dtype)
+    f32 = _f32(f)
+    per_head = lambda t: (t["q"], t["k"], t["v"])
+    tfa.reset_launch_counts()
+    got = tfa.flash_fwd(*per_head(f), fast_dots=True)
+    torch.cuda.synchronize()
+    packs = 3 * (dtype == torch.float32 or Dh % 8 != 0)
+    copies = (tfa.attn_fwd_launch.copies, tfa.attn_fwd_launch.rounded)
+    assert copies == ((0, packs) if dtype == torch.float32 else (packs, 0))
+    assert tfa.bf16_launch_counts()["flash_fwd_bf16"] == 1
+    assert got.dtype == dtype and got.shape == f["q"].shape
+    _fast_close(got, tfa.flash_fwd_plain(*per_head(f), fast_dots=True),
+                tfa.flash_fwd_plain(*per_head(f32)))
+    assert torch.equal(tfa.flash_fwd(*per_head(f), fast_dots=True), got)
+    qkv = tfa.flash_fwd_qkv(f["qkv"], H, fast_dots=True)
+    _fast_close(qkv, tfa.flash_fwd_qkv_plain(f["qkv"], H, fast_dots=True),
+                tfa.flash_fwd_qkv_plain(f32["qkv"], H))
+    assert torch.equal(tfa.flash_fwd_qkv(f["qkv"], H, fast_dots=True), qkv)
+    views = tfa.flash_fwd(*tfa.qkv_heads(f["qkv"], H), fast_dots=True)
+    assert torch.equal(views, tfa.heads(qkv, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FAST_DTYPES)
+def test_flash_fwd_fast_dots_packs_views_tma_cannot_read(cuda, dtype):
+    """q, k, v = t[..., 1:dh + 1] of [B, H, S, dh + 8] tensors (rows off the
+    16-byte grid): each is packed, and the output is the bits of the same
+    values stored contiguously."""
+    B, H, S, Dh = 2, 3, 77, 64
+    t = [torch.from_numpy(np.random.RandomState(i).randn(B, H, S, Dh + 8)
+                          .astype(np.float32) * 0.5).to(cuda, dtype)
+         [..., 1:Dh + 1] for i in range(3)]
+    tfa.reset_launch_counts()
+    got = tfa.flash_fwd(*t, fast_dots=True)
+    torch.cuda.synchronize()
+    counts = (tfa.attn_fwd_launch.copies, tfa.attn_fwd_launch.rounded)
+    assert counts == ((3, 0) if dtype == torch.bfloat16 else (0, 3))
+    _fast_close(got, tfa.flash_fwd_plain(*t, fast_dots=True),
+                tfa.flash_fwd_plain(*(x.float() for x in t)))
+    tfa.reset_launch_counts()
+    want = tfa.flash_fwd(*(x.contiguous() for x in t), fast_dots=True)
+    assert tfa.attn_fwd_launch.copies == 0
+    assert torch.equal(want, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2000, 4000])
+def test_flash_fwd_fast_dots_long_sequence_matches_plain(cuda, S):
+    """S = 2,000 and 4,000 (B=1, H=2): two sweeps, shared memory fixed by
+    dh; the same bits on a second call."""
+    lib = tfa.library(fast_dots=True)
+    assert lib.tmx_attn_smem_bf16(S, 64, 0) == lib.tmx_attn_smem_bf16(300, 64,
+                                                                       0)
+    for dtype in FAST_DTYPES:
+        f = _stored(to_torch(flash_inputs(1, 2, S, 64, seed=6), cuda), dtype)
+        args = (f["q"], f["k"], f["v"])
+        got = tfa.flash_fwd(*args, fast_dots=True)
+        _fast_close(got, tfa.flash_fwd_plain(*args, fast_dots=True),
+                    tfa.flash_fwd_plain(*(x.float() for x in args)))
+        assert torch.equal(tfa.flash_fwd(*args, fast_dots=True), got)
+
+
+@pytest.mark.cuda
+def test_attn_fwd_bf16_runs_wgmma_and_the_library_lost_mma_sync(cuda):
+    """The built bf16 library's SASS: the forward's kernels hold wgmma
+    products (HGMMA) and TMA loads (UTMALDG), one sweep and two; the
+    mma.sync forward (``attn_fwd_bf16_kernel``) is gone, and no function of
+    the library has an mma.sync bf16 product (HMMA.16816.F32.BF16) any
+    more."""
+    tfa.library(fast_dots=True)   # built
+    sass = _sass("attn_block_bf16")
+    assert "HMMA.16816.F32.BF16" not in sass
+    functions = re.findall(r"Function : (\S+)", sass)
+    fwd = [f for f in functions if "attn_fwd" in f]
+    assert not [f for f in fwd if "attn_fwd_bf16_kernel" in f], fwd
+    assert {"tile", "sweeps"} <= {k for f in fwd for k in ("tile", "sweeps")
+                                  if f"attn_fwd_{k}_wgmma_kernel" in f}, fwd
+    for f, body in _bodies(sass, fwd).items():
+        assert "HGMMA.64x64x16" in body and "UTMALDG" in body, f
+
+
+@pytest.mark.cuda
+def test_kernels_under_a_float64_default_return_float32(cuda):
+    """#6, #8 and #9 (the fp32 kernels, and #6 and #8 with fast_dots) under
+    ``torch.set_default_dtype(torch.float64)``: their scratch and outputs
+    are float32, equal in value to their plain versions'."""
+    f = to_torch(flash_inputs(2, 3, 77, 64), cuda)
+    cams, grads = (torch.from_numpy(t).to(cuda)
+                   for t in chain_inputs(2, 4, 3, 37))
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        per_head = (f["q"], f["k"], f["v"], f["dout"], f["r"])
+        for fast in (False, True):
+            got = tfa.flash_bwd_ehat(*per_head, fast_dots=fast)
+            want = tfa.flash_bwd_ehat_plain(*per_head, fast_dots=fast)
+            qkv = tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"], f["r"], 3,
+                                         fast_dots=fast)
+            want_qkv = tfa.flash_bwd_ehat_qkv_plain(f["qkv"], f["dmerged"],
+                                                    f["r"], 3, fast_dots=fast)
+            torch.cuda.synchronize()
+            assert all(t.dtype == torch.float32 for t in got + qkv)
+            if fast:
+                _fast_close(got, want, tfa.flash_bwd_ehat_plain(*per_head))
+                _fast_close(qkv, want_qkv, tfa.flash_bwd_ehat_qkv_plain(
+                    f["qkv"], f["dmerged"], f["r"], 3))
+            else:
+                for g, w in zip(got + qkv, want + want_qkv):
+                    torch.testing.assert_close(g, w, **TOL)
+        for start in (0, 1, 4):
+            got = trp.self_attention_relevancy_pallas(cams, grads, start)
+            want = trp.self_attention_relevancy_pallas_plain(cams, grads,
+                                                             start)
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    finally:
+        torch.set_default_dtype(old)
 
 
 @pytest.mark.cuda
@@ -1336,14 +1489,8 @@ def test_gemm_bf16_library_runs_wgmma_and_lost_the_mma_sync_kernel(cuda):
     instructions, TMA loads), and the mma.sync kernel it replaced
     (``gemm_bf16_kernel``) is gone; the launcher's tile table takes 64
     columns only where 128 would leave more than half the SMs idle."""
-    import shutil
-    import subprocess
-
     lib = tab.library(fast_dots=True)
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(_build.library_path(
-        "attn_block_bf16"))], capture_output=True, text=True,
-        check=True).stdout
+    sass = _sass("attn_block_bf16")
     functions = re.findall(r"Function : (\S+)", sass)
     gemm = [f for f in functions if "gemm_bf16" in f]
     assert gemm and all("gemm_bf16_wgmma_kernel" in f for f in gemm), gemm

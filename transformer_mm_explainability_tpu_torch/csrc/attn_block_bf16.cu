@@ -21,35 +21,27 @@
 //                        multiplies.
 //   ln_vjp_any_kernel    LayerNorm input cotangent plus the residual skip,
 //                        fp32 arithmetic on fp32 or bf16 storage.
-//   attn_fwd_bf16_kernel the attention forward with bf16 products (below).
+//   attn_fwd_*_kernel    the attention forward, on wgmma and TMA: one
+//                        sweep over the keys where a row's scores fit the
+//                        accumulators, two past that (the section note
+//                        before kFwdTiles).
 //   attn_bwd_*_kernel    its backward with the fold, on wgmma and TMA: a
 //                        statistics pass, a key-major pass and a finishing
-//                        sum (the section note before attn_bwd_pack_kernel).
+//                        sum (the section note before kAtRows).
+//   attn_pack_kernel     operands TMA cannot read in place (fp32, rows off
+//                        the 16-byte grid) rounded to bf16 into an aligned
+//                        scratch, for both attention directions.
 //
 // What bounds them: the attention does 4 S*S*dh (forward) and 10 S*S*dh
 // (backward) flops per (image, head) against 16 and 28 S*dh bytes, bound by
 // operations at the dense bf16 tensor-core rate (989 TFLOP/s) at long S and
-// by bytes at ViT-B's S = 197; the LayerNorm rows are bound by bytes. The
-// forward follows attn_block.cu's fp32 kernel (one block of 4 warps per
-// 64-row tile, head and image; the other operand streamed in 32-row tiles;
-// no atomics, every output row written by one warp, so the same bits on
-// every run), with these changes:
-//   - every operand tile is staged through registers (mma_bf16.cuh
-//     TileRegs): fp32 or bf16 rows are read, rounded to bf16 and written
-//     to one of two shared-memory buffers, bf16 rows of dh16 + 8 elements
-//     (dh16: dh rounded up to 16, zero-filled), read by ldmatrix; the next
-//     tile's reads are in flight while this one is multiplied;
-//   - it runs two sweeps over the key tiles: the row max and sum first,
-//     then A = 2^(s - m) / l normalised before it is rounded to bf16 for
-//     the A v product. The JAX body rounds the normalised A; an online
-//     softmax would round unnormalised terms, a different rounding whose
-//     distance from JAX is of the order of the fast_dots rounding itself.
-//     The price is one more q k^T product (3 S*S*dh products for 2);
-//   - q k^T takes q and k as bf16 fragments, A goes to bf16 from the
-//     accumulators for the A v product (mma_bf16.cuh a_from_acc_bf16). The
-//     row statistics are fp32.
-// Shared memory is fixed by dh (28 KB forward at dh = 64; the backward 83
-// KB at dh <= 64, 107 KB past it), so any S runs.
+// by bytes at ViT-B's S = 197; the LayerNorm rows are bound by bytes. Both
+// attention directions take their tiles by TMA into 128-byte-swizzled
+// shared memory, multiply on wgmma (64-row warpgroup tiles, fp32
+// accumulators), keep the row statistics in fp32 registers and feed a
+// probability tile to the next product as bf16 A fragments straight from
+// the accumulators (mma_bf16.cuh a_from_acc_bf16). Shared memory is fixed
+// by dh and by S up to 256 keys, so any S runs.
 
 #include "attn_common.cuh"
 #include "common.cuh"
@@ -137,247 +129,28 @@ ln_vjp_any_kernel(const float* __restrict__ dy, const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// Attention with bf16 products. Operands as in attn_block.cu (base pointer,
-// (batch, head, row) strides, unit stride along dh), all of one storage
-// type: fp32, or bf16 where `bf` is set; r, the statistics and the fold
-// fp32.
+// Attention with bf16 products, on wgmma and TMA. Operands as in
+// attn_block.cu (base pointer, (batch, head, row) strides, unit stride
+// along dh), all of one storage type: fp32, or bf16 where `bf` is set; r,
+// the statistics and the fold fp32. TMA reads a bf16 operand in place where
+// every row starts on a 16-byte boundary (attn16_in_place); any other
+// operand is rounded to bf16 into an aligned scratch first
+// (attn_pack_kernel, shared by both directions). Tiles are 64 rows of 64
+// bf16 columns (128 bytes, the 128-byte swizzle that wgmma reads); dh is
+// padded to 64 (DC = 1) or 128 (DC = 2): TMA fills the columns at or past
+// dh, and the rows at or past S, with zeros, exact in every product.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxDh = 128;
-constexpr int kAttThreads = 128;  // 4 warps of 16 rows
-constexpr int kAttRows = 64;      // rows per block
-constexpr int kAttTile = 32;      // rows per streamed tile
-constexpr int kKT = kAttTile / 8; // n8 fragments of a streamed tile
 
 struct Operand {
   const void* p;
   Strides st;
 };
 
-// Rows [row0, row0 + ROWS) of head (b, h) of an operand into registers.
-template <int ROWS, int DP>
-__device__ __forceinline__ void fetch_rows(TileRegs<ROWS, DP, kAttThreads>& regs,
-                                           const Operand& o, int b, int h, int row0, int S,
-                                           int dh, bool bf, bool vec) {
-  const long long at = head_at(o.st, b, h) + (long long)row0 * o.st.s;
-  regs.load(elem_at(o.p, at, bf), bf, vec, o.st.s, S - row0, dh);
-}
-
-// acc[n] = A B^T for one warp: A the warp's 16 rows of a [.][LD] bf16 tile,
-// B the 8 * N rows of another, both DP wide (q k^T, dout v^T and, in the
-// kv pass, their transposes).
-template <int DP, int N>
-__device__ __forceinline__ void mma_rows_bt(const bf16* Aw, const bf16* Bt, int lane,
-                                            float (&acc)[N][4]) {
-  constexpr int LD = DP + 8;
-  static_assert(N % 2 == 0, "B fragments come in pairs");
-#pragma unroll
-  for (int n = 0; n < N; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP; kk += 16) {
-    uint32_t a[4];
-    load_a_bf16(Aw + kk, LD, lane, a);
-#pragma unroll
-    for (int n = 0; n < N; n += 2) {
-      uint32_t b[2][2];
-      load_bt2_bf16(Bt + n * 8 * LD + kk, LD, lane, b);
-      mma_bf16(acc[n], a, b[0]);
-      mma_bf16(acc[n + 1], a, b[1]);
-    }
-  }
-}
-
-// acc += P W for one warp: P a 16 x kAttTile accumulator tile (the warp's
-// rows; the tile's rows are the product's k), rounded to bf16; W the
-// tile's kAttTile rows of a [.][LD] bf16 tile: o += A v, dq += ds k,
-// dv += A^T dout, dk += ds^T q. Each pair of output fragments takes the
-// tile's product in a fresh accumulator, then adds it in fp32.
-template <int DP>
-__device__ __forceinline__ void mma_acc_rows(const float (&p)[kKT][4], const bf16* W, int lane,
-                                             float (&acc)[DP / 8][4]) {
-  constexpr int LD = DP + 8;
-  uint32_t a[kKT / 2][4];
-#pragma unroll
-  for (int j = 0; j < kKT / 2; ++j) a_from_acc_bf16(p[2 * j], p[2 * j + 1], a[j]);
-#pragma unroll
-  for (int n = 0; n < DP / 8; n += 2) {
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int j = 0; j < kKT / 2; ++j) {
-      uint32_t b[2][2];
-      load_b2_bf16(W + j * 16 * LD + n * 8, LD, lane, b);
-      mma_bf16(c[0], a[j], b[0]);
-      mma_bf16(c[1], a[j], b[1]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[n][e] += c[0][e];
-      acc[n + 1][e] += c[1][e];
-    }
-  }
-}
-
-// Writes a warp's [16][DP] accumulator rows to rows row0 .. row0 + 15 of
-// one head (rows at or past S and columns at or past dh are skipped).
-template <int DP>
-__device__ __forceinline__ void store_rows(void* out, long long head, int stride, bool bf,
-                                           const float (&acc)[DP / 8][4], int row0, int lane,
-                                           int S, int dh) {
-  const int row = row0 + (lane >> 2), t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = n * 8 + 2 * t + e;
-      if (d >= dh) continue;
-      if (row < S) store_any(out, head + (long long)row * stride + d, acc[n][e], bf);
-      if (row + 8 < S) store_any(out, head + (long long)(row + 8) * stride + d, acc[n][2 + e], bf);
-    }
-  }
-}
-
-// Scores of a streamed tile in the log2 domain; keys at or past S are -inf.
-__device__ __forceinline__ void scale_mask(float (&s)[kKT][4], int k0, int S, int t,
-                                           float scale_log2) {
-#pragma unroll
-  for (int n = 0; n < kKT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool ok = k0 + n * 8 + 2 * t + e < S;
-      s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
-      s[n][2 + e] = ok ? s[n][2 + e] * scale_log2 : -INFINITY;
-    }
-  }
-}
-
-// Online row max m (log2 domain) of a tile's scores for rows g and g + 8 of
-// the warp; returns the factor 2^(m_old - m_new) (0 on the first tile).
-__device__ __forceinline__ void update_max(const float (&s)[kKT][4], float (&m)[2],
-                                           float (&alpha)[2]) {
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int n = 0; n < kKT; ++n) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // the 4 lanes of a group share a row
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = exp2f(m[r] - mx[r]);
-    m[r] = mx[r];
-  }
-}
-
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-struct FwdBf16Args {
-  Operand q, k, v;
-  void* out;
-  Strides so;
-  int S, dh;
-  float scale_log2;
-  bool bf, vec;
-};
-
-// out = softmax(q k^T * scale) v for one (64-query tile, head, image), in
-// two sweeps over the 32-key tiles: it < ntiles the row max m and sum l
-// (online), then A = 2^(s - m) / l, rounded to bf16, times v.
-template <int DP>
-__global__ void __launch_bounds__(kAttThreads)
-attn_fwd_bf16_kernel(FwdBf16Args a) {
-  constexpr int LD = DP + 8, NT = DP / 8;
-  extern __shared__ __align__(16) bf16 fwd16_sm[];
-  bf16* Qs = fwd16_sm;                     // [kAttRows][LD]
-  bf16* Ks = Qs + kAttRows * LD;           // [2][kAttTile][LD]
-  bf16* Vs = Ks + 2 * kAttTile * LD;       // [2][kAttTile][LD]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kAttRows;
-  const int S = a.S, dh = a.dh;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int t = lane & 3;
-  const int ntiles = (S + kAttTile - 1) / kAttTile, steps = 2 * ntiles;
-
-  {
-    TileRegs<kAttRows, DP, kAttThreads> rq;
-    fetch_rows(rq, a.q, b, h, q0, S, dh, a.bf, a.vec);
-    rq.store(Qs, LD);
-  }
-  TileRegs<kAttTile, DP, kAttThreads> rk, rv;
-  fetch_rows(rk, a.k, b, h, 0, S, dh, a.bf, a.vec);
-  rk.store(Ks, LD);
-  __syncthreads();
-
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2];
-  const bf16* Qw = Qs + warp * 16 * LD;
-
-  for (int it = 0; it < steps; ++it) {
-    const int cur = it & 1, next = it + 1;
-    if (next < steps) {  // v only for the second sweep
-      fetch_rows(rk, a.k, b, h, next % ntiles * kAttTile, S, dh, a.bf, a.vec);
-      if (next >= ntiles) fetch_rows(rv, a.v, b, h, next % ntiles * kAttTile, S, dh, a.bf, a.vec);
-    }
-    const bf16* Kt = Ks + cur * kAttTile * LD;
-    const bf16* Vt = Vs + cur * kAttTile * LD;
-    float s[kKT][4];
-    mma_rows_bt<DP>(Qw, Kt, lane, s);
-    scale_mask(s, (it % ntiles) * kAttTile, S, t, a.scale_log2);
-    if (it < ntiles) {  // sweep 1: the online statistics
-      float alpha[2];
-      update_max(s, m, alpha);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] *= alpha[r];
-#pragma unroll
-      for (int n = 0; n < kKT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[n][e] - m[e >> 1]);
-      if (it == ntiles - 1) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) inv[r] = 1.0f / quad_sum(l[r]);
-      }
-    } else {  // sweep 2: o += A v, A normalised before its rounding
-#pragma unroll
-      for (int n = 0; n < kKT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = exp2f(s[n][e] - m[e >> 1]) * inv[e >> 1];
-      mma_acc_rows<DP>(s, Vt, lane, o);
-    }
-    if (next < steps) {  // the other buffer: its last readers passed the barrier
-      rk.store(Ks + (cur ^ 1) * kAttTile * LD, LD);
-      if (next >= ntiles) rv.store(Vs + (cur ^ 1) * kAttTile * LD, LD);
-    }
-    __syncthreads();
-  }
-  store_rows<DP>(a.out, head_at(a.so, b, h), a.so.s, a.bf, o, q0 + warp * 16, lane, S, dh);
-}
-
-// dh rounded up to the m16n8k16 product's 16-deep steps.
-int att_dp16(int dh) { return (dh + 15) / 16 * 16; }
-
-size_t fwd16_smem(int dh) {
-  return sizeof(bf16) * (size_t)(kAttRows + 4 * kAttTile) * (att_dp16(dh) + 8);
-}
-
-// Launches attn_fwd_bf16_kernel<DP> for DP = att_dp16(dh), found by walking
-// the 8 instantiations DP = 16, 32, ..., kMaxDh.
-template <int DP>
-cudaError_t launch_fwd16(const FwdBf16Args& a, int B, int H, cudaStream_t stream) {
-  if constexpr (DP > kMaxDh) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (att_dp16(a.dh) != DP) return launch_fwd16<DP + 16>(a, B, H, stream);
-    const size_t smem = fwd16_smem(a.dh);
-    const cudaError_t err = allow_smem(attn_fwd_bf16_kernel<DP>, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.S + kAttRows - 1) / kAttRows, H, B);
-    attn_fwd_bf16_kernel<DP><<<grid, kAttThreads, smem, stream>>>(a);
-    return cudaGetLastError();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -385,11 +158,11 @@ cudaError_t launch_fwd16(const FwdBf16Args& a, int B, int H, cudaStream_t stream
 // in the fast_dots mode). Three launches, four with operands that TMA cannot
 // read in place:
 //
-//   attn_bwd_pack_kernel    (only where needed) an operand stored in fp32, or
-//                           in bf16 with rows off the 16-byte grid (dh not a
-//                           multiple of 8, a view's odd stride or base),
-//                           rounded to bf16 into an aligned [B, H, S, dh8]
-//                           scratch (dh8: dh rounded up to 8);
+//   attn_pack_kernel        (only where needed) an operand stored in fp32,
+//                           or in bf16 with rows off the 16-byte grid (dh
+//                           not a multiple of 8, a view's odd stride or
+//                           base), rounded to bf16 into an aligned [B, H, S,
+//                           dh8] scratch (dh8: dh rounded up to 8);
 //   attn_bwd_stats_wgmma_kernel  one warpgroup per (64-query tile, head,
 //                           image): s = q k^T and dA = dout v^T on wgmma over
 //                           the 64-key tiles, which a producer warp streams
@@ -435,11 +208,11 @@ cudaError_t launch_fwd16(const FwdBf16Args& a, int B, int H, cudaStream_t stream
 // memory is fixed by dh, so any S runs.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwRows = 64;                  // rows of a tile: queries or keys
-constexpr uint32_t kBwTile = kBwRows * 128;  // [64][64] bf16, 128-byte swizzled rows
-constexpr int kBwStages = 2;                 // ring stages of the streamed tiles
-constexpr int kBwProducer = 32;              // the producer warp, after the warpgroups
-constexpr int kBwSmemSlack = 1024 + 128;   // tile alignment, up to 16 barriers
+constexpr int kAtRows = 64;                  // rows of a tile: queries or keys
+constexpr uint32_t kAtTile = kAtRows * 128;  // [64][64] bf16, 128-byte swizzled rows
+constexpr int kAtStages = 2;                 // ring stages of the streamed tiles
+constexpr int kAtProducer = 32;              // the producer warp, after the warpgroups
+constexpr int kAtSmemSlack = 1024 + 128;     // tile alignment, up to 16 barriers
 
 struct BwdArgs {
   const float* r;        // [B, S]
@@ -565,14 +338,14 @@ __device__ __forceinline__ void wg_rs(float (&d)[32], const uint32_t (&a)[4], ui
 }
 
 // Descriptors of k16 step kk (0 .. 4 DC - 1) of a 128-byte-swizzled operand
-// of DC chunks [64 rows][64 columns] (kBwTile apart): K-major (the rows are
+// of DC chunks [64 rows][64 columns] (kAtTile apart): K-major (the rows are
 // the product's m or n, the columns its k: 32 bytes a step within a chunk)
 // and MN-major (the rows are the product's k: 16 rows of 128 bytes a step).
 __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return g16_desc(tile + (kk / 4) * kBwTile + 32 * (kk % 4), 16, 1024);
+  return g16_desc(tile + (kk / 4) * kAtTile + 32 * (kk % 4), 16, 1024);
 }
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return g16_desc(tile + 2048 * kk, kBwTile, 1024);
+  return g16_desc(tile + 2048 * kk, kAtTile, 1024);
 }
 
 template <int N>
@@ -583,7 +356,7 @@ __device__ __forceinline__ void zero(float (&d)[N]) {
 
 template <int DC>
 constexpr uint32_t bwd16_stats_smem() {
-  return kBwSmemSlack + (2 + 2 * kBwStages) * DC * kBwTile;
+  return kAtSmemSlack + (2 + 2 * kAtStages) * DC * kAtTile;
 }
 
 constexpr int kBwKV = 2;  // K and V buffers of the keys pass: the next block's loads early
@@ -598,33 +371,33 @@ __host__ __device__ constexpr uint32_t bwd16_xchg_bytes() {
 
 template <int DC, int NWG>
 constexpr uint32_t bwd16_keys_smem() {
-  return kBwSmemSlack + (2 * kBwKV * NWG * DC + NWG) * kBwTile +
-         kBwStages * (2 * DC * kBwTile + 1024) + bwd16_xchg_bytes<DC, NWG>();
+  return kAtSmemSlack + (2 * kBwKV * NWG * DC + NWG) * kAtTile +
+         kAtStages * (2 * DC * kAtTile + 1024) + bwd16_xchg_bytes<DC, NWG>();
 }
 
 // s = q k^T and dA = dout v^T over the key tiles of one (64-query tile,
 // head, image); the online statistics (see the section note). Warps 0-3 are
 // the consumer warpgroup, warp 4 the producer.
 template <int DC>
-__global__ void __launch_bounds__(128 + kBwProducer)
+__global__ void __launch_bounds__(128 + kAtProducer)
 attn_bwd_stats_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v,
                             const __grid_constant__ CUtensorMap map_do, BwdArgs a) {
-  constexpr uint32_t OP = DC * kBwTile;  // one operand's 64 rows
+  constexpr uint32_t OP = DC * kAtTile;  // one operand's 64 rows
   extern __shared__ __align__(1024) unsigned char bw_raw[];
   const uint32_t base = (smem_u32(bw_raw) + 1023) & ~1023u;
   const uint32_t qs = base, os = base + OP;  // this tile's q and dout rows
   const uint32_t ring = base + 2 * OP;       // stage s: k at ring + 2 OP s, v after it
-  const uint32_t bars = ring + kBwStages * 2 * OP;
+  const uint32_t bars = ring + kAtStages * 2 * OP;
   auto full = [&](int s) { return bars + 8 + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 + 8 * (kBwStages + s); };
+  auto empty = [&](int s) { return bars + 8 + 8 * (kAtStages + s); };
   const int b = blockIdx.z, h = blockIdx.y, S = a.S;
-  const int q0 = blockIdx.x * kBwRows, nk = (S + kBwRows - 1) / kBwRows;
+  const int q0 = blockIdx.x * kAtRows, nk = (S + kAtRows - 1) / kAtRows;
 
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
-    for (int s = 0; s < kBwStages; ++s) {
+    for (int s = 0; s < kAtStages; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 4);
     }
@@ -637,8 +410,8 @@ attn_bwd_stats_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_arrive_tx(bars, 2 * OP);
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      tma_load4(qs + c * kBwTile, &map_q, bars, 64 * c, q0, h, b);
-      tma_load4(os + c * kBwTile, &map_do, bars, 64 * c, q0, h, b);
+      tma_load4(qs + c * kAtTile, &map_q, bars, 64 * c, q0, h, b);
+      tma_load4(os + c * kAtTile, &map_do, bars, 64 * c, q0, h, b);
     }
     int s = 0;
     uint32_t phase = 0;
@@ -648,10 +421,10 @@ attn_bwd_stats_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t dst = ring + s * 2 * OP;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        tma_load4(dst + c * kBwTile, &map_k, full(s), 64 * c, kt * kBwRows, h, b);
-        tma_load4(dst + OP + c * kBwTile, &map_v, full(s), 64 * c, kt * kBwRows, h, b);
+        tma_load4(dst + c * kAtTile, &map_k, full(s), 64 * c, kt * kAtRows, h, b);
+        tma_load4(dst + OP + c * kAtTile, &map_v, full(s), 64 * c, kt * kAtRows, h, b);
       }
-      if (++s == kBwStages) s = 0, phase ^= 1;
+      if (++s == kAtStages) s = 0, phase ^= 1;
     }
     return;
   }
@@ -678,9 +451,9 @@ attn_bwd_stats_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     g16_fence_regs(dg);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(s));
-    if (++s == kBwStages) s = 0, phase ^= 1;
+    if (++s == kAtStages) s = 0, phase ^= 1;
 
-    const int k0 = kt * kBwRows;
+    const int k0 = kt * kAtRows;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -744,26 +517,26 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
                            const __grid_constant__ CUtensorMap map_do, BwdArgs a) {
-  constexpr uint32_t OP = DC * kBwTile;
-  constexpr uint32_t STAGE = 2 * OP + kBwRows * sizeof(float4);  // q, dout, statistics
+  constexpr uint32_t OP = DC * kAtTile;
+  constexpr uint32_t STAGE = 2 * OP + kAtRows * sizeof(float4);  // q, dout, statistics
   constexpr uint32_t KV = 2 * NWG * OP;                           // one K and V buffer
   constexpr int DP = 64 * DC;
-  constexpr int QH = kBwRows / DC;  // queries of one S^T step
+  constexpr int QH = kAtRows / DC;  // queries of one S^T step
   constexpr int NA = QH / 2;        // its accumulator registers a thread
   extern __shared__ __align__(1024) unsigned char bw_raw[];
   const uint32_t raw = smem_u32(bw_raw), base = (raw + 1023) & ~1023u;
   // K/V buffer x at base + KV x: warpgroup w's k rows at + OP w, v rows at
-  // + OP (NWG + w); dS^T of warpgroup w at dss + kBwTile w; the ring after
+  // + OP (NWG + w); dS^T of warpgroup w at dss + kAtTile w; the ring after
   const uint32_t dss = base + kBwKV * KV;
-  const uint32_t ring = dss + NWG * kBwTile;
-  const uint32_t xchg = ring + kBwStages * STAGE;  // the partial dq handed over (NWG = 2)
+  const uint32_t ring = dss + NWG * kAtTile;
+  const uint32_t xchg = ring + kAtStages * STAGE;  // the partial dq handed over (NWG = 2)
   const uint32_t bars = xchg + bwd16_xchg_bytes<DC, NWG>();
   auto kv_full = [&](int x) { return bars + 8 * x; };
   auto kv_empty = [&](int x) { return bars + 8 * (kBwKV + x); };
   auto full = [&](int s) { return bars + 8 * (2 * kBwKV + s); };
-  auto empty = [&](int s) { return bars + 8 * (2 * kBwKV + kBwStages + s); };
-  const int S = a.S, nq = a.s_pad / kBwRows;
-  const int n_kb = (S + kBwRows * NWG - 1) / (kBwRows * NWG);
+  auto empty = [&](int s) { return bars + 8 * (2 * kBwKV + kAtStages + s); };
+  const int S = a.S, nq = a.s_pad / kAtRows;
+  const int n_kb = (S + kAtRows * NWG - 1) / (kAtRows * NWG);
   const int items = n_kb * a.B * a.H;
 
   if (threadIdx.x == 0) {
@@ -771,7 +544,7 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_init(kv_full(x), 1);
       mbar_init(kv_empty(x), 4 * NWG);
     }
-    for (int s = 0; s < kBwStages; ++s) {
+    for (int s = 0; s < kAtStages; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 4 * NWG);
     }
@@ -786,16 +559,16 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     int s = 0, x = 0;
     uint32_t phase = 0, kv_phase = 0;
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
-      const int bh = it / n_kb, k0 = (it % n_kb) * kBwRows * NWG, b = bh / a.H, h = bh % a.H;
+      const int bh = it / n_kb, k0 = (it % n_kb) * kAtRows * NWG, b = bh / a.H, h = bh % a.H;
       mbar_wait(kv_empty(x), kv_phase ^ 1);  // the first pass finds both buffers free
       mbar_arrive_tx(kv_full(x), KV);
 #pragma unroll
       for (int w = 0; w < NWG; ++w)
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          const int row = k0 + kBwRows * w;
-          tma_load4(base + x * KV + w * OP + c * kBwTile, &map_k, kv_full(x), 64 * c, row, h, b);
-          tma_load4(base + x * KV + (NWG + w) * OP + c * kBwTile, &map_v, kv_full(x), 64 * c,
+          const int row = k0 + kAtRows * w;
+          tma_load4(base + x * KV + w * OP + c * kAtTile, &map_k, kv_full(x), 64 * c, row, h, b);
+          tma_load4(base + x * KV + (NWG + w) * OP + c * kAtTile, &map_v, kv_full(x), 64 * c,
                     row, h, b);
         }
       if (++x == kBwKV) x = 0, kv_phase ^= 1;
@@ -805,12 +578,12 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t dst = ring + s * STAGE;
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          tma_load4(dst + c * kBwTile, &map_q, full(s), 64 * c, qt * kBwRows, h, b);
-          tma_load4(dst + OP + c * kBwTile, &map_do, full(s), 64 * c, qt * kBwRows, h, b);
+          tma_load4(dst + c * kAtTile, &map_q, full(s), 64 * c, qt * kAtRows, h, b);
+          tma_load4(dst + OP + c * kAtTile, &map_do, full(s), 64 * c, qt * kAtRows, h, b);
         }
-        bulk_load(dst + 2 * OP, a.stats + (size_t)bh * a.s_pad + qt * kBwRows,
-                  kBwRows * sizeof(float4), full(s));
-        if (++s == kBwStages) s = 0, phase ^= 1;
+        bulk_load(dst + 2 * OP, a.stats + (size_t)bh * a.s_pad + qt * kAtRows,
+                  kAtRows * sizeof(float4), full(s));
+        if (++s == kAtStages) s = 0, phase ^= 1;
       }
     }
   } else {
@@ -821,16 +594,16 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int w = threadIdx.x / 128, wi = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int g = lane >> 2, t = lane & 3;
-    const uint32_t ds = dss + w * kBwTile;
+    const uint32_t ds = dss + w * kAtTile;
     int s = 0, x = 0;
     uint32_t phase = 0, kv_phase = 0;
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
       const int bh = it / n_kb, b = bh / a.H, h = bh % a.H;
-      const int kw0 = (it % n_kb) * kBwRows * NWG + kBwRows * w;
+      const int kw0 = (it % n_kb) * kAtRows * NWG + kAtRows * w;
       const bool live = kw0 < S;  // a warpgroup past the last key only keeps the ring turning
       // with two warpgroups, the block's partial dq is warpgroup 0's plus
       // warpgroup 1's (keys in order), where warpgroup 1 has keys
-      const bool pair_dq = NWG == 2 && kw0 - kBwRows * w + kBwRows < S;
+      const bool pair_dq = NWG == 2 && kw0 - kAtRows * w + kAtRows < S;
       const bool key_ok[2] = {kw0 + 16 * wi + g < S, kw0 + 16 * wi + g + 8 < S};
       const uint32_t ks = base + x * KV + w * OP, vs = base + x * KV + (NWG + w) * OP;
       float dv[DC][32], dk[DC][32];
@@ -906,8 +679,8 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
               for (int kk = 0; kk < QH / 16; ++kk) {
                 const int k16 = hq * QH / 16 + kk;
-                wg_rs<1>(dv[c], pa[kk], mnmajor(os + c * kBwTile, k16), 1);
-                wg_rs<1>(dk[c], sa[kk], mnmajor(qs + c * kBwTile, k16), 1);
+                wg_rs<1>(dv[c], pa[kk], mnmajor(os + c * kAtTile, k16), 1);
+                wg_rs<1>(dk[c], sa[kk], mnmajor(qs + c * kAtTile, k16), 1);
               }
             wg_commit();
             wg_wait0();
@@ -920,7 +693,7 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             wg_fence();
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
-              wg_ss<1, 1>(dq, mnmajor(ds, kk), mnmajor(ks + c * kBwTile, kk), kk > 0);
+              wg_ss<1, 1>(dq, mnmajor(ds, kk), mnmajor(ks + c * kAtTile, kk), kk > 0);
             wg_commit();
             wg_wait0();
             g16_fence_regs(dq);
@@ -940,7 +713,7 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               float* prow =
-                  part + (size_t)(qt * kBwRows + 16 * wi + g + 8 * hh) * DP + 64 * c + 2 * t;
+                  part + (size_t)(qt * kAtRows + 16 * wi + g + 8 * hh) * DP + 64 * c + 2 * t;
 #pragma unroll
               for (int j = 0; j < 8; ++j)
                 *reinterpret_cast<float2*>(prow + 8 * j) =
@@ -955,7 +728,7 @@ attn_bwd_keys_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(s));
-        if (++s == kBwStages) s = 0, phase ^= 1;
+        if (++s == kAtStages) s = 0, phase ^= 1;
       }
       // this block's K and V are read no more: the producer may load the next
       __syncwarp();
@@ -1028,20 +801,405 @@ __global__ void attn_bwd_finish_kernel(BwdArgs a, int DP) {
   }
 }
 
-struct BwdOperand {
-  const void* p;
-  Strides st;
+// ---------------------------------------------------------------------------
+// The attention forward with bf16 products on wgmma and TMA (#1, #5 and #7
+// in the fast_dots mode): out = softmax(q k^T * scale) v, A normalised,
+// 2^(s - m) / l, before it is rounded to bf16 for the A v product, as the
+// JAX body rounds e / sum(e) (flash_attention.py _fwd_kernel :79-88). One
+// launch, two with operands that TMA cannot read in place (attn_pack_kernel
+// first):
+//
+//   attn_fwd_tile_wgmma_kernel   where every key of a row fits the
+//                           accumulators (S <= 64 kFwdTiles = 256), a block
+//                           a 64-query tile: its thread 0 starts every TMA
+//                           copy at once (q, all of K, all of V, a barrier a
+//                           tile); the warpgroup computes s = q k^T for
+//                           every key tile (wgmma, 32 accumulators a tile),
+//                           the row max and sum from registers, A = 2^(s -
+//                           m) / l rounded to bf16 in the accumulator
+//                           layout, which is the A fragment of o = A v
+//                           (wgmma with A from registers, v read
+//                           MN-major): two S*S*dh products, the function's
+//                           own. 154 registers a thread and 72 KB of tiles
+//                           at dh <= 64: three blocks an SM;
+//   attn_fwd_sweeps_wgmma_kernel past 256 keys: one warpgroup a 64-query
+//                           tile; a producer warp streams K (first sweep),
+//                           then K and V (second) through a two-stage ring;
+//                           the first sweep takes the online row max and
+//                           sum, the second s again and o += A v: three
+//                           S*S*dh products for two.
+//
+// Outputs stored in bf16 with rows on the 16-byte grid go through the q
+// tile's shared memory, 16 bytes a thread (fwd16_store_staged); others two
+// columns a store (fwd16_store).
+// Bound by bytes at ViT-B's S = 197 (16 S*dh bytes of bf16 q, k, v and out
+// against 4 S*S*dh flops an (image, head)), by the tensor cores and the
+// exponentials at long S. Every output element is written by one thread
+// after a fixed order of sums: no atomics, the same bits on every call and
+// whatever the operands' layout (packed operands hold the same bf16
+// values). Keys at or past S are masked (A = 0); queries at or past S are
+// computed on TMA's zero rows and not stored.
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdTiles = 4;  // key tiles the one-sweep forward holds: S <= 256
+
+struct FwdArgs {
+  void* out;   // [B, H, S, dh] view, fp32 or bf16 (bf)
+  Strides so;
+  int S, dh;
+  float scale_log2;
+  bool bf, pair;  // pair: two neighbouring columns a store
+  bool stage;     // bf16 rows on the 16-byte grid: 16-byte stores from shared memory
 };
 
+// Shared memory of attn_fwd_tile_wgmma_kernel for nk key tiles, and of
+// attn_fwd_sweeps_wgmma_kernel.
+__host__ __device__ constexpr uint32_t fwd16_tile_smem(int DC, int nk) {
+  return kAtSmemSlack + (1 + 2 * nk) * DC * kAtTile;
+}
+__host__ __device__ constexpr uint32_t fwd16_sweeps_smem(int DC) {
+  return kAtSmemSlack + (1 + 2 * kAtStages) * DC * kAtTile;
+}
+
+// Rows 16 wi + g (+ 8) of o, a warpgroup's 64 x 64 DC accumulators, into
+// the output rows q0 + ...; rows at or past S and columns at or past dh are
+// not written.
+template <int DC>
+__device__ __forceinline__ void fwd16_store(const FwdArgs& a, int b, int h, int q0,
+                                            const float (&o)[DC][32], int wi, int g, int t) {
+  const long long head = head_at(a.so, b, h);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + 16 * wi + g + 8 * hh;
+    if (row >= a.S) continue;
+    const long long at = head + (long long)row * a.so.s;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 64 * c + 8 * j + 2 * t, i = 4 * j + 2 * hh;
+        if (d + 1 < a.dh)
+          store2_any(a.out, at + d, o[c][i], o[c][i + 1], a.bf, a.pair);
+        else if (d < a.dh)
+          store_any(a.out, at + d, o[c][i], a.bf);
+      }
+  }
+}
+
+// The same through shared memory (a.stage): the warpgroup's o, rounded to
+// bf16, into the 64 DC x 64 tile at `tile` (a q tile's, whose last reader
+// has completed) in the 128-byte swizzle, then read back 16 bytes a thread
+// and stored a row of 64 columns by 8 threads. The block's one consumer
+// warpgroup meets on named barrier 1.
+template <int DC>
+__device__ __forceinline__ void fwd16_store_staged(const FwdArgs& a, int b, int h, int q0,
+                                                   const float (&o)[DC][32], uint32_t tile,
+                                                   int wi, int g, int t) {
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = 16 * wi + g + 8 * hh;
+      const uint32_t at = tile + c * kAtTile + row * 128 + 4 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * hh;
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at + ((j ^ (row & 7)) << 4)),
+                     "r"(pack_bf16(o[c][i], o[c][i + 1]))
+                     : "memory");
+      }
+    }
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  const long long head = head_at(a.so, b, h);
+  bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int k = 0; k < 4 * DC; ++k) {
+    const int u = threadIdx.x % 128 + 128 * k;  // 16-byte unit: chunk, row, column
+    const int c = u / 512, row = (u / 8) % 64, col = u % 8;
+    const int d = 64 * c + 8 * col;
+    if (q0 + row >= a.S || d >= a.dh) continue;
+    uint4 v;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(tile + c * kAtTile + row * 128 + ((col ^ (row & 7)) << 4))
+                 : "memory");
+    *reinterpret_cast<uint4*>(out + head + (long long)(q0 + row) * a.so.s + d) = v;
+  }
+}
+
+// The scores of key tile kt (accumulator element 4 j + 2 hh + e is key 64
+// kt + 8 j + 2 t + e of row hh) in the log2 domain; keys at or past S -inf.
+__device__ __forceinline__ void fwd16_scale_mask(float (&s)[32], int kt, int S, int t,
+                                                 float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = kt * kAtRows + 8 * j + 2 * t + e < S;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float& v = s[4 * j + 2 * hh + e];
+        v = ok ? v * scale_log2 : -INFINITY;
+      }
+    }
+}
+
+// A = p inv of one key tile (p = 2^(s - m), in place), as the four bf16 A
+// fragments of its 16-key steps.
+__device__ __forceinline__ void fwd16_probs(float (&p)[32], const float (&inv)[2],
+                                            uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] *= inv[(i >> 1) & 1];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) a_from_acc_bf16(&p[8 * kk], &p[8 * kk + 4], pa[kk]);
+}
+
+// One sweep, a block of one warpgroup a 64-query tile (blockIdx.x) of head
+// (h = blockIdx.y, b = blockIdx.z); this lane's rows are 16 wi + g + 8 hh
+// of the tile. Shared memory: the q tile, K's nk tiles, V's nk tiles, then
+// a barrier each (q; k tile j at 8 (kFwdTiles + j), v tile j at 8 (2
+// kFwdTiles + j)).
+template <int DC>
+__global__ void __launch_bounds__(128)
+attn_fwd_tile_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v, FwdArgs a) {
+  constexpr uint32_t OP = DC * kAtTile;
+  extern __shared__ __align__(1024) unsigned char at_raw[];
+  const uint32_t qs = (smem_u32(at_raw) + 1023) & ~1023u;
+  const int b = blockIdx.z, h = blockIdx.y, S = a.S, nk = (S + kAtRows - 1) / kAtRows;
+  const uint32_t ks = qs + OP, vs = ks + nk * OP, bars = vs + nk * OP;
+  auto kbar = [&](int j) { return bars + 8 * (kFwdTiles + j); };
+  auto vbar = [&](int j) { return bars + 8 * (2 * kFwdTiles + j); };
+  if (threadIdx.x == 0) {  // every copy at once
+    for (int i = 0; i < 3 * kFwdTiles; ++i) mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arrive_tx(bars, OP);
+    for (int c = 0; c < DC; ++c)
+      tma_load4(qs + c * kAtTile, &map_q, bars, 64 * c, blockIdx.x * kAtRows, h, b);
+    for (int j = 0; j < nk; ++j) {
+      mbar_arrive_tx(kbar(j), OP);
+      for (int c = 0; c < DC; ++c)
+        tma_load4(ks + j * OP + c * kAtTile, &map_k, kbar(j), 64 * c, j * kAtRows, h, b);
+    }
+    for (int j = 0; j < nk; ++j) {
+      mbar_arrive_tx(vbar(j), OP);
+      for (int c = 0; c < DC; ++c)
+        tma_load4(vs + j * OP + c * kAtTile, &map_v, vbar(j), 64 * c, j * kAtRows, h, b);
+    }
+  }
+  __syncthreads();
+
+  const int wi = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  float s[kFwdTiles][32];  // fresh: the first k step does not read them
+  mbar_wait(bars, 0);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < kFwdTiles; ++j) {
+    if (j >= nk) break;
+    mbar_wait(kbar(j), 0);
+#pragma unroll
+    for (int kk = 0; kk < 4 * DC; ++kk)
+      wg_ss<0, 0>(s[j], kmajor(qs, kk), kmajor(ks + j * OP, kk), kk > 0);
+  }
+  wg_commit();
+  wg_wait0();
+#pragma unroll
+  for (int j = 0; j < kFwdTiles; ++j) g16_fence_regs(s[j]);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+  for (int j = 0; j < kFwdTiles; ++j) {
+    if (j >= nk) break;
+    fwd16_scale_mask(s[j], j, S, t, a.scale_log2);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) m[(e >> 1) & 1] = fmaxf(m[(e >> 1) & 1], s[j][e]);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {  // the 4 lanes of a quad share a row
+    m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+    m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < kFwdTiles; ++j) {
+    if (j >= nk) break;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[j][e] = ex2(s[j][e] - m[(e >> 1) & 1]);
+      l[(e >> 1) & 1] += s[j][e];
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) inv[hh] = 1.0f / quad_sum(l[hh]);
+
+  // A = p / l as the bf16 A fragments of o = A v, in registers (the
+  // accumulator layout); the 16-key steps at or past S are skipped
+  uint32_t pa[kFwdTiles][4][4];
+#pragma unroll
+  for (int j = 0; j < kFwdTiles; ++j) {
+    if (j >= nk) break;
+    fwd16_probs(s[j], inv, pa[j]);
+  }
+  float o[DC][32];
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < kFwdTiles; ++j) {
+    if (j >= nk) break;
+    mbar_wait(vbar(j), 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (j * kAtRows + 16 * kk >= S) break;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        wg_rs<1>(o[c], pa[j][kk], mnmajor(vs + j * OP + c * kAtTile, kk), j > 0 || kk > 0);
+    }
+  }
+  wg_commit();
+  wg_wait0();
+#pragma unroll
+  for (int c = 0; c < DC; ++c) g16_fence_regs(o[c]);
+  const int q0 = blockIdx.x * kAtRows;
+  if (a.stage)
+    fwd16_store_staged<DC>(a, b, h, q0, o, qs, wi, g, t);
+  else
+    fwd16_store<DC>(a, b, h, q0, o, wi, g, t);
+}
+
+// Two sweeps over the key tiles of one (64-query tile, head, image): the
+// online row max and sum, then A = 2^(s - m) / l and o += A v. Warps 0-3
+// are the consumer warpgroup, warp 4 the producer.
+template <int DC>
+__global__ void __launch_bounds__(128 + kAtProducer)
+attn_fwd_sweeps_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, FwdArgs a) {
+  constexpr uint32_t OP = DC * kAtTile;
+  extern __shared__ __align__(1024) unsigned char at_raw[];
+  const uint32_t base = (smem_u32(at_raw) + 1023) & ~1023u;
+  const uint32_t qs = base, ring = base + OP;  // stage s: k at ring + 2 OP s, v after it
+  const uint32_t bars = ring + kAtStages * 2 * OP;
+  auto full = [&](int s) { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 + 8 * (kAtStages + s); };
+  const int b = blockIdx.z, h = blockIdx.y, S = a.S;
+  const int q0 = blockIdx.x * kAtRows, nk = (S + kAtRows - 1) / kAtRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kAtStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ---- producer: one thread starts every copy
+    if (threadIdx.x != 128) return;
+    mbar_arrive_tx(bars, OP);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) tma_load4(qs + c * kAtTile, &map_q, bars, 64 * c, q0, h, b);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < 2 * nk; ++it) {
+      const int kt = it < nk ? it : it - nk;
+      const bool with_v = it >= nk;
+      mbar_wait(empty(s), phase ^ 1);  // the first pass finds every stage free
+      mbar_arrive_tx(full(s), with_v ? 2 * OP : OP);
+      const uint32_t dst = ring + s * 2 * OP;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        tma_load4(dst + c * kAtTile, &map_k, full(s), 64 * c, kt * kAtRows, h, b);
+        if (with_v)
+          tma_load4(dst + OP + c * kAtTile, &map_v, full(s), 64 * c, kt * kAtRows, h, b);
+      }
+      if (++s == kAtStages) s = 0, phase ^= 1;
+    }
+    return;
+  }
+
+  // ---- consumers: this lane's rows are queries q0 + 16 wi + g + 8 hh
+  const int wi = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2];
+  mbar_wait(bars, 0);
+  int s = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nk; ++kt) {  // sweep 1: the online statistics
+    mbar_wait(full(s), phase);
+    const uint32_t kts = ring + s * 2 * OP;
+    float sc[32];  // fresh, as in fwd16_tile
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * DC; ++kk) wg_ss<0, 0>(sc, kmajor(qs, kk), kmajor(kts, kk), kk > 0);
+    wg_commit();
+    wg_wait0();
+    g16_fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (++s == kAtStages) s = 0, phase ^= 1;
+    fwd16_scale_mask(sc, kt, S, t, a.scale_log2);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = m[hh];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      l[hh] *= ex2(m[hh] - mx);  // 0 on the first tile
+      m[hh] = mx;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) l[hh] += ex2(sc[4 * j + 2 * hh + e] - mx);
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) inv[hh] = 1.0f / quad_sum(l[hh]);
+
+  float o[DC][32];
+  for (int kt = 0; kt < nk; ++kt) {  // sweep 2: o += A v, A normalised first
+    mbar_wait(full(s), phase);
+    const uint32_t kts = ring + s * 2 * OP, vts = kts + OP;
+    float sc[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * DC; ++kk) wg_ss<0, 0>(sc, kmajor(qs, kk), kmajor(kts, kk), kk > 0);
+    wg_commit();
+    wg_wait0();
+    g16_fence_regs(sc);
+    fwd16_scale_mask(sc, kt, S, t, a.scale_log2);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = ex2(sc[i] - m[(i >> 1) & 1]);
+    uint32_t pa[4][4];
+    fwd16_probs(sc, inv, pa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        wg_rs<1>(o[c], pa[kk], mnmajor(vts + c * kAtTile, kk), kt > 0 || kk > 0);
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) g16_fence_regs(o[c]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    if (++s == kAtStages) s = 0, phase ^= 1;
+  }
+  if (a.stage)
+    fwd16_store_staged<DC>(a, b, h, q0, o, qs, wi, g, t);
+  else
+    fwd16_store<DC>(a, b, h, q0, o, wi, g, t);
+}
+
 struct PackArgs {
-  BwdOperand src[4];
+  Operand src[4];
   bf16* dst[4];  // null: the operand is read in place
 };
 
 // dst[o][b, h, s, :dh8] = src[o][b, h, s, :dh] rounded to bf16, zeros past
 // dh; eight columns a thread (one 16-byte store).
-__global__ void attn_bwd_pack_kernel(PackArgs p, int H, int S, int dh, int dh8,
-                                     long long rows, bool bf) {
+__global__ void attn_pack_kernel(PackArgs p, int H, int S, int dh, int dh8, long long rows,
+                                 bool bf) {
   const int o = blockIdx.y;
   bf16* dst = p.dst[o];
   if (!dst) return;
@@ -1062,8 +1220,8 @@ __global__ void attn_bwd_pack_kernel(PackArgs p, int H, int S, int dh, int dh8,
 
 // TMA reads an operand in place where it is bf16 and every row starts on a
 // 16-byte boundary (strides of dimensions of size 1 do not matter);
-// ops/flash_attention.bwd16_plan states the same rule.
-bool bwd16_in_place(const BwdOperand& o, int B, int H, int S, int dh, bool bf) {
+// ops/flash_attention.tma_packs states the same rule.
+bool attn16_in_place(const Operand& o, int B, int H, int S, int dh, bool bf) {
   return bf && dh % 8 == 0 && aligned(o.p, 16) && (B == 1 || o.st.b % 8 == 0) &&
          (H == 1 || o.st.h % 8 == 0) && (S == 1 || o.st.s % 8 == 0);
 }
@@ -1072,7 +1230,7 @@ bool bwd16_in_place(const BwdOperand& o, int B, int H, int S, int dh, bool bf) {
 // 64 x 64 boxes with the 128-byte swizzle that wgmma reads; TMA fills what
 // lies past dh8 or S with zeros (an operand read in place has dh8 = dh; a
 // packed one holds zeros past dh).
-bool bwd16_map(CUtensorMap* map, const BwdOperand& o, int B, int H, int S, int dh) {
+bool attn16_map(CUtensorMap* map, const Operand& o, int B, int H, int S, int dh) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (!encode) return false;
   // a dimension of size 1 takes a stride that TMA accepts; it is never stepped
@@ -1082,12 +1240,26 @@ bool bwd16_map(CUtensorMap* map, const BwdOperand& o, int B, int H, int S, int d
   const cuuint64_t dims[4] = {(cuuint64_t)(dh + 7) / 8 * 8, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {rs, hs, bs};
-  const cuuint32_t box[4] = {64, kBwRows, 1, 1};
+  const cuuint32_t box[4] = {64, kAtRows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(o.p), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Sets a kernel's dynamic shared-memory limit to `bytes` once a card (the
+// kernel's largest need); every later call is free.
+template <auto KERNEL>
+cudaError_t smem_limit_once(uint32_t bytes) {
+  static unsigned long long devices = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && (devices >> dev & 1)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 64) devices |= 1ull << dev;
+  return err;
 }
 
 int bwd16_forced_keys = 0;  // 0: the table; 64 or 128: that width (measurements)
@@ -1096,7 +1268,7 @@ int bwd16_forced_keys = 0;  // 0: the table; 64 or 128: that width (measurements
 // SM, half the dq partials) where the 128-key blocks still give every SM
 // one, else 64 (one warpgroup, two blocks an SM); 64 past dh = 64, where
 // two warpgroups' dK and dV accumulators do not fit the registers. Measured
-// in PERF.md (scripts/attn_bwd_bf16_ab.py): 128 faster at B = 8 and 32
+// in PERF.md (scripts/attn_bf16_ab.py): 128 faster at B = 8 and 32
 // (S = 197, H = 12), 64 at B = 1 and at S = 2,000 and 4,000 (H = 2).
 int bwd16_keys(int S, int dh, int BH) {
   if (dh > 64) return 64;
@@ -1133,23 +1305,15 @@ cudaError_t bwd16_persistent(int threads, uint32_t smem, long long items,
 // pass.
 template <int DC, int NWG>
 cudaError_t bwd16_launch(const CUtensorMap (&m)[4], BwdArgs a, cudaStream_t stream) {
-  static unsigned long long devices = 0;  // the statistics pass's limit, set once a card
   const long long heads = (long long)a.B * a.H;
   constexpr uint32_t smem = bwd16_stats_smem<DC>();
-  int dev = 0;
-  cudaGetDevice(&dev);
-  cudaError_t err = cudaSuccess;
-  if (dev >= 64 || !(devices >> dev & 1)) {
-    err = cudaFuncSetAttribute(attn_bwd_stats_wgmma_kernel<DC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) devices |= 1ull << dev;
-  }
-  attn_bwd_stats_wgmma_kernel<DC><<<dim3(a.s_pad / kBwRows, a.H, a.B), 128 + kBwProducer, smem,
+  cudaError_t err = smem_limit_once<attn_bwd_stats_wgmma_kernel<DC>>(smem);
+  if (err != cudaSuccess) return err;
+  attn_bwd_stats_wgmma_kernel<DC><<<dim3(a.s_pad / kAtRows, a.H, a.B), 128 + kAtProducer, smem,
                                     stream>>>(m[0], m[1], m[2], m[3], a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  a.n_sub = (a.S + kBwRows * NWG - 1) / (kBwRows * NWG);  // partial dq sums of a query
+  a.n_sub = (a.S + kAtRows * NWG - 1) / (kAtRows * NWG);  // partial dq sums of a query
   err = bwd16_persistent<attn_bwd_keys_wgmma_kernel<DC, NWG>>(
       128 * (NWG + 1), bwd16_keys_smem<DC, NWG>(), heads * a.n_sub, m, a, stream);
   if (err != cudaSuccess) return err;
@@ -1160,43 +1324,81 @@ cudaError_t bwd16_launch(const CUtensorMap (&m)[4], BwdArgs a, cudaStream_t stre
   return cudaGetLastError();
 }
 
-// The backward of every caller: packs the operands TMA cannot read in place
-// into `packed` (one [B, H, S, dh8] bf16 slot each, in operand order; null
-// where none needs it), encodes the four maps and launches the passes.
-cudaError_t attn_bwd_bf16(BwdOperand (&ops)[4], BwdArgs& a, bf16* packed, cudaStream_t stream) {
-  if (a.B < 1 || a.S < 1 || a.H < 1 || a.dh < 1 || a.dh > kMaxDh || a.B > 65535 || a.H > 65535)
+// Points each operand that TMA cannot read in place (attn16_in_place) at a
+// [B, H, S, dh8] bf16 slot of `packed` (one a slot, in operand order) and
+// rounds it there (attn_pack_kernel, one launch for all), then encodes the
+// N maps. A null `packed` where a slot is needed: cudaErrorInvalidValue.
+template <int N>
+cudaError_t attn16_operands(Operand (&ops)[N], CUtensorMap (&maps)[N], int B, int H, int S,
+                            int dh, bool bf, bf16* packed, cudaStream_t stream) {
+  static_assert(N <= 4, "one pack launch holds four operands");
+  if (B < 1 || S < 1 || H < 1 || dh < 1 || dh > kMaxDh || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  const int dh8 = (a.dh + 7) / 8 * 8;
-  const long long rows = (long long)a.B * a.H * a.S;
+  const int dh8 = (dh + 7) / 8 * 8;
+  const long long rows = (long long)B * H * S;
   PackArgs pack;
   int slots = 0;
   for (int o = 0; o < 4; ++o) {
-    pack.src[o] = ops[o];
     pack.dst[o] = nullptr;
-    if (bwd16_in_place(ops[o], a.B, a.H, a.S, a.dh, a.bf)) continue;
+    if (o >= N) continue;
+    pack.src[o] = ops[o];
+    if (attn16_in_place(ops[o], B, H, S, dh, bf)) continue;
     if (!packed) return cudaErrorInvalidValue;
     pack.dst[o] = packed + slots++ * rows * dh8;
-    ops[o] = {pack.dst[o], {a.H * a.S * (long long)dh8, a.S * (long long)dh8, dh8}};
+    ops[o] = {pack.dst[o], {H * S * (long long)dh8, S * (long long)dh8, dh8}};
   }
   if (slots) {
     const long long threads = rows * (dh8 / 8);
-    attn_bwd_pack_kernel<<<dim3((unsigned)((threads + 255) / 256), 4), 256, 0, stream>>>(
-        pack, a.H, a.S, a.dh, dh8, rows, a.bf);
+    attn_pack_kernel<<<dim3((unsigned)((threads + 255) / 256), N), 256, 0, stream>>>(
+        pack, H, S, dh, dh8, rows, bf);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
+  for (int o = 0; o < N; ++o)
+    if (!attn16_map(&maps[o], ops[o], B, H, S, dh)) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// The backward of every caller: the operands through attn16_operands, then
+// the passes.
+cudaError_t attn_bwd_bf16(Operand (&ops)[4], BwdArgs& a, bf16* packed, cudaStream_t stream) {
   CUtensorMap maps[4];
-  for (int o = 0; o < 4; ++o)
-    if (!bwd16_map(&maps[o], ops[o], a.B, a.H, a.S, a.dh)) return cudaErrorInvalidValue;
+  const cudaError_t err = attn16_operands(ops, maps, a.B, a.H, a.S, a.dh, a.bf, packed, stream);
+  if (err != cudaSuccess) return err;
   if (a.dh > 64) return bwd16_launch<2, 1>(maps, a, stream);
   return bwd16_keys(a.S, a.dh, a.B * a.H) == 128 ? bwd16_launch<1, 2>(maps, a, stream)
                                                  : bwd16_launch<1, 1>(maps, a, stream);
 }
 
-// Every row of every head starts on a 4-element boundary: the 4-wide loads
-// of TileRegs (16 bytes of fp32, 8 of bf16).
-bool rows_aligned4(const void* p, const Strides& s, bool bf) {
-  return aligned(p, bf ? 8 : 16) && s.b % 4 == 0 && s.h % 4 == 0 && s.s % 4 == 0;
+template <int DC>
+cudaError_t fwd16_launch(const CUtensorMap (&m)[3], FwdArgs a, int B, int H,
+                         cudaStream_t stream) {
+  const int nk = (a.S + kAtRows - 1) / kAtRows;
+  cudaError_t err;
+  if (nk > kFwdTiles) {
+    constexpr uint32_t smem = fwd16_sweeps_smem(DC);
+    err = smem_limit_once<attn_fwd_sweeps_wgmma_kernel<DC>>(smem);
+    if (err != cudaSuccess) return err;
+    attn_fwd_sweeps_wgmma_kernel<DC><<<dim3(nk, H, B), 128 + kAtProducer, smem, stream>>>(
+        m[0], m[1], m[2], a);
+    return cudaGetLastError();
+  }
+  err = smem_limit_once<attn_fwd_tile_wgmma_kernel<DC>>(fwd16_tile_smem(DC, kFwdTiles));
+  if (err != cudaSuccess) return err;
+  attn_fwd_tile_wgmma_kernel<DC><<<dim3(nk, H, B), 128, fwd16_tile_smem(DC, nk), stream>>>(
+      m[0], m[1], m[2], a);
+  return cudaGetLastError();
+}
+
+// The forward of every caller: the operands through attn16_operands, then
+// one kernel.
+cudaError_t attn_fwd_bf16(Operand (&ops)[3], FwdArgs& a, int B, int H, bf16* packed,
+                          cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const cudaError_t err = attn16_operands(ops, maps, B, H, a.S, a.dh, a.bf, packed, stream);
+  if (err != cudaSuccess) return err;
+  return a.dh > 64 ? fwd16_launch<2>(maps, a, B, H, stream)
+                   : fwd16_launch<1>(maps, a, B, H, stream);
 }
 
 Strides strides_at(const long long* s, int i) {
@@ -1285,32 +1487,45 @@ int tmx_round_bf16(const float* x, void* y, long long n, void* stream) {
   return (int)round_bf16(x, static_cast<bf16*>(y), n, (cudaStream_t)stream);
 }
 
-// Bytes of dynamic shared memory one attention block needs (fixed by dh;
-// the backward: its largest block, the keys pass at its widest key tile).
+// Bytes of dynamic shared memory one attention block needs: the forward,
+// its block for S (q and every key tile where one sweep runs, else a ring
+// of two); the backward, its largest
+// block, the keys pass at its widest key tile.
 int tmx_attn_smem_bf16(int S, int dh, int backward) {
-  (void)S;
-  if (!backward) return (int)fwd16_smem(dh);
-  return (int)(dh <= 64 ? bwd16_keys_smem<1, 2>() : bwd16_keys_smem<2, 1>());
+  const int DC = dh <= 64 ? 1 : 2;
+  if (!backward) {
+    const int nk = (S + kAtRows - 1) / kAtRows;
+    if (nk > kFwdTiles) return (int)fwd16_sweeps_smem(DC);
+    return (int)fwd16_tile_smem(DC, nk);
+  }
+  return (int)(DC == 1 ? bwd16_keys_smem<1, 2>() : bwd16_keys_smem<2, 1>());
 }
 
 // q, k, v, out: [B, H, S, dh] operands, bf16 where bf else fp32; strides:
 // [4][3] (batch, head, row) element strides of q, k, v, out in that order.
-int tmx_attn_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+// packed: one [B, H, S, dh8] bf16 slot (dh8: dh rounded up to 8) for each
+// of q, k, v that TMA cannot read in place (fp32, or rows off the 16-byte
+// grid), in operand order, or null where none needs one
+// (cudaErrorInvalidValue if one does); ops/flash_attention.fwd16_plan
+// sizes it.
+int tmx_attn_fwd_bf16(const void* q, const void* k, const void* v, void* out, void* packed,
                       const long long* strides, int B, int S, int H, int dh, float scale, int bf,
                       void* stream) {
-  FwdBf16Args a;
-  a.q = {q, strides_at(strides, 0)};
-  a.k = {k, strides_at(strides, 1)};
-  a.v = {v, strides_at(strides, 2)};
+  Operand ops[3] = {{q, strides_at(strides, 0)},
+                    {k, strides_at(strides, 1)},
+                    {v, strides_at(strides, 2)}};
+  FwdArgs a;
   a.out = out;
   a.so = strides_at(strides, 3);
   a.S = S;
   a.dh = dh;
   a.scale_log2 = scale * 1.4426950408889634f;
   a.bf = bf != 0;
-  a.vec = dh % 4 == 0 && rows_aligned4(q, a.q.st, a.bf) && rows_aligned4(k, a.k.st, a.bf) &&
-          rows_aligned4(v, a.v.st, a.bf);
-  return (int)launch_fwd16<16>(a, B, H, (cudaStream_t)stream);
+  a.pair = dh % 2 == 0 && aligned(out, a.bf ? 4 : 8) && a.so.b % 2 == 0 && a.so.h % 2 == 0 &&
+           a.so.s % 2 == 0;
+  a.stage = a.bf && dh % 8 == 0 && aligned(out, 16) && a.so.b % 8 == 0 && a.so.h % 8 == 0 &&
+            a.so.s % 8 == 0;
+  return (int)attn_fwd_bf16(ops, a, B, H, static_cast<bf16*>(packed), (cudaStream_t)stream);
 }
 
 // q, k, v, dout in and dq, dk, dv out: [B, H, S, dh] operands, bf16 where
@@ -1328,10 +1543,10 @@ int tmx_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* d
                       const float* r, void* dq, void* dk, void* dv, float* stats, float* e_part,
                       float* dq_part, void* packed, float* e_row, const long long* strides, int B,
                       int S, int H, int dh, float scale, int bf, void* stream) {
-  BwdOperand ops[4] = {{q, strides_at(strides, 0)},
-                       {k, strides_at(strides, 1)},
-                       {v, strides_at(strides, 2)},
-                       {dout, strides_at(strides, 3)}};
+  Operand ops[4] = {{q, strides_at(strides, 0)},
+                    {k, strides_at(strides, 1)},
+                    {v, strides_at(strides, 2)},
+                    {dout, strides_at(strides, 3)}};
   BwdArgs a;
   a.r = r;
   a.dq = dq;
@@ -1348,7 +1563,7 @@ int tmx_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* d
   a.S = S;
   a.H = H;
   a.dh = dh;
-  a.s_pad = (S + kBwRows - 1) / kBwRows * kBwRows;  // n_sub: set by the launcher
+  a.s_pad = (S + kAtRows - 1) / kAtRows * kAtRows;  // n_sub: set by the launcher
   a.scale_log2 = scale * 1.4426950408889634f;
   a.scale = scale;
   a.bf = bf != 0;

@@ -437,7 +437,9 @@ def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
     head, image) with A only in registers → out-projection GEMM with bias
     and residual in its epilogue, so qkv and the merged output are the
     only round trips. ``fast_dots``: the same four launches with bf16
-    products (``_attn_block_fwd_bf16``)."""
+    products (``_attn_block_fwd_bf16``): the GEMMs and the attention on
+    ``wgmma`` over TMA-copied tiles, the attention in one sweep over the
+    keys at S ≤ 256."""
     if _build.on_cpu(x):
         return attn_block_fwd_plain(x, w_qkv, b_qkv, w_out, b_out, ln_scale,
                                     ln_bias, nheads, eps, fast_dots)

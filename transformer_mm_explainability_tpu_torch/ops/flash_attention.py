@@ -36,21 +36,23 @@ merged qkv tensor included, without a copy), and the qkv wrappers pass
 split-head views of their merged tensors. A is never stored. The fp32
 kernels run both directions on the tensor cores as 3xTF32 ``mma.sync``
 products (fp32 accuracy: split operands, no TF32 switch anywhere) over
-tiles streamed by ``cp.async``; the bf16 forward as bf16 ``mma.sync``
-products over tiles staged through registers, the bf16 backward as
-``wgmma`` products over tiles that TMA copies. The forward keeps an online
-softmax over key tiles (the bf16 forward takes the row statistics in a
-first sweep, so that A is rounded after its normalisation, as in the JAX
-body). The fp32 backward runs two passes that recompute A from q and k: a
-q pass (online row statistics, then dq) and a kv pass (dk, dv and the
-per-head fold). The bf16 backward (``_bwd16``) runs a statistics pass, a
-key-major pass (dk, dv, the fold and each 64-key tile's partial dq) and a
-pass that sums the partials in key order and the fold over heads; operands
-that TMA cannot read in place (float32, rows off the 16-byte grid) are
-packed first (``bwd16_plan``). No direction uses atomics, splits a sum
-across blocks in an order set by timing, or depends on the layout: the
-same inputs give the same bits, whatever their layout. All keep shared
-memory fixed by dh, so they take any S. Each wrapper counts its CUDA
+tiles streamed by ``cp.async``; the bf16 kernels both directions as
+``wgmma`` products over tiles that TMA copies. The fp32 forward keeps an
+online softmax over key tiles. The bf16 forward rounds A after its
+normalisation, as the JAX body does: where a row's scores fit the
+accumulators (S ≤ 256) it computes them once and takes the row statistics
+from registers, past that it takes the statistics in a first sweep over
+the keys. The fp32 backward runs two passes that recompute A from q and
+k: a q pass (online row statistics, then dq) and a kv pass (dk, dv and
+the per-head fold). The bf16 backward (``_bwd16``) runs a statistics pass,
+a key-major pass (dk, dv, the fold and each 64-key tile's partial dq) and
+a pass that sums the partials in key order and the fold over heads. In
+both bf16 directions, operands that TMA cannot read in place (float32,
+rows off the 16-byte grid) are packed first (``tma_packs``). No direction
+uses atomics, splits a sum across blocks in an order set by timing, or
+depends on the layout: the same inputs give the same bits, whatever their
+layout. All keep shared memory bounded by dh, so they take any S. Each
+wrapper counts its CUDA
 launches in ``launches`` (the fp32 kernels) and ``launches_bf16`` (the
 bf16-product kernels); see ``launch_counts`` and ``bf16_launch_counts``.
 
@@ -82,7 +84,7 @@ _SIGNATURES = {  # the attention entry points of csrc/attn_block.cu
     "tmx_max_dh": [],
 }
 _SIGNATURES_BF16 = {  # ... and of csrc/attn_block_bf16.cu
-    "tmx_attn_fwd_bf16": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
+    "tmx_attn_fwd_bf16": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _P],
     "tmx_attn_bwd_bf16": [_P] * 14 + [_I, _I, _I, _I, _F, _I, _P],
     "tmx_attn_bwd_bf16_keys": [_I, _I, _I],
     "tmx_attn_bwd_bf16_force_keys": [_I],
@@ -305,17 +307,65 @@ def qkv_args(qkv, out, nheads: int):
             [bq, dh, sq] * 3 + [bo, dh, so])
 
 
+def tma_packs(B: int, H: int, S: int, dh: int, bf16: bool, pointers,
+              strides) -> Tuple[bool, ...]:
+    """Which operands of a bf16 attention kernel (their pointers and
+    (batch, head, row) element strides, as ``view_args`` gives them) TMA
+    cannot read in place and the kernels pack (round to bf16 into an
+    aligned [B, H, S, dh8] slot): an operand is read in place where it is
+    bfloat16 and every row starts on a 16-byte boundary (dh a multiple of
+    8, the pointer and the strides of dimensions longer than 1 aligned: the
+    rule of the C side's ``attn16_in_place``), else it is packed."""
+    packs = []
+    for i, ptr in enumerate(pointers):
+        sb, sh, ss = strides[3 * i:3 * i + 3]
+        packs.append(not (
+            bf16 and dh % 8 == 0 and ptr % 16 == 0
+            and (B == 1 or sb % 8 == 0) and (H == 1 or sh % 8 == 0)
+            and (S == 1 or ss % 8 == 0)))
+    return tuple(packs)
+
+
+class Fwd16Plan(NamedTuple):
+    """What one call of the bf16 forward (``tmx_attn_fwd_bf16``) needs
+    beside its tensors: which of q, k, v the kernels pack, and the packed
+    slots' size in bfloat16 elements."""
+    packs: Tuple[bool, bool, bool]
+    packed: int     # one [B, H, S, dh8] slot per packed operand
+
+
+def fwd16_plan(B: int, H: int, S: int, dh: int, bf16: bool, pointers,
+               strides) -> Fwd16Plan:
+    """The plan of ``tmx_attn_fwd_bf16`` for q, k, v (``tma_packs``; the
+    size follows the C side's comment on ``tmx_attn_fwd_bf16``)."""
+    packs = tma_packs(B, H, S, dh, bf16, pointers[:3], strides[:9])
+    return Fwd16Plan(packs=packs,
+                     packed=sum(packs) * B * H * S * (-(-dh // 8) * 8))
+
+
 def _fwd(pointers, strides, B: int, S: int, H: int, dh: int, stream,
-         fast_dots: bool, bf16: bool) -> None:
+         fast_dots: bool, bf16: bool, device) -> None:
     lib = library(fast_dots)
-    if fast_dots:
-        _build.check(lib, "tmx_attn_fwd_bf16", lib.tmx_attn_fwd_bf16(
+    if not fast_dots:
+        _build.check(lib, "tmx_attn_fwd", lib.tmx_attn_fwd(
             *pointers, _stride_array(strides), B, S, H, dh,
-            1.0 / math.sqrt(dh), int(bf16), stream))
+            1.0 / math.sqrt(dh), copy_width(dh, pointers[:3], strides[:9]),
+            stream))
         return
-    _build.check(lib, "tmx_attn_fwd", lib.tmx_attn_fwd(
-        *pointers, _stride_array(strides), B, S, H, dh, 1.0 / math.sqrt(dh),
-        copy_width(dh, pointers[:3], strides[:9]), stream))
+    plan = fwd16_plan(B, H, S, dh, bf16, pointers, strides)
+    packed = None
+    if plan.packed:
+        scratch = torch.empty(plan.packed, device=device,
+                              dtype=torch.bfloat16)
+        packed = scratch.data_ptr()
+        n = sum(plan.packs)
+        if bf16:
+            attn_fwd_launch.copies += n
+        else:
+            attn_fwd_launch.rounded += n
+    _build.check(lib, "tmx_attn_fwd_bf16", lib.tmx_attn_fwd_bf16(
+        *pointers, packed, _stride_array(strides), B, S, H, dh,
+        1.0 / math.sqrt(dh), int(bf16), stream))
 
 
 def attn_fwd_launch(q, k, v, out, stream, fast_dots: bool = False) -> None:
@@ -323,11 +373,13 @@ def attn_fwd_launch(q, k, v, out, stream, fast_dots: bool = False) -> None:
     [B, H, S, dh] views of one dtype with unit stride along dh, and S and dh
     passed ``check_attention`` (both checked by the caller). The fp32
     kernel picks its copy width from q, k and v (``copy_width``); with
-    ``fast_dots`` the bf16-product kernel runs, on float32 or bfloat16
-    storage."""
+    ``fast_dots`` the bf16-product kernel runs on ``wgmma`` and TMA, on
+    float32 or bfloat16 storage: operands TMA cannot read in place are
+    packed first (``fwd16_plan``), counted in ``attn_fwd_launch.copies``
+    (bfloat16 ones) and ``.rounded`` (float32 ones)."""
     B, H, S, dh = q.shape
     _fwd(*view_args(q, k, v, out), B, S, H, dh, stream, fast_dots,
-         q.dtype == torch.bfloat16)
+         q.dtype == torch.bfloat16, q.device)
 
 
 def attn_fwd_launch_qkv(qkv, out, nheads: int, stream,
@@ -337,7 +389,7 @@ def attn_fwd_launch_qkv(qkv, out, nheads: int, stream,
     without making six views per call."""
     B, S, D = out.shape
     _fwd(*qkv_args(qkv, out, nheads), B, S, nheads, D // nheads, stream,
-         fast_dots, qkv.dtype == torch.bfloat16)
+         fast_dots, qkv.dtype == torch.bfloat16, qkv.device)
 
 
 class Bwd16Plan(NamedTuple):
@@ -359,22 +411,13 @@ def bwd16_plan(B: int, H: int, S: int, dh: int, bf16: bool, pointers,
                strides) -> Bwd16Plan:
     """The plan of ``tmx_attn_bwd_bf16`` for q, k, v, dout (their pointers
     and (batch, head, row) element strides, as ``view_args`` gives them):
-    an operand is read in place where it is bfloat16 and every row starts
-    on a 16-byte boundary (dh a multiple of 8, the pointer and the strides
-    of dimensions longer than 1 aligned: the rule of the C side's
-    ``bwd16_in_place``); else it is packed. The sizes follow the C side's
+    the packed operands by ``tma_packs``; the sizes follow the C side's
     comment on ``tmx_attn_bwd_bf16``."""
-    packs = []
-    for i, ptr in enumerate(pointers[:4]):
-        sb, sh, ss = strides[3 * i:3 * i + 3]
-        packs.append(not (
-            bf16 and dh % 8 == 0 and ptr % 16 == 0
-            and (B == 1 or sb % 8 == 0) and (H == 1 or sh % 8 == 0)
-            and (S == 1 or ss % 8 == 0)))
+    packs = tma_packs(B, H, S, dh, bf16, pointers[:4], strides[:12])
     n_sub = -(-S // 64)
     s_pad, dp, dh8 = 64 * n_sub, 64 if dh <= 64 else 128, -(-dh // 8) * 8
     return Bwd16Plan(
-        packs=tuple(packs), s_pad=s_pad, n_sub=n_sub, dp=dp,
+        packs=packs, s_pad=s_pad, n_sub=n_sub, dp=dp,
         stats=B * H * s_pad * 4, dq_part=n_sub * B * H * s_pad * dp,
         e_part=-(-B * H * S // 64) * 64,
         packed=sum(packs) * B * H * S * dh8)
@@ -391,12 +434,13 @@ def _bwd16(lib, q, k, v, dout, r, dq, dk, dv, stream) -> torch.Tensor:
     bf16 = q.dtype == torch.bfloat16
     plan = bwd16_plan(B, H, S, dh, bf16, pointers[:4], strides[:12])
     work = torch.empty(plan.stats + plan.dq_part + plan.e_part
-                       + -(-plan.packed // 2), device=q.device)
+                       + -(-plan.packed // 2), device=q.device,
+                       dtype=torch.float32)
     at = work.data_ptr()
     stats, dq_part = at, at + 4 * plan.stats
     e_part = dq_part + 4 * plan.dq_part
     packed = e_part + 4 * plan.e_part if plan.packed else None
-    e_row = torch.empty((B, S), device=q.device)
+    e_row = torch.empty((B, S), device=q.device, dtype=torch.float32)
     _build.check(lib, "tmx_attn_bwd_bf16", lib.tmx_attn_bwd_bf16(
         *pointers[:4], r.data_ptr(), *pointers[4:], stats, e_part, dq_part,
         packed, e_row.data_ptr(), _stride_array(strides), B, S, H, dh,
@@ -424,9 +468,9 @@ def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream,
         return _bwd16(lib, q, k, v, dout, r, dq, dk, dv, stream)
     B, H, S, dh = q.shape
     dev = q.device
-    stats = torch.empty((3, B, H, S), device=dev)
-    e_part = torch.empty((B, H, S), device=dev)
-    e_row = torch.empty((B, S), device=dev)
+    stats = torch.empty((3, B, H, S), device=dev, dtype=torch.float32)
+    e_part = torch.empty((B, H, S), device=dev, dtype=torch.float32)
+    e_row = torch.empty((B, S), device=dev, dtype=torch.float32)
     pointers, strides = view_args(q, k, v, dout, dq, dk, dv)
     p = _build.ptr
     _build.check(lib, "tmx_attn_bwd", lib.tmx_attn_bwd(
@@ -454,10 +498,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as 3xTF32 ``mma.sync`` at fp32 accuracy; one block of 4 warps per
     (64-query tile, head, image) keeps Q in shared memory, streams K and V
     in 32-key ``cp.async`` tiles and keeps an online softmax per row, so any
-    S fits. ``fast_dots``: bf16 ``mma.sync`` products on the same tiles
-    staged through registers, the row statistics in a first sweep over the
-    keys so that A is rounded to bf16 after its normalisation (6·B·H·S²·dh
-    flops)."""
+    S fits. ``fast_dots``: bf16 ``wgmma`` products on tiles that TMA
+    copies, A rounded to bf16 after its normalisation: up to S = 256 one
+    sweep (q·kᵀ once, the row statistics from the accumulators, A·v with A
+    from registers; a block per 64-query tile), past it two (the
+    statistics, then q·kᵀ again and A·v: 6·B·H·S²·dh flops); see
+    ``csrc/attn_block_bf16.cu``."""
     if _build.on_cpu(q):
         return flash_fwd_plain(q, k, v, fast_dots)
     dtype = storage_dtype(q, fast_dots)
@@ -570,6 +616,7 @@ for _fn in KERNELS:
     _fn.launches = _fn.launches_bf16 = 0
 attn_bwd_launch.copies = attn_bwd_launch.rounded = 0
 attn_bwd_launch.dq_partial_sums = 0
+attn_fwd_launch.copies = attn_fwd_launch.rounded = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -588,3 +635,4 @@ def reset_launch_counts() -> None:
         fn.launches = fn.launches_bf16 = 0
     attn_bwd_launch.copies = attn_bwd_launch.rounded = 0
     attn_bwd_launch.dq_partial_sums = 0
+    attn_fwd_launch.copies = attn_fwd_launch.rounded = 0

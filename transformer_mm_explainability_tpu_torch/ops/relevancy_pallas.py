@@ -94,11 +94,13 @@ def self_attention_relevancy_pallas(cams: torch.Tensor, grads: torch.Tensor,
     first = range(L)[start_layer:].start
     dev = cams.device
     if first == L:      # no layer to fold: R stays I, nothing is launched
-        return torch.eye(S, device=dev).expand(B, S, S).contiguous()
+        return torch.eye(S, device=dev, dtype=torch.float32).expand(
+            B, S, S).contiguous()
     lib = library()
     Sp = padded(S)
-    e = torch.empty((B, L - first, S, Sp), device=dev)
-    r = torch.empty((2, B, Sp, Sp), device=dev)     # set by the kernel
+    e = torch.empty((B, L - first, S, Sp), device=dev, dtype=torch.float32)
+    r = torch.empty((2, B, Sp, Sp), device=dev,
+                    dtype=torch.float32)            # set by the kernel
     strides = (ctypes.c_longlong * 6)(*cams.stride()[:3], *grads.stride()[:3])
     p = _build.ptr
     with _build.on_device(dev):
