@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds ``csrc/attn_block.cu``, ``csrc/attn_block_bf16.cu``,
-   ``csrc/relevancy_chain.cu`` and ``csrc/roi_pool.cu`` with ``nvcc`` for
-   ``sm_90a`` (one compiler process each, started together) and prints the
-   build time and ptxas's register / spill report, one line per kernel (the
-   GEMMs and the bf16 attention kernels must not spill);
+2. builds ``csrc/attn_block.cu`` (with ``csrc/attn_block_s16.cu`` and
+   ``csrc/gemm_s16.cu``, its bf16-storage instances, linked into the one
+   library), ``csrc/attn_block_bf16.cu``, ``csrc/relevancy_chain.cu`` and
+   ``csrc/roi_pool.cu`` with ``nvcc`` for ``sm_90a`` (one compiler process
+   per source, started together) and prints the build time and ptxas's
+   register / spill report, one line per kernel with its integer and
+   storage template arguments (the GEMMs, the bf16-storage GEMM and the
+   attention kernels must not spill);
 3. GEMM phase: each product of the block kernels (g1-g9) and the chain's
    product unpadded (gc, on no path since the chain pads its rows) at the
    shapes of the main path (B=8), through
@@ -84,6 +87,21 @@
    ``flash_fwd`` and ``flash_bwd_ehat`` with ``fast_dots`` at S = 2,000 and
    4,000 (B=1, H=2) on both dtypes, held to their plain versions at the
    same bars, the same bits on a second call, and timed;
+4b. bf16 storage with fp32 products (rows 1-8 on bfloat16 tensors with
+   ``fast_dots=False``, the JAX kernels' upcast on load: the fp32 kernels'
+   bf16 instances), ViT-B/16 widths, B=8: each call counted under
+   ``launches`` only, its kernels by the profiler only the fp32 library's
+   (no widening copy), every output equal to the bit to the fp32 kernels
+   on the widened tensors rounded once (e_row equal) and within
+   ``BF16_MAX_BARS`` of the plain version on the same bf16 tensors, timed
+   (event means, device time) beside the plain version and the fp32
+   kernels on fp32 tensors, with the bound of the products the function
+   needs (``storage_ops_ms``: a product of two bf16 operands at 989
+   TFLOP/s, one with an fp32 operand as two TF32 products at 495) or the
+   bytes of bf16 tensors: the ``*_bf16_storage`` rows;
+   then RoIPool on bf16 features at the protocol shape, equal to the bit to
+   its plain version, bf16 boxes refused, timed with its bytes bound: the
+   ``roi_pool_pallas_bf16`` row;
 5. ViT path phase, full-width ViT-B/16 (12 layers, seeded random weights,
    B=8): ``relevancy_fused_block2`` (slice 1), ``relevancy_fused`` and
    ``relevancy_fused_block``. For each, every launch counter is set to 0
@@ -107,8 +125,20 @@
    (the JAX bench's throughput mode) through the same kernels, its maps'
    distance from the fp32 maps printed and gated only to be finite;
    maps/s at B=32 of ``relevancy_fused_block2`` in fp32, with
-   ``fast_dots`` on float32 tensors and on bfloat16 tensors; profiles of
-   the bf16-tensor call at B=8 and B=32;
+   ``fast_dots`` on float32 tensors and on bfloat16 tensors, and on
+   bfloat16 tensors without ``fast_dots``; profiles of the bf16-tensor
+   call at B=8 and B=32;
+5b. bf16 storage paths: ``relevancy_fused_block2`` and ``relevancy_fused``
+   on the bfloat16 model with bfloat16 images and ``fast_dots=False``
+   (B=8), every counter 0 before and exactly 12 under ``launches`` for the
+   path's kernels (0 under ``launches_bf16``) after, the maps equal to the
+   bit to the same path through the fp32 kernels on the widened tensors,
+   and within median |Δ| ≤ ``BF16_MAX_BARS["fp32"]`` (2⁻⁸) and max|Δ| ≤
+   ``BF16_MAX_BARS["bf16"]`` (2⁻⁶) of max|ref| of the plain path, the same
+   path with each wrapper's plain version on the card (the max bar is a
+   bf16 output's: each block rounds its outputs to bf16, and a value on a
+   rounding edge that the two fp32 orders round apart moves every later
+   block; 2⁻⁸ on the max was missed, 5.15e-3);
 6. cli phase: ``cli explain-vit --device cuda`` on a generated PNG, again
    through the kernels;
 7. FRCNN path phase, full-width ``FRCNN_VG`` (ResNet-101 C4, 6000 → 1000
@@ -365,6 +395,13 @@ KERNELS = {  # name: (CUDA source, the TPU kernel it replaces)
 BF16_ROWS = tuple(KERNELS)[:8]
 KERNELS.update({f"{n}_bf16": ("attn_block_bf16.cu", KERNELS[n][1])
                 for n in BF16_ROWS})
+# rows 1-8 on bf16 storage with fp32 products (fast_dots off, the JAX
+# kernels' upcast on load): the fp32 kernels' bf16 instances, compiled in
+# attn_block_s16.cu; and RoIPool on bf16 features
+KERNELS.update({f"{n}_bf16_storage": ("attn_block_s16.cu", KERNELS[n][1])
+                for n in BF16_ROWS})
+KERNELS["roi_pool_pallas_bf16"] = ("roi_pool.cu",
+                                   KERNELS["roi_pool_pallas"][1])
 LIBRARIES = ("attn_block", "attn_block_bf16", "relevancy_chain", "roi_pool")
 _GEMMS = "tensor cores, 3xTF32 (GEMMs"
 BLOCK_UNITS = {   # where the work of each row built on the GEMM runs
@@ -410,6 +447,25 @@ def card_line() -> str:
     return out[0]
 
 
+def _template_args(mangled: str) -> list:
+    """The template arguments of a mangled kernel name's ``I...E`` list:
+    integers and booleans as numbers, float and bf16 storage as f32 and
+    bf16 (a substituted type here is always __nv_bfloat16)."""
+    out, i = [], 1
+    if not mangled.startswith("I"):
+        return out
+    while i < len(mangled) and mangled[i] != "E":
+        m = (re.match(r"L[ib](\d+)E", mangled[i:])
+             or re.match(r"(f)", mangled[i:])
+             or re.match(r"(13__nv_bfloat16|S\d*_)", mangled[i:]))
+        if not m:
+            break
+        out.append({"f": "f32"}.get(m.group(1), m.group(1)
+                                    if m.group(0).startswith("L") else "bf16"))
+        i += m.end()
+    return out
+
+
 def ptxas_report(log: str) -> list:
     """(kernel, registers, spill store bytes, spill load bytes) per entry
     of a ``-Xptxas -v`` log; kernel names shortened to name<args>."""
@@ -424,9 +480,10 @@ def ptxas_report(log: str) -> list:
                 rest = name[m.end(1) + int(m.group(1)):]
                 n = re.match(r"\d+", rest)
                 if n:
-                    ident = rest[n.end():n.end() + int(n.group())]
-                    args = re.findall(r"L[ib](\d+)E", rest[n.end():])
-                    name = ident + (f"<{','.join(args)}>" if args else "")
+                    end = n.end() + int(n.group())
+                    args = _template_args(rest[end:])
+                    name = rest[n.end():end] + (
+                        f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -943,13 +1000,52 @@ BWD16_ROWS = ("attn_block_bwd", "flash_bwd_ehat", "flash_bwd_ehat_qkv")
 FWD16_ROWS = ("attn_block_fwd", "flash_fwd", "flash_fwd_qkv")
 
 
+# the arguments of rows 1-8 from ``row_inputs``'s tensors
+ROW_ARGS = {
+    "attn_block_fwd": lambda a: (a["x"], a["wqkv"], a["bqkv"], a["wout"],
+                                 a["bout"], a["g1"], a["b1"], H, EPS),
+    "mlp_block_fwd": lambda a: (a["x"], a["w1"], a["bi1"], a["w2"],
+                                a["bi2"], a["g2"], a["b2"], EPS),
+    "mlp_block_bwd": lambda a: (a["x"], a["cot"], a["w1"], a["bi1"],
+                                a["w2"], a["g2"], a["b2"], EPS),
+    "attn_block_bwd": lambda a: (a["x"], a["cot"], a["r"], a["wqkv"],
+                                 a["bqkv"], a["wout"], a["g1"], a["b1"],
+                                 H, EPS),
+    "flash_fwd": lambda a: (a["q"], a["k"], a["v"]),
+    "flash_bwd_ehat": lambda a: (a["q"], a["k"], a["v"], a["dout"],
+                                 a["r"]),
+    "flash_fwd_qkv": lambda a: (a["qkv"], H),
+    "flash_bwd_ehat_qkv": lambda a: (a["qkv"], a["dm"], a["r"], H),
+}
+
+
+def row_inputs(fa, gen) -> dict:
+    """float32 inputs of rows 1-8 at ViT-B/16 widths, B=8, on the card
+    (weights at 1/√D, r in [0, 1)), q, k, v and dout contiguous per-head
+    copies of the merged qkv and cotangent."""
+    dev = torch.device("cuda")
+    rnd = lambda *s, scale=0.3: (torch.randn(s, generator=gen) * scale).to(dev)
+    wt = lambda *s: (torch.randn(s, generator=gen) / math.sqrt(D)).to(dev)
+    t = dict(x=rnd(B, S, D), cot=rnd(B, S, D), wqkv=wt(D, 3 * D),
+             bqkv=rnd(3 * D, scale=0.03), wout=wt(D, D),
+             bout=rnd(D, scale=0.03), g1=1.0 + rnd(D, scale=0.03),
+             b1=rnd(D, scale=0.03), w1=wt(D, I), bi1=rnd(I, scale=0.03),
+             w2=wt(I, D), bi2=rnd(D, scale=0.03),
+             g2=1.0 + rnd(D, scale=0.03), b2=rnd(D, scale=0.03),
+             qkv=rnd(B, S, 3 * D, scale=0.5), dm=rnd(B, S, D, scale=0.5),
+             r=torch.rand((B, S), generator=gen).to(dev))
+    q, k, v = (h.contiguous() for h in fa.qkv_heads(t["qkv"], H))
+    t.update(q=q, k=k, v=v, dout=fa.heads(t["dm"], H).contiguous())
+    return t
+
+
 def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
     """The eight wrappers of rows 1-8 with ``fast_dots=True`` at ViT-B/16
     widths (B=8), on float32 tensors and on bfloat16 ones (r float32),
     each output held to its plain version on the same inputs (median |Δ|
     at a tenth of the output's distance between ``fast_dots`` and fp32 on
-    the same values, max|Δ| at ``BF16_MAX_BARS``), bfloat16 tensors
-    without ``fast_dots`` refused; then each bf16-tensor row timed (median
+    the same values, max|Δ| at ``BF16_MAX_BARS``); then each bf16-tensor
+    row timed (median
     of 5 event means) beside its plain version, its bound (bytes of bf16
     tensors, operations at the dense bf16 rate) and, for the two forward
     attentions, SDPA on the same bf16 tensors; one row each of the kernels
@@ -964,33 +1060,8 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
 
     dev = torch.device("cuda")
     rnd = lambda *s, scale=0.3: (torch.randn(s, generator=gen) * scale).to(dev)
-    wt = lambda *s: (torch.randn(s, generator=gen) / math.sqrt(D)).to(dev)
-    t = dict(x=rnd(B, S, D), cot=rnd(B, S, D), wqkv=wt(D, 3 * D),
-             bqkv=rnd(3 * D, scale=0.03), wout=wt(D, D),
-             bout=rnd(D, scale=0.03), g1=1.0 + rnd(D, scale=0.03),
-             b1=rnd(D, scale=0.03), w1=wt(D, I), bi1=rnd(I, scale=0.03),
-             w2=wt(I, D), bi2=rnd(D, scale=0.03),
-             g2=1.0 + rnd(D, scale=0.03), b2=rnd(D, scale=0.03),
-             qkv=rnd(B, S, 3 * D, scale=0.5), dm=rnd(B, S, D, scale=0.5),
-             r=torch.rand((B, S), generator=gen).to(dev))
-    q, k, v = (h.contiguous() for h in fa.qkv_heads(t["qkv"], H))
-    t.update(q=q, k=k, v=v, dout=fa.heads(t["dm"], H).contiguous())
-    args = {
-        "attn_block_fwd": lambda a: (a["x"], a["wqkv"], a["bqkv"], a["wout"],
-                                     a["bout"], a["g1"], a["b1"], H, EPS),
-        "mlp_block_fwd": lambda a: (a["x"], a["w1"], a["bi1"], a["w2"],
-                                    a["bi2"], a["g2"], a["b2"], EPS),
-        "mlp_block_bwd": lambda a: (a["x"], a["cot"], a["w1"], a["bi1"],
-                                    a["w2"], a["g2"], a["b2"], EPS),
-        "attn_block_bwd": lambda a: (a["x"], a["cot"], a["r"], a["wqkv"],
-                                     a["bqkv"], a["wout"], a["g1"], a["b1"],
-                                     H, EPS),
-        "flash_fwd": lambda a: (a["q"], a["k"], a["v"]),
-        "flash_bwd_ehat": lambda a: (a["q"], a["k"], a["v"], a["dout"],
-                                     a["r"]),
-        "flash_fwd_qkv": lambda a: (a["qkv"], H),
-        "flash_bwd_ehat_qkv": lambda a: (a["qkv"], a["dm"], a["r"], H),
-    }
+    t = row_inputs(fa, gen)
+    args = ROW_ARGS
     mod = lambda n: ab if n in BLOCKS else fa
     call = lambda n, a, fast: getattr(mod(n), n)(*args[n](a), fast_dots=fast)
     plain = lambda n, a, fast: getattr(mod(n), f"{n}_plain")(
@@ -1008,13 +1079,6 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
                                  False))
             torch.cuda.synchronize()
             hold_fast(name, f"on {store} tensors", store, got, want, ref)
-        try:
-            call(name, stores["bf16"], False)
-        except RuntimeError as err:
-            assert "fast_dots=True" in str(err), err
-        else:
-            raise AssertionError(f"{name}: bf16 tensors without fast_dots "
-                                 "ran on CUDA")
         library = None
         if name == "flash_fwd":
             library = lambda: sdpa(*(stores["bf16"][k] for k in "qkv"))
@@ -1042,8 +1106,6 @@ def bf16_kernel_phase(ab, fa, gen, card: str) -> dict:
                   f"{row['device_ms_fp32_tensors']:.4f} ms on fp32 tensors; "
                   f"event means {row['ms']:.4f}, {row['ms_fp32_tensors']:.4f} "
                   f"ms; bound {row['bound_ms']:.4f} ms; on {card}", flush=True)
-    print("bf16 mode: bfloat16 tensors without fast_dots=True refused by all "
-          "eight wrappers on CUDA", flush=True)
     # context only: PyTorch's own bf16 attention backward computes dq, dk,
     # dv without the e_row fold, so it is never a row's library time
     qg, kg, vg = (stores["bf16"][k].detach().clone().requires_grad_()
@@ -1209,8 +1271,9 @@ def bf16_path_phase(mods, vit, model, images, targets, card: str) -> dict:
     path's fp32 maps within ``FAST_MAP_BAR``. Then a bfloat16 copy of the
     model with bfloat16 images (the JAX bench's throughput mode), its maps'
     distance from the fp32 maps printed and gated only to be finite; maps/s
-    at B=32 in the three modes. Returns each bf16 row's launches from the
-    path it belongs to."""
+    at B=32 in the three modes and on bf16 storage with fp32 products (the
+    bf16 model without ``fast_dots``). Returns each bf16 row's launches
+    from the path it belongs to."""
     import copy
 
     depth = vit.VIT_B_16.depth
@@ -1254,7 +1317,8 @@ def bf16_path_phase(mods, vit, model, images, targets, card: str) -> dict:
     fn = vit.relevancy_fused_block2
     modes = {"fp32": (model, big, False), "fast_dots on fp32 tensors":
              (model, big, True), "bf16 tensors": (model16, big.bfloat16(),
-                                                  True)}
+                                                  True),
+             "bf16 tensors, fp32 products": (model16, big.bfloat16(), False)}
     rates = {}
     for label, (m, im, fast) in modes.items():
         fn(m, im, big_t, fast_dots=fast)
@@ -1271,6 +1335,284 @@ def bf16_path_phase(mods, vit, model, images, targets, card: str) -> dict:
             lambda: fn(model16, big16, big_t, fast_dots=True),
             32 / rates["bf16 tensors"] * 1e3)
     del model16, big16
+    return launches
+
+
+def storage_ops_ms(name: str) -> float:
+    """The least time of the products of row ``name`` (1-8) on bf16 storage
+    with fp32 products: a product of two bf16-storage operands is exact as
+    one bf16 product (989 TFLOP/s); one with an fp32 operand (an LN
+    output, A, ds, a1, the merged heads, a product's result) is 3xTF32 less
+    the product of the bf16 operand's low part, which is 0: two TF32
+    products (495 TFLOP/s each); one of two fp32 operands (the qkv
+    intermediate of #1 and #4) three. The FLOPs add up to ``work``'s."""
+    M, attn = B * S, 2 * B * H * S * S * DH   # one S×S×dh product
+    qkv, out, mlp = 2 * M * D * 3 * D, 2 * M * D * D, 2 * M * D * I
+    # FLOPs of (two bf16 operands, one fp32 operand, two fp32 operands)
+    two16, one32, two32 = {
+        "attn_block_fwd": (0, qkv + out, 2 * attn),
+        "mlp_block_fwd": (0, 2 * mlp, 0),
+        "mlp_block_bwd": (mlp, 2 * mlp, 0),          # cot·W2ᵀ
+        "attn_block_bwd": (out, 2 * qkv, 5 * attn),  # cot·W_outᵀ
+        "flash_fwd": (attn, attn, 0),                # q·kᵀ; A·v
+        # q·kᵀ, dout·vᵀ; ds·k, dsᵀ·q, Aᵀ·dout
+        "flash_bwd_ehat": (2 * attn, 3 * attn, 0),
+    }[name.removesuffix("_qkv")]
+    assert two16 + one32 + two32 == work(name)[0], name
+    return (two16 / BF16_FLOPS + (2 * one32 + 3 * two32) / TF32_FLOPS) * 1e3
+
+
+# bf16 storage with fp32 products (fast_dots off on bf16 tensors): the fp32
+# kernels of attn_block.cu read and write bf16 themselves; these are the
+# kernels a bf16-storage call may launch, every other name is a copy
+STORAGE_KERNELS = (r"ln_fwd_kernel|ln_vjp_kernel|gemm_tc_s16_kernel|"
+                   r"gemm_tc_kernel|"
+                   r"attn_fwd_kernel|attn_bwd_q_kernel|attn_bwd_kv_kernel|"
+                   r"e_row_kernel")
+
+
+def _plain(mod, name, wrapper):
+    """The wrapper's plain version (``<name>_plain``), on the card."""
+    return getattr(mod, f"{name}_plain")
+
+
+def _widened(mod, name, wrapper):
+    """The wrapper on its bf16 tensors widened to float32 (the fp32 kernels
+    on fp32 tensors), its first output rounded to bf16 once (e_row stays
+    float32). It holds the counters the wrapper's body counts under its
+    own name while it stands in for it."""
+    def call(*args, **kw):
+        out = wrapper(*(a.float() if torch.is_tensor(a)
+                        and a.dtype == torch.bfloat16 else a for a in args),
+                      **kw)
+        if isinstance(out, tuple):
+            return (out[0].to(torch.bfloat16), *out[1:])
+        return out.to(torch.bfloat16)
+    call.launches = call.launches_bf16 = 0
+    return call
+
+
+def _patched(pairs, make=_plain):
+    """Context: each (module, name) wrapper replaced by ``make(module,
+    name, wrapper)`` (by default its plain version, on the card: the plain
+    path of a model path)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(m, n, getattr(m, n)) for m, n in pairs]
+        try:
+            for m, n, f in saved:
+                setattr(m, n, make(m, n, f))
+            yield
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+    return ctx()
+
+
+def bf16_storage_kernel_phase(ab, fa, gen, card: str) -> dict:
+    """Rows 1-8 on bf16 storage with fp32 products (``fast_dots=False`` on
+    bfloat16 tensors, r float32) at ViT-B/16 widths, B=8: each call counted
+    under ``launches`` (not ``launches_bf16``), its kernels only
+    ``STORAGE_KERNELS`` (no widening copy: torch.profiler names every
+    kernel of the call), every output equal to the bit to the fp32 kernels'
+    output on the widened tensors rounded once (e_row float32, equal), and
+    within ``BF16_MAX_BARS`` of the plain version on the same bf16 tensors;
+    each row timed (median of 3 event means; device time by the profiler)
+    beside its plain version and its bound: the products the function
+    needs (``storage_ops_ms``) or the bytes of bf16 tensors, the larger. No
+    single library call computes a row: ``library_ms`` null."""
+    t = row_inputs(fa, gen)
+    a16 = {k: v if k == "r" else v.to(torch.bfloat16) for k, v in t.items()}
+    wide = {k: v.float() for k, v in a16.items()}   # the widened tensors
+    args = ROW_ARGS
+    mod = lambda n: ab if n in BLOCKS else fa
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    rows = {}
+    for name in BF16_ROWS:
+        fn, plain_fn = getattr(mod(name), name), getattr(mod(name),
+                                                         f"{name}_plain")
+        call = lambda: fn(*args[name](a16))
+        plain = lambda: plain_fn(*args[name](a16))
+        fn.launches = fn.launches_bf16 = 0
+        got = as_tuple(call())
+        assert (fn.launches, fn.launches_bf16) == (1, 0), name
+        ref = as_tuple(fn(*args[name](wide)))
+        want = as_tuple(plain())
+        torch.cuda.synchronize()
+        texts = []
+        for i, (g, r, w) in enumerate(zip(got, ref, want)):
+            is_e_row = name in BWD16_ROWS and i == len(got) - 1
+            assert g.dtype == (torch.float32 if is_e_row
+                               else torch.bfloat16), (name, i, g.dtype)
+            assert torch.equal(g, r.to(g.dtype)), (
+                f"{name} [{i}]: bf16 storage differs from the fp32 kernels "
+                f"on the widened tensors by "
+                f"{float((g.float() - r.to(g.dtype).float()).abs().max())}")
+            med, top = _dist(g, w)
+            bar = BF16_MAX_BARS["fp32" if is_e_row else "bf16"]
+            assert torch.isfinite(g).all() and top <= bar, (name, i, top)
+            texts.append(f"[{i}] {str(g.dtype)[6:]} max|Δ| {top:.2e} "
+                         f"median {med:.2e} (bar {bar:.3g})")
+        times = device_ms(call)
+        others = [k for k in times if not re.search(STORAGE_KERNELS, k)]
+        assert not others, f"{name}: bf16 storage launched {others}"
+        flops, nbytes = work(name, elem=2)
+        t_ops, t_bytes = storage_ops_ms(name), nbytes / HBM_BYTES_S * 1e3
+        bound = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        ms, lo, hi = timed(call, 3)
+        plain_ms = timed(plain, 1)[0]
+        fp32_ms = timed(lambda: fn(*args[name](wide)), 3)[0]
+        src, replaces = KERNELS[f"{name}_bf16_storage"]
+        print(f"bf16 storage {name} (fp32 products, fast_dots off): equal to "
+              f"the bit to the fp32 kernels on the widened tensors, rounded "
+              f"once; vs plain on the same bf16 tensors (over max|plain|): "
+              + "; ".join(texts) + f"; kernels {sorted(times)}; device "
+              f"{ms_of(times):.4f} ms in {launches_of(times):g} launches, "
+              f"event mean {ms:.4f} ms ({lo:.4f}-{hi:.4f}), the fp32 kernels "
+              f"on fp32 tensors {fp32_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+              f"bound {bound:.4f} ms ({bound_by}: products {t_ops:.4f} ms "
+              f"of {flops / 1e9:.3f} GFLOP, bytes {t_bytes:.4f} ms of "
+              f"{nbytes / 1e6:.1f} MB of bf16 tensors); on {card}",
+              flush=True)
+        rows[f"{name}_bf16_storage"] = {
+            "name": f"{name}_bf16_storage", "route": "cuda",
+            "source": f"{CSRC}/{src}", "replaces": f"{JAX_OPS}/{replaces}",
+            "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                               for g, w in zip(got, want)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None,
+            "device_ms": ms_of(times), "ms_fp32_tensors": fp32_ms,
+            "unit": "tensor cores, 3xTF32 on bf16 storage (the fp32 "
+                    "kernels); LayerNorm, softmax, GELU and the fold fp32"}
+        del got, ref, want
+    return rows
+
+
+def roi_bf16_kernel_phase(rpool, gen, card: str) -> dict:
+    """RoIPool on bf16 features at the protocol shape (the boxes of
+    ``roi_kernel_phase``'s law, float32): the output bfloat16 and equal to
+    the bit to the plain version; timed beside it, with its bytes bound
+    (bf16 map and output, fp32 boxes); bf16 boxes refused."""
+    dev = torch.device("cuda")
+    feats = torch.randn((ROI_H, ROI_W, ROI_C), generator=gen).to(
+        dev, torch.bfloat16)
+    img_h, img_w = ROI_H * 16.0, ROI_W * 16.0
+    u = torch.rand((ROI_K, 4), generator=gen)
+    x0, y0 = u[:, 0] * img_w * 0.9, u[:, 1] * img_h * 0.9
+    boxes = torch.stack([x0, y0, x0 + u[:, 2] * img_w * 0.6,
+                         y0 + u[:, 3] * img_h * 0.6], 1)
+    boxes[:3] = torch.tensor([[0.0, 0.0, 2.0, 2.0],
+                              [img_w - 3, img_h - 3, img_w + 50, img_h + 50],
+                              [5.0, 5.0, 5.0, 5.0]])
+    boxes = boxes.to(dev)
+    call = lambda: rpool.roi_pool_pallas(feats, boxes, ROI_P, 1 / 16)
+    plain = lambda: rpool.roi_pool_plain(feats, boxes, ROI_P, 1 / 16)
+    rpool.reset_launch_counts()
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    assert rpool.roi_pool_pallas.launches == 1
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want), \
+        "roi_pool bf16 differs from plain"
+    try:
+        rpool.roi_pool_pallas(feats, boxes.bfloat16(), ROI_P, 1 / 16)
+    except RuntimeError as err:
+        assert "float32 boxes" in str(err), err
+    else:
+        raise AssertionError("roi_pool took bf16 boxes")
+    hs, he, ws, we = rpool.roi_bin_bounds(boxes, ROI_P, 1 / 16, ROI_H, ROI_W)
+    bin_pixels = int(((he - hs)[:, :, None] * (we - ws)[:, None, :]).sum())
+    flops = bin_pixels * ROI_C
+    nbytes = (2 * (ROI_H * ROI_W * ROI_C + ROI_K * ROI_P * ROI_P * ROI_C)
+              + 4 * 4 * ROI_K)
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    times = device_ms(call)
+    ms, lo, hi = timed(call, 3)
+    plain_ms = timed(plain, 1)[0]
+    src, replaces = KERNELS["roi_pool_pallas_bf16"]
+    print(f"kernel roi_pool_pallas_bf16 (bf16 features, fp32 boxes): equal "
+          f"to plain to the bit, bf16 boxes refused; kernel device "
+          f"{ms_of(times, 'roi_pool_kernel'):.4f} ms, event mean {ms:.4f} ms "
+          f"({lo:.4f}-{hi:.4f}), plain {plain_ms:.4f} ms, bound "
+          f"{max(t_ops, t_bytes):.4f} ms (bytes: {nbytes / 1e6:.1f} MB); on "
+          f"{card}", flush=True)
+    return {"roi_pool_pallas_bf16": {
+        "name": "roi_pool_pallas_bf16", "route": "cuda",
+        "source": f"{CSRC}/{src}", "replaces": f"{JAX_OPS}/{replaces}",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "device_ms": ms_of(times, "roi_pool_kernel"),
+        "unit": "CUDA cores, bf16 features widened to fp32"}}
+
+
+def bf16_storage_path_phase(mods, vit, model, images, targets,
+                            card: str) -> dict:
+    """``relevancy_fused_block2`` and ``relevancy_fused`` on a bfloat16 copy
+    of the model with bfloat16 images and ``fast_dots=False`` (bf16 storage,
+    fp32 products), B=8: every counter 0 before, the path's kernels exactly
+    12 under ``launches`` and 0 under ``launches_bf16`` after; the float32
+    maps equal to the bit to the same path with each wrapper run as the
+    fp32 kernels on its widened tensors, its output rounded to bf16 once
+    (``_widened``), and within ``BF16_MAX_BARS`` of the plain path (the
+    same path with each wrapper's plain version, on the card and the same
+    bf16 tensors), beside the distance of either from the fp32 model's
+    maps through the same kernels. Returns the bf16-storage rows'
+    launches."""
+    import copy
+
+    from transformer_mm_explainability_tpu_torch.ops import attn_block as ab
+    from transformer_mm_explainability_tpu_torch.ops import (
+        flash_attention as fa)
+
+    depth = vit.VIT_B_16.depth
+    model16 = copy.deepcopy(model).to(torch.bfloat16)
+    images16 = images.to(torch.bfloat16)
+    paths = {"relevancy_fused_block2": (ab, BLOCKS),
+             "relevancy_fused": (fa, ("flash_fwd_qkv", "flash_bwd_ehat_qkv"))}
+    launches = {}
+    for path, (mod, kernels) in paths.items():
+        fn = getattr(vit, path)
+        reset_counts(mods)
+        maps = fn(model16, images16, targets)
+        torch.cuda.synchronize()
+        got = counts(mods)
+        want = {k: depth if k in kernels else 0 for k in got}
+        assert got == want, (path, got)
+        assert maps.dtype == torch.float32 and maps.shape == (B, S - 1)
+        assert torch.isfinite(maps).all(), path
+        pairs = [(mod, k) for k in kernels]
+        with _patched(pairs, _widened):
+            assert torch.equal(fn(model16, images16, targets), maps), path
+        with _patched(pairs):
+            ref = fn(model16, images16, targets)
+        fp32 = fn(model, images, targets)
+        med, top = _dist(maps, ref)
+        # (median, max) of |Δ| over max|ref|: both paths round every
+        # block's outputs to bf16 once, from fp32 values computed in other
+        # orders; a value on a rounding edge rounds the other way (2⁻⁸ of
+        # it) and moves every later block, so the two paths sit about as
+        # far apart as either sits from the fp32 model's maps (both
+        # printed): the bars of an fp32 and of a bf16 output
+        bar_med, bar_top = BF16_MAX_BARS["fp32"], BF16_MAX_BARS["bf16"]
+        print(f"bf16 storage path {path} (bf16 model and images, fast_dots "
+              f"off): launches { {k: v for k, v in got.items() if v} } "
+              f"(every _bf16 counter 0); maps equal to the bit to the fp32 "
+              f"kernels on the widened tensors, rounded once a block; vs the "
+              f"plain path on the same tensors median {med:.2e} max "
+              f"{top:.2e} of max|ref| (bars {bar_med:.3g}, {bar_top:.3g}); "
+              f"vs the fp32 model's maps: this path median %.2e max %.2e, "
+              f"the plain path median %.2e max %.2e; on {card}"
+              % (*_dist(maps, fp32), *_dist(ref, fp32)), flush=True)
+        assert med <= bar_med and top <= bar_top, (path, med, top)
+        for k in kernels:
+            launches[f"{k}_bf16_storage"] = got[k]
+    launches["flash_fwd_bf16_storage"] = 0
+    launches["flash_bwd_ehat_bf16_storage"] = 0
+    launches["roi_pool_pallas_bf16"] = 0   # the detectors' maps are fp32
+    del model16
     return launches
 
 
@@ -1546,7 +1888,7 @@ def check_maps(path: str, maps, refs: dict) -> None:
 # kernel-name patterns (mangled or demangled): the port's kernels first,
 # then cuDNN's convolutions and cuBLAS / cuDNN products
 KERNEL_GROUPS = (("roi_pool", "roi_pool_kernel"),
-                 ("GEMM 64x64 (tensor cores)", "gemm_tc_kernel"),
+                 ("GEMM 64x64 (tensor cores)", "gemm_tc_"),
                  ("GEMM bf16 products (wgmma)", "gemm_bf16_wgmma_kernel"),
                  ("fp32 operands rounded to bf16", "round_bf16_kernel"),
                  ("attn bf16 fwd (wgmma)", "attn_fwd_tile_wgmma_kernel"),
@@ -5153,15 +5495,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all(LIBRARIES)
-    print(f"build: {', '.join(f'csrc/{n}.cu' for n in LIBRARIES)} with nvcc "
-          f"(sm_90a, in parallel) in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    sources = [f"csrc/{s}.cu" for n in LIBRARIES for s in _build.sources(n)]
+    print(f"build: {', '.join(sources)} with nvcc (sm_90a, in parallel) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib, path in built.items():
         for kernel, regs, st, ld in ptxas_report(
                 path.with_suffix(".log").read_text()):
             print(f"  ptxas {lib}: {kernel}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads")
             assert not kernel.startswith(("gemm_tc_kernel",
+                                          "gemm_tc_s16_kernel",
                                           "gemm_bf16_wgmma_kernel",
                                           "attn_bwd_", "attn_fwd_")) \
                 or st + ld == 0, f"{kernel} spills"
@@ -5192,6 +5535,11 @@ def main() -> int:
                 torch.Generator().manual_seed(6))
     rows.update(timed_phase("kernels (bf16 mode)", bf16_kernel_phase, ab, fa,
                             torch.Generator().manual_seed(5), card))
+    rows.update(timed_phase("kernels (bf16 storage)",
+                            bf16_storage_kernel_phase, ab, fa,
+                            torch.Generator().manual_seed(7), card))
+    rows.update(timed_phase("kernels (roi_pool bf16)", roi_bf16_kernel_phase,
+                            rpool, torch.Generator().manual_seed(8), card))
 
     dev = torch.device("cuda")
     model = vit.init_params(0, vit.VIT_B_16, dev)
@@ -5208,6 +5556,8 @@ def main() -> int:
                            images, targets, cams, grads, card)
     launches.update(timed_phase("bf16 paths", bf16_path_phase, mods, vit,
                                 model, images, targets, card))
+    launches.update(timed_phase("bf16 storage paths", bf16_storage_path_phase,
+                                mods, vit, model, images, targets, card))
     del attn, grads, cams, model
     timed_phase("cli explain-vit", cli_phase, ab, cli)
     torch.cuda.empty_cache()

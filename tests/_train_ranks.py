@@ -1,6 +1,7 @@
-"""Functions that the ranks of ``tests/test_torch_train_parallel.py`` run
-(``parallel/launch.RankPool`` pickles them by name, so they live in a
-module that imports torch and the port only)."""
+"""Functions that the ranks of ``tests/test_torch_train_parallel.py`` and
+``tests/test_torch_parallel.py`` run (``parallel/launch.RankPool`` pickles
+them by name, so they live in a module that imports torch and the port
+only)."""
 
 import torch
 import torch.distributed as dist
@@ -49,3 +50,10 @@ def synced_meter():
 def shard_round_trip(model, mesh):
     """``unshard_params(shard_params(model))`` on this rank."""
     return pmesh.unshard_params(pmesh.shard_params(model, mesh), mesh)
+
+
+def mesh_ranks(devices, dp=None, tp=None):
+    """``parallel/mesh.make_mesh(devices, dp, tp)`` on this rank: (its
+    ranks as a nested list, its axis names)."""
+    mesh = pmesh.make_mesh(devices, dp, tp)
+    return mesh.mesh.tolist(), tuple(mesh.mesh_dim_names)

@@ -332,14 +332,17 @@ def test_other_entry_points_pass_fast_dots(fn, dtype, model, batch,
 
 
 def test_bf16_tensors_without_fast_dots_raise_before_cuda_launch():
-    """On CUDA, bfloat16 storage takes ``fast_dots=True``: the check runs
-    before anything is built (here on a meta tensor's dtype alone)."""
+    """On CUDA, bfloat16 storage runs with either value of ``fast_dots``
+    (without it, the fp32 kernels read and write bf16: fp32 products, as
+    the JAX kernels upcast on load); float16 and float64 still raise, and
+    the check runs before anything is built (here on a dtype alone)."""
     t = torch.zeros(2, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match="fast_dots=True"):
-        tfa.storage_dtype(t, False)
+    assert tfa.storage_dtype(t, False) == torch.bfloat16
     assert tfa.storage_dtype(t, True) == torch.bfloat16
-    with pytest.raises(RuntimeError, match="float16"):
-        tfa.storage_dtype(t.half(), True)
+    for dt in (torch.float16, torch.float64):
+        for fast in (False, True):
+            with pytest.raises(RuntimeError, match=str(dt)[6:]):
+                tfa.storage_dtype(t.to(dt), fast)
 
 
 def test_cpu_fast_dots_launches_nothing():
@@ -382,8 +385,8 @@ def test_cuda_branch_marshals_the_bf16_mode(dtype, monkeypatch):
     dtype; the GEMM's operands a and b always reach it in bf16, each
     float32 one (the weights and cotangents of a float32 model) rounded
     first by ``tmx_round_bf16``; outputs come back in the tensors' dtype,
-    e_row float32; fp32 tensors without fast_dots call the fp32 library
-    only."""
+    e_row float32; tensors without fast_dots call the fp32 library only
+    (bf16 ones with its bf16 flags: bf16 storage, fp32 products)."""
     fake = _FakeLibrary()
     monkeypatch.setattr(_build, "on_cpu", lambda x: False)
     monkeypatch.setattr(_build, "load", lambda name, signatures: fake)
@@ -432,16 +435,18 @@ def test_cuda_branch_marshals_the_bf16_mode(dtype, monkeypatch):
     assert e_part - dq_part == 4 * plan.dq_part
     assert (tfa.attn_bwd_launch.copies, tfa.attn_bwd_launch.rounded,
             tfa.attn_bwd_launch.dq_partial_sums) == (0, 0, 1)
-    if dtype == "bfloat16":
-        with pytest.raises(RuntimeError, match="fast_dots=True"):
-            CALLS["attn_block_fwd"][1](tab, a)
-        return
     fake.calls.clear()
-    CALLS["attn_block_fwd"][1](tab, a)
+    out = CALLS["attn_block_fwd"][1](tab, a)
+    assert out.dtype == tdt
     assert {name for name, _ in fake.calls} >= {"tmx_gemm", "tmx_attn_fwd",
                                                 "tmx_layer_norm"}
     assert not any(name.endswith(("_bf16", "_any"))
                    for name, _ in fake.calls)
+    ln = next(args for name, args in fake.calls if name == "tmx_layer_norm")
+    assert ln[9] == bf   # the LayerNorm rows read bf16 x, γ, β in place
+    # qkv (W_qkv, b_qkv) and the out-projection (W_out, b_out, res x, out)
+    assert [args[11] for name, args in fake.calls if name == "tmx_gemm"] \
+        == [bf * (2 | 8), bf * (2 | 4 | 8 | 16)]
 
 
 def _fake_cuda(monkeypatch) -> _FakeLibrary:
@@ -452,6 +457,8 @@ def _fake_cuda(monkeypatch) -> _FakeLibrary:
     monkeypatch.setattr(_build, "load", lambda name, signatures: fake)
     monkeypatch.setattr(_build, "stream", lambda dev: 0)
     monkeypatch.setattr(_build, "on_device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(tfa, "_libs", {})
     monkeypatch.setattr(tfa, "_accepted", set())

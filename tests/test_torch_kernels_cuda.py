@@ -441,8 +441,8 @@ def test_attn_bwd_refuses_16_byte_copies_of_unaligned_rows(cuda):
     pointers, strides = tfa.view_args(q, q, q, dout, *out)
     err = lib.tmx_attn_bwd(*pointers[:4], r.data_ptr(), *pointers[4:],
                            *(x.data_ptr() for x in e),
-                           tfa._stride_array(strides), B, S, H, dh, 0.125, 16,
-                           _build.stream(cuda))
+                           tfa._stride_array(strides), B, S, H, dh, 0.125, 0,
+                           16, _build.stream(cuda))
     with pytest.raises(RuntimeError, match="tmx_attn_bwd"):
         _build.check(lib, "tmx_attn_bwd", err)
 
@@ -707,7 +707,7 @@ def test_gemm_refuses_16_byte_copies_of_unaligned_rows(cuda):
     a, b = buf[1:].view(33, 8), torch.randn(8, 16, device=cuda)
     out = torch.empty(33, 16, device=cuda)
     err = lib.tmx_gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), 33, 16, 8,
-                       0, None, None, None, tab._ACT_NONE, 1, 0, 0, 0, 16,
+                       0, None, None, None, tab._ACT_NONE, 0, 1, 0, 0, 0, 16,
                        _build.stream(cuda))
     with pytest.raises(RuntimeError, match="tmx_gemm"):
         _build.check(lib, "tmx_gemm", err)
@@ -1372,21 +1372,32 @@ def test_kernels_under_a_float64_default_return_float32(cuda):
 
 @pytest.mark.cuda
 def test_bf16_tensors_need_fast_dots_on_cuda(cuda):
+    """bf16 tensors without fast_dots run the fp32 kernels on bf16 storage
+    (counted in ``launches``, none in ``launches_bf16``), equal to the bit
+    to the fp32 kernels on the widened tensors rounded once; float16 and
+    mixed dtypes still raise before any launch."""
     a = _stored(to_torch(attn_inputs(1, 5, 16), cuda), torch.bfloat16)
     f = _stored(to_torch(flash_inputs(1, 2, 5, 8), cuda), torch.bfloat16)
     tab.reset_launch_counts()
     tfa.reset_launch_counts()
-    for call in (lambda: attn_fwd(tab, a, 2),
-                 lambda: tfa.flash_fwd(f["q"], f["k"], f["v"]),
-                 lambda: tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"],
-                                                f["r"], 2)):
-        with pytest.raises(RuntimeError, match="fast_dots=True"):
-            call()
+    for call in (lambda a, f: attn_fwd(tab, a, 2),
+                 lambda a, f: tfa.flash_fwd(f["q"], f["k"], f["v"]),
+                 lambda a, f: tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"],
+                                                     f["r"], 2)):
+        got = call(a, f)
+        want = call(_f32(a), _f32(f))
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w.to(g.dtype))
+        assert got[0].dtype == torch.bfloat16
+    with pytest.raises(RuntimeError, match="float16"):
+        tfa.flash_fwd(f["q"].half(), f["k"].half(), f["v"].half())
     with pytest.raises(RuntimeError, match="float32"):   # mixed dtypes
         tfa.flash_fwd(f["q"].float(), f["k"], f["v"], fast_dots=True)
-    counts = {**tab.launch_counts(), **tab.bf16_launch_counts(),
-              **tfa.launch_counts(), **tfa.bf16_launch_counts()}
-    assert set(counts.values()) == {0}
+    assert set({**tab.bf16_launch_counts(),
+                **tfa.bf16_launch_counts()}.values()) == {0}
+    assert tab.attn_block_fwd.launches == 2
+    assert tfa.flash_fwd.launches == tfa.flash_bwd_ehat_qkv.launches == 2
 
 
 def gemm_bf16_cuda(a, b, **kw):
@@ -1555,3 +1566,137 @@ def test_bench_bf16_maps_per_sec_on_cuda(cuda, monkeypatch):
     rec = bench.measure("cuda")
     lo, hi = rec["spread"]["bf16"]
     assert rec["value"] > 0 and 0 < lo <= rec["bf16_maps_per_sec"] <= hi
+
+
+# ---------------------------------------------------------------------------
+# bf16 storage with fp32 products (fast_dots off on bf16 tensors): the fp32
+# kernels read and write bf16 themselves, so each call equals, to the bit,
+# the fp32 kernels on the widened tensors with its bf16 outputs rounded once
+# (e_row float32, equal).
+# ---------------------------------------------------------------------------
+
+def _equal_rounded(got, want):
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype in (torch.bfloat16, torch.float32)
+        assert torch.equal(g, w.to(g.dtype)), float(
+            (g.float() - w.to(g.dtype).float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,D", CUDA_ATTN)
+def test_attn_block_kernels_on_bf16_storage_equal_fp32_kernels(cuda, B, H, S,
+                                                               D):
+    a = _stored(to_torch(attn_inputs(B, S, D), cuda), torch.bfloat16)
+    for call in (attn_fwd, attn_bwd):
+        before = tab.attn_block_fwd.launches_bf16 + \
+            tab.attn_block_bwd.launches_bf16
+        got = call(tab, a, H)
+        assert (got[0] if isinstance(got, tuple) else got).dtype \
+            == torch.bfloat16
+        _equal_rounded(got, call(tab, _f32(a), H))
+        assert tab.attn_block_fwd.launches_bf16 + \
+            tab.attn_block_bwd.launches_bf16 == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,I,chunks", CUDA_MLP)
+def test_mlp_block_kernels_on_bf16_storage_equal_fp32_kernels(cuda, B, S, D,
+                                                              I, chunks):
+    m = _stored(to_torch(mlp_inputs(B, S, D, I), cuda), torch.bfloat16)
+    for call in (mlp_fwd, mlp_bwd):
+        got = call(tab, m, chunks)
+        assert got.dtype == torch.bfloat16
+        _equal_rounded(got, call(tab, _f32(m), chunks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,Dh", FLASH_SHAPES + [(8, 12, 197, 64)])
+def test_flash_kernels_on_bf16_storage_equal_fp32_kernels(cuda, B, H, S, Dh):
+    """The four flash wrappers on bf16 tensors, the per-head ones on
+    contiguous tensors and on split-head views of the merged qkv (16-byte
+    copies where dh is a multiple of 8, else copies of one element)."""
+    f = _stored(to_torch(flash_inputs(B, H, S, Dh), cuda), torch.bfloat16)
+    w = _f32(f)
+    views = lambda t: (*tfa.qkv_heads(t["qkv"], H),
+                       tfa.heads(t["dmerged"], H))
+    for t, per_head in ((f, (f["q"], f["k"], f["v"], f["dout"])),
+                        (f, views(f))):
+        ref = (w["q"], w["k"], w["v"], w["dout"])
+        _equal_rounded(tfa.flash_fwd(*per_head[:3]), tfa.flash_fwd(*ref[:3]))
+        _equal_rounded(tfa.flash_bwd_ehat(*per_head, f["r"]),
+                       tfa.flash_bwd_ehat(*ref, w["r"]))
+    _equal_rounded(tfa.flash_fwd_qkv(f["qkv"], H),
+                   tfa.flash_fwd_qkv(w["qkv"], H))
+    _equal_rounded(tfa.flash_bwd_ehat_qkv(f["qkv"], f["dmerged"], f["r"], H),
+                   tfa.flash_bwd_ehat_qkv(w["qkv"], w["dmerged"], w["r"], H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("M,N,K,batch", [(1, 1, 1, 1), (33, 7, 5, 1),
+                                         (130, 70, 33, 1), (197, 768, 768, 1),
+                                         (1576, 768, 3072, 1),
+                                         (130, 72, 96, 3)])
+@pytest.mark.parametrize("dtypes", ["bf16 f32", "f32 bf16", "bf16 bf16"])
+@pytest.mark.parametrize("epilogue", ["none", "bias+res bf16", "gelu bf16 out",
+                                      "gelu'(aux)"])
+def test_gemm_on_bf16_storage_equals_fp32_gemm(cuda, M, N, K, batch, trans_b,
+                                               dtypes, epilogue):
+    """``_gemm`` with bf16 a and / or b (and a bf16 bias, residual or
+    output) against the fp32 GEMM on the widened tensors, its output
+    rounded once: equal to the bit, whatever copy width the rows allow."""
+    gen = torch.Generator().manual_seed(M + N + K)
+    lead = (batch,) if batch > 1 else ()
+    rnd = lambda *s: torch.randn(s, generator=gen).to(cuda)
+    da, db = (torch.bfloat16 if d == "bf16" else torch.float32
+              for d in dtypes.split())
+    a = rnd(*lead, M, K).to(da)
+    b = (rnd(*lead, N, K) if trans_b else rnd(*lead, K, N)).to(db)
+    kw, kw32, out_dtype = {}, {}, torch.float32
+    if epilogue == "bias+res bf16":
+        kw = dict(bias=rnd(N).bfloat16(), res=rnd(*lead, M, N).bfloat16())
+    elif epilogue == "gelu bf16 out":
+        kw, out_dtype = dict(bias=rnd(N), act=tab._ACT_GELU), torch.bfloat16
+    elif epilogue == "gelu'(aux)":
+        kw = dict(aux=rnd(*lead, M, N), act=tab._ACT_MUL_GELU_GRAD)
+    kw32 = {k: v.float() if torch.is_tensor(v) else v for k, v in kw.items()}
+    lib, st = tab.library(), _build.stream(cuda)
+    got = tab._gemm(lib, a, b, st, trans_b=trans_b, out_dtype=out_dtype, **kw)
+    want = tab._gemm(lib, a.float(), b.float(), st, trans_b=trans_b, **kw32)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, want.to(out_dtype))
+    # one bf16 element off the 16-byte grid: copies of one element, the
+    # same bits
+    if K > 1 and da == torch.bfloat16 and batch == 1:
+        a_off = torch.empty(M * K + 1, device=cuda,
+                            dtype=torch.bfloat16)[1:].view(M, K)
+        a_off.copy_(a)
+        assert tab.gemm_copy_width(a_off, b) == 4
+        assert torch.equal(tab._gemm(lib, a_off, b, st, trans_b=trans_b,
+                                     out_dtype=out_dtype, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,K,P", [(5, 6, 4, 3, 7), (9, 13, 8, 40, 7),
+                                       (50, 76, 1024, 100, 14),
+                                       (7, 9, 6, 11, 4)])
+def test_roi_pool_kernel_on_bf16_features_equals_plain(cuda, H, W, C, K, P):
+    feats, boxes = roi_inputs(H, W, C, K)
+    f = torch.from_numpy(feats).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(boxes).to(cuda)
+    before = trpool.roi_pool_pallas.launches
+    got = trpool.roi_pool_pallas(f, b, P, 1 / 16)
+    assert trpool.roi_pool_pallas.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, trpool.roi_pool_plain(f, b, P, 1 / 16))
+    # a map off the 8-byte grid: one channel a load, the same bits
+    off = torch.empty(H * W * C + 1, device=cuda,
+                      dtype=torch.bfloat16)[1:].view(H, W, C)
+    off.copy_(f)
+    assert torch.equal(trpool.roi_pool_pallas(off, b, P, 1 / 16), got)
+    # non-finite maxima become 0 in bf16 too
+    f[0, 0, 0], f[-1, -1, -1] = float("nan"), float("inf")
+    assert torch.equal(trpool.roi_pool_pallas(f, b, P, 1 / 16),
+                       trpool.roi_pool_plain(f, b, P, 1 / 16))

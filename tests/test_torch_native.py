@@ -310,3 +310,23 @@ def test_concurrent_builds_load_one_library(tmp_path):
     want = native.library_path(tmp_path)
     assert lines == {f"604 {want}"}, lines
     assert sorted(os.listdir(tmp_path)) == [".build.lock", want.name]
+
+
+def test_build_force_rebuilds_under_the_lock(jnative, tmp_path,
+                                            monkeypatch):
+    """``build(force=True)``, the JAX ``build(force=True)``: it compiles
+    again where the library is built already (a new file renamed into
+    place, no temporary left), where ``build()`` returns the one there;
+    the rebuilt library's PHOC equals the JAX library's."""
+    first = native.build(build_dir=tmp_path)
+    inode = os.stat(first).st_ino
+    assert native.build(build_dir=tmp_path) == first
+    assert os.stat(first).st_ino == inode
+    again = native.build(force=True, build_dir=tmp_path)
+    assert again == first and os.stat(again).st_ino != inode
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_lib", None)
+    for word in WORDS[:4]:
+        np.testing.assert_array_equal(native.build_phoc(word),
+                                      jnative.build_phoc(word))

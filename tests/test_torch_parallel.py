@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _train_ranks
 from transformer_mm_explainability_tpu.models import detr as jdetr
 from transformer_mm_explainability_tpu.models import lxmert as jlx
 from transformer_mm_explainability_tpu.models import vit as jvit
@@ -76,6 +77,23 @@ def test_mesh_shape_factorisation_equals_jax(n):
     assert tpmesh.mesh_shape(n, tp=1) == (n, 1)
     with pytest.raises(ValueError):
         tpmesh.mesh_shape(n, dp=n + 1, tp=1)
+
+
+@pytest.mark.parametrize("devices,dp,tp", [
+    (None, None, None), ((3, 2, 1, 0), None, None), ((3, 1), None, None),
+    ((0, 1, 2, 3), None, 4), ((2, 0, 3, 1), None, 1)])
+def test_make_mesh_lays_devices_out_as_jax(pool, devices, dp, tp):
+    """``make_mesh(devices, dp, tp)`` on four gloo ranks against the JAX
+    ``make_mesh`` on the same members of its virtual devices: the same
+    (dp, tp) shape and the same members at each place, row-major."""
+    ids = list(range(4)) if devices is None else list(devices)
+    want = jpmesh.make_mesh([jax.devices()[i] for i in ids], dp, tp)
+    outs = pool.run(_train_ranks.mesh_ranks, devices, dp, tp)
+    got = outs[0]
+    assert all(o == got for o in outs) and got[1] == ("dp", "tp")
+    assert got[0] == np.vectorize(lambda d: d.id)(want.devices).tolist()
+    assert (len(got[0]), len(got[0][0])) == (want.shape["dp"],
+                                             want.shape["tp"])
 
 
 def test_make_mesh_needs_an_initialised_process_group():

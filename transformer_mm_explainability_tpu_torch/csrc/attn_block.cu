@@ -109,12 +109,30 @@
 // from one warp without atomics. Shared memory is fixed by dh (69 KB at
 // dh=64), so S is not bounded either.
 //
+// bf16 storage with fp32 products (the JAX kernels upcast bf16 tensors
+// on load and multiply in fp32 where fast_dots is off): every kernel above
+// reads bf16 x, weights, biases, LayerNorm parameters and cotangents (and
+// q, k, v, dout for the flash wrappers) and writes bf16 x_mid, x_out,
+// cot_mid, cot_x (out, dq, dk, dv); the intermediates of the block branches
+// (LayerNorm outputs, qkv, the merged attention output, a1, dqkv) stay fp32,
+// as the JAX bodies keep them, and so do the statistics and e_row. A bf16
+// value is exact in TF32, so the lo part of its 3xTF32 split is 0 and the
+// zero products are kept: the same fragments in the same order give, bit
+// for bit, the fp32 kernels' result on the widened tensors, rounded once.
+// The LayerNorm rows take the storage as a template; the GEMM and the
+// attention stage a bf16 tile through registers into their fp32 tiles
+// (common.cuh). Their bf16 instances are compiled in attn_block_s16.cu (the
+// attention, T = bf16) and gemm_s16.cu (the GEMM, gemm<true>), the second
+// and third objects of this library, so that the three build in parallel;
+// the attention kernels' templates live in attn_fp32.cuh.
+//
 // Memory: the MLP wrappers materialise the [B*S, I] hidden activations in
 // device memory (77 MB fp32 at B=32, I=3072), where the Pallas kernels kept
 // [S, I/chunks] tiles in VMEM. The attention probabilities are never stored:
 // each pass recomputes them from q and k.
 
 #include "attn_common.cuh"
+#include "attn_fp32.cuh"
 #include "common.cuh"
 #include "mma_tf32.cuh"
 
@@ -126,38 +144,44 @@ namespace {
 
 constexpr int kRowThreads = 256;  // 8 rows (one per warp) per block
 
+// y = (x - mean) / sigma * gamma + beta in fp32 (the JAX body multiplies h1
+// unrounded); x, gamma, beta stored as T (fp32 or bf16).
+template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, float* __restrict__ y,
+ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+              const T* __restrict__ beta, float* __restrict__ y,
               float* __restrict__ mean, float* __restrict__ rstd, int M, int D,
               float eps) {
   const int row = blockIdx.x * (kRowThreads / kWarp) + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (row >= M) return;
-  const float* xr = x + (size_t)row * D;
+  const T* xr = x + (size_t)row * D;
   float s = 0.f;
-  for (int j = lane; j < D; j += kWarp) s += xr[j];
+  for (int j = lane; j < D; j += kWarp) s += f32_of(xr[j]);
   const float mu = warp_sum(s) / D;
   float v = 0.f;
   for (int j = lane; j < D; j += kWarp) {
-    const float c = xr[j] - mu;
+    const float c = f32_of(xr[j]) - mu;
     v = fmaf(c, c, v);
   }
   const float rs = 1.0f / sqrtf(warp_sum(v) / D + eps);
   float* yr = y + (size_t)row * D;
-  for (int j = lane; j < D; j += kWarp) yr[j] = (xr[j] - mu) * rs * gamma[j] + beta[j];
+  for (int j = lane; j < D; j += kWarp)
+    yr[j] = (f32_of(xr[j]) - mu) * rs * f32_of(gamma[j]) + f32_of(beta[j]);
   if (lane == 0) {
     mean[row] = mu;
     rstd[row] = rs;
   }
 }
 
-// out = cot + rstd * (g - mean(g) - xh * mean(g * xh)),  g = dy * gamma.
+// out = cot + rstd * (g - mean(g) - xh * mean(g * xh)),  g = dy * gamma;
+// dy fp32, x, gamma, cot and out stored as T (out rounded once).
+template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-ln_vjp_kernel(const float* __restrict__ dy, const float* __restrict__ x,
+ln_vjp_kernel(const float* __restrict__ dy, const T* __restrict__ x,
               const float* __restrict__ mean, const float* __restrict__ rstd,
-              const float* __restrict__ gamma, const float* __restrict__ cot,
-              float* __restrict__ out, int M, int D) {
+              const T* __restrict__ gamma, const T* __restrict__ cot,
+              T* __restrict__ out, int M, int D) {
   const int row = blockIdx.x * (kRowThreads / kWarp) + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (row >= M) return;
@@ -165,662 +189,16 @@ ln_vjp_kernel(const float* __restrict__ dy, const float* __restrict__ x,
   const float mu = mean[row], rs = rstd[row];
   float sg = 0.f, sgx = 0.f;
   for (int j = lane; j < D; j += kWarp) {
-    const float g = dy[base + j] * gamma[j];
+    const float g = dy[base + j] * f32_of(gamma[j]);
     sg += g;
-    sgx = fmaf(g, (x[base + j] - mu) * rs, sgx);
+    sgx = fmaf(g, (f32_of(x[base + j]) - mu) * rs, sgx);
   }
   const float gm = warp_sum(sg) / D;
   const float gx = warp_sum(sgx) / D;
   for (int j = lane; j < D; j += kWarp) {
-    const float g = dy[base + j] * gamma[j];
-    const float xh = (x[base + j] - mu) * rs;
-    out[base + j] = cot[base + j] + rs * (g - gm - xh * gx);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Attention. Every [B, H, S, dh] operand is a base pointer plus its (batch,
-// head, row) strides in elements; the dh axis has stride 1. Merged qkv
-// [B, S, 3D]: q at +0, k at +D, v at +2D, strides (S*3D, dh, 3D); merged
-// [B, S, D]: (S*D, dh, D); per-head [B, H, S, dh]: (H*S*dh, S*dh, dh).
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxDh = 128;
-
-// Both directions: 4 warps of 16 rows (query rows, or keys in the kv pass
-// of the backward) per block; the other operand streams through a
-// two-stage cp.async ring of 32-row tiles.
-constexpr int kAttThreads = 128;
-constexpr int kAttRows = 64;   // rows per block
-constexpr int kAttTile = 32;   // rows per streamed tile
-constexpr int kAttStages = 2;
-
-// Copies rows [row0, row0 + ROWS) of one head (row stride `stride`, dh
-// values each) into a [ROWS][DP + 4] tile with cp.async; rows at or past S
-// and columns at or past dh become 0. VEC: 16-byte copies (dh % 4 == 0 and
-// 16-byte aligned rows, checked before launch), else 4-byte copies.
-template <int DP, int ROWS, bool VEC>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int S,
-                                          int stride, int dh) {
-  constexpr int LD = DP + 4;
-  constexpr int W = VEC ? 4 : 1;  // floats per copy
-  constexpr int PER_ROW = DP / W;
-  for (int e = threadIdx.x; e < ROWS * PER_ROW; e += kAttThreads) {
-    const int r = e / PER_ROW, d = (e % PER_ROW) * W;
-    float* to = dst + r * LD + d;
-    const bool ok = row0 + r < S && d < dh;
-    const float* from = src + (long long)(row0 + r) * stride + d;
-    if constexpr (VEC) {
-      if (ok)
-        cp_async16(to, from);
-      else
-        *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      if (ok)
-        cp_async4(to, from);
-      else
-        *to = 0.f;
-    }
-  }
-}
-
-// One key tile for one warp: s = q k^T (3xTF32), the online-softmax update
-// of (m, l) and o, then o += p v with the score accumulators as the A
-// operand, keys paired. Per lane: rows g and g + 8 of the warp's 16
-// (index 0 and 1 of m and l).
-template <int DP>
-__device__ __forceinline__ void fwd_tile(const float* Qw, const float* Kt,
-                                         const float* Vt, int lane, int k0, int S,
-                                         float scale_log2, float (&o)[DP / 8][4],
-                                         float (&m)[2], float (&l)[2]) {
-  constexpr int LD = DP + 4, NT = DP / 8, KT = kAttTile / 8;
-  const int t = lane & 3;
-  float s[KT][4];
-#pragma unroll
-  for (int n = 0; n < KT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < NT; ++kk) {
-    uint32_t a_hi[4], a_lo[4];
-    load_a_3x(Qw + kk * 8, LD, lane, a_hi, a_lo);
-#pragma unroll
-    for (int n = 0; n < KT; ++n) {
-      uint32_t b_hi[2], b_lo[2];
-      load_bt_3x(Kt + n * 8 * LD + kk * 8, LD, lane, b_hi, b_lo);
-      mma_3xtf32(s[n], a_hi, a_lo, b_hi, b_lo);
-    }
-  }
-
-  // online softmax: scale into the log2 domain, mask keys >= S, new max
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int n = 0; n < KT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool ok = k0 + n * 8 + 2 * t + e < S;
-      s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
-      s[n][2 + e] = ok ? s[n][2 + e] * scale_log2 : -INFINITY;
-      mx[0] = fmaxf(mx[0], s[n][e]);
-      mx[1] = fmaxf(mx[1], s[n][2 + e]);
-    }
-  }
-  float alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // the 4 lanes of a group share a row
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = exp2f(m[r] - mx[r]);  // 0 on the first tile
-    m[r] = mx[r];
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int n = 0; n < KT; ++n) {
-    s[n][0] = exp2f(s[n][0] - m[0]);
-    s[n][1] = exp2f(s[n][1] - m[0]);
-    s[n][2] = exp2f(s[n][2] - m[1]);
-    s[n][3] = exp2f(s[n][3] - m[1]);
-    l[0] += s[n][0] + s[n][1];
-    l[1] += s[n][2] + s[n][3];
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    o[n][0] *= alpha[0];
-    o[n][1] *= alpha[0];
-    o[n][2] *= alpha[1];
-    o[n][3] *= alpha[1];
-  }
-
-  // o += p v: the score accumulators are the A operand, keys paired
-#pragma unroll
-  for (int j = 0; j < KT; ++j) {
-    uint32_t a_hi[4], a_lo[4];
-    a_from_acc_3x(s[j], a_hi, a_lo);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t b_hi[2], b_lo[2];
-      load_b_paired_3x(Vt + j * 8 * LD + n * 8, LD, lane, b_hi, b_lo);
-      mma_3xtf32(o[n], a_hi, a_lo, b_hi, b_lo);
-    }
-  }
-}
-
-// out = softmax(q k^T * scale) v for one (64-query tile, head, image);
-// scale_log2 = scale * log2(e). DP: dh rounded up to a multiple of 8.
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kAttThreads)
-attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ out, Strides sq,
-                Strides sk, Strides sv, Strides so, int S, int dh, float scale_log2) {
-  constexpr int LD = DP + 4;  // ld % 8 == 4: conflict-free fragment loads
-  constexpr int NT = DP / 8;  // 8-wide steps along dh
-  extern __shared__ __align__(16) float fwd_sm[];
-  float* Qs = fwd_sm;                            // [kAttRows][LD]
-  float* Ks = Qs + kAttRows * LD;                // [kAttStages][kAttTile][LD]
-  float* Vs = Ks + kAttStages * kAttTile * LD;   // [kAttStages][kAttTile][LD]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kAttRows;
-  q += head_at(sq, b, h);
-  k += head_at(sk, b, h);
-  v += head_at(sv, b, h);
-  out += head_at(so, b, h);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int ntiles = (S + kAttTile - 1) / kAttTile;
-
-  load_rows<DP, kAttRows, VEC>(Qs, q, q0, S, sq.s, dh);
-  load_rows<DP, kAttTile, VEC>(Ks, k, 0, S, sk.s, dh);
-  load_rows<DP, kAttTile, VEC>(Vs, v, 0, S, sv.s, dh);
-  cp_async_commit();
-
-  // Per lane: rows g and g + 8 of the warp's 16 (index 0 and 1 below).
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running row max (log2 domain)
-  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
-  const float* Qw = Qs + warp * 16 * LD;
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * kAttTile;
-    if (it + 1 < ntiles) {
-      const int next = (it + 1) % kAttStages;
-      load_rows<DP, kAttTile, VEC>(Ks + next * kAttTile * LD, k, k0 + kAttTile, S, sk.s, dh);
-      load_rows<DP, kAttTile, VEC>(Vs + next * kAttTile * LD, v, k0 + kAttTile, S, sv.s, dh);
-    }
-    cp_async_commit();    // empty on the last tile: one group per iteration
-    cp_async_wait<1>();   // everything but the newest group: this tile
-    __syncthreads();
-    const float* Kt = Ks + (it % kAttStages) * kAttTile * LD;
-    const float* Vt = Vs + (it % kAttStages) * kAttTile * LD;
-    fwd_tile<DP>(Qw, Kt, Vt, lane, k0, S, scale_log2, o, m, l);
-    __syncthreads();  // the next iteration refills the stage just read
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = 1.0f / l[r];
-  }
-  const int row = q0 + warp * 16 + g;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = n * 8 + 2 * t + e;
-      if (d >= dh) continue;
-      if (row < S) out[(long long)row * so.s + d] = o[n][e] * inv[0];
-      if (row + 8 < S) out[(long long)(row + 8) * so.s + d] = o[n][2 + e] * inv[1];
-    }
-  }
-}
-
-// The backward's products take the GEMM's operand path (mma_tf32.cuh):
-// fragments through ldmatrix where the tile is row-major, every operand
-// split with split_tf32_fast. On an H100 that took a tenth off the
-// backward's time against the forward's scalar loads and rounded split, at
-// the same distance from float64.
-//
-// acc[n] += A B^T for one warp (3xTF32): A the warp's 16 rows of a [.][LD]
-// tile, B the 8 * N rows of another, both DP wide: s = q k^T, dA = dout v^T
-// and, in the kv pass, their transposes.
-template <int DP, int N>
-__device__ __forceinline__ void mma_rows_bt(const float* Aw, const float* Bt, int lane,
-                                            float (&acc)[N][4]) {
-  constexpr int LD = DP + 4;
-  static_assert(N % 2 == 0, "B fragments come in pairs");
-#pragma unroll
-  for (int kk = 0; kk < DP / 8; ++kk) {
-    uint32_t a_hi[4], a_lo[4];
-    load_a_ldsm_3x(Aw + kk * 8, LD, lane, a_hi, a_lo);
-#pragma unroll
-    for (int n = 0; n < N; n += 2) {
-      uint32_t b_hi[2][2], b_lo[2][2];
-      load_bt2_ldsm_3x(Bt + n * 8 * LD + kk * 8, LD, lane, b_hi, b_lo);
-      mma_3xtf32(acc[n], a_hi, a_lo, b_hi[0], b_lo[0]);
-      mma_3xtf32(acc[n + 1], a_hi, a_lo, b_hi[1], b_lo[1]);
-    }
-  }
-}
-
-// acc += P W for one warp (3xTF32): P a 16 x kAttTile accumulator tile
-// (the warp's rows; the tile's rows are the product's k, taken in the
-// paired order of mma_tf32.cuh), W the tile's kAttTile rows of a [.][LD]
-// tile: dq += ds k, dv += A^T dout, dk += ds^T q. The tile's product goes
-// into a fresh accumulator per 8 columns and is then added in fp32: a sum
-// over S in one mma accumulator drifts from float64 (common.cuh).
-template <int DP>
-__device__ __forceinline__ void mma_acc_rows(const float (&p)[kAttTile / 8][4],
-                                             const float* W, int lane,
-                                             float (&acc)[DP / 8][4]) {
-  constexpr int LD = DP + 4, KT = kAttTile / 8;
-  uint32_t a_hi[KT][4], a_lo[KT][4];
-#pragma unroll
-  for (int j = 0; j < KT; ++j) a_from_acc_fast_3x(p[j], a_hi[j], a_lo[j]);
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      uint32_t b_hi[2], b_lo[2];
-      load_b_paired_fast_3x(W + j * 8 * LD + n * 8, LD, lane, b_hi, b_lo);
-      mma_3xtf32(c, a_hi[j], a_lo[j], b_hi, b_lo);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
-  }
-}
-
-// Writes a warp's [16][DP] accumulator rows to rows row0 .. row0 + 15 of
-// one head (rows at or past S and columns at or past dh are skipped).
-template <int DP>
-__device__ __forceinline__ void store_rows(float* out, int stride, const float (&acc)[DP / 8][4],
-                                           int row0, int lane, int S, int dh) {
-  const int row = row0 + (lane >> 2), t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = n * 8 + 2 * t + e;
-      if (d >= dh) continue;
-      if (row < S) out[(long long)row * stride + d] = acc[n][e];
-      if (row + 8 < S) out[(long long)(row + 8) * stride + d] = acc[n][2 + e];
-    }
-  }
-}
-
-// Register targets, from ptxas and event times on an H100: the q pass
-// declares 3 blocks per SM where its shared memory allows 3 (DP <= 64),
-// at most 170 registers, without which ptxas spilled at DP = 48. The kv
-// pass declares 2 (at most 255; 214 at DP = 64): at 170 its dk and dv
-// accumulators spilled from DP = 48 to 64, and with the forward's loaders
-// instead it was no faster at B = 8 and slower on small grids.
-//
-// The q pass: one block per (64-query tile, head, image), each warp 16
-// query rows, two sweeps over the 32-key tiles with one cp.async ring
-// running on from the first sweep into the second (tile it % ntiles).
-// Sweep 1: s = q k^T and dA = dout v^T; the online row max m, sum l and
-// u = sum_j 2^(s_j - m) dA_j in the log2 domain, all three rescaled by the
-// same alpha; dsum = u / l = sum_j A_j dA_j. Sweep 2: s and dA again,
-// ds = A (dA - dsum) scale, dq += ds k. Writes dq and stats[0..2] =
-// (m, 1/l, dsum) per row (planes of B * H * S).
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kAttThreads, DP <= 64 ? 3 : 1)
-attn_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  float* __restrict__ dq, float* __restrict__ stats, Strides sq, Strides sk,
-                  Strides sv, Strides sdo, Strides sdq, int B, int S, int H, int dh,
-                  float scale_log2, float scale) {
-  constexpr int LD = DP + 4, NT = DP / 8, KT = kAttTile / 8;
-  extern __shared__ __align__(16) float bwd_sm[];
-  float* Qs = bwd_sm;                            // [kAttRows][LD]
-  float* Os = Qs + kAttRows * LD;                // [kAttRows][LD]  dout rows
-  float* Ks = Os + kAttRows * LD;                // [kAttStages][kAttTile][LD]
-  float* Vs = Ks + kAttStages * kAttTile * LD;   // [kAttStages][kAttTile][LD]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kAttRows;
-  q += head_at(sq, b, h);
-  k += head_at(sk, b, h);
-  v += head_at(sv, b, h);
-  dout += head_at(sdo, b, h);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int t = lane & 3;
-  const int ntiles = (S + kAttTile - 1) / kAttTile;
-
-  load_rows<DP, kAttRows, VEC>(Qs, q, q0, S, sq.s, dh);
-  load_rows<DP, kAttRows, VEC>(Os, dout, q0, S, sdo.s, dh);
-  load_rows<DP, kAttTile, VEC>(Ks, k, 0, S, sk.s, dh);
-  load_rows<DP, kAttTile, VEC>(Vs, v, 0, S, sv.s, dh);
-  cp_async_commit();
-
-  // Per lane: rows g and g + 8 of the warp's 16 (index 0 and 1 below).
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running row max (log2 domain)
-  float l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};  // this lane's parts of l, u
-  float inv[2], dsum[2];
-  const float* Qw = Qs + warp * 16 * LD;
-  const float* Ow = Os + warp * 16 * LD;
-
-  for (int it = 0; it < 2 * ntiles; ++it) {
-    if (it + 1 < 2 * ntiles) {
-      const int next = (it + 1) % ntiles * kAttTile, st = (it + 1) % kAttStages;
-      load_rows<DP, kAttTile, VEC>(Ks + st * kAttTile * LD, k, next, S, sk.s, dh);
-      load_rows<DP, kAttTile, VEC>(Vs + st * kAttTile * LD, v, next, S, sv.s, dh);
-    }
-    cp_async_commit();    // empty on the last step: one group per step
-    cp_async_wait<1>();   // everything but the newest group: this tile
-    __syncthreads();
-    const float* Kt = Ks + (it % kAttStages) * kAttTile * LD;
-    const float* Vt = Vs + (it % kAttStages) * kAttTile * LD;
-    const int k0 = (it % ntiles) * kAttTile;
-    float s[KT][4], g[KT][4];
-#pragma unroll
-    for (int n = 0; n < KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = g[n][e] = 0.f;
-    mma_rows_bt<DP>(Qw, Kt, lane, s);
-    mma_rows_bt<DP>(Ow, Vt, lane, g);
-    // the log2 domain; keys at or past S are -inf (A = 0 there)
-#pragma unroll
-    for (int n = 0; n < KT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = k0 + n * 8 + 2 * t + e < S;
-        s[n][e] = ok ? s[n][e] * scale_log2 : -INFINITY;
-        s[n][2 + e] = ok ? s[n][2 + e] * scale_log2 : -INFINITY;
-      }
-    }
-    if (it < ntiles) {  // sweep 1: the online statistics
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int n = 0; n < KT; ++n) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {  // the 4 lanes of a group share a row
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float alpha = exp2f(m[r] - mx[r]);  // 0 on the first tile
-        m[r] = mx[r];
-        l[r] *= alpha;
-        u[r] *= alpha;
-      }
-#pragma unroll
-      for (int n = 0; n < KT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[n][e] - m[e >> 1]);
-          l[e >> 1] += p;
-          u[e >> 1] = fmaf(p, g[n][e], u[e >> 1]);
-        }
-      }
-      if (it == ntiles - 1) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-          u[r] += __shfl_xor_sync(0xffffffffu, u[r], 1);
-          u[r] += __shfl_xor_sync(0xffffffffu, u[r], 2);
-          inv[r] = 1.0f / l[r];
-          dsum[r] = u[r] * inv[r];
-        }
-      }
-    } else {  // sweep 2: ds = A (dA - dsum) scale, then dq += ds k
-#pragma unroll
-      for (int n = 0; n < KT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float a = exp2f(s[n][e] - m[e >> 1]) * inv[e >> 1];
-          g[n][e] = a * (g[n][e] - dsum[e >> 1]) * scale;
-        }
-      }
-      mma_acc_rows<DP>(g, Kt, lane, acc);
-    }
-    __syncthreads();  // the next step refills the stage just read
-  }
-
-  const int row = q0 + warp * 16 + (lane >> 2);
-  // output offsets only now: no register holds them through the sweeps
-  store_rows<DP>(dq + head_at(sdq, b, h), sdq.s, acc, q0 + warp * 16, lane, S, dh);
-  if (t == 0) {
-    const size_t plane = (size_t)B * H * S, base = ((size_t)b * H + h) * S;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = row + 8 * r;
-      if (i >= S) continue;
-      stats[base + i] = m[r];
-      stats[plane + base + i] = inv[r];
-      stats[2 * plane + base + i] = dsum[r];
-    }
-  }
-}
-
-// Copies the statistics of queries [q0, q0 + kAttTile) into a [4][kAttTile]
-// tile: m, 1/l, dsum (the q pass's stats at st, planes `plane` apart) and r
-// (at rb). Queries at or past S get 1/l = 0 and r = 0 (m = dsum = 0): A is
-// 0 there and nothing of theirs reaches dk, dv or the fold.
-__device__ __forceinline__ void load_stats(float* dst, const float* st, const float* rb,
-                                           int q0, int S, size_t plane) {
-  const int which = threadIdx.x / kAttTile, i = threadIdx.x % kAttTile;
-  static_assert(kAttThreads == 4 * kAttTile, "one value per thread");
-  if (q0 + i < S)
-    cp_async4(dst + threadIdx.x, which < 3 ? st + which * plane + q0 + i : rb + q0 + i);
-  else
-    dst[threadIdx.x] = 0.f;
-}
-
-// The kv pass: one block per (64-key tile, head, image), each warp 16 keys;
-// K and V rows stay in shared memory while 32-query tiles of q, dout and
-// their statistics stream through the ring. Per tile: s^T = k q^T,
-// dA^T = v dout^T, A^T = 2^(s^T - m) / l with the q pass's m and 1/l,
-// the fold e += r_q relu(A^T dA^T) in registers, ds^T = A^T (dA^T - dsum)
-// scale, then dv += A^T dout and dk += ds^T q. Writes dk, dv and
-// e_part[b, h, key] = sum_q r_q relu(A dA) for keys below S. Past DP = 80
-// the dk and dv accumulators and the products' fragments do not fit in 255
-// registers together (ptxas spilled at DP = 120 and used all 255 from 96):
-// there the pass sweeps the query tiles twice, dv alone first (s and A
-// only), then dk and the fold, one accumulator live at a time.
-template <int DP, bool VEC>
-__global__ void __launch_bounds__(kAttThreads, 2)
-attn_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ rvec, const float* __restrict__ stats,
-                   float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ e_part,
-                   Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                   int B, int S, int H, int dh, float scale_log2, float scale) {
-  constexpr int LD = DP + 4, NT = DP / 8, KT = kAttTile / 8;
-  constexpr bool TWO = DP > 80;  // two sweeps over the query tiles (above)
-  extern __shared__ __align__(16) float bwd_sm[];
-  float* Ks = bwd_sm;                            // [kAttRows][LD]
-  float* Vs = Ks + kAttRows * LD;                // [kAttRows][LD]
-  float* Qs = Vs + kAttRows * LD;                // [kAttStages][kAttTile][LD]
-  float* Os = Qs + kAttStages * kAttTile * LD;   // [kAttStages][kAttTile][LD]
-  float* Ts = Os + kAttStages * kAttTile * LD;   // [kAttStages][4][kAttTile]
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kAttRows;
-  q += head_at(sq, b, h);
-  k += head_at(sk, b, h);
-  v += head_at(sv, b, h);
-  dout += head_at(sdo, b, h);
-  const size_t plane = (size_t)B * H * S, base = ((size_t)b * H + h) * S;
-  const float* st = stats + base;
-  const float* rb = rvec + (size_t)b * S;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int t = lane & 3;
-  const int ntiles = (S + kAttTile - 1) / kAttTile;
-
-  load_rows<DP, kAttRows, VEC>(Ks, k, k0, S, sk.s, dh);
-  load_rows<DP, kAttRows, VEC>(Vs, v, k0, S, sv.s, dh);
-  load_rows<DP, kAttTile, VEC>(Qs, q, 0, S, sq.s, dh);
-  load_rows<DP, kAttTile, VEC>(Os, dout, 0, S, sdo.s, dh);
-  load_stats(Ts, st, rb, 0, S, plane);
-  cp_async_commit();
-
-  // Per lane: keys g and g + 8 of the warp's 16 (index 0 and 1 below).
-  // ak: dk, or dv in the first of two sweeps; av: dv (one sweep only).
-  float ak[NT][4], av[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
-  float fold[2] = {0.f, 0.f};  // this lane's part of sum_q r_q relu(A dA)
-  const int key = k0 + warp * 16 + (lane >> 2);
-  const bool key_ok[2] = {key < S, key + 8 < S};
-  const float* Kw = Ks + warp * 16 * LD;
-  const float* Vw = Vs + warp * 16 * LD;
-
-  const int steps = (TWO ? 2 : 1) * ntiles;
-  for (int it = 0; it < steps; ++it) {
-    if (it + 1 < steps) {
-      const int next = (it + 1) % ntiles * kAttTile, sg = (it + 1) % kAttStages;
-      load_rows<DP, kAttTile, VEC>(Qs + sg * kAttTile * LD, q, next, S, sq.s, dh);
-      load_rows<DP, kAttTile, VEC>(Os + sg * kAttTile * LD, dout, next, S, sdo.s, dh);
-      load_stats(Ts + sg * 4 * kAttTile, st, rb, next, S, plane);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const float* Qt = Qs + (it % kAttStages) * kAttTile * LD;
-    const float* Ot = Os + (it % kAttStages) * kAttTile * LD;
-    const float* T = Ts + (it % kAttStages) * 4 * kAttTile;
-    const bool dv_only = TWO && it < ntiles;
-    float s[KT][4], g[KT][4];
-#pragma unroll
-    for (int n = 0; n < KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = g[n][e] = 0.f;
-    mma_rows_bt<DP>(Kw, Qt, lane, s);
-    if (!dv_only) mma_rows_bt<DP>(Vw, Ot, lane, g);
-#pragma unroll
-    for (int n = 0; n < KT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // query column n * 8 + 2t + (e & 1)
-        const int c = n * 8 + 2 * t + (e & 1);
-        const float a =
-            key_ok[e >> 1] ? exp2f(s[n][e] * scale_log2 - T[c]) * T[kAttTile + c] : 0.f;
-        if (!dv_only) {
-          fold[e >> 1] += fmaxf(a * g[n][e], 0.f) * T[3 * kAttTile + c];
-          g[n][e] = a * (g[n][e] - T[2 * kAttTile + c]) * scale;
-        }
-        s[n][e] = a;
-      }
-    }
-    if constexpr (TWO) {
-      if (dv_only) {
-        mma_acc_rows<DP>(s, Ot, lane, ak);
-        if (it == ntiles - 1) {  // dv done: the registers take dk next
-          store_rows<DP>(dv + head_at(sdv, b, h), sdv.s, ak, k0 + warp * 16, lane, S, dh);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.f;
-        }
-      } else {
-        mma_acc_rows<DP>(g, Qt, lane, ak);
-      }
-    } else {
-      mma_acc_rows<DP>(s, Ot, lane, av);
-      mma_acc_rows<DP>(g, Qt, lane, ak);
-    }
-    __syncthreads();
-  }
-
-  store_rows<DP>(dk + head_at(sdk, b, h), sdk.s, ak, k0 + warp * 16, lane, S, dh);
-  if constexpr (!TWO)
-    store_rows<DP>(dv + head_at(sdv, b, h), sdv.s, av, k0 + warp * 16, lane, S, dh);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // fixed order over the 4 lanes of a key
-    fold[r] += __shfl_xor_sync(0xffffffffu, fold[r], 1);
-    fold[r] += __shfl_xor_sync(0xffffffffu, fold[r], 2);
-  }
-  if (t == 0) {
-    if (key_ok[0]) e_part[base + key] = fold[0];
-    if (key_ok[1]) e_part[base + key + 8] = fold[1];
-  }
-}
-
-// dh rounded up to the forward's 8-wide fragment steps.
-int att_dp(int dh) { return (dh + 7) / 8 * 8; }
-
-// The forward's Q tile and K/V rings, rows of dp + 4 floats: fixed by dh.
-size_t fwd_smem(int dh) {
-  return sizeof(float) * (size_t)(kAttRows + 2 * kAttStages * kAttTile) * (att_dp(dh) + 4);
-}
-
-// The backward's shared memory: two [kAttRows][LD] row blocks, two rings
-// of [kAttTile][LD] tiles and, in the kv pass, a ring of [4][kAttTile]
-// query statistics. Fixed by dh.
-size_t bwd_smem(int dh) {
-  return sizeof(float) * ((size_t)(2 * kAttRows + 2 * kAttStages * kAttTile) * (att_dp(dh) + 4) +
-                          kAttStages * 4 * kAttTile);
-}
-
-struct FwdArgs {
-  const float *q, *k, *v;
-  float* out;
-  Strides sq, sk, sv, so;
-  int B, S, H, dh;
-  float scale_log2;
-};
-
-// Launches attn_fwd_kernel<DP, vec> for DP = att_dp(dh), found by walking
-// the 16 instantiations DP = 8, 16, ..., kMaxDh.
-template <int DP>
-cudaError_t launch_fwd(const FwdArgs& a, bool vec, cudaStream_t stream) {
-  if constexpr (DP > kMaxDh) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (att_dp(a.dh) != DP) return launch_fwd<DP + 8>(a, vec, stream);
-    auto kernel = vec ? attn_fwd_kernel<DP, true> : attn_fwd_kernel<DP, false>;
-    const size_t smem = fwd_smem(a.dh);
-    const cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.S + kAttRows - 1) / kAttRows, a.H, a.B);
-    kernel<<<grid, kAttThreads, smem, stream>>>(a.q, a.k, a.v, a.out, a.sq, a.sk, a.sv,
-                                                 a.so, a.S, a.dh, a.scale_log2);
-    return cudaGetLastError();
-  }
-}
-
-// Every row of every head starts on a 16-byte boundary.
-bool rows_aligned16(const float* p, const Strides& s) {
-  return ((uintptr_t)p & 15) == 0 && s.b % 4 == 0 && s.h % 4 == 0 && s.s % 4 == 0;
-}
-
-struct BwdArgs {
-  const float *q, *k, *v, *dout, *r;
-  float *dq, *dk, *dv, *stats, *e_part, *e_row;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
-  int B, S, H, dh;
-  float scale_log2, scale;
-};
-
-// Launches the q pass, the kv pass and e_row_kernel for DP = att_dp(dh),
-// found by walking the 16 instantiations DP = 8, 16, ..., kMaxDh.
-template <int DP>
-cudaError_t launch_bwd(const BwdArgs& a, bool vec, cudaStream_t stream) {
-  if constexpr (DP > kMaxDh) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (att_dp(a.dh) != DP) return launch_bwd<DP + 8>(a, vec, stream);
-    auto qk = vec ? attn_bwd_q_kernel<DP, true> : attn_bwd_q_kernel<DP, false>;
-    auto kv = vec ? attn_bwd_kv_kernel<DP, true> : attn_bwd_kv_kernel<DP, false>;
-    const size_t smem = bwd_smem(a.dh);
-    cudaError_t err = allow_smem(qk, smem);
-    if (err == cudaSuccess) err = allow_smem(kv, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.S + kAttRows - 1) / kAttRows, a.H, a.B);
-    qk<<<grid, kAttThreads, smem, stream>>>(a.q, a.k, a.v, a.dout, a.dq, a.stats, a.sq, a.sk,
-                                            a.sv, a.sdo, a.sdq, a.B, a.S, a.H, a.dh,
-                                            a.scale_log2, a.scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    kv<<<grid, kAttThreads, smem, stream>>>(a.q, a.k, a.v, a.dout, a.r, a.stats, a.dk, a.dv,
-                                            a.e_part, a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv,
-                                            a.B, a.S, a.H, a.dh, a.scale_log2, a.scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    e_row_kernel<<<(a.B * a.S + 255) / 256, 256, 0, stream>>>(a.e_part, a.e_row, a.B, a.S,
-                                                               a.H);
-    return cudaGetLastError();
+    const float g = dy[base + j] * f32_of(gamma[j]);
+    const float xh = (f32_of(x[base + j]) - mu) * rs;
+    put_f32(out + base + j, f32_of(cot[base + j]) + rs * (g - gm - xh * gx));
   }
 }
 
@@ -831,39 +209,76 @@ cudaError_t launch_bwd(const BwdArgs& a, bool vec, cudaStream_t stream) {
 // stream, never synchronises, and returns cudaGetLastError().
 // ---------------------------------------------------------------------------
 
+// The bf16-storage halves of tmx_gemm (gemm_s16.cu), tmx_attn_fwd and
+// tmx_attn_bwd (attn_block_s16.cu): the same arguments, strides as below.
+extern "C" int tmx_gemm_s16(const void* A, const void* B, void* C, int M, int N, int K,
+                            int trans_b, const void* bias, const void* res, const float* aux,
+                            int act, int dtypes, int batch, long long bsA, long long bsB,
+                            long long bsC, int copy_bytes, void* stream);
+extern "C" int tmx_attn_fwd_s16(const void* q, const void* k, const void* v, void* out,
+                                const long long* strides, int B, int S, int H, int dh,
+                                float scale, int copy_bytes, void* stream);
+extern "C" int tmx_attn_bwd_s16(const void* q, const void* k, const void* v, const void* dout,
+                                const float* r, void* dq, void* dk, void* dv, float* stats,
+                                float* e_part, float* e_row, const long long* strides, int B,
+                                int S, int H, int dh, float scale, int copy_bytes,
+                                void* stream);
+
 extern "C" {
 
 const char* tmx_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 int tmx_max_dh() { return kMaxDh; }
 
-int tmx_layer_norm(const float* x, const float* gamma, const float* beta, float* y,
-                   float* mean, float* rstd, int M, int D, float eps, void* stream) {
+// x, gamma, beta: fp32, or bf16 where is_bf16; y [M, D], mean, rstd [M]: fp32.
+int tmx_layer_norm(const void* x, const void* gamma, const void* beta, float* y,
+                   float* mean, float* rstd, int M, int D, float eps, int is_bf16,
+                   void* stream) {
   const int rows = kRowThreads / kWarp;
-  ln_fwd_kernel<<<(M + rows - 1) / rows, kRowThreads, 0, (cudaStream_t)stream>>>(
-      x, gamma, beta, y, mean, rstd, M, D, eps);
+  const dim3 grid((M + rows - 1) / rows);
+  if (is_bf16)
+    ln_fwd_kernel<bf16><<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(gamma),
+        static_cast<const bf16*>(beta), y, mean, rstd, M, D, eps);
+  else
+    ln_fwd_kernel<float><<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), y, mean, rstd, M, D, eps);
   return (int)cudaGetLastError();
 }
 
-int tmx_layer_norm_vjp(const float* dy, const float* x, const float* mean,
-                       const float* rstd, const float* gamma, const float* cot,
-                       float* out, int M, int D, void* stream) {
+// dy, mean, rstd fp32; x, gamma, cot and out fp32, or bf16 where is_bf16.
+int tmx_layer_norm_vjp(const float* dy, const void* x, const float* mean,
+                       const float* rstd, const void* gamma, const void* cot,
+                       void* out, int M, int D, int is_bf16, void* stream) {
   const int rows = kRowThreads / kWarp;
-  ln_vjp_kernel<<<(M + rows - 1) / rows, kRowThreads, 0, (cudaStream_t)stream>>>(
-      dy, x, mean, rstd, gamma, cot, out, M, D);
+  const dim3 grid((M + rows - 1) / rows);
+  if (is_bf16)
+    ln_vjp_kernel<bf16><<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+        dy, static_cast<const bf16*>(x), mean, rstd, static_cast<const bf16*>(gamma),
+        static_cast<const bf16*>(cot), static_cast<bf16*>(out), M, D);
+  else
+    ln_vjp_kernel<float><<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+        dy, static_cast<const float*>(x), mean, rstd, static_cast<const float*>(gamma),
+        static_cast<const float*>(cot), static_cast<float*>(out), M, D);
   return (int)cudaGetLastError();
 }
 
 // C = epilogue(A op(B)) for `batch` products (common.cuh): A [M, K], B
 // [K, N] or, with trans_b, [N, K]; bias [N] or null; res, aux [M, N] or
-// null (aux may be C); act: an Act. bsA, bsB, bsC: element batch strides.
-// copy_bytes: 16 (every row of A and B 16-byte aligned; refused
-// otherwise) or 4, the width of the kernel's cp.async copies.
-int tmx_gemm(const float* A, const float* B, float* C, int M, int N, int K,
-             int trans_b, const float* bias, const float* res, const float* aux,
-             int act, int batch, long long bsA, long long bsB, long long bsC,
-             int copy_bytes, void* stream) {
-  const GemmArgs p = {A, B, C, bias, res, aux, bsA, bsB, bsC, M, N, K, act, false};
+// null (aux may be C); act: an Act. dtypes: the Bf16Operand bits of the bf16
+// tensors among A, B, C, bias and res (aux is fp32); 0 runs the fp32-only
+// instances here, anything else the bf16-storage ones (tmx_gemm_s16). bsA,
+// bsB, bsC: element batch strides. copy_bytes: 16 (every row of A and B
+// 16-byte aligned; refused otherwise) or 4, the width of the kernel's copies.
+int tmx_gemm(const void* A, const void* B, void* C, int M, int N, int K, int trans_b,
+             const void* bias, const void* res, const float* aux, int act, int dtypes,
+             int batch, long long bsA, long long bsB, long long bsC, int copy_bytes,
+             void* stream) {
+  if (dtypes != 0)
+    return tmx_gemm_s16(A, B, C, M, N, K, trans_b, bias, res, aux, act, dtypes, batch, bsA,
+                        bsB, bsC, copy_bytes, stream);
+  const GemmArgs p = {A, B, C, bias, res, aux, bsA, bsB, bsC, M, N, K, act, 0, false};
   return (int)gemm(p, trans_b != 0, batch, copy_bytes, (cudaStream_t)stream);
 }
 
@@ -886,48 +301,35 @@ int tmx_smem_optin() {
   return bytes;
 }
 
-// q, k, v, out: [B, H, S, dh] operands; strides: [4][3] (batch, head, row)
-// element strides of q, k, v, out in that order. copy_bytes: 16 (every row
-// of q, k and v 16-byte aligned and dh % 4 == 0; refused otherwise) or 4,
-// the width of the kernel's cp.async copies.
-int tmx_attn_fwd(const float* q, const float* k, const float* v, float* out,
+// q, k, v, out: [B, H, S, dh] operands, fp32, or bf16 where is_bf16;
+// strides: [4][3] (batch, head, row) element strides of q, k, v, out in
+// that order. copy_bytes: 16 (every row of q, k and v 16-byte aligned and
+// dh a multiple of 4 fp32 or 8 bf16 elements; refused otherwise) or 4, a
+// copy of one element.
+int tmx_attn_fwd(const void* q, const void* k, const void* v, void* out,
                  const long long* strides, int B, int S, int H, int dh, float scale,
-                 int copy_bytes, void* stream) {
-  Strides st[4];
-  for (int i = 0; i < 4; ++i)
-    st[i] = {strides[3 * i], strides[3 * i + 1], (int)strides[3 * i + 2]};
-  const bool vec = copy_bytes == 16;
-  if (!vec && copy_bytes != 4) return (int)cudaErrorInvalidValue;
-  if (vec && !(dh % 4 == 0 && rows_aligned16(q, st[0]) && rows_aligned16(k, st[1]) &&
-               rows_aligned16(v, st[2])))
-    return (int)cudaErrorMisalignedAddress;
-  const FwdArgs a = {q, k, v, out, st[0], st[1], st[2], st[3],
-                     B, S, H, dh, scale * 1.4426950408889634f};
-  return (int)launch_fwd<8>(a, vec, (cudaStream_t)stream);
+                 int is_bf16, int copy_bytes, void* stream) {
+  if (is_bf16)
+    return tmx_attn_fwd_s16(q, k, v, out, strides, B, S, H, dh, scale, copy_bytes, stream);
+  return (int)attn_fwd_entry<float>(q, k, v, out, strides, B, S, H, dh, scale, copy_bytes,
+                                    (cudaStream_t)stream);
 }
 
-// q, k, v, dout in and dq, dk, dv out: [B, H, S, dh] operands; strides: [7][3]
-// (batch, head, row) element strides of q, k, v, dout, dq, dk, dv in that
-// order. r, e_row: [B, S]; stats: scratch [3, B, H, S]; e_part: scratch
-// [B, H, S]. copy_bytes: 16 (every row of q, k, v and dout 16-byte aligned
-// and dh % 4 == 0; refused otherwise) or 4, the width of the kernels'
-// cp.async copies.
-int tmx_attn_bwd(const float* q, const float* k, const float* v, const float* dout,
-                 const float* r, float* dq, float* dk, float* dv, float* stats,
+// q, k, v, dout in and dq, dk, dv out: [B, H, S, dh] operands, fp32, or
+// bf16 where is_bf16; strides: [7][3] (batch, head, row) element strides of
+// q, k, v, dout, dq, dk, dv in that order. r, e_row: [B, S] fp32; stats:
+// scratch [3, B, H, S]; e_part: scratch [B, H, S]. copy_bytes: as
+// tmx_attn_fwd's, over q, k, v and dout.
+int tmx_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
+                 const float* r, void* dq, void* dk, void* dv, float* stats,
                  float* e_part, float* e_row, const long long* strides, int B, int S,
-                 int H, int dh, float scale, int copy_bytes, void* stream) {
-  Strides st[7];
-  for (int i = 0; i < 7; ++i)
-    st[i] = {strides[3 * i], strides[3 * i + 1], (int)strides[3 * i + 2]};
-  const bool vec = copy_bytes == 16;
-  if (!vec && copy_bytes != 4) return (int)cudaErrorInvalidValue;
-  if (vec && !(dh % 4 == 0 && rows_aligned16(q, st[0]) && rows_aligned16(k, st[1]) &&
-               rows_aligned16(v, st[2]) && rows_aligned16(dout, st[3])))
-    return (int)cudaErrorMisalignedAddress;
-  const BwdArgs a = {q,     k,     v,     dout,  r,     dq,    dk, dv, stats, e_part,
-                     e_row, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-                     B,     S,     H,     dh,    scale * 1.4426950408889634f, scale};
-  return (int)launch_bwd<8>(a, vec, (cudaStream_t)stream);
+                 int H, int dh, float scale, int is_bf16, int copy_bytes, void* stream) {
+  if (is_bf16)
+    return tmx_attn_bwd_s16(q, k, v, dout, r, dq, dk, dv, stats, e_part, e_row, strides, B,
+                            S, H, dh, scale, copy_bytes, stream);
+  return (int)attn_bwd_entry<float>(q, k, v, dout, r, dq, dk, dv, stats, e_part, e_row,
+                                    strides, B, S, H, dh, scale, copy_bytes,
+                                    (cudaStream_t)stream);
 }
 
 }  // extern "C"

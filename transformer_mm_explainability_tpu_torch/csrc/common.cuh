@@ -1,6 +1,7 @@
 // The fp32 GEMM on the tensor cores (3xTF32) and the GELU of its epilogue,
 // shared by the port's CUDA sources (gemm_bf16.cuh builds its bf16-product
-// variant of the fast_dots mode on them).
+// variant of the fast_dots mode on them), and the loads and stores through
+// which the fp32-product kernels read and write bf16 storage.
 //
 // Each csrc/<name>.cu is built on its own into one shared library (one
 // translation unit), so everything here has internal linkage. ops/_build.py
@@ -12,9 +13,59 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// bf16 storage under fp32 products. A bf16 value is exact in fp32 (and in
+// TF32: the lo part of its 3xTF32 split is 0), so a kernel that reads bf16,
+// widens it and then runs its fp32 arithmetic unchanged computes, bit for
+// bit, what it computes on the widened tensors; an output is rounded to
+// bf16 once, to nearest even. cp.async copies raw bytes, so a bf16 tile is
+// staged through registers instead: read, widened, stored to the same fp32
+// shared-memory tile the fp32 path fills, so every fragment loader and
+// product is the fp32 path's own.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float f32_of(float v) { return v; }
+__device__ __forceinline__ float f32_of(bf16 v) { return __bfloat162float(v); }
+
+// Stores v in a float, or in a bf16 rounded to nearest even.
+__device__ __forceinline__ void put_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put_f32(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// One copy of a tile loader into an fp32 shared-memory tile from bf16 at
+// `from`: with VEC 8 elements (16 bytes, 16-byte aligned) into to[0..7],
+// else one; zeros where !ok. The fp32 counterpart is cp_async16 / cp_async4.
+template <bool VEC>
+__device__ __forceinline__ void stage_bf16(float* to, const bf16* from, bool ok) {
+  if constexpr (VEC) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);  // bf16 zeros
+    if (ok) u = __ldg(reinterpret_cast<const uint4*>(from));
+    const float2 a = widen_bf16x2(u.x), b = widen_bf16x2(u.y);
+    const float2 c = widen_bf16x2(u.z), d = widen_bf16x2(u.w);
+    reinterpret_cast<float4*>(to)[0] = make_float4(a.x, a.y, b.x, b.y);
+    reinterpret_cast<float4*>(to)[1] = make_float4(c.x, c.y, d.x, d.y);
+  } else {
+    *to = ok ? __bfloat162float(*from) : 0.f;
+  }
+}
+
+// Two neighbouring elements (i even, 8-byte aligned for fp32, 4-byte for
+// bf16) of a tensor stored as fp32 or bf16 (bf), as fp32; and the store.
+__device__ __forceinline__ float2 load_pair(const void* p, long long i, bool bf) {
+  if (bf) return widen_bf16x2(*reinterpret_cast<const uint32_t*>(static_cast<const bf16*>(p) + i));
+  return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
+}
+
+__device__ __forceinline__ void store_pair(void* p, long long i, float v0, float v1, bool bf) {
+  if (bf)
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p) + i) = pack_bf16(v0, v1);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(v0, v1);
+}
 
 // Exact (erf) GELU and its derivative Phi(x) + x*phi(x). CUDA's erff is the
 // exact function to fp32 rounding, so the rational erf the TPU kernels need
@@ -50,7 +101,8 @@ int num_sms() {
 
 // ---------------------------------------------------------------------------
 // GEMM: C = epilogue(A @ op(B)), op(B) = B[K,N] or B[N,K]^T, any M, N, K >= 1;
-// A, B and C row-major with rows of K, N (or K) and N floats. One product
+// A, B and C row-major with rows of K, N (or K) and N elements, each of A,
+// B, C, bias and res stored as fp32 or bf16 (GemmArgs::dtypes; aux fp32). One product
 // per z = blockIdx.z, operands offset by z times their batch strides
 // (elements; a single product has z = 0); bias is [N], res and aux share
 // C's layout and batch stride. The epilogue, per element: + bias, then
@@ -93,23 +145,37 @@ int num_sms() {
 //     memory, two neighbouring columns at a time (8-byte accesses where N
 //     is even and the pointers allow);
 //   - each output element is summed by one thread in a fixed k order, with
-//     no split over k and no atomics: the same bits on every run.
+//     no split over k and no atomics: the same bits on every run;
+//   - bf16 storage: a bf16 A or B is read through registers into the
+//     same fp32 tiles (stage_bf16; a 16-byte copy carries 8 elements, so
+//     VEC asks for rows of whole 8-element groups), a bf16 bias or res is
+//     widened in the epilogue and a bf16 C rounded there once. The products
+//     and their order are the fp32 path's, so the result is the fp32
+//     kernel's on the widened tensors, rounded once. Those instances
+//     (gemm<true>) are compiled in gemm_s16.cu.
 // The one template choice is the warps' layout, WN = 2 or 4 columns of warps
-// (gemm_warps); TRANS_B and VEC pick the loaders.
+// (gemm_warps); TRANS_B and VEC pick the loaders, TA and TB the operands'
+// storage, ANY16 whether the epilogue reads GemmArgs::dtypes (false: all
+// fp32, gemm_tc_kernel, the fp32 path's own code; true: gemm_tc_s16_kernel).
 // ---------------------------------------------------------------------------
 
 enum Act { kActNone = 0, kActGelu = 1, kActMulGeluGrad = 2 };
 
+// the bits of GemmArgs::dtypes and of gemm_bf16.cuh's GemmBf16Args::dtypes
+// (ops/attn_block.py _BF16_BITS): which tensors are bf16
+enum Bf16Operand { kBf16A = 1, kBf16B = 2, kBf16C = 4, kBf16Bias = 8, kBf16Res = 16 };
+
 struct GemmArgs {
-  const float* A;
-  const float* B;
-  float* C;
-  const float* bias;
-  const float* res;
+  const void* A;
+  const void* B;
+  void* C;
+  const void* bias;
+  const void* res;
   const float* aux;
   long long bsA, bsB, bsC;
   int M, N, K, act;
-  bool pair;  // N even; C, bias, res, aux 8-byte aligned: float2 epilogue
+  int dtypes;  // Bf16Operand bits; the others fp32
+  bool pair;   // N even; C, bias, res, aux 8-byte aligned: paired epilogue
 };
 
 constexpr int kGemmBM = 64, kGemmBN = 64;  // output tile per block
@@ -126,13 +192,15 @@ constexpr size_t gemm_smem() {
          (kGemmBM * kGemmLdK + (TRANS_B ? kGemmBN * kGemmLdK : kGemmBK * kGemmLdN));
 }
 
-// Copies the ROWS x COLS tile at src (row stride ld) into dst (row stride
-// LD) with cp.async; elements at or past rows_valid / cols_valid become 0.
-// With VEC, cols_valid is a multiple of 4 (checked before launch).
-template <int ROWS, int COLS, int LD, int THREADS, bool VEC>
-__device__ __forceinline__ void gemm_load_tile(float* dst, const float* src, int ld,
+// Copies the ROWS x COLS tile at src (row stride ld) into the fp32 tile dst
+// (row stride LD) with cp.async, or through registers (stage_bf16) for a
+// bf16 src; elements at or past rows_valid / cols_valid become 0. With VEC,
+// cols_valid is a multiple of a copy's elements, 4 or 8 (checked before
+// launch).
+template <int ROWS, int COLS, int LD, int THREADS, bool VEC, typename T>
+__device__ __forceinline__ void gemm_load_tile(float* dst, const T* src, int ld,
                                                int rows_valid, int cols_valid) {
-  constexpr int W = VEC ? 4 : 1;  // floats per copy
+  constexpr int W = VEC ? 16 / (int)sizeof(T) : 1;  // elements per copy
   constexpr int PER_ROW = COLS / W;
   static_assert(ROWS * PER_ROW % THREADS == 0, "tile/thread mismatch");
 #pragma unroll
@@ -141,8 +209,10 @@ __device__ __forceinline__ void gemm_load_tile(float* dst, const float* src, int
     const int r = e / PER_ROW, c = (e % PER_ROW) * W;
     float* to = dst + r * LD + c;
     const bool ok = r < rows_valid && c < cols_valid;
-    const float* from = src + (long long)r * ld + c;
-    if constexpr (VEC) {
+    const T* from = src + (long long)r * ld + c;
+    if constexpr (sizeof(T) == 2) {
+      stage_bf16<VEC>(to, from, ok);
+    } else if constexpr (VEC) {
       if (ok)
         cp_async16(to, from);
       else
@@ -156,19 +226,20 @@ __device__ __forceinline__ void gemm_load_tile(float* dst, const float* src, int
   }
 }
 
-// v + bias, then the activation, then + res: one output element.
+// v + bias, then the activation, then + res: one output element. res is
+// at the product's offset; with ANY16 bias and res may be bf16.
+template <bool ANY16>
 __device__ __forceinline__ float gemm_epilogue(float v, const GemmArgs& p, long long idx,
-                                               int n, const float* res, const float* aux) {
-  if (p.bias) v += p.bias[n];
+                                               int n, const void* res, const float* aux) {
+  if (p.bias) v += load_any(p.bias, n, ANY16 && (p.dtypes & kBf16Bias));
   if (p.act == kActGelu) v = gelu_f(v);
   if (p.act == kActMulGeluGrad) v *= gelu_grad_f(aux[idx]);
-  if (res) v += res[idx];
+  if (res) v += load_any(res, idx, ANY16 && (p.dtypes & kBf16Res));
   return v;
 }
 
-template <int WN, bool TRANS_B, bool VEC>
-__global__ void __launch_bounds__(32 * kGemmWM * WN)
-gemm_tc_kernel(GemmArgs p) {
+template <int WN, bool TRANS_B, bool VEC, typename TA, typename TB, bool ANY16>
+__device__ __forceinline__ void gemm_tc_body(const GemmArgs& p) {
   constexpr int BM = kGemmBM, BN = kGemmBN, WM = kGemmWM, ST = kGemmST;
   constexpr int FLUSH = kGemmFlush;
   constexpr int THREADS = 32 * WM * WN;
@@ -187,8 +258,9 @@ gemm_tc_kernel(GemmArgs p) {
   const long long z = blockIdx.z;
   const int M = p.M, N = p.N, K = p.K;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const float* Ab = p.A + z * p.bsA + (long long)m0 * K;
-  const float* Bb = p.B + z * p.bsB + (TRANS_B ? (long long)n0 * K : (long long)n0);
+  const TA* Ab = static_cast<const TA*>(p.A) + z * p.bsA + (long long)m0 * K;
+  const TB* Bb =
+      static_cast<const TB*>(p.B) + z * p.bsB + (TRANS_B ? (long long)n0 * K : (long long)n0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp / WN, wn = warp % WN;
 
@@ -271,10 +343,16 @@ gemm_tc_kernel(GemmArgs p) {
   }
   cp_async_wait<0>();
 
-  // epilogue: c0, c1 at (row g, columns 2t, 2t + 1); c2, c3 at row g + 8
+  // epilogue: c0, c1 at (row g, columns 2t, 2t + 1); c2, c3 at row g + 8.
+  // Offsets in elements from the product's C, res and aux.
   const int g = lane >> 2, t = lane & 3;
-  float* C = p.C + z * p.bsC;
-  const float* res = p.res ? p.res + z * p.bsC : nullptr;
+  const bool c16 = ANY16 && (p.dtypes & kBf16C), bias16 = ANY16 && (p.dtypes & kBf16Bias);
+  const bool res16 = ANY16 && (p.dtypes & kBf16Res);
+  void* C = c16 ? (void*)(static_cast<bf16*>(p.C) + z * p.bsC)
+                : (void*)(static_cast<float*>(p.C) + z * p.bsC);
+  const void* res = !p.res ? nullptr
+                    : res16 ? (const void*)(static_cast<const bf16*>(p.res) + z * p.bsC)
+                            : (const void*)(static_cast<const float*>(p.res) + z * p.bsC);
   const float* aux = p.aux ? p.aux + z * p.bsC : nullptr;
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
@@ -290,7 +368,7 @@ gemm_tc_kernel(GemmArgs p) {
         float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
         if (p.pair) {  // n even and N even: n + 1 < N
           if (p.bias) {
-            const float2 bb = *reinterpret_cast<const float2*>(p.bias + n);
+            const float2 bb = load_pair(p.bias, n, bias16);
             v0 += bb.x;
             v1 += bb.y;
           }
@@ -303,18 +381,33 @@ gemm_tc_kernel(GemmArgs p) {
             v1 *= gelu_grad_f(x.y);
           }
           if (res) {
-            const float2 r = *reinterpret_cast<const float2*>(res + idx);
+            const float2 r = load_pair(res, idx, res16);
             v0 += r.x;
             v1 += r.y;
           }
-          *reinterpret_cast<float2*>(C + idx) = make_float2(v0, v1);
+          store_pair(C, idx, v0, v1, c16);
         } else {
-          C[idx] = gemm_epilogue(v0, p, idx, n, res, aux);
-          if (n + 1 < N) C[idx + 1] = gemm_epilogue(v1, p, idx + 1, n + 1, res, aux);
+          store_any(C, idx, gemm_epilogue<ANY16>(v0, p, idx, n, res, aux), c16);
+          if (n + 1 < N)
+            store_any(C, idx + 1, gemm_epilogue<ANY16>(v1, p, idx + 1, n + 1, res, aux), c16);
         }
       }
     }
   }
+}
+
+// The fp32 GEMM, and its bf16-storage instances (gemm<true>): the same body.
+// The second declares one block an SM, so that ptxas may take the registers
+// the bf16 staging needs: left to its own target, the 8-warp instance with
+// a bf16 A and an fp32 B[K, N] spilled 8 bytes.
+template <int WN, bool TRANS_B, bool VEC>
+__global__ void __launch_bounds__(32 * kGemmWM * WN) gemm_tc_kernel(GemmArgs p) {
+  gemm_tc_body<WN, TRANS_B, VEC, float, float, false>(p);
+}
+
+template <int WN, bool TRANS_B, bool VEC, typename TA, typename TB>
+__global__ void __launch_bounds__(32 * kGemmWM * WN, 1) gemm_tc_s16_kernel(GemmArgs p) {
+  gemm_tc_body<WN, TRANS_B, VEC, TA, TB, true>(p);
 }
 
 bool aligned(const void* p, int bytes) { return ((uintptr_t)p & (bytes - 1)) == 0; }
@@ -328,13 +421,21 @@ int gemm_warps(int M, int N, int batch) {
   return tiles <= num_sms() ? 8 : 4;
 }
 
-template <int WN>
+template <int WN, bool TRANS_B, bool VEC, typename TA, typename TB, bool ANY16>
+auto gemm_kernel() {
+  if constexpr (ANY16)
+    return gemm_tc_s16_kernel<WN, TRANS_B, VEC, TA, TB>;
+  else
+    return gemm_tc_kernel<WN, TRANS_B, VEC>;
+}
+
+template <int WN, typename TA, typename TB, bool ANY16>
 cudaError_t launch_gemm(const GemmArgs& p, bool trans_b, bool vec, int batch,
                         cudaStream_t stream) {
-  auto kernel = trans_b ? (vec ? gemm_tc_kernel<WN, true, true>
-                               : gemm_tc_kernel<WN, true, false>)
-                        : (vec ? gemm_tc_kernel<WN, false, true>
-                               : gemm_tc_kernel<WN, false, false>);
+  auto kernel = trans_b ? (vec ? gemm_kernel<WN, true, true, TA, TB, ANY16>()
+                               : gemm_kernel<WN, true, false, TA, TB, ANY16>())
+                        : (vec ? gemm_kernel<WN, false, true, TA, TB, ANY16>()
+                               : gemm_kernel<WN, false, false, TA, TB, ANY16>());
   const size_t smem = trans_b ? gemm_smem<true>() : gemm_smem<false>();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -345,24 +446,43 @@ cudaError_t launch_gemm(const GemmArgs& p, bool trans_b, bool vec, int batch,
 
 // The GEMM of every caller. Checks the arguments, sets p.pair and launches
 // gemm_tc_kernel for `batch` products. copy_bytes: 16 (every row of A and B
-// 16-byte aligned: the pointers, K, B's row length and the batch strides;
-// refused otherwise) or 4, the width of the cp.async copies. A template, so
-// that a source which includes this header without calling it
-// (attn_block_bf16.cu) compiles none of gemm_tc_kernel's instantiations.
-template <int = 0>
+// 16-byte aligned: the pointers, and K, B's row length and the batch
+// strides in whole copies of 4 fp32 or 8 bf16 elements; refused otherwise)
+// or 4, the width of the cp.async copies (a bf16 operand then takes one
+// element a copy). A template, so that a source which includes this header
+// without calling it (attn_block_bf16.cu) compiles none of gemm_tc_kernel's
+// instantiations; the default, ANY16 = false, launches the fp32-only ones
+// and refuses any dtypes bit (gemm_s16.cu's gemm<true> takes those).
+template <bool ANY16 = false>
 cudaError_t gemm(GemmArgs p, bool trans_b, int batch, int copy_bytes, cudaStream_t stream) {
   if (p.M < 1 || p.N < 1 || p.K < 1 || batch < 1 || batch > 65535 ||
-      (p.M + kGemmBM - 1) / kGemmBM > 65535)
+      (p.M + kGemmBM - 1) / kGemmBM > 65535 || (!ANY16 && p.dtypes != 0) ||
+      (p.dtypes & ~31) != 0)
     return cudaErrorInvalidValue;
   const bool vec = copy_bytes == 16;
   if (!vec && copy_bytes != 4) return cudaErrorInvalidValue;
-  if (vec && !(aligned(p.A, 16) && aligned(p.B, 16) && p.K % 4 == 0 &&
-               (trans_b || p.N % 4 == 0) && p.bsA % 4 == 0 && p.bsB % 4 == 0))
+  const int per_a = p.dtypes & kBf16A ? 8 : 4, per_b = p.dtypes & kBf16B ? 8 : 4;
+  if (vec && !(aligned(p.A, 16) && aligned(p.B, 16) && p.K % per_a == 0 &&
+               (trans_b ? p.K : p.N) % per_b == 0 && p.bsA % per_a == 0 &&
+               p.bsB % per_b == 0))
     return cudaErrorMisalignedAddress;
   p.pair = p.N % 2 == 0 && p.bsC % 2 == 0 && aligned(p.C, 8) && aligned(p.bias, 8) &&
            aligned(p.res, 8) && aligned(p.aux, 8);
-  if (gemm_warps(p.M, p.N, batch) == 8) return launch_gemm<4>(p, trans_b, vec, batch, stream);
-  return launch_gemm<2>(p, trans_b, vec, batch, stream);
+  const bool wide = gemm_warps(p.M, p.N, batch) == 8;
+  if constexpr (ANY16) {
+    const int ab = p.dtypes & (kBf16A | kBf16B);
+#define TMX_GEMM_TYPES(TA, TB)                                                  \
+  return wide ? launch_gemm<4, TA, TB, true>(p, trans_b, vec, batch, stream) \
+              : launch_gemm<2, TA, TB, true>(p, trans_b, vec, batch, stream)
+    if (ab == (kBf16A | kBf16B)) TMX_GEMM_TYPES(bf16, bf16);
+    if (ab == kBf16A) TMX_GEMM_TYPES(bf16, float);
+    if (ab == kBf16B) TMX_GEMM_TYPES(float, bf16);
+    TMX_GEMM_TYPES(float, float);
+#undef TMX_GEMM_TYPES
+  } else {
+    if (wide) return launch_gemm<4, float, float, false>(p, trans_b, vec, batch, stream);
+    return launch_gemm<2, float, float, false>(p, trans_b, vec, batch, stream);
+  }
 }
 
 }  // namespace

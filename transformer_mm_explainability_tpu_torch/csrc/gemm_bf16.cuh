@@ -56,7 +56,8 @@
 
 namespace {
 
-enum Bf16Operand { kBf16A = 1, kBf16B = 2, kBf16C = 4, kBf16Bias = 8, kBf16Res = 16 };
+// dtypes bits: common.cuh's Bf16Operand (kBf16A, kBf16B, kBf16C, kBf16Bias,
+// kBf16Res), shared with the fp32 GEMM's bf16 storage
 
 struct GemmBf16Args {
   const void* A;

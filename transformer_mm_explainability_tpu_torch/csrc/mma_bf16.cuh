@@ -1,7 +1,8 @@
-// bf16 building blocks for the bf16-product kernels on Hopper: the
-// round-to-nearest-even conversion, the accumulator-to-A-fragment repack
-// that feeds a probability tile to the next wgmma, and element access to
-// tensors stored as fp32 or bf16.
+// bf16 building blocks for the bf16-product kernels on Hopper (and the
+// bf16 storage of the fp32 ones and of RoIPool): the round-to-nearest-even
+// conversion, the accumulator-to-A-fragment repack that feeds a
+// probability tile to the next wgmma, and element access to tensors stored
+// as fp32 or bf16.
 //
 // The arithmetic is the JAX package's fast_dots mode
 // (transformer_mm_explainability_tpu/ops/attn_block_pallas.py _dot/_cast,
@@ -48,6 +49,11 @@ __device__ __forceinline__ void a_from_acc_bf16(const float c0[4], const float c
 }
 
 __device__ __forceinline__ float bf16_value(bf16 v) { return __bfloat162float(v); }
+
+// The two bf16 of a 32-bit word (the first element in the low half), widened.
+__device__ __forceinline__ float2 widen_bf16x2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
 
 // One element of a tensor stored as fp32 or bf16 (is_bf16), as fp32.
 __device__ __forceinline__ float load_any(const void* p, long long i, bool is_bf16) {

@@ -149,7 +149,7 @@ int tmx_relevancy_chain(const float* cams, const float* grads, float* e, float* 
   for (int i = 0; i < Lr; ++i) {
     // R_next = E_i R + R: A = E_i (image stride Lr planes), B = res = R
     const GemmArgs p = {e + i * plane, cur, nxt, nullptr, cur, nullptr,
-                        Lr * plane, rplane, rplane, S, Sp, Sp, kActNone, false};
+                        Lr * plane, rplane, rplane, S, Sp, Sp, kActNone, 0, false};
     if ((err = gemm(p, false, B, 16, st)) != cudaSuccess) return (int)err;
     float* t = cur;
     cur = nxt;

@@ -1,4 +1,6 @@
-// Hand-written fp32 CUDA kernel for torchvision-exact RoIPool on Hopper.
+// Hand-written CUDA kernel for torchvision-exact RoIPool on Hopper, on fp32
+// or bf16 features (the output in the features' dtype, as the JAX kernel
+// keeps it; boxes fp32).
 //
 // Replaces the Pallas TPU kernel of
 // transformer_mm_explainability_tpu/ops/roi_pool_pallas.py:
@@ -15,7 +17,7 @@
 // What bounds it on this card: bytes. The function reads the map once and
 // writes the output once, (H W C + K P P C) x 4 bytes: 818 MB at the
 // protocol shape ([50, 76, 1024], K = 1000, P = 14), 0.244 ms at 3.35 TB/s,
-// of which the output write is 803 MB. The 15.6 MB map stays in the 50 MB
+// of which the output write is 803 MB (half of each in bf16). The 15.6 MB map stays in the 50 MB
 // L2 across boxes, so the kernel's own traffic is the box reads from L2 and
 // the output stream to device memory.
 //
@@ -61,10 +63,18 @@
 // 0.5) with __fmul_rn then __fadd_rn (each rounded to fp32, never contracted
 // into an FMA, as torch and XLA round a separate multiply and add), then the
 // integer bin arithmetic of roi_bin_bounds.
+//
+// bf16 features: the template's storage T. A pixel's channels are
+// widened to fp32 as they are read and each maximum is rounded back to bf16
+// when it is stored: a maximum is one of its inputs, so the round trip is
+// exact and the result equals the plain version's to the bit, as in fp32.
+// A vector is 4 channels, 8 bytes in bf16 (C % 4 == 0, 8-byte aligned).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -116,12 +126,35 @@ __device__ __forceinline__ void vec_store_cs(float* p, const Vec<V>& m) {
 }
 
 template <int V>
+__device__ __forceinline__ void vec_store_cs(bf16* p, const Vec<V>& m) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(pack_bf16(finite_or_zero(m.v[0]), finite_or_zero(m.v[1])),
+                      pack_bf16(finite_or_zero(m.v[2]), finite_or_zero(m.v[3]))));
+  } else {
+    __stcs(reinterpret_cast<unsigned short*>(p),
+           (unsigned short)(pack_bf16(finite_or_zero(m.v[0]), 0.f) & 0xffffu));
+  }
+}
+
+template <int V>
 __device__ __forceinline__ Vec<V> vec_load(const float* p) {
   if constexpr (V == 4) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     return Vec<V>{{x.x, x.y, x.z, x.w}};
   } else {
     return Vec<V>{{*p}};
+  }
+}
+
+template <int V>
+__device__ __forceinline__ Vec<V> vec_load(const bf16* p) {
+  if constexpr (V == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    const float2 a = widen_bf16x2(x.x), b = widen_bf16x2(x.y);
+    return Vec<V>{{a.x, a.y, b.x, b.y}};
+  } else {
+    return Vec<V>{{__bfloat162float(*p)}};
   }
 }
 
@@ -139,15 +172,16 @@ __device__ __forceinline__ int bin_end(int p, int roi, int P, int o, int n) {
   return min(max(((p + 1) * roi + P - 1) / P + o, 0), n);
 }
 
-// f: [H, W, C]; boxes: [K, 4] xyxy (image scale); out: [K, P, P, C].
+// f: [H, W, C] of T (fp32 or bf16); boxes: [K, 4] fp32 xyxy (image
+// scale); out: [K, P, P, C] of T.
 // blockIdx.x: the box; blockIdx.y: the chunk of kLanes * V channels;
 // blockIdx.z: the group of bin rows. Thread (band b, lane l) = threadIdx.x
 // / kLanes, % kLanes: channel vector l, the column bins of band b. Each
 // thread computes the bins it walks in registers.
-template <int V>
+template <int V, typename T>
 __global__ void __launch_bounds__(kThreads)
-roi_pool_kernel(const float* __restrict__ f, const float* __restrict__ boxes,
-                float* __restrict__ out, int H, int W, int C, int P, float scale) {
+roi_pool_kernel(const T* __restrict__ f, const float* __restrict__ boxes,
+                T* __restrict__ out, int H, int W, int C, int P, float scale) {
   const int k = blockIdx.x;
   const float* b = boxes + 4 * (long long)k;
   const int x0 = quantize(b[0], scale), y0 = quantize(b[1], scale);
@@ -156,8 +190,8 @@ roi_pool_kernel(const float* __restrict__ f, const float* __restrict__ boxes,
   const int band = threadIdx.x / kLanes;
   const int c = (blockIdx.y * kLanes + threadIdx.x % kLanes) * V;
   if (c >= C) return;
-  const float* fc = f + c;
-  float* oc = out + (long long)k * P * P * C + c;
+  const T* fc = f + c;
+  T* oc = out + (long long)k * P * P * C + c;
   const long long row = (long long)W * C;
   // this block's bin rows
   const int g = gridDim.z, ph0 = blockIdx.z * P / g, ph1 = (blockIdx.z + 1) * P / g;
@@ -176,7 +210,7 @@ roi_pool_kernel(const float* __restrict__ f, const float* __restrict__ boxes,
     Vec<V> acc[kBandBins];  // the bin row's column maxima so far
     int carried = -1;       // the row whose column maxima acc starts from
     for (int ph = ph0; ph < ph1; ++ph) {
-      float* o = oc + ((long long)ph * P + j0) * C;
+      T* o = oc + ((long long)ph * P + j0) * C;
       const int h1 = bin_end(ph, roi_h, P, y0, H);
       int h = bin_start(ph, roi_h, P, y0, H);
       if (h >= h1) {  // an empty bin row (clipped away)
@@ -194,7 +228,7 @@ roi_pool_kernel(const float* __restrict__ f, const float* __restrict__ boxes,
       // each row of the bin row not read yet, in order; its last row is
       // written with it and starts the next bin row's maxima
       for (; h < h1; ++h) {
-        const float* fr = fc + h * row;
+        const T* fr = fc + h * row;
         const bool last = h == h1 - 1;
         Vec<V> prev = vec_fill<V>(0.f);  // the pixel read last, column w_prev
         int w_prev = -1;
@@ -248,18 +282,27 @@ extern "C" {
 
 const char* tmx_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// features: [H, W, C] contiguous fp32; boxes: [K, 4] contiguous fp32 xyxy
-// at image scale; out: [K, P, P, C]. K, P >= 1.
-int tmx_roi_pool(const float* features, const float* boxes, float* out, int K, int H,
-                 int W, int C, int P, float spatial_scale, void* stream) {
+// features: [H, W, C] contiguous, fp32 or, where is_bf16, bf16; boxes:
+// [K, 4] contiguous fp32 xyxy at image scale; out: [K, P, P, C] of the
+// features' type. K, P >= 1.
+int tmx_roi_pool(const void* features, const float* boxes, void* out, int K, int H, int W,
+                 int C, int P, float spatial_scale, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (K < 1 || P < 1 || C < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(features) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const uintptr_t vec_bytes = is_bf16 ? 8 : 16;  // 4 channels
+  const bool vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(features) % vec_bytes == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % vec_bytes == 0;
   const int V = vec4 ? 4 : 1;
   const dim3 grid(K, (C + kLanes * V - 1) / (kLanes * V), min(kRowGroups, P));
-  auto kernel = vec4 ? roi_pool_kernel<4> : roi_pool_kernel<1>;
-  kernel<<<grid, kThreads, 0, st>>>(features, boxes, out, H, W, C, P, spatial_scale);
+  if (is_bf16) {
+    auto kernel = vec4 ? roi_pool_kernel<4, bf16> : roi_pool_kernel<1, bf16>;
+    kernel<<<grid, kThreads, 0, st>>>(static_cast<const bf16*>(features), boxes,
+                                      static_cast<bf16*>(out), H, W, C, P, spatial_scale);
+  } else {
+    auto kernel = vec4 ? roi_pool_kernel<4, float> : roi_pool_kernel<1, float>;
+    kernel<<<grid, kThreads, 0, st>>>(static_cast<const float*>(features), boxes,
+                                      static_cast<float*>(out), H, W, C, P, spatial_scale);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -77,17 +77,18 @@ def library_path(build_dir=None) -> pathlib.Path:
         f"libtmmx_native-{h.hexdigest()[:16]}.so"
 
 
-def build(build_dir=None) -> str:
-    """Compile the native library unless it is built already; returns its
-    path. Safe to call from several processes at once."""
+def build(force: bool = False, build_dir=None) -> str:
+    """Compile the native library unless it is built already (``force``:
+    compile it again all the same, under the same lock); returns its path.
+    Safe to call from several processes at once."""
     out = library_path(build_dir)
-    if out.exists():
+    if out.exists() and not force:
         return str(out)
     cxx = compiler()
     out.parent.mkdir(parents=True, exist_ok=True)
     with open(out.parent / ".build.lock", "w") as held:
         fcntl.flock(held, fcntl.LOCK_EX)   # released when the file closes
-        if not out.exists():
+        if force or not out.exists():
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.run(
                 [cxx, *CXX_FLAGS, "-o", str(tmp),

@@ -10,7 +10,9 @@ directory git ignores):
 The file name carries a hash of the source, of every header under
 ``csrc/`` (``*.cuh``, ``*.h``: what a source can include) and of the flags,
 so an edited source or header is rebuilt and a stale library is never
-loaded. ``build_all`` starts one ``nvcc`` per source, all at once.
+loaded. A library of more than one source (``PARTS``) compiles each to an
+object with ``-c`` and links them into the one library. ``build_all``
+starts one ``nvcc`` per source, all at once.
 ``ptxas``'s report (registers, shared memory, spills per kernel) is kept
 beside the library as ``.log``. Nothing here runs when the package is
 imported: the CPU tests import every module on a machine without ``nvcc``.
@@ -41,6 +43,12 @@ NVCC_DEFAULT = pathlib.Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# libraries built from more than one source: attn_block's bf16-storage
+# instances (the same kernels on bf16 tensors: the attention's, the GEMM's)
+# compile beside its fp32 ones, in parallel: as one translation unit the
+# three sources build far slower (scripts/time_build.py times both layouts)
+PARTS = {"attn_block": ("attn_block_s16", "gemm_s16")}
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 _declared = set()
@@ -61,10 +69,17 @@ def _headers() -> Sequence[pathlib.Path]:
     return sorted(p for p in CSRC.rglob("*") if p.suffix in (".cuh", ".h"))
 
 
+def sources(name: str) -> Sequence[str]:
+    """The sources (``csrc/<source>.cu``) of library ``name``."""
+    return (name, *PARTS.get(name, ()))
+
+
 def library_path(name: str) -> pathlib.Path:
-    """Where ``csrc/<name>.cu`` is built to (hash of the source, the
-    headers it can include and the flags)."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where ``csrc/<name>.cu`` is built to (hash of its sources, the
+    headers they can include and the flags)."""
+    h = hashlib.sha256()
+    for source in sources(name):
+        h.update((CSRC / f"{source}.cu").read_bytes())
     for header in _headers():
         h.update(str(header.relative_to(CSRC)).encode() + b"\0")
         h.update(header.read_bytes())
@@ -72,31 +87,65 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: Mapping[str, Sequence[str]]) -> Dict[str, tuple]:
+    """Run every command at once; (returncode, stdout + stderr) by key."""
+    procs = {key: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+             for key, cmd in cmds.items()}
+    done = {}
+    for key, proc in procs.items():
+        stdout, stderr = proc.communicate()
+        done[key] = (proc.returncode, stdout + stderr)
+    return done
+
+
 def build_all(names: Sequence[str]) -> Dict[str, pathlib.Path]:
     """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
-    ``nvcc`` process per source, all running at once; raise if any fails."""
+    ``nvcc`` process per source, all running at once (then the link of a
+    library of several sources); raise if any fails."""
     outs = {name: library_path(name) for name in names}
     todo = [name for name, out in outs.items() if not out.exists()]
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         compiler = nvcc()
-    procs = {}
+    tmps = {name: outs[name].with_name(f"{outs[name].name}.{os.getpid()}.tmp")
+            for name in todo}
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    cmds = {}
     for name in todo:
-        tmp = outs[name].with_name(f"{outs[name].name}.{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    errors = []
-    for name, (tmp, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc failed for {name}.cu (exit "
-                          f"{proc.returncode}):\n{stderr}")
+        parts = sources(name)
+        for source in parts:
+            cu = str(CSRC / f"{source}.cu")
+            if len(parts) == 1:
+                cmds[name, source] = [compiler, *NVCC_FLAGS, "-o",
+                                      str(tmps[name]), cu]
+            else:
+                obj = tmps[name].with_suffix(f".{source}.o")
+                cmds[name, source] = [compiler, *compile_flags, "-c", "-o",
+                                      str(obj), cu]
+    errors, failed, logs = [], set(), {name: "" for name in todo}
+    for (name, source), (code, log) in _run_all(cmds).items():
+        logs[name] += log
+        if code != 0:
+            failed.add(name)
+            errors.append(f"nvcc failed for {source}.cu (exit {code}):\n{log}")
+    links = {name: [compiler, "-shared", "-o", str(tmps[name]),
+                    *(str(tmps[name].with_suffix(f".{source}.o"))
+                      for source in sources(name))]
+             for name in todo if len(sources(name)) > 1 and name not in failed}
+    for name, (code, log) in _run_all(links).items():
+        if code != 0:
+            failed.add(name)
+            errors.append(f"nvcc failed to link {name} (exit {code}):\n{log}")
+    for name in todo:
+        for source in sources(name):
+            tmps[name].with_suffix(f".{source}.o").unlink(missing_ok=True)
+        if name in failed:
+            tmps[name].unlink(missing_ok=True)
             continue
-        outs[name].with_suffix(".log").write_text(stdout + stderr)
+        outs[name].with_suffix(".log").write_text(logs[name])
         # atomic: concurrent builders never see half a file
-        os.replace(tmp, outs[name])
+        os.replace(tmps[name], outs[name])
     if errors:
         raise RuntimeError("\n".join(errors))
     return outs

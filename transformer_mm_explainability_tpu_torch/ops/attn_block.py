@@ -25,21 +25,27 @@ are fp32. The products are fp32 (3xTF32 on the tensor cores) or, with
 ``fast_dots`` as in the JAX wrappers, bf16 products summed in fp32: every
 operand, weights and intermediates alike, rounded to bf16 to nearest even.
 The JAX default is ``fast_dots=True`` on its chip only; the port's is
-``False``. Tensors are float32, or all bfloat16 with ``fast_dots`` (the
-JAX bench's throughput mode: x, the cotangent, the weights, the biases and
-the LN parameters; r stays float32): the kernels upcast them on load and
-write x_mid, x_out, cot_mid and cot_x in their dtype, e_row in float32.
+``False``. Tensors are float32, or all bfloat16 (x, the cotangent, the
+weights, the biases and the LN parameters; r stays float32): the kernels
+upcast them on load and write x_mid, x_out, cot_mid and cot_x in their
+dtype, e_row in float32. bfloat16 with ``fast_dots`` is the JAX bench's
+throughput mode; without it, bf16 storage with fp32 products, as the JAX
+kernels compute it: the fp32 kernels of ``csrc/attn_block.cu`` read and
+write bf16 themselves (no widened copy of any operand; their bf16
+instances are compiled in ``csrc/attn_block_s16.cu``), keep every
+intermediate (LN outputs, qkv, the merged output, a1, dqkv) in float32 and
+give, bit for bit, their result on the widened tensors, rounded once.
 With ``fast_dots`` the wrappers launch the kernels of
 ``csrc/attn_block_bf16.cu`` (its LayerNorm rows, the bf16-product GEMM of
 ``csrc/gemm_bf16.cuh`` on ``wgmma`` and TMA, and its attention), and count
 them in ``launches_bf16`` (see ``bf16_launch_counts``); the intermediates
 that are only ever product operands (LN outputs, qkv, the merged attention
 output, the GELU output, dqkv) are stored rounded to bf16, which is what
-the JAX bodies multiply. bfloat16 tensors without ``fast_dots`` raise on CUDA.
-Weights are ``[in, out]`` as in the JAX package. ``chunks`` is validated
-as the JAX wrappers do (``I % chunks == 0``); the CUDA MLP kernels do not
-chunk the hidden dim but hold the whole ``[B*S, I]`` activation in device
-memory (see the source note in the ``.cu`` file).
+the JAX bodies multiply. Weights are ``[in, out]`` as in the JAX package.
+``chunks`` is validated as the JAX wrappers do (``I % chunks == 0``); the
+CUDA MLP kernels do not chunk the hidden dim but hold the whole
+``[B*S, I]`` activation in device memory (see the source note in the
+``.cu`` file).
 """
 
 from __future__ import annotations
@@ -58,10 +64,10 @@ from transformer_mm_explainability_tpu_torch.ops.attention import (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {  # the LN and GEMM entry points (attention: flash_attention)
-    "tmx_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "tmx_layer_norm_vjp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "tmx_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _L, _L, _L,
-                 _I, _P],
+    "tmx_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "tmx_layer_norm_vjp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tmx_gemm": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _L, _L,
+                 _L, _I, _P],
     "tmx_gemm_warps": [_I, _I, _I],
 }
 _SIGNATURES_BF16 = {  # ... and of csrc/attn_block_bf16.cu
@@ -74,7 +80,8 @@ _SIGNATURES_BF16 = {  # ... and of csrc/attn_block_bf16.cu
     "tmx_round_bf16": [_P, _P, _L, _P],
 }
 _ACT_NONE, _ACT_GELU, _ACT_MUL_GELU_GRAD = 0, 1, 2
-# the bits of tmx_gemm_bf16's dtypes: which of its tensors are bfloat16
+# the bits of tmx_gemm's and tmx_gemm_bf16's dtypes: which of their tensors
+# are bfloat16
 _BF16_BITS = {"a": 1, "b": 2, "out": 4, "bias": 8, "res": 16}
 _ptr = _build.ptr
 
@@ -209,23 +216,31 @@ def _cuda_args(device, dtypes=(torch.float32,), **tensors) -> None:
             raise RuntimeError(f"{name} must be contiguous")
 
 
+def _is_bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
 def _layer_norm(lib, x2, scale, bias, eps, stream):
+    """LayerNorm rows of float32 or bfloat16 x2 (scale and bias alike):
+    (y float32, mean, 1/sigma)."""
     M, D = x2.shape
-    y = torch.empty_like(x2)
+    y = torch.empty((M, D), device=x2.device, dtype=torch.float32)
     mean = torch.empty(M, device=x2.device, dtype=torch.float32)
     rstd = torch.empty_like(mean)
     _build.check(lib, "tmx_layer_norm", lib.tmx_layer_norm(
         _ptr(x2), _ptr(scale), _ptr(bias), _ptr(y), _ptr(mean), _ptr(rstd),
-        M, D, eps, stream))
+        M, D, eps, _is_bf16(x2), stream))
     return y, mean, rstd
 
 
 def _ln_vjp_cuda(lib, dy, x2, mean, rstd, scale, cot, stream):
+    """LN-VJP rows plus the skip: dy float32; x2, scale, cot and the output
+    float32 or bfloat16."""
     M, D = x2.shape
     out = torch.empty_like(x2)
     _build.check(lib, "tmx_layer_norm_vjp", lib.tmx_layer_norm_vjp(
         _ptr(dy), _ptr(x2), _ptr(mean), _ptr(rstd), _ptr(scale), _ptr(cot),
-        _ptr(out), M, D, stream))
+        _ptr(out), M, D, _is_bf16(x2), stream))
     return out
 
 
@@ -250,24 +265,29 @@ def gemm_plain(a, b, trans_b=False, bias=None, res=None, aux=None,
 
 
 def gemm_copy_width(a, b) -> int:
-    """Width in bytes of the GEMM's ``cp.async`` copies for ``_gemm``'s
-    operands a and b (either layout of b): 16 where every row of both
-    starts on a 16-byte boundary (``fa.copy_width`` over K, b's row length
-    and the batch strides), else 4."""
-    strides = [b.shape[-1]]
-    if a.dim() == 3:
-        strides += [a.stride(0), b.stride(0)]
-    return fa.copy_width(a.shape[-1], (a.data_ptr(), b.data_ptr()), strides)
+    """Width in bytes of the GEMM's copies for ``_gemm``'s operands a and b
+    (either layout of b, each float32 or bfloat16): 16 where every row of
+    both starts on a 16-byte boundary (``fa.copy_width`` over each one's
+    row length and batch stride, in elements of its dtype), else 4."""
+    for t in (a, b):
+        strides = [t.stride(0)] if t.dim() == 3 else []
+        if fa.copy_width(t.shape[-1], (t.data_ptr(),), strides,
+                         fa.elements_per_copy(t)) != 16:
+            return 4
+    return 16
 
 
 def _gemm(lib, a, b, stream, trans_b=False, bias=None, res=None, aux=None,
-          act=_ACT_NONE, out=None):
+          act=_ACT_NONE, out=None, out_dtype=torch.float32):
     """``epilogue(a @ b)`` (``a @ bᵀ`` with ``trans_b``) on the tensor
     cores: ``+ bias``, then GELU (``_ACT_GELU``) or ``× GELU'(aux)``
     (``_ACT_MUL_GELU_GRAD``), then ``+ res``. a is [M, K], or a batch
     [Bt, M, K]; b, res, aux and out alike, each product's rows contiguous,
-    res and aux in out's layout (aux may be out). Every operand is float32,
-    contiguous and of that shape, or it is refused before the launch. The
+    res and aux in out's layout (aux may be out). a, b, bias, res and out
+    are each float32 or bfloat16 (bf16 storage, fp32 products: the kernel
+    reads and writes them as they are, with the bits of ``_BF16_BITS``),
+    aux float32; a new out is of ``out_dtype``. Every operand is
+    contiguous and of its shape, or it is refused before the launch. The
     copy width follows the operands (``gemm_copy_width``); ``gemm_plain``
     is the same function in PyTorch."""
     if a.dim() not in (2, 3) or b.dim() != a.dim():
@@ -276,21 +296,24 @@ def _gemm(lib, a, b, stream, trans_b=False, bias=None, res=None, aux=None,
     *lead, M, K = a.shape
     N = b.shape[-2] if trans_b else b.shape[-1]
     if out is None:
-        out = torch.empty((*lead, M, N), device=a.device, dtype=torch.float32)
+        out = torch.empty((*lead, M, N), device=a.device, dtype=out_dtype)
     c = (*lead, M, N)
     args = {"a": (a, a.shape), "out": (out, c),
             "b": (b, (*lead, N, K) if trans_b else (*lead, K, N))}
-    for name, t, shape in (("bias", bias, (N,)), ("res", res, c),
-                           ("aux", aux, c)):
+    for name, t, shape in (("bias", bias, (N,)), ("res", res, c)):
         if t is not None:
             args[name] = (t, shape)
-    _cuda_args(a.device, **args)
+    _cuda_args(a.device, (torch.float32, torch.bfloat16), **args)
+    if aux is not None:
+        _cuda_args(a.device, aux=(aux, c))
+    dtypes = sum(_BF16_BITS[name] for name, (t, _) in args.items()
+                 if t.dtype == torch.bfloat16)
     batch, bs = 1, (0, 0, 0)
     if lead:
         batch, bs = lead[0], (a.stride(0), b.stride(0), out.stride(0))
     _build.check(lib, "tmx_gemm", lib.tmx_gemm(
         _ptr(a), _ptr(b), _ptr(out), M, N, K, int(trans_b), _ptr(bias),
-        _ptr(res), _ptr(aux), act, batch, *bs,
+        _ptr(res), _ptr(aux), act, dtypes, batch, *bs,
         gemm_copy_width(a, b), stream))
     return out
 
@@ -462,10 +485,11 @@ def attn_block_fwd(x: torch.Tensor, w_qkv: torch.Tensor, b_qkv: torch.Tensor,
         st = _build.stream(x.device)
         h1, _, _ = _layer_norm(lib, x2, ln_scale, ln_bias, eps, st)
         qkv = _gemm(lib, h1, w_qkv, st, bias=b_qkv)
-        merged = torch.empty_like(x2)
+        merged = torch.empty((B * S, D), device=x.device, dtype=torch.float32)
         fa.attn_fwd_launch_qkv(qkv.view(B, S, 3 * D), merged.view(B, S, D),
                                nheads, st)
-        out = _gemm(lib, merged, w_out, st, bias=b_out, res=x2)
+        out = _gemm(lib, merged, w_out, st, bias=b_out, res=x2,
+                    out_dtype=x.dtype)
     attn_block_fwd.launches += 1
     return out.view(B, S, D)
 
@@ -507,7 +531,7 @@ def mlp_block_fwd(x_mid: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         st = _build.stream(x_mid.device)
         h2, _, _ = _layer_norm(lib, x2, ln_scale, ln_bias, eps, st)
         g = _gemm(lib, h2, w1, st, bias=b1, act=_ACT_GELU)       # [M, I]
-        out = _gemm(lib, g, w2, st, bias=b2, res=x2)
+        out = _gemm(lib, g, w2, st, bias=b2, res=x2, out_dtype=dtype)
     mlp_block_fwd.launches += 1
     return out.view(B, S, D)
 

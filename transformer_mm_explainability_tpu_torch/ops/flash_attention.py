@@ -16,17 +16,20 @@ every product is rounded to bf16 (to nearest even) and the products are
 summed in fp32, while softmax, dsum and the fold stay fp32. The JAX
 default is ``True``, on its chip only (``fast_dots and not interpret``);
 the port's is ``False``, so that its default path holds the fp32 CPU run
-at fp32 accuracy. Tensors are float32, or bfloat16 with ``fast_dots``
-(the JAX bench's throughput mode): the kernels upcast them on load and
-write the outputs in their dtype, e_row in float32.
+at fp32 accuracy. Tensors are float32 or bfloat16, with or without
+``fast_dots`` (bfloat16 with ``fast_dots`` is the JAX bench's throughput
+mode): the kernels upcast them on load and write the outputs in their
+dtype, e_row in float32. bfloat16 without ``fast_dots`` is bf16 storage
+with fp32 products, as the JAX kernels compute it: the fp32 kernels read
+and write bf16 themselves (no widened copy) and give, bit for bit, their
+result on the widened tensors, rounded once.
 
 A tensor on the CPU goes to the plain PyTorch version beside each wrapper
 (``*_plain``, with the same ``fast_dots``). A CUDA tensor goes to the
 attention kernels of ``csrc/attn_block.cu`` (fp32 products) or, with
 ``fast_dots``, of ``csrc/attn_block_bf16.cu`` (bf16 products), or the
-wrapper raises: there is no fallback, and bfloat16 tensors without
-``fast_dots`` raise on CUDA (no kernel computes fp32 products of bf16
-storage). This module launches those kernels for every caller:
+wrapper raises: there is no fallback. This module launches those kernels
+for every caller:
 ``attn_fwd_launch`` / ``attn_fwd_launch_qkv`` / ``attn_bwd_launch`` and
 ``ensure_attention`` below also serve the block wrappers of
 ``ops/attn_block``. The kernels take every operand as a base pointer plus
@@ -77,8 +80,8 @@ from transformer_mm_explainability_tpu_torch.ops import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {  # the attention entry points of csrc/attn_block.cu
-    "tmx_attn_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
-    "tmx_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _F, _I, _P],
+    "tmx_attn_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _I, _P],
+    "tmx_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _F, _I, _I, _P],
     "tmx_attn_smem": [_I, _I, _I],
     "tmx_smem_optin": [],
     "tmx_max_dh": [],
@@ -189,15 +192,11 @@ def flash_bwd_ehat_qkv_plain(qkv, dout, r, nheads: int,
 # ---------------------------------------------------------------------------
 
 def storage_dtype(t: torch.Tensor, fast_dots: bool) -> torch.dtype:
-    """The storage dtype of a CUDA call: float32, or bfloat16 with
-    ``fast_dots`` (the kernels multiply bf16 storage only in bf16); raise on
-    anything else."""
-    if t.dtype == torch.float32 or (t.dtype == torch.bfloat16 and fast_dots):
+    """The storage dtype of a CUDA call: float32 or bfloat16, with either
+    value of ``fast_dots`` (fp32 products of bf16 storage without it, the
+    JAX kernels' upcast on load); raise on anything else."""
+    if t.dtype in (torch.float32, torch.bfloat16):
         return t.dtype
-    if t.dtype == torch.bfloat16:
-        raise RuntimeError("bfloat16 tensors take fast_dots=True on CUDA: "
-                           "the kernels have no fp32-product path for bf16 "
-                           "storage")
     raise RuntimeError(f"the kernels take float32 or bfloat16 tensors, not "
                        f"{t.dtype}")
 
@@ -283,16 +282,24 @@ def view_args(*views):
             [s for t in views for s in t.stride()[:3]])
 
 
-def copy_width(dh: int, pointers, strides) -> int:
-    """Width in bytes of the attention kernels' ``cp.async`` copies for the
-    operands they read (q, k, v and, backward, dout: their pointers and
-    strides, as ``view_args`` gives them): 16 where dh is a multiple of 4,
-    every pointer is 16-byte aligned and every stride a multiple of 4
-    floats, so that every row starts on a 16-byte boundary; else 4. The
-    merged layouts of the model paths take 16."""
-    if dh % 4 or any(p % 16 for p in pointers) or any(s % 4 for s in strides):
+def copy_width(dh: int, pointers, strides, per: int = 4) -> int:
+    """Width in bytes of the fp32-product kernels' copies for the operands
+    they read (q, k, v and, backward, dout: their pointers and strides, as
+    ``view_args`` gives them): 16 where dh is a multiple of ``per``, every
+    pointer is 16-byte aligned and every stride a multiple of ``per``
+    elements, so that every row starts on a 16-byte boundary; else 4 (a
+    copy of one element). ``per``: the elements of a 16-byte copy, 4 fp32
+    or 8 bf16 (``elements_per_copy``). The merged layouts of the model
+    paths take 16."""
+    if dh % per or any(p % 16 for p in pointers) or any(s % per
+                                                         for s in strides):
         return 4
     return 16
+
+
+def elements_per_copy(t: torch.Tensor) -> int:
+    """Elements of ``t``'s dtype in one 16-byte copy: 4 float32, 8 bf16."""
+    return 16 // t.element_size()
 
 
 def qkv_args(qkv, out, nheads: int):
@@ -349,7 +356,8 @@ def _fwd(pointers, strides, B: int, S: int, H: int, dh: int, stream,
     if not fast_dots:
         _build.check(lib, "tmx_attn_fwd", lib.tmx_attn_fwd(
             *pointers, _stride_array(strides), B, S, H, dh,
-            1.0 / math.sqrt(dh), copy_width(dh, pointers[:3], strides[:9]),
+            1.0 / math.sqrt(dh), int(bf16),
+            copy_width(dh, pointers[:3], strides[:9], 8 if bf16 else 4),
             stream))
         return
     plan = fwd16_plan(B, H, S, dh, bf16, pointers, strides)
@@ -372,7 +380,8 @@ def attn_fwd_launch(q, k, v, out, stream, fast_dots: bool = False) -> None:
     """softmax(q·kᵀ/√dh)·v into ``out`` on ``stream``; all four are
     [B, H, S, dh] views of one dtype with unit stride along dh, and S and dh
     passed ``check_attention`` (both checked by the caller). The fp32
-    kernel picks its copy width from q, k and v (``copy_width``); with
+    kernel reads and writes float32 or bfloat16 storage and picks its copy
+    width from q, k and v (``copy_width``); with
     ``fast_dots`` the bf16-product kernel runs on ``wgmma`` and TMA, on
     float32 or bfloat16 storage: operands TMA cannot read in place are
     packed first (``fwd16_plan``), counted in ``attn_fwd_launch.copies``
@@ -460,9 +469,10 @@ def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream,
     e_row = r · mean_h relu(A∘dA), returned [B, S] float32; q … dv are
     [B, H, S, dh] views of one dtype with unit stride along dh, r is
     [B, S] float32 contiguous (checked by the caller, as for
-    ``attn_fwd_launch``). The fp32 kernels pick their copy width from q, k,
-    v and dout (``copy_width``); with ``fast_dots`` the bf16-product
-    kernels run (``_bwd16``), on float32 or bfloat16 storage."""
+    ``attn_fwd_launch``). The fp32 kernels read and write float32 or
+    bfloat16 storage and pick their copy width from q, k, v and dout
+    (``copy_width``); with ``fast_dots`` the bf16-product kernels run
+    (``_bwd16``), on float32 or bfloat16 storage."""
     lib = library(fast_dots)
     if fast_dots:
         return _bwd16(lib, q, k, v, dout, r, dq, dk, dv, stream)
@@ -476,7 +486,9 @@ def attn_bwd_launch(q, k, v, dout, r, dq, dk, dv, stream,
     _build.check(lib, "tmx_attn_bwd", lib.tmx_attn_bwd(
         *pointers[:4], p(r), *pointers[4:], p(stats), p(e_part), p(e_row),
         _stride_array(strides), B, S, H, dh, 1.0 / math.sqrt(dh),
-        copy_width(dh, pointers[:4], strides[:12]), stream))
+        int(q.dtype == torch.bfloat16),
+        copy_width(dh, pointers[:4], strides[:12], elements_per_copy(q)),
+        stream))
     return e_row
 
 
@@ -490,8 +502,8 @@ def _count(fn, fast_dots: bool) -> None:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               fast_dots: bool = False) -> torch.Tensor:
     """softmax(q·kᵀ/√dh)·v without storing A. q, k, v: [B, H, S, dh] (any
-    strides with a contiguous dh axis), float32 or, with ``fast_dots``,
-    bfloat16. Returns a new contiguous [B, H, S, dh] of q's dtype.
+    strides with a contiguous dh axis), float32 or bfloat16. Returns a new
+    contiguous [B, H, S, dh] of q's dtype.
 
     Replaces ``flash_attention.flash_fwd`` (``_fwd_kernel``). Bound by
     operations (4·B·H·S²·dh). fp32: both products run on the tensor cores
@@ -525,7 +537,7 @@ def flash_bwd_ehat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention backward fused with the relevancy-row fold.
 
     q, k, v, dout: [B, H, S, dh] (any strides with a contiguous dh axis),
-    float32 or, with ``fast_dots``, bfloat16; r: [B, S] float32. Returns
+    float32 or bfloat16; r: [B, S] float32. Returns
     (dq, dk, dv [B, H, S, dh] contiguous, of q's dtype, e_row [B, S]
     float32) with ``e_row = r · mean_h relu(A ∘ dA)``.
 
@@ -587,7 +599,7 @@ def flash_bwd_ehat_qkv(qkv: torch.Tensor, dout: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of ``flash_fwd_qkv`` fused with the relevancy-row fold.
     qkv [B, S, 3D]; dout [B, S, D] (the cotangent in merged layout), both
-    float32 or, with ``fast_dots``, bfloat16; r [B, S] float32. Returns
+    float32 or both bfloat16; r [B, S] float32. Returns
     (dqkv [B, S, 3D] of qkv's dtype, e_row [B, S] float32).
 
     Replaces ``flash_attention.flash_bwd_ehat_qkv`` (``_bwd_kernel2``): the

@@ -7,7 +7,12 @@ calls the plain version): box coordinates are ``round()``-quantised after
 scaling, the RoI width and height use the +1 convention with a minimum of
 1, bin p spans ``[floor(p·roi/P), ceil((p+1)·roi/P))`` clipped to the map,
 each bin is the max over its rows × columns, and an empty bin, or a
-maximum that is not finite, gives 0.
+maximum that is not finite, gives 0. Features are float32 or bfloat16 and
+the output keeps their dtype, as the JAX kernel's does (a maximum is one of
+its inputs, so bf16 is exact); boxes are float32 on both devices. The JAX
+``roi_bin_bounds`` rounds ``boxes * scale + 0.5`` in the boxes' dtype,
+where bf16 boxes would tie the bins to XLA's excess-precision rewrites;
+both detectors make float32 boxes, and bf16 boxes raise here.
 
 ``roi_bin_bounds`` computes the bins in integer torch arithmetic on the
 boxes' device, and the plain version takes its bins from it; the kernel
@@ -30,7 +35,7 @@ from transformer_mm_explainability_tpu_torch.ops import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "tmx_roi_pool": [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P],
+    "tmx_roi_pool": [_P] * 3 + [_I] * 5 + [ctypes.c_float, _I, _P],
 }
 # boxes per step of the plain version: its candidate-window gather holds
 # H·P·K_cand·C floats per box (23 MB at [50, 76, 1024], P = 14), so 16 boxes
@@ -125,9 +130,13 @@ def _check(features: torch.Tensor, boxes: torch.Tensor) -> None:
     if boxes.dim() != 2 or boxes.shape[1] != 4:
         raise RuntimeError(f"boxes has shape {tuple(boxes.shape)}, expected "
                            "[K, 4]")
-    for name, t in (("features", features), ("boxes", boxes)):
-        if t.dtype != torch.float32:
-            raise RuntimeError(f"{name} is {t.dtype}; RoIPool takes float32")
+    if features.dtype not in (torch.float32, torch.bfloat16):
+        raise RuntimeError(f"features is {features.dtype}; RoIPool takes "
+                           "float32 or bfloat16 features")
+    if boxes.dtype != torch.float32:
+        raise RuntimeError(f"boxes is {boxes.dtype}; RoIPool takes float32 "
+                           "boxes (its bins are computed from fp32 box "
+                           "coordinates)")
     if boxes.device != features.device:
         raise RuntimeError(f"boxes is on {boxes.device}, expected "
                            f"{features.device}")
@@ -138,8 +147,9 @@ def _check(features: torch.Tensor, boxes: torch.Tensor) -> None:
 
 def roi_pool_pallas(features: torch.Tensor, boxes: torch.Tensor,
                     output_size: int, spatial_scale: float) -> torch.Tensor:
-    """RoIPool, ``[H, W, C]`` fp32 features × ``[K, 4]`` xyxy boxes (image
-    scale) → ``[K, P, P, C]``.
+    """RoIPool, ``[H, W, C]`` float32 or bfloat16 features × ``[K, 4]``
+    float32 xyxy boxes (image scale) → ``[K, P, P, C]`` of the features'
+    dtype.
 
     Replaces ``roi_pool_pallas.roi_pool_pallas`` (``_kernel``). Bound by
     bytes: the map read once and the output written once (see the source
@@ -153,7 +163,7 @@ def roi_pool_pallas(features: torch.Tensor, boxes: torch.Tensor,
     H, W, C = features.shape
     P, K = output_size, boxes.shape[0]
     dev = features.device
-    out = torch.empty((K, P, P, C), device=dev, dtype=torch.float32)
+    out = torch.empty((K, P, P, C), device=dev, dtype=features.dtype)
     if K == 0:          # nothing to pool: no launch, no count
         return out
     boxes = boxes.contiguous()
@@ -162,7 +172,7 @@ def roi_pool_pallas(features: torch.Tensor, boxes: torch.Tensor,
     with _build.on_device(dev):
         _build.check(lib, "tmx_roi_pool", lib.tmx_roi_pool(
             p(features), p(boxes), p(out), K, H, W, C, P, spatial_scale,
-            _build.stream(dev)))
+            int(features.dtype == torch.bfloat16), _build.stream(dev)))
     roi_pool_pallas.launches += 1
     return out
 

@@ -6,8 +6,8 @@
 explicitly, and then serves calls: ``pool.run(fn, *args, **kwargs)`` runs
 ``fn`` on every rank and returns the ranks' results in rank order. An
 argument ``MeshArg(dp, tp)`` is replaced on each rank by its
-``parallel/mesh.make_mesh(dp, tp)`` (made once per shape). Tensors go to
-each rank's device before the call and come back on the CPU.
+``parallel/mesh.make_mesh(dp=dp, tp=tp)`` (made once per shape). Tensors
+go to each rank's device before the call and come back on the CPU.
 
 Every wait is bounded: the group's rendezvous and collectives by
 ``timeout`` (``init_process_group(timeout=...)``), each result by the same
@@ -83,7 +83,7 @@ def _worker(rank: int, world: int, backend: str, device: str, port: int,
     def mesh_of(arg: MeshArg):
         key = (arg.dp, arg.tp)
         if key not in meshes:
-            meshes[key] = pmesh.make_mesh(arg.dp, arg.tp)
+            meshes[key] = pmesh.make_mesh(dp=arg.dp, tp=arg.tp)
         return meshes[key]
 
     def bind(x):

@@ -7,8 +7,9 @@ collectives; here every rank is a process, the mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with axes ``("dp", "tp")``,
 and the collectives are explicit:
 
-  * ``make_mesh`` — factorise the process group's ranks into (dp, tp) by
-    the JAX rule (``mesh_shape``); the caller initialises the process group
+  * ``make_mesh`` — factorise the process group's ranks (all, or the
+    ``devices`` given) into (dp, tp) by the JAX rule (``mesh_shape``); the
+    caller initialises the process group
     (``torch.distributed.init_process_group``, or ``parallel/launch``): no
     mesh is made without one;
   * ``spec_for_path`` — the Megatron layout by parameter name (qkv and
@@ -63,19 +64,35 @@ def mesh_shape(n: int, dp: Optional[int] = None,
     return dp, tp
 
 
-def make_mesh(dp: Optional[int] = None,
+def make_mesh(devices: Optional[Sequence[int]] = None,
+              dp: Optional[int] = None,
               tp: Optional[int] = None) -> DeviceMesh:
-    """A (dp, tp) ``DeviceMesh`` over every rank of the initialised process
-    group. Its device type follows the backend: ``cuda`` over NCCL, ``cpu``
-    over gloo (whose collectives also take CUDA tensors)."""
+    """A (dp, tp) ``DeviceMesh`` over ``devices``, ranks of the initialised
+    process group laid out row-major as the JAX ``make_mesh`` lays its
+    devices (default: every rank, in order), with ``mesh_shape``'s
+    defaults. Every rank of the group calls it with the same ``devices``
+    (the mesh's groups are made collectively); a rank outside them holds
+    the mesh without a place in it. The device type follows the backend:
+    ``cuda`` over NCCL, ``cpu`` over gloo (whose collectives also take
+    CUDA tensors)."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialised process group: call "
             "torch.distributed.init_process_group (or use "
             "parallel/launch.RankPool) first")
-    shape = mesh_shape(dist.get_world_size(), dp, tp)
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, shape, mesh_dim_names=AXES)
+    if devices is None:
+        shape = mesh_shape(dist.get_world_size(), dp, tp)
+        return init_device_mesh(device_type, shape, mesh_dim_names=AXES)
+    ranks = [int(r) for r in devices]
+    world = dist.get_world_size()
+    if len(set(ranks)) != len(ranks) or not all(0 <= r < world
+                                                for r in ranks):
+        raise ValueError(f"devices {ranks} are not distinct ranks of the "
+                         f"process group (world size {world})")
+    shape = mesh_shape(len(ranks), dp, tp)
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
+                      mesh_dim_names=AXES)
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:

@@ -22,7 +22,7 @@ them.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -58,13 +58,23 @@ def patch_conv_to_matmul(w) -> np.ndarray:
 
 
 def _stack(trees):
-    """Stack identical nested dicts (and NamedTuples) of arrays along a new
-    leading axis."""
+    """Stack identical nested dicts (and NamedTuples, lists, tuples) of
+    arrays along a new leading axis."""
     if isinstance(trees[0], Mapping):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     if hasattr(trees[0], "_fields"):
         return type(trees[0])(*(_stack(list(xs)) for xs in zip(*trees)))
-    return np.stack(trees)
+    if isinstance(trees[0], (list, tuple)):
+        return type(trees[0])(_stack(list(xs)) for xs in zip(*trees))
+    return np.stack([t.detach().cpu().numpy() if hasattr(t, "detach") else t
+                     for t in trees])
+
+
+def stack(trees: List[Any]):
+    """A list of identical trees (dicts, named tuples, lists, tuples of
+    arrays or tensors) stacked along a new leading layer axis, as the JAX
+    ``stack`` does, in numpy."""
+    return _stack(list(trees))
 
 
 def vit_from_jax_numpy(tree: Mapping[str, Any], cfg: ViTConfig,

@@ -7,7 +7,10 @@ attention,embeddings}.py``, ``mmf/models/{pythia,lorra,ban,butd,cnn_lstm,
 m4c,mmbt,vilbert}.py``) onto the same tree layout, built in numpy and
 moved to ``device`` at the end. Weight-norm layers keep torch's (v, g):
 ``weight_g`` is 0-dim for a ``dim=None`` wrap and ``[out, 1]`` for the
-default ``dim=0``, and becomes a scalar or ``[out]``.
+default ``dim=0``, and becomes a scalar or ``[out]``. The JAX module's
+thirteen layer converters (``*_from_sd``) keep its names and parameters
+and return float32 tensors on ``device``; the model converters compose
+their numpy builders (``_nlem`` and the like).
 """
 
 from __future__ import annotations
@@ -113,6 +116,8 @@ def _fc_net(sd, prefix: str):
 
 
 def _bc_net(sd, prefix: str):
+    """BCNet: the layout (h_mat or h_net, FCNet depths) read from the
+    keys."""
     p0 = _dot(prefix)
     p: Dict[str, Any] = {"v_net": _fc_net(sd, f"{p0}v_net"),
                          "q_net": _fc_net(sd, f"{p0}q_net")}
@@ -155,6 +160,120 @@ def _conv_net(sd, prefix: str):
     p = _dot(prefix)
     return {"w": _np(sd[f"{p}conv.weight"]), "b": _np(sd[f"{p}conv.bias"]),
             "bn": _bn(sd, f"{p}batch_norm_2d")}
+
+
+def _rnn_cell(sd, prefix: str):
+    """An LSTMCell / GRUCell: its keys carry no layer suffix."""
+    return _rnn(sd, prefix, suffix="")
+
+
+def _top_down_attention_lstm(sd, prefix: str = ""):
+    p = _dot(prefix)
+    return {"fa_image": _wn(sd, f"{p}fa_image"),
+            "fa_hidden": _wn(sd, f"{p}fa_hidden"),
+            "td_lstm": _rnn_cell(sd, f"{p}top_down_lstm")}
+
+
+def _language_decoder(sd, prefix: str = ""):
+    p = _dot(prefix)
+    return {"fc": _wn(sd, f"{p}fc"),
+            "lm_lstm": _rnn_cell(sd, f"{p}language_lstm")}
+
+
+def _gated_tanh(sd, prefix: str):
+    return {"fc": _lin(sd, f"{prefix}.fc"),
+            "gate": _lin(sd, f"{prefix}.gate_fc")}
+
+
+def _project_attention(sd, prefix: str = ""):
+    p = _dot(prefix)
+    return {"fa_image": _gated_tanh(sd, f"{p}fa_image"),
+            "fa_txt": _gated_tanh(sd, f"{p}fa_txt"),
+            "lc": _lin(sd, f"{p}lc")}
+
+
+# ---------------------------------------------------------------------------
+# the layer converters of the JAX module: its names and parameters, float32
+# tensors on ``device``
+# ---------------------------------------------------------------------------
+
+def attention_text_embedding_from_sd(sd: Mapping[str, Any], prefix: str = "",
+                                     bidirectional: bool = False,
+                                     device="cuda"):
+    """AttentionTextEmbedding: the LSTM (both directions where
+    ``bidirectional``) and the two k=1 convolutions as linears."""
+    return _to_torch(_attention_text_embedding(sd, prefix, bidirectional),
+                     device)
+
+
+def nlem_from_sd(sd: Mapping[str, Any], prefix: str = "",
+                 has_context: bool = False, device="cuda"):
+    """NonLinearElementMultiply."""
+    return _to_torch(_nlem(sd, prefix, has_context), device)
+
+
+def logit_classifier_from_sd(sd: Mapping[str, Any], prefix: str = "",
+                             device="cuda"):
+    return _to_torch(_logit_classifier(sd, prefix), device)
+
+
+def fc_net_from_sd(sd: Mapping[str, Any], prefix: str,
+                   act: Optional[str], device="cuda"):
+    """FCNet; the layers are found by their keys, ``act`` (the JAX
+    signature's) changes nothing."""
+    return _to_torch(_fc_net(sd, prefix), device)
+
+
+def bc_net_from_sd(sd: Mapping[str, Any], prefix: str, k: int,
+                   h_out: Optional[int], act: str = "ReLU", device="cuda"):
+    """BCNet; its layout comes from the keys, so ``k``, ``h_out`` and
+    ``act`` (the JAX signature's) change nothing."""
+    return _to_torch(_bc_net(sd, prefix), device)
+
+
+def bi_attention_from_sd(sd: Mapping[str, Any], prefix: str, glimpse: int,
+                         device="cuda"):
+    """BiAttention (``glimpse``, the JAX signature's, is read from the
+    keys)."""
+    return _to_torch(_bi_attention(sd, prefix), device)
+
+
+def weight_norm_classifier_from_sd(sd: Mapping[str, Any], prefix: str = "",
+                                   device="cuda"):
+    return _to_torch(_weight_norm_classifier(sd, prefix), device)
+
+
+def mlp_classifier_from_sd(sd: Mapping[str, Any], prefix: str = "",
+                           num_layers: int = 0, device="cuda"):
+    return _to_torch(_mlp_classifier(sd, prefix, num_layers), device)
+
+
+def conv_net_from_sd(sd: Mapping[str, Any], prefix: str, device="cuda"):
+    return _to_torch(_conv_net(sd, prefix), device)
+
+
+def top_down_attention_lstm_from_sd(sd: Mapping[str, Any], prefix: str = "",
+                                    device="cuda"):
+    """BUTD's TopDownAttentionLSTM: two weight-norm linears and the
+    top-down LSTMCell."""
+    return _to_torch(_top_down_attention_lstm(sd, prefix), device)
+
+
+def language_decoder_from_sd(sd: Mapping[str, Any], prefix: str = "",
+                             device="cuda"):
+    """BUTD's LanguageDecoder: its weight-norm fc and language LSTMCell."""
+    return _to_torch(_language_decoder(sd, prefix), device)
+
+
+def gated_tanh_from_sd(sd: Mapping[str, Any], prefix: str, device="cuda"):
+    """GatedTanh: ``fc`` and ``gate_fc``."""
+    return _to_torch(_gated_tanh(sd, prefix), device)
+
+
+def project_attention_from_sd(sd: Mapping[str, Any], prefix: str = "",
+                              device="cuda"):
+    """ProjectAttention: two GatedTanh and the output linear."""
+    return _to_torch(_project_attention(sd, prefix), device)
 
 
 def _image_encoders(sd, cfg):
@@ -242,17 +361,13 @@ def butd_from_state_dict(sd: Mapping[str, Any], cfg, device="cuda"):
                     "image_feature_encoders.0.lc"): v
           for k, v in sd.items()}
     base = "image_feature_embeddings_list.0.0.image_attention_model.module"
-    comb = f"{base}.combination_layer.module"
     return _to_torch({
         "word_embedding": _np(sd["word_embedding.weight"]),
         "encoder": {"lc": _lin(sd, "image_feature_encoders.0.lc")},
-        "td_attn": {"fa_image": _wn(sd, f"{comb}.fa_image"),
-                    "fa_hidden": _wn(sd, f"{comb}.fa_hidden"),
-                    "td_lstm": _rnn(sd, f"{comb}.top_down_lstm", suffix="")},
+        "td_attn": _top_down_attention_lstm(
+            sd, f"{base}.combination_layer.module"),
         "transform": _wn(sd, f"{base}.transform.module.lc"),
-        "decoder": {"fc": _wn(sd, "classifier.module.fc"),
-                    "lm_lstm": _rnn(sd, "classifier.module.language_lstm",
-                                    suffix="")},
+        "decoder": _language_decoder(sd, "classifier.module"),
     }, device)
 
 

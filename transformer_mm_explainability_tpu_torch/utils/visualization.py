@@ -1,11 +1,12 @@
 """Relevancy figures: the heatmap overlay (the notebooks'
-``generate_visualization``), a per-token text heatmap, a box overlay and
-an instance-mask overlay.
+``generate_visualization``), a per-token text heatmap, a box overlay, an
+instance-mask overlay, an image grid and the training-log plots.
 
-Counterpart of ``relevancy_figure``, ``text_heatmap_html``, ``draw_boxes``
-and ``mask_overlay`` and what they need from
-``transformer_mm_explainability_tpu/utils/visualization.py`` and
-``ops/image.py``; numpy in, numpy out.
+Counterpart of ``transformer_mm_explainability_tpu/utils/visualization.py``
+(``relevancy_figure``, ``text_heatmap_html``, ``draw_boxes``,
+``mask_overlay``, ``make_grid``, ``visualize_images``, ``load_scalar_logs``,
+``plot_logs``) and what they need from ``ops/image.py``; numpy in, numpy
+out, matplotlib only behind ``show=True``.
 """
 
 from __future__ import annotations
@@ -115,3 +116,110 @@ def mask_overlay(image: np.ndarray, masks: np.ndarray,
         out = np.where(m[..., None] > 0.5,
                        (1 - alpha) * out + alpha * color, out)
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def make_grid(images: np.ndarray, nrow: int = 8, padding: int = 2,
+              pad_value: float = 0.0) -> np.ndarray:
+    """torchvision.utils.make_grid semantics on [N, H, W, C] numpy:
+    row-major tiling with ``padding`` pixels between cells."""
+    images = np.asarray(images)
+    n, h, w, c = images.shape
+    ncol = min(nrow, n)
+    nr = -(-n // ncol)
+    grid = np.full((nr * (h + padding) + padding,
+                    ncol * (w + padding) + padding, c), pad_value,
+                   images.dtype)
+    for idx in range(n):
+        r, col = divmod(idx, ncol)
+        y, x = r * (h + padding) + padding, col * (w + padding) + padding
+        grid[y:y + h, x:x + w] = images[idx]
+    return grid
+
+
+def visualize_images(images, size=(224, 224), nrow: int = 8,
+                     show: bool = False) -> np.ndarray:
+    """mmf/utils/visualize.py:9-47: each image (HWC array or PIL image;
+    integers scaled by 1/255) resized to ``size`` (bicubic, ``ops/image``)
+    and tiled into a grid; drawn with matplotlib where ``show``. Returns
+    the grid array."""
+    assert size is not None or len(images) == 1, (
+        "If size is not passed, only one image can be visualized")
+    arrays = []
+    for im in images:
+        arr = np.asarray(im)
+        if np.issubdtype(arr.dtype, np.integer):
+            arr = arr.astype(np.float32) / 255.0
+        arr = arr.astype(np.float32)
+        if size is not None and arr.shape[:2] != tuple(size):
+            arr = resize(torch.from_numpy(np.ascontiguousarray(arr)),
+                         tuple(size)).numpy()
+        arrays.append(arr)
+    grid = make_grid(np.stack(arrays), nrow=nrow)
+    if show:  # pragma: no cover - display path
+        import matplotlib.pyplot as plt
+        plt.axis("off")
+        plt.imshow(grid)
+    return grid
+
+
+def load_scalar_logs(log_dirs, log_name: str = "scalars.jsonl"):
+    """One or more ``ScalarLogger`` jsonl streams → {dir: {field: (steps,
+    values)}}: the data layer of DETR's ``util/plot_utils.plot_logs``
+    without pandas. Non-numeric fields, ``step`` and ``time`` are left
+    out."""
+    import json
+    import os
+
+    if isinstance(log_dirs, (str, os.PathLike)):
+        log_dirs = [log_dirs]
+    out = {}
+    for d in log_dirs:
+        series: dict = {}
+        with open(os.path.join(str(d), log_name)) as f:
+            for line in f:
+                rec = json.loads(line)
+                step = rec.get("step", 0)
+                for k, v in rec.items():
+                    if k in ("step", "time") or not isinstance(v,
+                                                               (int, float)):
+                        continue
+                    steps, values = series.setdefault(k, ([], []))
+                    steps.append(step)
+                    values.append(float(v))
+        out[str(d)] = series
+    return out
+
+
+def plot_logs(log_dirs, fields=("loss",), ewm_alpha: float = 0.0,
+              log_name: str = "scalars.jsonl", show: bool = False):
+    """DETR's ``plot_logs`` (util/plot_utils.py:13-70) over ``ScalarLogger``
+    streams: per field and log dir its (steps, values), exponentially
+    smoothed with ``ewm_alpha`` > 0 (acc ← α·acc + (1 − α)·v); one
+    matplotlib subplot per field where ``show``. Returns {dir: {field:
+    (steps, values)}}, so that callers can check it without a display."""
+    smoothed = {}
+    for d, series in load_scalar_logs(log_dirs, log_name).items():
+        smoothed[d] = {}
+        for field in fields:
+            if field not in series:
+                continue
+            steps, vals = series[field]
+            if ewm_alpha > 0:
+                acc, out = None, []
+                for v in vals:
+                    acc = v if acc is None else (
+                        ewm_alpha * acc + (1 - ewm_alpha) * v)
+                    out.append(acc)
+                vals = out
+            smoothed[d][field] = (steps, vals)
+    if show:  # pragma: no cover - display path
+        import matplotlib.pyplot as plt
+        fig, axes = plt.subplots(1, len(fields), figsize=(5 * len(fields), 4))
+        axes = [axes] if len(fields) == 1 else axes
+        for ax, field in zip(axes, fields):
+            for d in smoothed:
+                if field in smoothed[d]:
+                    ax.plot(*smoothed[d][field], label=d)
+            ax.set_title(field)
+            ax.legend()
+    return smoothed
