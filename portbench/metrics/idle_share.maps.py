@@ -1,0 +1,8 @@
+"""``idle_share.maps``: percent of the traced window of a maps cell in
+which no operation ran on the device (``torch.profiler``)."""
+
+from portbench.metrics._shares import idle
+
+
+def read(run):
+    return idle(run, "maps")
